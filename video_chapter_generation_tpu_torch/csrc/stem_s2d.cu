@@ -1,0 +1,152 @@
+// ResNet stem on raw uint8 4x4 space-to-depth frames, for Hopper (sm_90a).
+//
+// Replaces video_chapter_generation_tpu/ops/stem_pallas.py:stem_s2d_pallas
+// (_stem_kernel): ImageNet normalize -> 7x7/2 conv (pad 3) -> folded BN ->
+// ReLU -> 3x3/2 max pool (pad 1), [N, H/4, W/4, 48] u8 -> [N, H/4, W/4, 64].
+// The s2d channel order is (dy, dx, c): pixel (4I + dy, 4J + dx, c) sits in
+// cell (I, J) at channel dy * 12 + dx * 3 + c.
+//
+// What bounds it on the H100: the gather, not the product. K = 7*7*3 = 147
+// is shallow (padded to 160 for the tensor cores), and every A element is a
+// scattered byte read, a normalize and a bf16 convert. Launch 1 gathers
+// each A tile straight from the u8 pack into shared memory (no im2col or
+// normalized frame in device memory; normalization happens before the
+// zero padding, as in the reference) and runs the implicit GEMM of
+// conv_gemm.cuh with BN + ReLU in the epilogue. Launch 2 is the 3x3/2 max
+// pool over the bf16 conv output, 16 bytes per thread. Fusing the pool
+// into launch 1 (with a one-pixel halo) is left for later.
+#include <math.h>
+
+#include "conv_gemm.cuh"
+
+namespace vcg {
+
+constexpr int kStemK = 147;     // 7 * 7 * 3
+constexpr int kStemKPad = 160;  // multiple of kBK; weight rows 147.. are zero
+
+// Thread i fills 16 consecutive k of A-tile row i / 2.
+struct StemA {
+  const uint8_t* s4;
+  int hs, ws, hc, wc;
+  float a0, a1, a2, b0, b1, b2;
+  int n, oh, ow, row, kh16;
+  bool ok;
+
+  __device__ void init(const uint8_t* p, const float* norm, int hs_, int ws_,
+                       int m0, int m) {
+    s4 = p; hs = hs_; ws = ws_; hc = 2 * hs_; wc = 2 * ws_;
+    a0 = norm[0]; a1 = norm[1]; a2 = norm[2];
+    b0 = norm[3]; b1 = norm[4]; b2 = norm[5];
+    row = threadIdx.x >> 1;
+    kh16 = (threadIdx.x & 1) * 16;
+    const int mm = m0 + row;
+    ok = mm < m;
+    const int q = ok ? mm : 0;
+    n = q / (hc * wc);
+    const int rem = q - n * hc * wc;
+    oh = rem / wc;
+    ow = rem - oh * wc;
+  }
+
+  __device__ void load(bf16* as, int k0) const {
+    alignas(16) bf16 v[16];
+    for (int e = 0; e < 16; ++e) {
+      const int k = k0 + kh16 + e;
+      float val = 0.0f;
+      if (ok && k < kStemK) {
+        const int tap = k / 3;
+        const int c = k - 3 * tap;
+        const int kh = tap / 7;
+        const int kw = tap - 7 * kh;
+        const int ih = 2 * oh - 3 + kh;
+        const int iw = 2 * ow - 3 + kw;
+        if (ih >= 0 && ih < 4 * hs && iw >= 0 && iw < 4 * ws) {
+          const uint8_t u =
+              s4[((static_cast<size_t>(n) * hs + (ih >> 2)) * ws + (iw >> 2)) *
+                     48 +
+                 (ih & 3) * 12 + (iw & 3) * 3 + c];
+          const float a = c == 0 ? a0 : (c == 1 ? a1 : a2);
+          const float b = c == 0 ? b0 : (c == 1 ? b1 : b2);
+          // two roundings, no FMA: the same float ops as the reference
+          val = __fadd_rn(__fmul_rn(static_cast<float>(u), a), b);
+        }
+      }
+      v[e] = __float2bfloat16_rn(val);
+    }
+    uint4* dst = reinterpret_cast<uint4*>(as + row * kALd + kh16);
+    dst[0] = reinterpret_cast<const uint4*>(v)[0];
+    dst[1] = reinterpret_cast<const uint4*>(v)[1];
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+    stem_conv_kernel(const uint8_t* s4, const bf16* w, const float* scale,
+                     const float* bias, const float* norm, bf16* conv, int n,
+                     int hs, int ws) {
+  const int m = n * (2 * hs) * (2 * ws);
+  const int m0 = blockIdx.x * kBM;
+  __shared__ Smem<64> sm;
+  StemA al;
+  al.init(s4, norm, hs, ws, m0, m);
+  conv_gemm_tile<64>(sm, al, w, kStemKPad, 64, m0, 0, m, scale, bias, nullptr,
+                     conv, true);
+}
+
+// 3x3 / stride 2 / pad 1 max pool over [n, hc, wc, 64]; one thread per
+// 8-channel chunk of one output pixel. Padding never wins (-inf).
+__global__ void maxpool_kernel(const bf16* y, bf16* out, int n, int hc,
+                               int wc, int hp, int wp) {
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t total = static_cast<size_t>(n) * hp * wp * 8;
+  if (idx >= total) return;
+  const int cc = idx & 7;
+  const size_t pix = idx >> 3;
+  const int q = pix % wp;
+  const int p = (pix / wp) % hp;
+  const int nn = pix / (static_cast<size_t>(wp) * hp);
+  float best[8];
+  for (int e = 0; e < 8; ++e) best[e] = -INFINITY;
+  for (int dr = 0; dr < 3; ++dr) {
+    const int r = 2 * p - 1 + dr;
+    if (r < 0 || r >= hc) continue;
+    for (int dc = 0; dc < 3; ++dc) {
+      const int c = 2 * q - 1 + dc;
+      if (c < 0 || c >= wc) continue;
+      alignas(16) bf16 v[8];
+      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(
+          y + ((static_cast<size_t>(nn) * hc + r) * wc + c) * 64 + cc * 8);
+      for (int e = 0; e < 8; ++e) best[e] = fmaxf(best[e], __bfloat162float(v[e]));
+    }
+  }
+  alignas(16) bf16 o[8];
+  for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16_rn(best[e]);
+  *reinterpret_cast<uint4*>(out + pix * 64 + cc * 8) =
+      *reinterpret_cast<const uint4*>(o);
+}
+
+}  // namespace vcg
+
+// s4 [n, hs, ws, 48] u8; w [160, 64] bf16 (HWIO [7,7,3,64] rows, zero
+// padded); scale/bias [64] f32; norm [6] f32 = ImageNet (a[3], b[3]) with
+// x = u8 * a + b; conv [n, 2hs, 2ws, 64] bf16 scratch; out [n, hs, ws, 64].
+extern "C" int vcg_stem_s2d(const void* s4, const void* w, const void* scale,
+                            const void* bias, const void* norm, void* conv,
+                            void* out, int n, int hs, int ws, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int hc = 2 * hs, wc = 2 * ws;
+  const int m = n * hc * wc;
+  vcg::stem_conv_kernel<<<(m + vcg::kBM - 1) / vcg::kBM, vcg::kThreads, 0,
+                          st>>>(
+      static_cast<const uint8_t*>(s4), static_cast<const vcg::bf16*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<const float*>(norm), static_cast<vcg::bf16*>(conv), n, hs,
+      ws);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int hp = (hc - 1) / 2 + 1, wp = (wc - 1) / 2 + 1;
+  const size_t total = static_cast<size_t>(n) * hp * wp * 8;
+  vcg::maxpool_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
+                        st>>>(static_cast<const vcg::bf16*>(conv),
+                              static_cast<vcg::bf16*>(out), n, hc, wc, hp, wp);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,259 @@
+"""Pegasus-style encoder-decoder with KV-cached greedy decoding
+(counterpart of the JAX package's models/seq2seq.py:35-662).
+
+Pre-norm layers with a final LayerNorm on each side, fairseq sinusoidal
+positions (first half sin, second half cos), embeddings scaled by
+sqrt(d_model) (pegasus-large's scale_embedding), and an LM head tied to
+the shared table plus final_logits_bias. Module names follow HuggingFace's
+PegasusForConditionalGeneration, so the JAX package's
+`convert_hf_seq2seq` reads this state dict as it is. Ported: the Pegasus
+configuration (`pegasus_large`, `tiny`), encode, the incremental decode
+step and greedy `generate`; BART's post-norm / learned positions, beam
+search, sampling and the int8 serving paths are not.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+NEG_INF = -1e9
+
+
+@dataclass(frozen=True)
+class Seq2SeqConfig:
+    vocab_size: int = 96103
+    d_model: int = 1024
+    encoder_layers: int = 16
+    decoder_layers: int = 16
+    num_heads: int = 16
+    ffn_dim: int = 4096
+    max_positions: int = 1024
+    eos_token_id: int = 1
+    decoder_start_token_id: int = 0
+
+    @classmethod
+    def pegasus_large(cls) -> "Seq2SeqConfig":
+        return cls()
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 128, **kw) -> "Seq2SeqConfig":
+        base = dict(vocab_size=vocab_size, d_model=32, encoder_layers=2,
+                    decoder_layers=2, num_heads=2, ffn_dim=64,
+                    max_positions=64)
+        base.update(kw)
+        return cls(**base)
+
+
+def sinusoidal_positions(n_pos: int, dim: int) -> np.ndarray:
+    """Fairseq/Pegasus layout: out[:, :dim//2] = sin(pos/1e4^(2(j//2)/d))
+    at even j; out[:, dim//2:] = cos at odd j."""
+    j = np.arange(dim)
+    pe = np.arange(n_pos)[:, None] / np.power(10000, 2 * (j // 2) / dim)[None]
+    out = np.zeros((n_pos, dim), dtype=np.float32)
+    half = dim // 2
+    out[:, :half] = np.sin(pe[:, 0::2])
+    out[:, half:] = np.cos(pe[:, 1::2])
+    return out
+
+
+def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
+    """[B, K] 1/0 -> additive float32 [B, 1, 1, K]."""
+    return (1.0 - mask[:, None, None, :].float()) * NEG_INF
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: Seq2SeqConfig):
+        super().__init__()
+        d = cfg.d_model
+        self.num_heads = cfg.num_heads
+        self.q_proj = nn.Linear(d, d)
+        self.k_proj = nn.Linear(d, d)
+        self.v_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, d)
+
+    def heads(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, L, D] -> [B, H, L, hd]."""
+        b, l, _ = x.shape
+        return x.reshape(b, l, self.num_heads, -1).transpose(1, 2)
+
+    def project_kv(self, kv_in: torch.Tensor):
+        return self.heads(self.k_proj(kv_in)), self.heads(self.v_proj(kv_in))
+
+    def forward(self, q_in, bias, kv_in=None, cached_kv=None):
+        """bias: additive float32, broadcastable to [B, H, Q, K];
+        cached_kv: precomputed (k, v) [B, H, K, hd]."""
+        q = self.heads(self.q_proj(q_in))
+        k, v = cached_kv if cached_kv is not None else self.project_kv(kv_in)
+        att = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
+        att = torch.softmax(att.float() + bias, dim=-1).to(v.dtype)
+        ctx = (att @ v).transpose(1, 2).reshape(q_in.shape)
+        return self.out_proj(ctx)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, cfg: Seq2SeqConfig):
+        super().__init__()
+        d = cfg.d_model
+        self.self_attn = Attention(cfg)
+        self.self_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
+        self.fc1 = nn.Linear(d, cfg.ffn_dim)
+        self.fc2 = nn.Linear(cfg.ffn_dim, d)
+        self.final_layer_norm = nn.LayerNorm(d, eps=1e-5)
+
+    def forward(self, x, bias):
+        y = self.self_attn_layer_norm(x)
+        x = x + self.self_attn(y, bias, kv_in=y)
+        return x + self.fc2(F.relu(self.fc1(self.final_layer_norm(x))))
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: Seq2SeqConfig):
+        super().__init__()
+        d = cfg.d_model
+        self.self_attn = Attention(cfg)
+        self.self_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
+        self.encoder_attn = Attention(cfg)
+        self.encoder_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
+        self.fc1 = nn.Linear(d, cfg.ffn_dim)
+        self.fc2 = nn.Linear(cfg.ffn_dim, d)
+        self.final_layer_norm = nn.LayerNorm(d, eps=1e-5)
+
+    def step(self, x, position: int, self_cache, cross_kv, self_bias,
+             cross_bias):
+        """One incremental step, x [B, 1, D]: writes this position's K/V
+        into the self cache in place (the cache is this call's own
+        buffer), then attends over it and over the cached encoder K/V."""
+        k_cache, v_cache = self_cache
+        y = self.self_attn_layer_norm(x)
+        k_t, v_t = self.self_attn.project_kv(y)
+        k_cache[:, :, position:position + 1] = k_t
+        v_cache[:, :, position:position + 1] = v_t
+        x = x + self.self_attn(y, self_bias, cached_kv=(k_cache, v_cache))
+        x = x + self.encoder_attn(self.encoder_attn_layer_norm(x), cross_bias,
+                                  cached_kv=cross_kv)
+        return x + self.fc2(F.relu(self.fc1(self.final_layer_norm(x))))
+
+
+class _Stack(nn.Module):
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+
+class _Backbone(nn.Module):
+    def __init__(self, cfg: Seq2SeqConfig):
+        super().__init__()
+        self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self.encoder = _Stack(EncoderLayer(cfg)
+                              for _ in range(cfg.encoder_layers))
+        self.encoder.layer_norm = nn.LayerNorm(cfg.d_model, eps=1e-5)
+        self.decoder = _Stack(DecoderLayer(cfg)
+                              for _ in range(cfg.decoder_layers))
+        self.decoder.layer_norm = nn.LayerNorm(cfg.d_model, eps=1e-5)
+
+
+class Seq2Seq(nn.Module):
+    """Encoder-decoder with a tied LM head (Pegasus layout)."""
+
+    def __init__(self, cfg: Seq2SeqConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.model = _Backbone(cfg)
+        self.register_buffer("final_logits_bias",
+                             torch.zeros(1, cfg.vocab_size))
+        # float32 whatever the model's dtype (not a buffer, which .to()
+        # would cast); copied to a device on first use there
+        self._sin_pos = torch.from_numpy(
+            sinusoidal_positions(cfg.max_positions, cfg.d_model))
+
+    def _embed(self, ids: torch.Tensor, positions: torch.Tensor):
+        if self._sin_pos.device != ids.device:
+            self._sin_pos = self._sin_pos.to(ids.device)
+        x = self.model.shared(ids) * math.sqrt(self.cfg.d_model)
+        return (x.float() + self._sin_pos[positions]).to(x.dtype)
+
+    def _head(self, hidden: torch.Tensor) -> torch.Tensor:
+        logits = hidden @ self.model.shared.weight.t()
+        return logits.float() + self.final_logits_bias.float()
+
+    @torch.no_grad()
+    def encode(self, input_ids: torch.Tensor,
+               attention_mask: torch.Tensor) -> torch.Tensor:
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+        x = self._embed(input_ids, pos[None])
+        bias = _mask_bias(attention_mask)
+        for layer in self.model.encoder.layers:
+            x = layer(x, bias)
+        return self.model.encoder.layer_norm(x)
+
+    @torch.no_grad()
+    def init_cache(self, batch: int, max_len: int,
+                   enc_hidden: torch.Tensor) -> Dict[str, List[Tuple]]:
+        """Per-layer zeroed self K/V [B, H, max_len, hd] and the
+        precomputed cross-attention K/V of enc_hidden."""
+        cfg = self.cfg
+        shape = (batch, cfg.num_heads, max_len, cfg.d_model // cfg.num_heads)
+        mk = lambda: torch.zeros(shape, dtype=enc_hidden.dtype,  # noqa: E731
+                                 device=enc_hidden.device)
+        layers = self.model.decoder.layers
+        return {"self": [(mk(), mk()) for _ in layers],
+                "cross": [layer.encoder_attn.project_kv(enc_hidden)
+                          for layer in layers]}
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, position: int, cache,
+                    enc_mask: torch.Tensor, max_len: int):
+        """token [B, 1] at `position` -> (logits [B, V] float32, cache);
+        the self caches update in place."""
+        x = self._embed(token, torch.full_like(token, position))
+        key_pos = torch.arange(max_len, device=token.device)
+        self_bias = torch.where(key_pos <= position, 0.0, NEG_INF)
+        cross_bias = _mask_bias(enc_mask)
+        for i, layer in enumerate(self.model.decoder.layers):
+            x = layer.step(x, position, cache["self"][i], cache["cross"][i],
+                           self_bias, cross_bias)
+        x = self.model.decoder.layer_norm(x)
+        return self._head(x)[:, 0], cache
+
+
+@torch.no_grad()
+def generate(model: Seq2Seq, input_ids: torch.Tensor,
+             attention_mask: torch.Tensor, max_len: int = 30) -> torch.Tensor:
+    """Greedy KV-cached decoding from decoder_start_token_id for exactly
+    max_len steps; after a row's first EOS every later token is EOS.
+    Returns ids [B, max_len] int64."""
+    cfg = model.cfg
+    enc = model.encode(input_ids, attention_mask)
+    b = input_ids.shape[0]
+    cache = model.init_cache(b, max_len, enc)
+    token = torch.full((b, 1), cfg.decoder_start_token_id, dtype=torch.long,
+                       device=input_ids.device)
+    done = torch.zeros(b, dtype=torch.bool, device=input_ids.device)
+    ids = []
+    for pos in range(max_len):
+        logits, cache = model.decode_step(token, pos, cache, attention_mask,
+                                          max_len)
+        nxt = logits.argmax(dim=-1)
+        nxt = torch.where(done, cfg.eos_token_id, nxt)
+        done = done | (nxt == cfg.eos_token_id)
+        ids.append(nxt)
+        token = nxt[:, None]
+    return torch.stack(ids, dim=1)
+
+
+def trim_at_eos(ids, eos_token_id: int):
+    """Host-side: cut each id row at (and including) its first EOS."""
+    out = []
+    for row in np.asarray(ids):
+        row = list(row)
+        if eos_token_id in row:
+            row = row[: row.index(eos_token_id) + 1]
+        out.append(row)
+    return out

@@ -1,0 +1,149 @@
+"""Inference TSM bottleneck (kernels K2/K3 at stride 1, K4 at stride 2).
+
+`tsm_bottleneck` replaces the JAX package's
+ops/tsm_block_pallas.py:tsm_bottleneck_pallas (`_kernel` for layer 1 with
+its stride-1 projection block0, `_kernel_flat` for the plain blocks of
+layers 2-4); `tsm_bottleneck_s2` replaces tsm_bottleneck_s2_pallas and
+tsm_bottleneck_s2_planar_pallas (the planar input is a row-major view of
+NHWC, so one NHWC kernel serves both). Both run csrc/tsm_bottleneck.cu:
+
+    y1  = relu(bn1(conv1x1(temporal_shift(x))))
+    y2  = relu(bn2(conv3x3(y1, stride)))
+    out = relu(bn3(conv1x1(y2)) + (x or bn_p(conv1x1(x, stride))))
+
+`tsm_bottleneck_reference` is the plain version. A CPU tensor takes it;
+a CUDA tensor launches the kernel. Weights come in the JAX package's
+layout: w1 [C, F], w2 [3, 3, F, F] (HWIO), w3 [F, Cout], wp [C, Cout];
+s*/b* are the inference-folded BatchNorm scale and bias.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .temporal_shift import temporal_shift
+
+
+def tsm_bottleneck_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3,
+                             n_segment: int, n_div: int = 8, wp=None,
+                             sp=None, bp=None, stride: int = 1):
+    """Plain version on NHWC x [N*T, H, W, C]; returns [N*T, Ho, Wo, Cout].
+    Convolutions run in x.dtype; the BN affines, the residual sum and the
+    ReLUs in float32, rounded to x.dtype after each ReLU."""
+    dt = x.dtype
+    c, f = w1.shape
+    col = lambda v: v.float()[:, None, None]  # noqa: E731
+    as_oihw = lambda w: w.permute(3, 2, 0, 1).to(dt)  # noqa: E731
+    y = temporal_shift(x, n_segment, n_div) if n_segment > 0 else x
+    y = F.conv2d(y.permute(0, 3, 1, 2), as_oihw(w1.reshape(1, 1, c, f)))
+    y = torch.relu(y * col(s1) + col(b1)).to(dt)
+    y = F.conv2d(y, as_oihw(w2), stride=stride, padding=1)
+    y = torch.relu(y * col(s2) + col(b2)).to(dt)
+    y = F.conv2d(y, as_oihw(w3.reshape(1, 1, *w3.shape)))
+    y = y * col(s3) + col(b3)
+    res = x.permute(0, 3, 1, 2)
+    if wp is not None:
+        res = F.conv2d(res, as_oihw(wp.reshape(1, 1, *wp.shape)),
+                       stride=stride) * col(sp) + col(bp)
+    out = torch.relu(y + res).to(dt)
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+def _lib(stride: int):
+    lib = _build.load("tsm_bottleneck")
+    fn = getattr(lib, f"vcg_tsm_bottleneck_s{stride}")
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(stride, x, w1, w2, w3, s1, b1, s2, b2, s3, b3, n_segment,
+            n_div, wp, sp, bp):
+    nt, h, w, c = x.shape
+    f = w1.shape[1]
+    cout = w3.shape[1]
+    bf = torch.bfloat16
+    if x.dtype != bf or not x.is_contiguous():
+        raise ValueError("the bottleneck kernel takes contiguous bf16 NHWC")
+    shapes = {"w1": (w1, (c, f)), "w2": (w2, (3, 3, f, f)),
+              "w3": (w3, (f, cout))}
+    if wp is not None:
+        shapes["wp"] = (wp, (c, cout))
+    for name, (t, want) in shapes.items():
+        if (tuple(t.shape) != want or t.dtype != bf or not t.is_contiguous()
+                or t.device != x.device):
+            raise ValueError(f"{name} must be contiguous bf16 {want} on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)}")
+    vecs = [s1, b1, s2, b2, s3, b3] + ([sp, bp] if wp is not None else [])
+    for v in vecs:
+        if v.dtype != torch.float32 or v.device != x.device:
+            raise ValueError("BN scale/bias must be float32 on the device")
+    if wp is None and (stride != 1 or cout != c):
+        raise ValueError("an identity residual needs stride 1 and Cout == C")
+    fold = c // n_div if n_segment > 0 else 0
+    if c % 32 or f % 64 or cout % 64 or fold % 8 or nt % max(n_segment, 1):
+        raise ValueError(f"unsupported widths C={c} F={f} Cout={cout} "
+                         f"fold={fold} N*T={nt} T={n_segment}")
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    dev = x.device
+    y1 = torch.empty(nt, h, w, f, dtype=bf, device=dev)
+    y2 = torch.empty(nt, ho, wo, f, dtype=bf, device=dev)
+    r = (torch.empty(nt, ho, wo, cout, dtype=bf, device=dev)
+         if wp is not None else None)
+    out = torch.empty(nt, ho, wo, cout, dtype=bf, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = _lib(stride)(
+        x.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(), ptr(wp),
+        s1.data_ptr(), b1.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+        s3.data_ptr(), b3.data_ptr(), ptr(sp), ptr(bp),
+        y1.data_ptr(), y2.data_ptr(), ptr(r), out.data_ptr(),
+        nt, h, w, c, f, cout, max(n_segment, 1), fold,
+        torch.cuda.current_stream(dev).cuda_stream)
+    return rc, out
+
+
+def tsm_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, n_segment: int,
+                   n_div: int = 8, wp=None, sp=None, bp=None):
+    """Stride-1 bottleneck, x [N*T, H, W, C] -> [N*T, H, W, Cout]; with
+    wp/sp/bp the residual goes through the 1x1 projection (layer 1's
+    block0), else it is x itself."""
+    if x.device.type == "cpu":
+        return tsm_bottleneck_reference(x, w1, w2, w3, s1, b1, s2, b2, s3,
+                                        b3, n_segment, n_div, wp, sp, bp)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"tsm_bottleneck on {x.device}")
+    rc, out = _launch(1, x, w1, w2, w3, s1, b1, s2, b2, s3, b3, n_segment,
+                      n_div, wp, sp, bp)
+    tsm_bottleneck.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"tsm_bottleneck kernel failed: CUDA error {rc}")
+    return out
+
+
+def tsm_bottleneck_s2(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, wp, sp, bp,
+                      n_segment: int, n_div: int = 8):
+    """Stride-2 downsample bottleneck (block0 of layers 2-4):
+    x [N*T, H, W, C] -> [N*T, H/2, W/2, Cout], 3x3 stride on conv2 and a
+    stride-2 1x1 projection residual on the unshifted x."""
+    if x.device.type == "cpu":
+        return tsm_bottleneck_reference(x, w1, w2, w3, s1, b1, s2, b2, s3,
+                                        b3, n_segment, n_div, wp, sp, bp,
+                                        stride=2)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"tsm_bottleneck_s2 on {x.device}")
+    rc, out = _launch(2, x, w1, w2, w3, s1, b1, s2, b2, s3, b3, n_segment,
+                      n_div, wp, sp, bp)
+    tsm_bottleneck_s2.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"tsm_bottleneck_s2 kernel failed: CUDA error {rc}")
+    return out
+
+
+tsm_bottleneck.launches = 0
+tsm_bottleneck_s2.launches = 0
