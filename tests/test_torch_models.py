@@ -118,7 +118,8 @@ def test_resnet_frames_stem_matches_jax(resnet_case):
     m = jax_resnet.ResNet(stage_sizes=SIZES, n_segment=T)
     want = jax.jit(lambda v_, x: m.apply(v_, x, train=False))(
         v, jnp.asarray(frames.numpy()))
-    net = ResNet(50, n_segment=T, stem_input="frames", stage_sizes=SIZES)
+    net = ResNet(50, n_segment=T, stem_input="frames",
+                 stage_sizes=SIZES).eval()
     net.load_state_dict(convert.from_jax_resnet(v, SIZES))
     np.testing.assert_allclose(net(frames).numpy(), np.asarray(want),
                                **TRUNK_TOL)
@@ -128,7 +129,7 @@ def test_resnet_frames_stem_matches_jax(resnet_case):
 
 def test_resnet50tsm_features_shape(resnet_case):
     _, v, s4 = resnet_case
-    emb = Resnet50TSM(T, stem_input="s2d", stage_sizes=SIZES)
+    emb = Resnet50TSM(T, stem_input="s2d", stage_sizes=SIZES).eval()
     emb.base_model.load_state_dict(convert.from_jax_resnet(v, SIZES))
     feats = emb.features(torch.from_numpy(s4).reshape(B, T, 16, 16, 48))
     np.testing.assert_allclose(

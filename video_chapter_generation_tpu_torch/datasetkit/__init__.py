@@ -1,0 +1,1 @@
+"""Host-side modules of the port (copies of the JAX package's datasetkit/)."""

@@ -230,6 +230,8 @@ def from_jax_chapter_head(params):
 
 def from_jax_two_stream(variables, num_bert_layers: int,
                         stage_sizes: Sequence[int]):
+    """TwoStream {params, batch_stats} -> the port's full state dict
+    (parameters and BatchNorm statistics)."""
     return _with_bn_counters(from_jax(
         variables, two_stream_entries(num_bert_layers, stage_sizes)))
 

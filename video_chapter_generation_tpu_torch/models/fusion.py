@@ -5,6 +5,9 @@ the reference's two_stream.py, which the JAX package's
 
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -70,8 +73,40 @@ class TwoStream(nn.Module):
         logits = self.fusion_head(pooled.to(dt), vision.to(dt))
         return logits, torch.softmax(logits.float(), dim=-1)
 
-    @torch.no_grad()
-    def forward(self, img_clips, text_ids, attention_mask):
+    def forward_train(self, img_clips, text_ids, attention_mask,
+                      generator: Optional[torch.Generator] = None):
+        """Training forward (the JAX package's TwoStream with train=True,
+        deterministic=False): BERT dropout from `generator`, batch-stat
+        BatchNorm in the vision trunk (running averages updated), then
+        the head. Parameters stay float32; on the card with a bf16 model
+        dtype the text model and head run under bf16 autocast and the
+        trunk casts its own weights. -> (logits [B, 2], probs [B, 2]),
+        differentiable."""
+        b, t = img_clips.shape[0], img_clips.shape[1]
+        dev = text_ids.device
+        half = self.dtype in (torch.bfloat16, torch.float16)
+        ctx = (torch.autocast(dev.type, dtype=self.dtype)
+               if half and dev.type == "cuda" else contextlib.nullcontext())
+        with ctx:
+            _, pooled = self.lang_model(text_ids, attention_mask,
+                                        generator=generator)
+            vision = self.vision_model(
+                img_clips.reshape(b * t, *img_clips.shape[2:])
+            ).reshape(b, t, -1)
+            logits = self.fusion_head(pooled, vision)
+        return logits, torch.softmax(logits.float(), dim=-1)
+
+    def forward(self, img_clips, text_ids, attention_mask, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """train=True: forward_train (the JAX package's train=True,
+        deterministic=False); else serving, without gradients."""
+        if train:
+            return self.forward_train(img_clips, text_ids, attention_mask,
+                                      generator)
+        with torch.no_grad():
+            return self._serve(img_clips, text_ids, attention_mask)
+
+    def _serve(self, img_clips, text_ids, attention_mask):
         b, t = img_clips.shape[0], img_clips.shape[1]
         _, pooled = self.lang_model(text_ids, attention_mask)
         vision = self.vision_model(

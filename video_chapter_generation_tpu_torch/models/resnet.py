@@ -1,15 +1,27 @@
-"""ResNet-50 with Temporal Shift Module, inference (counterpart of the JAX
-package's models/resnet.py).
+"""ResNet-50 with Temporal Shift Module (counterpart of the JAX package's
+models/resnet.py).
 
 Parameters and buffers carry torchvision's names and layouts
 (`conv1.weight`, `layer1.0.downsample.1.running_var`, ...), so the JAX
 package's `convert_torchvision_resnet50` reads this state dict as it is.
-The forward is inference only: BatchNorm folds into a per-channel scale
-and bias (eps 1e-5) and every bottleneck runs as one call of the fused
-kernel wrappers in ops/ (stem_s2d, tsm_bottleneck, tsm_bottleneck_s2),
-NHWC throughout. The stride sits on the 3x3 (v1.5); the projection is a
-1x1 with the block's stride on the unshifted input. Every block shifts
-('blockres' TSM on conv1's input).
+The stride sits on the 3x3 (v1.5); the projection is a 1x1 with the
+block's stride on the unshifted input. Every block shifts ('blockres' TSM
+on conv1's input). NHWC throughout.
+
+- eval(): BatchNorm folds into a per-channel scale and bias (eps 1e-5) and
+  every bottleneck runs as one call of the fused inference kernels in ops/
+  (stem_s2d, tsm_bottleneck, tsm_bottleneck_s2).
+- train(): BatchNorm normalizes with batch statistics and the running
+  averages move by the JAX package's convention (models/resnet.py:543-548,
+  :892-898): mean = 0.9 mean + 0.1 mu and var = 0.9 var + 0.1 var_batch
+  with the BIASED batch variance (torch's BatchNorm would use the unbiased
+  one). The stem and the trunk train through the kernel entries
+  stem_s2d_train (or stem_frames_train) and tsm_trunk_train at every batch
+  size; on the CPU those take their plain versions. (The JAX package
+  leaves its kernels for the plain path above a residual budget,
+  models/resnet.py:603-744; the port does not: its plain autograd path
+  keeps more on the card than the kernel trunk, so it is no way out of a
+  memory limit.)
 """
 
 from __future__ import annotations
@@ -21,10 +33,14 @@ from torch import nn
 
 from ..ops.preprocess import depth_to_space4
 from ..ops.stem import stem_frames_reference, stem_s2d
+from ..ops.stem_train import stem_frames_train, stem_s2d_train
 from ..ops.tsm_block import tsm_bottleneck, tsm_bottleneck_s2
+from ..ops.tsm_block_train import at_least_f32
+from ..ops.tsm_trunk_train import tsm_trunk_train
 
 STAGE_SIZES = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # running = 0.9 running + 0.1 batch (flax convention)
 
 
 def fold_bn(bn: nn.BatchNorm2d):
@@ -33,12 +49,27 @@ def fold_bn(bn: nn.BatchNorm2d):
     return s, bn.bias.float() - bn.running_mean.float() * s
 
 
-def _hwio(conv: nn.Conv2d, dtype) -> torch.Tensor:
-    """OIHW conv weight -> HWIO (1x1: [Cin, Cout]) in dtype, contiguous."""
+def _hwio_view(conv: nn.Conv2d) -> torch.Tensor:
+    """OIHW conv weight as an HWIO view (1x1: [Cin, Cout]); autograd
+    flows through it to the parameter."""
     w = conv.weight.permute(2, 3, 1, 0)
     if w.shape[0] == 1 and w.shape[1] == 1:
         w = w[0, 0]
-    return w.to(dtype).contiguous()
+    return w
+
+
+def _hwio(conv: nn.Conv2d, dtype) -> torch.Tensor:
+    """OIHW conv weight -> HWIO (1x1: [Cin, Cout]) in dtype, contiguous."""
+    return _hwio_view(conv).to(dtype).contiguous()
+
+
+@torch.no_grad()
+def update_running(bn: nn.BatchNorm2d, mu: torch.Tensor,
+                   var: torch.Tensor) -> None:
+    """Running averages by the flax convention, with the biased batch
+    variance the kernels return."""
+    for buf, v in ((bn.running_mean, mu), (bn.running_var, var)):
+        buf.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * v.to(buf.dtype))
 
 
 class Bottleneck(nn.Module):
@@ -73,6 +104,30 @@ class Bottleneck(nn.Module):
             p["wp"] = _hwio(self.downsample[0], dtype)
             p["sp"], p["bp"] = fold_bn(self.downsample[1])
         return p
+
+    def kind(self) -> str:
+        """The training trunk's block kind (ops/tsm_trunk_train.py)."""
+        if self.downsample is None:
+            return "plain"
+        return "s2" if self.stride == 2 else "proj"
+
+    def train_params(self) -> tuple:
+        """The block's parameters in the trunk's tuple layout: plain (w1,
+        w2, w3, g1, be1, g2, be2, g3, be3); proj/s2 (w1, w2, w3, wp, g1,
+        be1, g2, be2, g3, be3, gp, bep). Weights are HWIO views."""
+        convs = [self.conv1, self.conv2, self.conv3]
+        if self.downsample is not None:
+            convs.append(self.downsample[0])
+        return (tuple(_hwio_view(c) for c in convs)
+                + tuple(t for bn in self.batch_norms()
+                        for t in (bn.weight, bn.bias)))
+
+    def batch_norms(self) -> List[nn.BatchNorm2d]:
+        """In the order of the block's stats tuple (bn1, bn2, bn3, proj)."""
+        bns = [self.bn1, self.bn2, self.bn3]
+        if self.downsample is not None:
+            bns.append(self.downsample[1])
+        return bns
 
     def run(self, x, p, n_segment: int, n_div: int):
         args = (x, p["w1"], p["w2"], p["w3"], p["s1"], p["b1"], p["s2"],
@@ -129,8 +184,13 @@ class ResNet(nn.Module):
 
     def folded_params(self):
         """(stem, blocks): the kernel-ready weights in self.dtype and the
-        folded BN in float32, built once per load, device and dtype."""
-        key = (self.conv1.weight.device, self.dtype)
+        folded BN in float32, built once per load, device, dtype and
+        version of the parameters and statistics (an optimizer step or a
+        training forward updates them in place and bumps their versions,
+        so the next eval folds again)."""
+        version = sum(t._version for t in self.parameters())
+        version += sum(t._version for t in self.buffers())
+        key = (self.conv1.weight.device, self.dtype, version)
         if self._folded is None or self._folded[0] != key:
             with torch.no_grad():
                 s, b = fold_bn(self.bn1)
@@ -140,8 +200,36 @@ class ResNet(nn.Module):
                                  for blk in self.blocks()])
         return self._folded[1], self._folded[2]
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self.forward_train(x)
+        return self.forward_eval(x)
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """Training forward with batch-statistics BatchNorm; updates the
+        running averages. x as for forward; returns [N, 2048] in
+        self.dtype, differentiable in every parameter."""
+        dt = self.dtype
+        w7 = _hwio_view(self.conv1)
+        g, b = self.bn1.weight, self.bn1.bias
+        blocks = self.blocks()
+        params = [blk.train_params() for blk in blocks]
+        kinds = [blk.kind() for blk in blocks]
+        if self.stem_input == "s2d":
+            y, stem_stats = stem_s2d_train(x, w7, g, b, BN_EPS, dt)
+        else:
+            y, stem_stats = stem_frames_train(x.to(dt), w7, g, b, BN_EPS, dt)
+        y, stats = tsm_trunk_train(y, params, kinds, self.n_segment,
+                                   self.n_div, BN_EPS)
+        update_running(self.bn1, *stem_stats)
+        for blk, st in zip(blocks, stats):
+            for i, bn in enumerate(blk.batch_norms()):
+                update_running(bn, st[2 * i], st[2 * i + 1])
+        # global average pool, at least float32 sum
+        return at_least_f32(y).mean(dim=(1, 2)).to(dt)
+
+    @torch.no_grad()
+    def forward_eval(self, x: torch.Tensor) -> torch.Tensor:
         stem, blocks = self.folded_params()
         if self.stem_input == "s2d" and x.dtype == torch.uint8:
             y = stem_s2d(x, stem["w7"], stem["s"], stem["b"],
@@ -154,6 +242,7 @@ class ResNet(nn.Module):
             y = blk.run(y, p, self.n_segment, self.n_div)
         # global average pool (torchvision avgpool + flatten), f32 sum
         return y.float().mean(dim=(1, 2)).to(self.dtype)
+
 
 
 class Resnet50TSM(nn.Module):

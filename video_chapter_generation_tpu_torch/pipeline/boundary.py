@@ -9,10 +9,9 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from video_chapter_generation_tpu.core.metrics import StepTimer
-from video_chapter_generation_tpu.data.clip_grid import ClipInfo
-from video_chapter_generation_tpu.data.loader import collate
-
+from ..core.metrics import StepTimer
+from ..data.clip_grid import ClipInfo
+from ..data.loader import collate
 from ..models.fusion import TwoStream
 
 

@@ -13,27 +13,15 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from video_chapter_generation_tpu.core.metrics import StepTimer
-from video_chapter_generation_tpu.data.clip_grid import (
-    chapter_spans,
-    flatten_video_to_clips,
-)
-from video_chapter_generation_tpu.data.corpus import VideoCorpus
-from video_chapter_generation_tpu.data.datasets import (
-    InferClipDataset,
-    _chapter_text,
-)
-from video_chapter_generation_tpu.data.frames import load_clip_frames
-from video_chapter_generation_tpu.data.loader import collate
-from video_chapter_generation_tpu.data.text_encode import (
-    encode_clip_text,
-    encode_encoder_text,
-)
-from video_chapter_generation_tpu.evalkit.boundary import (
-    convert_clip_label2cut_point,
-)
-
+from ..core.metrics import StepTimer
+from ..data.clip_grid import chapter_spans, flatten_video_to_clips
+from ..data.corpus import VideoCorpus
+from ..data.datasets import InferClipDataset, _chapter_text
+from ..data.frames import load_clip_frames
+from ..data.loader import collate
+from ..data.text_encode import encode_clip_text, encode_encoder_text
 from ..device import resolve_device
+from ..evalkit.boundary import convert_clip_label2cut_point
 from .boundary import pack_to_device, score_clips
 
 
