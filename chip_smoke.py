@@ -21,8 +21,28 @@
    straddle 0.5 (as bench_pipeline.py does), and checks the launch
    counts (per vision call: stem 1, stride-1 bottleneck 13, stride-2
    bottleneck 3), finite scores, and at least one cut point and one
-   title per video.
-5. Training. Holds every training kernel entry (the K11 stem and the K12
+   title per video. Then times greedy title decode of Pegasus-large in
+   bf16 and in --int8_titles' int8 form, same weights, batch and inputs,
+   with one torch.profiler trace of each (information only).
+5. The inference CLI (K8, K9). Holds the frames stem (`stem_frames`,
+   bf16 frames [256, 224, 224, 3]: the decoded frames of one vision call)
+   and its BN + ReLU + pool launch (`bn_relu_maxpool`, at the conv output
+   [256, 112, 112, 64]) to their plain versions; calibrates the full-width
+   frames-stem trunk on the card and holds each of its 10 W8A8 blocks
+   (`tsm_bottleneck_int8`) to its plain version, each fed the kernel
+   output of the block before (int8 outputs equal, else at most one
+   quantum on fewer than 1e-3 of the elements; bf16 outputs in the
+   bands); holds the int8 trunk to the bf16 kernel trunk on one clip
+   (cosine >= 0.98 per frame) and checks that unit scales change it; then
+   writes a checkpoint of the frames-stem model as train_segment does
+   (the head bias shifted as in 4) and runs cli/infer_video.main with
+   --int8_vision --int8_titles --pipelined over 2 synthetic videos,
+   checking the launch counts (per vision call: stem_frames 1,
+   bn_relu_maxpool 1, tsm_bottleneck 3, tsm_bottleneck_s2 3,
+   tsm_bottleneck_int8 10, plus one bf16 calibration call), the restored
+   checkpoint, and at least one cut point and one title per chapter for
+   each video.
+6. Training. Holds every training kernel entry (the K11 stem and the K12
    bottleneck of each kind, forward and backward, and the K13 trunk's
    recomputation of p) against its plain PyTorch version at every shape
    of one full-width step (8 clips x 16 frames = 128 frames at 224 px,
@@ -34,13 +54,16 @@
    data.batch_size=8) and checks finite losses, moved parameters and BN
    running statistics, exact kernel launch counts per step, and a
    checkpoint that restores.
-6. Prints one JSON line of the kernels and, last, the device line.
+7. Prints one JSON line of the kernels, the script's wall time and,
+   last, the device line.
 
 Any failed phase raises, and the script exits non-zero without printing
 the final line; it also fails where CUDA is absent or the package is
 not beside it.
 """
 
+import contextlib
+import io
 import json
 import math
 import subprocess
@@ -69,8 +92,12 @@ TIMED_RUNS, WARMUP_RUNS = 15, 3
 # moves a gradient by far more)
 GRAD_MIN_COS, GRAD_MAX_MEAN_REL = 0.999, 2e-2
 TRAIN_CLIPS, TRAIN_STEPS = 8, 4
-# H100 SXM published peaks (dense bf16, HBM3), for the bounds
-PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
+# H100 SXM published peaks (dense bf16, dense int8, HBM3), for the bounds
+PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_HBM_BYTES = 989e12, 1979e12, 3.35e12
+# the inference CLI's end-to-end phase: synthetic videos and their length
+INFER_VIDEOS, INFER_SEC = 2, 120
+# the W8A8 trunk vs the bf16 kernel trunk on one clip, per frame
+INT8_TRUNK_MIN_COS = 0.98
 
 
 def fail(msg: str):
@@ -105,9 +132,9 @@ def cuda_ms(fn) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     """(least ms on the card for this work, what bounds it)."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -466,6 +493,342 @@ def training_phases(dev, smi, frames, vision):
     return out
 
 
+def title_decode_phase(dev, smi, s2s):
+    """Greedy title decode of Pegasus-large in bf16 and with --int8_titles'
+    weight-only int8 + int8 cross cache, same weights, same batch and
+    inputs: ms per step (CUDA events) and, from one torch.profiler trace
+    of each, kernels per step, device-busy share and the share of device
+    time in copy (dtype cast) kernels."""
+    import dataclasses
+
+    import torch
+
+    from video_chapter_generation_tpu_torch.models.seq2seq import (
+        Seq2Seq,
+        generate,
+    )
+    from video_chapter_generation_tpu_torch.ops.quantize import (
+        quantize_seq2seq,
+    )
+
+    cfg = s2s.cfg
+    qcfg = dataclasses.replace(cfg, weight_quant=True, kv_quant=True)
+    with torch.device("meta"):
+        s2s_q = Seq2Seq(qcfg)
+    s2s_q.load_state_dict(quantize_seq2seq(s2s.state_dict()), assign=True)
+    s2s_q.to(dev, torch.bfloat16).eval()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    ids = torch.randint(2, cfg.vocab_size, (TITLE_BUCKET, TITLE_IN),
+                        generator=gen, device=dev)
+    mask = torch.ones_like(ids)
+    for name, m in (("bf16", s2s), ("int8", s2s_q)):
+        run = lambda m=m: generate(m, ids, mask, max_len=TITLE_OUT)  # noqa: E731
+        out = run()
+        if tuple(out.shape) != (TITLE_BUCKET, TITLE_OUT) or \
+                int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+            fail(f"{name} title decode gave ids of shape {tuple(out.shape)}")
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = sorted(times)[2]
+        trace = "trace: not measured"
+        try:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            wall_us = (time.time() - t0) * 1e6
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+
+            def dev_us(e):
+                return (getattr(e, "self_device_time_total", 0)
+                        or getattr(e, "self_cuda_time_total", 0))
+
+            busy = sum(dev_us(e) for e in kern)
+            copy = sum(dev_us(e) for e in kern if "copy" in e.key.lower())
+            count = sum(e.count for e in kern)
+            if busy > 0:
+                trace = (f"trace: {count / TITLE_OUT:.0f} kernels per step, "
+                         f"device busy {busy / wall_us:.3f} of the traced "
+                         f"wall time, copy kernels {copy / busy:.3f} of the "
+                         f"device time")
+            else:
+                trace = "trace: the profiler saw no device time"
+        except Exception as exc:  # the trace is information only
+            trace = f"trace: not measured ({type(exc).__name__})"
+        print(f"# title decode {name}, batch {TITLE_BUCKET}, encoder "
+              f"{TITLE_IN}, {TITLE_OUT} greedy steps: {ms / TITLE_OUT:.3f} ms "
+              f"per step (encoder included, median of 5); {trace}; on {smi}",
+              flush=True)
+    del s2s_q
+    torch.cuda.empty_cache()
+
+
+def infer_phases(dev, smi, frames, vision, ts_sd, delta):
+    """K8 and K9 against their plain versions at the shapes of one
+    256-frame vision call, then cli/infer_video end to end. Returns the
+    kernels' JSON entries."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from video_chapter_generation_tpu_torch.cli import infer_video
+    from video_chapter_generation_tpu_torch.cli.common import (
+        load_bert_tokenizer,
+        load_corpus,
+        parse_config,
+    )
+    from video_chapter_generation_tpu_torch.core.checkpoint import (
+        CheckpointManager,
+    )
+    from video_chapter_generation_tpu_torch.core.contract import vocab_hash
+    from video_chapter_generation_tpu_torch.data.synth import (
+        make_synth_corpus_on_disk,
+    )
+    from video_chapter_generation_tpu_torch.models.resnet import ResNet
+    from video_chapter_generation_tpu_torch.ops.preprocess import (
+        depth_to_space4,
+        normalize_frames,
+    )
+    from video_chapter_generation_tpu_torch.ops.quantize import (
+        calibrate_resnet_quant,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem import (
+        _conv7,
+        bn_relu_maxpool,
+        bn_relu_maxpool_reference,
+        stem_frames,
+        stem_frames_reference,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block import (
+        tsm_bottleneck,
+        tsm_bottleneck_s2,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block_int8 import (
+        int8_bottleneck,
+        int8_bottleneck_plain,
+        tsm_bottleneck_int8,
+    )
+    from video_chapter_generation_tpu_torch.train.tasks import SegmentTask
+
+    bf = torch.bfloat16
+    entries = {k: {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0,
+                   "max_abs": 0.0}
+               for k in ("stem_frames", "bn_relu_maxpool",
+                         "tsm_bottleneck_int8")}
+
+    def held(name, label, kernel, plain, flops, nbytes, exact_int=False):
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        e = entries[name]
+        if exact_int:  # int8 activations: count the quanta that differ
+            diff = (got.int() - ref.int()).abs()
+            n_diff, worst = int((diff != 0).sum()), int(diff.max())
+            note = f"int8 differ {n_diff} of {diff.numel()} (max {worst})"
+            e["max_abs"] = max(e["max_abs"], float(worst))
+            ok = n_diff == 0 or (worst <= 1 and n_diff < 1e-3 * diff.numel())
+        else:
+            max_abs, mean_rel, cos = compare(got, ref)
+            note = (f"max_abs {max_abs:.4g} mean_rel {mean_rel:.3g} cos "
+                    f"{cos:.6f} bitwise {torch.equal(got, ref)}")
+            e["max_abs"] = max(e["max_abs"], max_abs)
+            ok = cos >= KERNEL_MIN_COS and mean_rel <= KERNEL_MAX_MEAN_REL
+        k_ms, p_ms = cuda_ms(kernel), cuda_ms(plain)
+        e["ms"] += k_ms
+        e["plain_ms"] += p_ms
+        e["flops"] += flops
+        e["bytes"] += nbytes
+        print(f"# {name:19s} {label:44s} {note} | kernel {k_ms:.3f} ms plain "
+              f"{p_ms:.3f} ms", flush=True)
+        if not ok:
+            fail(f"{name} {label} disagrees with its plain version: {note}")
+        return got
+
+    # the frames-stem trunk on the serving trunk's weights (shared storage)
+    with torch.device("meta"):
+        vf = ResNet(50, n_segment=CLIP_FRAMES, stem_input="frames", dtype=bf)
+    vf.load_state_dict(vision.state_dict(), assign=True)
+    vf.eval()
+    stem_p, block_ps = vf.folded_params()
+    x_in = normalize_frames(depth_to_space4(frames), bf).contiguous()
+    n, hh = x_in.shape[0], x_in.shape[1]
+
+    # --- K8: the frames stem and its BN + ReLU + pool launch ---
+    args = (stem_p["w7"], stem_p["s"], stem_p["b"])
+    m_conv = n * (hh // 2) ** 2
+    y = held("stem_frames", f"{tuple(x_in.shape)} bf16",
+             lambda: stem_frames(x_in, *args),
+             lambda: stem_frames_reference(x_in, *args),
+             2 * m_conv * 147 * 64,
+             x_in.numel() * 2 + 147 * 64 * 2 + n * (hh // 4) ** 2 * 64 * 2)
+    conv = _conv7(x_in, stem_p["w7"]).contiguous()
+    held("bn_relu_maxpool", f"{tuple(conv.shape)} bf16",
+         lambda: bn_relu_maxpool(conv, stem_p["s"], stem_p["b"]),
+         lambda: bn_relu_maxpool_reference(conv, stem_p["s"], stem_p["b"]),
+         2 * conv.numel(), conv.numel() * 2 + conv.numel() // 2 + 64 * 8)
+    del conv
+
+    # --- K9: calibrate on the card, then each W8A8 block vs its plain ---
+    t0 = time.time()
+    scales = calibrate_resnet_quant(vf, x_in)
+    torch.cuda.synchronize()
+    print(f"# calibrated {len(scales)} blocks on {n} frames in "
+          f"{time.time() - t0:.2f} s", flush=True)
+    vq = vf.quantized(scales)
+    plan, qps = vq._quant_plan(None), vq.quant_params()
+    for i, (blk, p) in enumerate(zip(vf.blocks(), block_ps)):
+        mode = plan[i]
+        if mode is None:
+            y = blk.run(y, p, CLIP_FRAMES, 8)
+            continue
+        q = qps[i]
+        nt, h, w, c = y.shape
+        f = q.f
+        m = nt * h * w
+        label = (f"block {i:2d} {tuple(y.shape)} {str(y.dtype)[6:]} -> "
+                 f"{mode} F={f}")
+        xb, nbytes = y, (y.numel() * y.element_size()
+                         + 2 * c * f + 9 * f * f + m * c * (1 if mode == "i8"
+                                                            else 2))
+        y = held("tsm_bottleneck_int8", label,
+                 lambda xb=xb, q=q, mode=mode: int8_bottleneck(
+                     xb, q, CLIP_FRAMES, 8, mode, bf),
+                 lambda xb=xb, q=q, mode=mode: int8_bottleneck_plain(
+                     xb, q, CLIP_FRAMES, 8)[1 if mode == "i8" else 0].to(
+                         torch.int8 if mode == "i8" else bf),
+                 2 * m * (2 * c * f + 9 * f * f), nbytes,
+                 exact_int=mode == "i8")
+    n_int8 = sum(1 for mode in plan if mode)
+    if n_int8 != 10:
+        fail(f"{n_int8} W8A8 blocks planned, not 10")
+    clip = x_in[:CLIP_FRAMES]
+    f_bf16, f_int8 = vf(clip).float(), vq(clip).float()
+    f_unit = vf.quantized({})(clip).float()
+    cos = torch.nn.functional.cosine_similarity(f_int8, f_bf16, dim=1)
+    unit_gap = (f_unit - f_int8).abs().max().item()
+    print(f"# W8A8 trunk vs bf16 kernel trunk, one clip: per-frame cosine "
+          f"min {cos.min().item():.6f}; unit scales move the features by "
+          f"up to {unit_gap:.4g}", flush=True)
+    if cos.min().item() < INT8_TRUNK_MIN_COS:
+        fail("the W8A8 trunk disagrees with the bf16 trunk")
+    if torch.allclose(f_unit, f_int8, rtol=1e-2, atol=1e-2):
+        fail("unit scales give the calibrated trunk's answer")
+    del x_in, clip, y
+
+    # --- cli/infer_video end to end, from a checkpoint ---
+    build = ROOT / "video_chapter_generation_tpu_torch" / "_build"
+    paths = make_synth_corpus_on_disk(
+        str(build / "synth_infer_corpus"), n_videos=INFER_VIDEOS,
+        video_sec=INFER_SEC, seed=SEED + 5)
+    ckpt_dir = build / "infer_ckpt"
+    argv = [f"data.img_dir={paths['img_dir']}",
+            f"data.data_file={paths['data_file']}",
+            f"data.subtitle_dir={paths['subtitle_dir']}",
+            f"data.test_vid_file={paths['vid_file']}",
+            "model.kind=two_stream", "model.stem_input=frames",
+            f"data.clip_frame_num={CLIP_FRAMES}",
+            f"data.batch_size={SCORE_BATCH}", f"train.ckpt_dir={ckpt_dir}"]
+    cfg, args = parse_config(argv)
+    corpus = load_corpus(cfg, "test")
+    contract = dict(SegmentTask(cfg).contract, vocab_hash=vocab_hash(
+        load_bert_tokenizer(args, corpus)))
+    sd = dict(ts_sd)
+    bias = sd["fusion_head.head.bias"].clone()
+    bias[1] += delta
+    sd["fusion_head.head.bias"] = bias
+    for old in ckpt_dir.glob("ckpt_*"):
+        old.unlink()
+    CheckpointManager(str(ckpt_dir)).save(
+        0, {"model": sd, "optimizer": {}, "step": 0},
+        metrics={"best_result": float("-inf"), "contract": contract})
+    counted = (stem_frames, bn_relu_maxpool, tsm_bottleneck, tsm_bottleneck_s2,
+               tsm_bottleneck_int8)
+    for fn in counted:
+        fn.launches = 0
+    cwd = os.getcwd()
+    os.chdir(build)  # the CLI writes test_results/ where it runs
+    said = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(said):
+            results = infer_video.main(argv + ["--int8_vision",
+                                               "--int8_titles", "--pipelined"])
+    finally:
+        os.chdir(cwd)
+        for line in said.getvalue().splitlines():
+            print(f"# cli: {line}", flush=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if "restored checkpoint at epoch 0" not in said.getvalue():
+        fail("infer_video did not restore the checkpoint")
+    launches = {fn.__name__: fn.launches for fn in counted}
+    calls = sum(math.ceil(len(r.clip_scores) / SCORE_BATCH)
+                for r in results.values())
+    per_call = {"stem_frames": 1, "bn_relu_maxpool": 1, "tsm_bottleneck": 3,
+                "tsm_bottleneck_s2": 3, "tsm_bottleneck_int8": 10}
+    calib = {"stem_frames": 1, "bn_relu_maxpool": 1, "tsm_bottleneck": 13,
+             "tsm_bottleneck_s2": 3, "tsm_bottleneck_int8": 0}
+    want = {k: v * calls + calib[k] for k, v in per_call.items()}
+    print(f"# infer_video --int8_vision --int8_titles --pipelined: "
+          f"{len(results)} videos, {calls} vision calls (+1 calibration "
+          f"call), launches {launches}, {wall:.1f} s (models, calibration "
+          f"and checkpoint restore included) on {smi}", flush=True)
+    if launches != want:
+        fail(f"infer_video launch counts {launches} != {want}")
+    for vid, r in results.items():
+        scores = np.asarray(r.clip_scores, np.float64)
+        print(f"# {vid}: {len(scores)} clips, cut points {r.cut_points}, "
+              f"{len(r.titles)} titles, first {r.titles[:1]!r}", flush=True)
+        if not (np.isfinite(scores).all() and (scores >= 0).all()
+                and (scores <= 1).all()):
+            fail(f"{vid}: clip scores outside [0, 1]")
+        if not r.cut_points or len(r.titles) != len(r.spans):
+            fail(f"{vid}: {len(r.cut_points)} cut points, "
+                 f"{len(r.titles)} titles for {len(r.spans)} chapters")
+    if len(results) != INFER_VIDEOS:
+        fail(f"infer_video chaptered {len(results)} videos")
+    # one unbucketed greedy generate per video with chapters
+    stages = json.loads(said.getvalue().split("stage seconds: ")[1]
+                        .splitlines()[0])
+    steps = sum(1 for r in results.values() if r.spans) * TITLE_OUT
+    print(f"# int8 title decode (weight-only int8 Pegasus-large, int8 cross "
+          f"cache, batch = one video's chapters): "
+          f"{1e3 * stages['title_generate']['seconds'] / steps:.2f} ms per "
+          f"greedy step over {steps} steps on {smi}", flush=True)
+    torch.cuda.empty_cache()
+
+    sources = {"stem_frames": ("csrc/stem_s2d.cu", "stem_pallas.py:255"),
+               "bn_relu_maxpool": ("csrc/stem_s2d.cu", "stem_pallas.py:71"),
+               "tsm_bottleneck_int8": ("csrc/tsm_bottleneck_int8.cu",
+                                       "tsm_block_int8_pallas.py:437")}
+    out = []
+    for name, e in entries.items():
+        src, replaces = sources[name]
+        peak = PEAK_INT8_OPS if name == "tsm_bottleneck_int8" else \
+            PEAK_BF16_FLOPS
+        b_ms, b_by = bound(e["flops"], e["bytes"], peak)
+        out.append({"name": name, "route": "cuda",
+                    "source": f"video_chapter_generation_tpu_torch/{src}",
+                    "replaces": f"video_chapter_generation_tpu/ops/{replaces}",
+                    "launches": launches[name], "max_abs_err": e["max_abs"],
+                    "ms": e["ms"], "plain_ms": e["plain_ms"],
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -515,6 +878,7 @@ def main() -> int:
         pack_to_device,
     )
 
+    t_start = time.time()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -542,8 +906,9 @@ def main() -> int:
         s2s = Seq2Seq(Seq2SeqConfig.pegasus_large())
     ts_entries = convert.two_stream_entries(12, sizes)
     ts_tree = convert.random_jax_tree(model, ts_entries, seed=SEED)
-    model.load_state_dict(convert.from_jax_two_stream(ts_tree, 12, sizes),
-                          assign=True)
+    # float32 on the host: the inference CLI phase checkpoints it
+    ts_sd = convert.from_jax_two_stream(ts_tree, 12, sizes)
+    model.load_state_dict(ts_sd, assign=True)
     model.to_serving(dev)
     s2s_tree = convert.random_jax_tree(s2s, convert.seq2seq_entries(s2s.cfg),
                                        seed=SEED + 1)
@@ -709,10 +1074,19 @@ def main() -> int:
     print(f"# first title ids {rows[0][:10].tolist()}; decoded (ids inside "
           f"the tokenizer's vocabulary only) {first.titles[0]!r}")
     print(f"# stage seconds {json.dumps(pipe.timer.summary())}", flush=True)
+    steps = sum(math.ceil(len(r.titles) / TITLE_BUCKET)
+                for r in results.values()) * TITLE_OUT
+    title_s = pipe.timer.summary()["title_generate"]["seconds"]
+    print(f"# bf16 title decode (Pegasus-large, batch {TITLE_BUCKET}): "
+          f"{1e3 * title_s / steps:.2f} ms per greedy step over {steps} "
+          f"steps", flush=True)
     print(f"# {60.0 * len(results) / wall:.2f} videos/min end to end "
           f"({wall:.1f} s for {len(results)} videos, pipelined) on {smi}; "
           f"information only, not a benchmark", flush=True)
 
+    title_decode_phase(dev, smi, s2s)
+    infer_kernels = infer_phases(dev, smi, frames, vision, ts_sd, delta)
+    del ts_sd
     train_kernels = training_phases(dev, smi, frames, vision)
 
     sources = {"stem_s2d": ("csrc/stem_s2d.cu",
@@ -735,8 +1109,10 @@ def main() -> int:
             # per vision call: the sum over the shapes one call runs
             "ms": sum(st["ms"]), "plain_ms": sum(st["plain_ms"]),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    # training entries: per step, the sum over the shapes one step runs
-    print(json.dumps({"kernels": kernels + train_kernels}))
+    # inference CLI entries: per 256-frame vision call; training entries:
+    # per step, the sum over the shapes one step runs
+    print(json.dumps({"kernels": kernels + infer_kernels + train_kernels}))
+    print(f"# chip_smoke wall time {time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

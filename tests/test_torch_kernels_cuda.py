@@ -291,3 +291,86 @@ def test_training_kernels_are_deterministic(dev):
     assert torch.equal(y0, y1)
     assert all(torch.equal(a, b) for a, b in zip(s0, s1))
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+# --- serving kernels of the inference CLI: K8 (frames stem, BN + ReLU +
+# pool) and K9 (W8A8 bottleneck). The pool and the int8 block compute the
+# same float operations as their plain versions in the same order, so
+# they must agree bit for bit; the stem's conv sums in another order.
+
+
+def test_stem_frames_kernel(dev):
+    from video_chapter_generation_tpu_torch.ops.stem import (
+        bn_relu_maxpool,
+        stem_frames,
+        stem_frames_reference,
+    )
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(4, 64, 64, 3, generator=g).to(dev, torch.bfloat16)
+    w7 = (torch.randn(7, 7, 3, 64, generator=g) * 0.05).to(dev)
+    s = torch.rand(64, generator=g).to(dev) + 0.5
+    b = (torch.randn(64, generator=g) * 0.1).to(dev)
+    before = (stem_frames.launches, bn_relu_maxpool.launches)
+    got = stem_frames(x, w7, s, b)
+    torch.cuda.synchronize()
+    assert (stem_frames.launches, bn_relu_maxpool.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == (4, 16, 16, 64) and got.dtype == torch.bfloat16
+    _close(got, stem_frames_reference(x, w7, s, b))
+
+
+@pytest.mark.parametrize("c", [64, 256])
+def test_bn_relu_maxpool_kernel(dev, c):
+    from video_chapter_generation_tpu_torch.ops.stem import (
+        bn_relu_maxpool,
+        bn_relu_maxpool_reference,
+    )
+
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(4, 30, 22, c, generator=g).to(dev, torch.bfloat16)
+    s = torch.randn(c, generator=g).to(dev)
+    b = torch.randn(c, generator=g).to(dev)
+    got = bn_relu_maxpool(x, s, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bn_relu_maxpool_reference(x, s, b))
+
+
+def _int8_block(g, dev, c=512, f=128):
+    mk = lambda *s: (torch.randn(*s, generator=g) * 0.05).to(dev)  # noqa: E731
+    aff = lambda n: ((torch.randn(n, generator=g) * 0.1 + 1).to(dev),  # noqa: E731
+                     (torch.randn(n, generator=g) * 0.1).to(dev))
+    (s1, b1), (s2, b2), (s3, b3) = aff(f), aff(f), aff(c)
+    scales = torch.tensor([0.05, 0.03, 0.02, 0.05])
+    return (mk(c, f), mk(3, 3, f, f), mk(f, c), s1, b1, s2, b2, s3, b3,
+            scales)
+
+
+@pytest.mark.parametrize("x_kind,out_mode", [
+    ("i8", "i8"), ("i8", "bf16"), ("bf16", "i8"), ("bf16", "bf16")])
+def test_tsm_bottleneck_int8_kernel(dev, x_kind, out_mode):
+    from video_chapter_generation_tpu_torch.ops.tsm_block_int8 import (
+        int8_bottleneck_reference,
+        tsm_bottleneck_int8,
+    )
+
+    g = torch.Generator().manual_seed(9)
+    t, c = 4, 512
+    args = _int8_block(g, dev, c)
+    if x_kind == "i8":
+        x = torch.randint(-127, 128, (2 * t, 8, 6, c), generator=g,
+                          dtype=torch.int8).to(dev)
+    else:
+        x = torch.randn(2 * t, 8, 6, c, generator=g).to(dev, torch.bfloat16)
+    before = tsm_bottleneck_int8.launches
+    got = tsm_bottleneck_int8(x, *args, t, out_mode=out_mode)
+    torch.cuda.synchronize()
+    assert tsm_bottleneck_int8.launches == before + 1
+    ref_f, ref_q = int8_bottleneck_reference(x, *args, t)
+    if out_mode == "i8":
+        assert got.dtype == torch.int8
+        assert torch.equal(got, ref_q), (got != ref_q).sum().item()
+    else:
+        assert torch.equal(got, ref_f.to(torch.bfloat16))
+    again = tsm_bottleneck_int8(x, *args, t, out_mode=out_mode)
+    assert torch.equal(got, again)

@@ -105,9 +105,9 @@ def test_resnet_matches_jax(resnet_case, whole_blocks, monkeypatch):
 
 
 def test_resnet_frames_stem_matches_jax(resnet_case):
-    """stem_input='frames': normalized float frames [N, 64, 64, 3]; the
-    plain stem only (its TPU kernel is not ported, so a CUDA or other
-    non-CPU tensor is refused)."""
+    """stem_input='frames': normalized float frames [N, 64, 64, 3] through
+    the stem's plain version (a CUDA tensor launches kernel K8; a tensor
+    on any other device is refused)."""
     from video_chapter_generation_tpu_torch.ops.preprocess import (
         depth_to_space4,
         normalize_frames,

@@ -1,0 +1,175 @@
+"""Whole-pipeline per-video inference on the port: boundaries -> cut
+points -> titles (counterpart of the JAX package's cli/infer_video.py).
+
+    python -m video_chapter_generation_tpu_torch.cli.infer_video \
+        model.kind=two_stream data.img_dir=... data.data_file=... \
+        data.subtitle_dir=... data.test_vid_file=... train.ckpt_dir=... \
+        [--vids vid1,vid2] [--bert_vocab v.txt] [--spm_tsv spm.tsv] \
+        [--int8_vision] [--int8_titles] [--pipelined] [--tiny] \
+        [--device cpu]
+
+Runs on the card unless --device says otherwise. The boundary model is
+the best checkpoint in train.ckpt_dir (else the newest; its contract
+must match this config), scoring per-clip frames (uint8 -> normalized on
+the device -> the frames stem, model.stem_input=frames). The title model
+is Pegasus, greedy for data.title_decode_len tokens, from a title
+checkpoint in the same directory, else seeded random weights (a line
+says which). --int8_vision serves the W8A8 vision trunk, its activation
+scales calibrated on the first video's frames; --int8_titles serves
+weight-only int8 Pegasus with an int8 cross-attention cache. Writes
+test_results/whole_pipeline_result.txt and prints one JSON line per
+video. Flags the port does not serve yet exit naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import sys
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.contract import vocab_hash
+from ..data.frames import load_clip_frames
+from ..device import resolve_device
+from ..models.seq2seq import Seq2Seq, generate, trim_at_eos
+from ..ops.quantize import quantize_seq2seq
+from ..pipeline import ChapterPipeline, VideoChapters
+from ..train.tasks import TitleGenTask, compute_dtype
+from .common import (
+    load_bert_tokenizer,
+    load_corpus,
+    load_title_tokenizer,
+    parse_config,
+    title_s2s_config,
+)
+from .eval_segment import build_score_fn
+from .eval_title import _restore
+
+NOT_PORTED = {
+    "--vision_emb_dir": "vision-conditioned titles are ROADMAP queue 1 "
+                        "item 3",
+    "--fusion_type": "vision-conditioned titles are ROADMAP queue 1 item 3",
+    "--sharded": "sharded serving is ROADMAP queue 1 item 10",
+}
+KIND_NOT_PORTED = {
+    "two_stream_window": "the window model is ROADMAP queue 1 item 5",
+    "text": "the text-only scorer is ROADMAP queue 1 item 6",
+}
+
+
+def _pop(argv: List[str], flag: str, value: bool = True) -> Optional[str]:
+    """Remove `flag` (and its value) from argv; its value, "" for a bare
+    flag, None when absent."""
+    if flag not in argv:
+        return None
+    i = argv.index(flag)
+    out = argv[i + 1] if value else ""
+    del argv[i:i + (2 if value else 1)]
+    return out
+
+
+def calibration_clips(cfg, corpus, vid: str, hw: int) -> np.ndarray:
+    """Up to data.batch_size clips of `vid`'s frames, uint8 [B, T, hw, hw,
+    3], the frames the JAX CLI calibrates on (infer_video.py:113-126)."""
+    seg = cfg.data.clip_frame_num
+    n_img = corpus.image_num(vid)
+    starts = list(range(0, max(1, n_img - seg), seg))[:cfg.data.batch_size]
+    return np.stack([
+        load_clip_frames([corpus.frame_path(vid, min(s + k + 1, n_img))
+                          for k in range(seg)], hw)
+        for s in starts])
+
+
+def main(argv=None) -> Dict[str, VideoChapters]:
+    argv = list(argv if argv is not None else sys.argv[1:])
+    vids = _pop(argv, "--vids")
+    vids = vids.split(",") if vids else None
+    for flag, why in NOT_PORTED.items():
+        if (_pop(argv, flag, value=flag != "--sharded")) is not None:
+            raise SystemExit(f"{flag} is not ported to the PyTorch port yet: "
+                             f"{why}")
+    beams = _pop(argv, "--num_beams")
+    if beams is not None and int(beams) > 1:
+        raise SystemExit("--num_beams > 1 is not ported to the PyTorch port "
+                         "yet: beam search is ROADMAP queue 1 item 2")
+    pipelined = _pop(argv, "--pipelined", value=False) is not None
+    int8_titles = _pop(argv, "--int8_titles", value=False) is not None
+    int8_vision = _pop(argv, "--int8_vision", value=False) is not None
+
+    cfg, args = parse_config(argv, "whole-pipeline per-video inference")
+    kind = cfg.model.kind
+    if kind in KIND_NOT_PORTED:
+        raise SystemExit(f"model.kind={kind} is not ported to the PyTorch "
+                         f"port yet: {KIND_NOT_PORTED[kind]}")
+    if kind != "two_stream":
+        raise SystemExit(f"unknown model.kind {kind}")
+    if int8_vision and cfg.model.stem_input != "frames":
+        raise SystemExit("--int8_vision on this CLI serves "
+                         "model.stem_input=frames only (the JAX CLI's rule, "
+                         "infer_video.py:108); s2d stems take the packed "
+                         "pipeline")
+    dev = resolve_device(args.device)
+    corpus = load_corpus(cfg, "test")
+    tokenizer = load_bert_tokenizer(args, corpus)
+    title_tokenizer = load_title_tokenizer(args, corpus)
+    s2s_cfg = title_s2s_config(args, title_tokenizer)
+    hw = 64 if args.tiny else 224  # train_segment's frame contract
+
+    calib = (calibration_clips(cfg, corpus, (vids or corpus.vids)[0], hw)
+             if int8_vision else None)
+    score_fn = build_score_fn(cfg, args, tokenizer, calib_clips=calib,
+                              device=dev)
+
+    task = TitleGenTask(cfg, s2s_cfg)
+    task.contract = dict(task.contract, vocab_hash=vocab_hash(title_tokenizer))
+    weights = _restore(cfg, task)
+    model = task.model
+    if int8_titles:  # quantized on the device, where it is quick
+        weights = quantize_seq2seq({k: v.to(dev) for k, v in weights.items()})
+        s2s_cfg = dataclasses.replace(s2s_cfg, weight_quant=True,
+                                      kv_quant=True)
+        with torch.device("meta"):
+            model = Seq2Seq(s2s_cfg)
+    model.load_state_dict(weights, assign=True)
+    model.to(dev, compute_dtype(cfg)).eval()
+
+    def title_fn(text_ids, attention_mask):
+        ids = generate(model, torch.from_numpy(text_ids).to(dev).long(),
+                       torch.from_numpy(attention_mask).to(dev),
+                       max_len=cfg.data.title_decode_len)
+        return trim_at_eos(ids.cpu().numpy(), s2s_cfg.eos_token_id)
+
+    pipe = ChapterPipeline(
+        corpus, tokenizer, score_fn, title_fn,
+        decode_fn=title_tokenizer.decode,
+        clip_frame_num=cfg.data.clip_frame_num,
+        max_text_len=cfg.data.max_text_len,
+        title_input_len=cfg.data.title_input_len,
+        batch_size=cfg.data.batch_size, score_mode=cfg.model.data_mode,
+        hw=hw, title_tokenizer=title_tokenizer, device=dev)
+    results = pipe.run(vids, pipelined=pipelined)
+
+    os.makedirs("test_results", exist_ok=True)
+    out_path = "test_results/whole_pipeline_result.txt"
+    with open(out_path, "w") as f:
+        for vid, r in results.items():
+            print(json.dumps({"vid": vid, "cut_points": r.cut_points,
+                              "titles": r.titles}))
+            f.write(f"vid: {vid}\n")
+            f.write(f"pred cut points: {r.cut_points}\n")
+            f.write(f"gt cut points: {corpus.raw_cut_secs(vid)}\n")
+            for (start, end), title in zip(r.spans, r.titles):
+                f.write(f"  [{start} - {end}] {title}\n")
+            f.write("\n")
+    print(f"wrote {out_path}")
+    print(f"throughput: {pipe.videos_per_minute():.2f} videos/min")
+    print(f"stage seconds: {json.dumps(pipe.timer.summary())}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

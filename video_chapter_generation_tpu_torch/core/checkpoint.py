@@ -1,15 +1,24 @@
 """Checkpoints as torch files, with the JAX package's surface
-(core/checkpoint.py: save, restore_latest, restore_raw, metrics_for,
-max_to_keep). Each save writes one file `ckpt_<epoch>.pt` holding the
-state dict the caller passes (model, optimizer, step), the epoch and the
-metrics (score, best result and the core/contract.py contract). Orbax
-checkpoints of the JAX package are not read. Retention keeps the newest
-max_to_keep files. Files are written to a temporary name and renamed, so
-a reader never sees half a checkpoint; they load with weights_only=True.
+(core/checkpoint.py: save, restore_latest, restore_best, restore_raw,
+metrics_for, max_to_keep). Each save writes `ckpt_<epoch>.json`, the
+metrics (score, best result and the core/contract.py contract), then
+`ckpt_<epoch>.pt`, the state dict the caller passes (model, optimizer,
+step) and the epoch. Orbax checkpoints of the JAX package are not read.
+Checkpoints written before the sidecar existed hold their metrics in the
+.pt (`"metrics"`); `metrics_for` reads them there when no .json is
+beside it, so such a directory restores and trains on.
+
+Retention is orbax's under the JAX manager's best_fn (core/checkpoint.py
+:31-39, orbax's BestN policy): with more than max_to_keep checkpoints,
+keep the max_to_keep best by score, a checkpoint saved without one
+counting as -inf; ties keep the newer. The best checkpoint is the last
+of that order. Files are written to a temporary name and renamed, so a
+reader never sees half a checkpoint; they load with weights_only=True.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from typing import Any, Dict, List, Optional, Tuple
@@ -25,8 +34,8 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         os.makedirs(self.directory, exist_ok=True)
 
-    def _path(self, epoch: int) -> str:
-        return os.path.join(self.directory, f"ckpt_{epoch}.pt")
+    def _path(self, epoch: int, ext: str = "pt") -> str:
+        return os.path.join(self.directory, f"ckpt_{epoch}.{ext}")
 
     def steps(self) -> List[int]:
         """Saved epochs, oldest first."""
@@ -43,12 +52,31 @@ class CheckpointManager:
         m = dict(metrics or {})
         if score is not None:
             m["score"] = float(score)
+        path = self._path(epoch, "json")
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(m, f)
+        os.replace(tmp, path)
         path = self._path(epoch)
         tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save({"epoch": epoch, "state": state, "metrics": m}, tmp)
+        torch.save({"epoch": epoch, "state": state}, tmp)
         os.replace(tmp, path)
-        for old in self.steps()[:-self.max_to_keep]:
-            os.remove(self._path(old))
+        by_score = self._by_score()
+        if len(by_score) > self.max_to_keep:
+            for old in by_score[:-self.max_to_keep]:
+                os.remove(self._path(old))
+                if os.path.exists(self._path(old, "json")):
+                    os.remove(self._path(old, "json"))
+
+    def _by_score(self) -> List[int]:
+        """Saved epochs from worst to best score (stable: among equal
+        scores the older comes first)."""
+        return sorted(self.steps(), key=lambda e: self.metrics_for(e).get(
+            "score", float("-inf")))
+
+    def best_step(self) -> Optional[int]:
+        by_score = self._by_score()
+        return by_score[-1] if by_score else None
 
     def _load(self, epoch: int) -> Dict[str, Any]:
         return torch.load(self._path(epoch), map_location="cpu",
@@ -57,6 +85,11 @@ class CheckpointManager:
     def restore_latest(self) -> Optional[Tuple[int, Dict[str, Any]]]:
         """(epoch, state) of the newest checkpoint, or None."""
         return self.restore_raw()
+
+    def restore_best(self) -> Optional[Tuple[int, Dict[str, Any]]]:
+        """(epoch, state) of the best-scored checkpoint, or None."""
+        step = self.best_step()
+        return None if step is None else self.restore_raw(step)
 
     def restore_raw(self, step: Optional[int] = None
                     ) -> Optional[Tuple[int, Dict[str, Any]]]:
@@ -69,4 +102,8 @@ class CheckpointManager:
 
     def metrics_for(self, step: int) -> Dict:
         """The metrics saved with a checkpoint (score, contract, ...)."""
-        return dict(self._load(step)["metrics"])
+        path = self._path(step, "json")
+        if not os.path.exists(path):  # the older single-file format
+            return dict(self._load(step)["metrics"])
+        with open(path) as f:
+            return json.load(f)

@@ -1,20 +1,31 @@
-// ResNet stem on raw uint8 4x4 space-to-depth frames, for Hopper (sm_90a).
+// ResNet stems for Hopper (sm_90a).
 //
-// Replaces video_chapter_generation_tpu/ops/stem_pallas.py:stem_s2d_pallas
-// (_stem_kernel): ImageNet normalize -> 7x7/2 conv (pad 3) -> folded BN ->
-// ReLU -> 3x3/2 max pool (pad 1), [N, H/4, W/4, 48] u8 -> [N, H/4, W/4, 64].
-// The s2d channel order is (dy, dx, c): pixel (4I + dy, 4J + dx, c) sits in
-// cell (I, J) at channel dy * 12 + dx * 3 + c.
+// vcg_stem_s2d replaces video_chapter_generation_tpu/ops/stem_pallas.py:
+// stem_s2d_pallas (_stem_kernel): ImageNet normalize -> 7x7/2 conv (pad 3)
+// -> folded BN -> ReLU -> 3x3/2 max pool (pad 1), [N, H/4, W/4, 48] u8 ->
+// [N, H/4, W/4, 64]. The s2d channel order is (dy, dx, c): pixel
+// (4I + dy, 4J + dx, c) sits in cell (I, J) at channel dy * 12 + dx * 3 + c.
+//
+// vcg_stem_frames_conv and vcg_bn_relu_maxpool replace stem_pallas.py:
+// stem_conv_bn_pool_pallas and bn_relu_maxpool_pallas (kernel K8): the
+// same stem on normalized bf16 NHWC frames.
+//
+// Both stems are two launches. Launch 1 is the 7x7/2 conv alone: no
+// affine, the conv output rounded to bf16 once, as the plain version's
+// convolution rounds it. Launch 2 (bn_relu_maxpool_kernel, the one pool
+// kernel) applies the folded BN and the ReLU as it loads each value,
+// rounds to bf16 and takes the 3x3/2 max; it serves any [N, H, W, C] with
+// C % 8 == 0, 16 bytes a thread.
 //
 // What bounds it on the H100: the gather, not the product. K = 7*7*3 = 147
 // is shallow (padded to 160 for the tensor cores), and every A element is a
-// scattered byte read, a normalize and a bf16 convert. Launch 1 gathers
-// each A tile straight from the u8 pack into shared memory (no im2col or
-// normalized frame in device memory; normalization happens before the
-// zero padding, as in the reference) and runs the implicit GEMM of
-// conv_gemm.cuh with BN + ReLU in the epilogue. Launch 2 is the 3x3/2 max
-// pool over the bf16 conv output, 16 bytes per thread. Fusing the pool
-// into launch 1 (with a one-pixel halo) is left for later.
+// scattered read (for s2d: a byte, a normalize and a bf16 convert). Launch
+// 1 gathers each A tile straight from the input into shared memory (no
+// im2col or normalized frame in device memory; normalization happens
+// before the zero padding, as in the reference) and runs the implicit GEMM
+// of conv_gemm.cuh. The pool is bound by bytes: it reads the conv output
+// once and writes a quarter. Fusing the pool into launch 1 (with a
+// one-pixel halo) is left for later.
 #include <math.h>
 
 #include "conv_gemm.cuh"
@@ -79,74 +90,184 @@ struct StemA {
   }
 };
 
+// Thread i fills 16 consecutive k of A-tile row i / 2 from bf16 NHWC
+// frames [n, h, w, 3]; taps outside the frame are zero (the conv's pad).
+struct FramesA {
+  const bf16* x;
+  int h, w, hc, wc;
+  int n, oh, ow, row, kh16;
+  bool ok;
+
+  __device__ void init(const bf16* p, int h_, int w_, int m0, int m) {
+    x = p; h = h_; w = w_; hc = (h_ - 1) / 2 + 1; wc = (w_ - 1) / 2 + 1;
+    row = threadIdx.x >> 1;
+    kh16 = (threadIdx.x & 1) * 16;
+    const int mm = m0 + row;
+    ok = mm < m;
+    const int q = ok ? mm : 0;
+    n = q / (hc * wc);
+    const int rem = q - n * hc * wc;
+    oh = rem / wc;
+    ow = rem - oh * wc;
+  }
+
+  __device__ void load(bf16* as, int k0) const {
+    alignas(16) bf16 v[16];
+    for (int e = 0; e < 16; ++e) {
+      const int k = k0 + kh16 + e;
+      bf16 val = __float2bfloat16_rn(0.0f);
+      if (ok && k < kStemK) {
+        const int tap = k / 3;
+        const int c = k - 3 * tap;
+        const int kh = tap / 7;
+        const int kw = tap - 7 * kh;
+        const int ih = 2 * oh - 3 + kh;
+        const int iw = 2 * ow - 3 + kw;
+        if (ih >= 0 && ih < h && iw >= 0 && iw < w)
+          val = x[((static_cast<size_t>(n) * h + ih) * w + iw) * 3 + c];
+      }
+      v[e] = val;
+    }
+    uint4* dst = reinterpret_cast<uint4*>(as + row * kALd + kh16);
+    dst[0] = reinterpret_cast<const uint4*>(v)[0];
+    dst[1] = reinterpret_cast<const uint4*>(v)[1];
+  }
+};
+
+// The 7x7/2 conv over bf16 frames; one and zero make the shared epilogue
+// the identity, so the output is the f32 sum rounded once to bf16.
 __global__ void __launch_bounds__(kThreads)
-    stem_conv_kernel(const uint8_t* s4, const bf16* w, const float* scale,
-                     const float* bias, const float* norm, bf16* conv, int n,
+    stem_frames_conv_kernel(const bf16* x, const bf16* w, const float* one,
+                            const float* zero, bf16* conv, int n, int h,
+                            int wd) {
+  const int m = n * ((h - 1) / 2 + 1) * ((wd - 1) / 2 + 1);
+  const int m0 = blockIdx.x * kBM;
+  __shared__ Smem<64> sm;
+  FramesA al;
+  al.init(x, h, wd, m0, m);
+  conv_gemm_tile<64>(sm, al, w, kStemKPad, 64, m0, 0, m, one, zero, nullptr,
+                     conv, false);
+}
+
+// relu(x * scale + bias) rounded to bf16, then the 3x3/2 max pool (pad 1)
+// over [n, h, w, c]; one thread per 8-channel chunk of one output pixel.
+// Padding never wins (-inf); every window holds a real pixel.
+__global__ void bn_relu_maxpool_kernel(const bf16* x, const float* scale,
+                                       const float* bias, bf16* out, int n,
+                                       int h, int w, int c, int hp, int wp) {
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int chunks = c / 8;
+  const size_t total = static_cast<size_t>(n) * hp * wp * chunks;
+  if (idx >= total) return;
+  const int cc = idx % chunks;
+  const size_t pix = idx / chunks;
+  const int q = pix % wp;
+  const int p = (pix / wp) % hp;
+  const int nn = pix / (static_cast<size_t>(wp) * hp);
+  float s[8], b[8], best[8];
+  for (int e = 0; e < 8; ++e) {
+    s[e] = scale[cc * 8 + e];
+    b[e] = bias[cc * 8 + e];
+    best[e] = -INFINITY;
+  }
+  for (int dr = 0; dr < 3; ++dr) {
+    const int r = 2 * p - 1 + dr;
+    if (r < 0 || r >= h) continue;
+    for (int dc = 0; dc < 3; ++dc) {
+      const int col = 2 * q - 1 + dc;
+      if (col < 0 || col >= w) continue;
+      alignas(16) bf16 v[8];
+      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(
+          x + ((static_cast<size_t>(nn) * h + r) * w + col) * c + cc * 8);
+      for (int e = 0; e < 8; ++e) {
+        // two roundings, no FMA, then bf16: the plain version's float ops
+        const float a = fmaxf(
+            __fadd_rn(__fmul_rn(__bfloat162float(v[e]), s[e]), b[e]), 0.0f);
+        best[e] = fmaxf(best[e], __bfloat162float(__float2bfloat16_rn(a)));
+      }
+    }
+  }
+  alignas(16) bf16 o[8];
+  for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16_rn(best[e]);
+  *reinterpret_cast<uint4*>(out + pix * c + cc * 8) =
+      *reinterpret_cast<const uint4*>(o);
+}
+
+// The 7x7/2 conv over the s2d pack, normalized as it is gathered; one and
+// zero make the epilogue the identity, as for the frames conv.
+__global__ void __launch_bounds__(kThreads)
+    stem_conv_kernel(const uint8_t* s4, const bf16* w, const float* one,
+                     const float* zero, const float* norm, bf16* conv, int n,
                      int hs, int ws) {
   const int m = n * (2 * hs) * (2 * ws);
   const int m0 = blockIdx.x * kBM;
   __shared__ Smem<64> sm;
   StemA al;
   al.init(s4, norm, hs, ws, m0, m);
-  conv_gemm_tile<64>(sm, al, w, kStemKPad, 64, m0, 0, m, scale, bias, nullptr,
-                     conv, true);
+  conv_gemm_tile<64>(sm, al, w, kStemKPad, 64, m0, 0, m, one, zero, nullptr,
+                     conv, false);
 }
 
-// 3x3 / stride 2 / pad 1 max pool over [n, hc, wc, 64]; one thread per
-// 8-channel chunk of one output pixel. Padding never wins (-inf).
-__global__ void maxpool_kernel(const bf16* y, bf16* out, int n, int hc,
-                               int wc, int hp, int wp) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t total = static_cast<size_t>(n) * hp * wp * 8;
-  if (idx >= total) return;
-  const int cc = idx & 7;
-  const size_t pix = idx >> 3;
-  const int q = pix % wp;
-  const int p = (pix / wp) % hp;
-  const int nn = pix / (static_cast<size_t>(wp) * hp);
-  float best[8];
-  for (int e = 0; e < 8; ++e) best[e] = -INFINITY;
-  for (int dr = 0; dr < 3; ++dr) {
-    const int r = 2 * p - 1 + dr;
-    if (r < 0 || r >= hc) continue;
-    for (int dc = 0; dc < 3; ++dc) {
-      const int c = 2 * q - 1 + dc;
-      if (c < 0 || c >= wc) continue;
-      alignas(16) bf16 v[8];
-      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(
-          y + ((static_cast<size_t>(nn) * hc + r) * wc + c) * 64 + cc * 8);
-      for (int e = 0; e < 8; ++e) best[e] = fmaxf(best[e], __bfloat162float(v[e]));
-    }
-  }
-  alignas(16) bf16 o[8];
-  for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16_rn(best[e]);
-  *reinterpret_cast<uint4*>(out + pix * 64 + cc * 8) =
-      *reinterpret_cast<const uint4*>(o);
+// Launch 2 of both stems: bn_relu_maxpool_kernel over [n, h, w, c].
+static int bn_relu_maxpool(const bf16* x, const float* scale,
+                           const float* bias, bf16* out, int n, int h, int w,
+                           int c, cudaStream_t st) {
+  const int hp = (h - 1) / 2 + 1, wp = (w - 1) / 2 + 1;
+  const size_t total = static_cast<size_t>(n) * hp * wp * (c / 8);
+  bn_relu_maxpool_kernel<<<static_cast<unsigned>((total + 255) / 256), 256,
+                           0, st>>>(x, scale, bias, out, n, h, w, c, hp, wp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace vcg
 
 // s4 [n, hs, ws, 48] u8; w [160, 64] bf16 (HWIO [7,7,3,64] rows, zero
-// padded); scale/bias [64] f32; norm [6] f32 = ImageNet (a[3], b[3]) with
-// x = u8 * a + b; conv [n, 2hs, 2ws, 64] bf16 scratch; out [n, hs, ws, 64].
-extern "C" int vcg_stem_s2d(const void* s4, const void* w, const void* scale,
+// padded); one/zero [64] f32 (ones, zeros); scale/bias [64] f32 the folded
+// BN; norm [6] f32 = ImageNet (a[3], b[3]) with x = u8 * a + b; conv
+// [n, 2hs, 2ws, 64] bf16 scratch; out [n, hs, ws, 64].
+extern "C" int vcg_stem_s2d(const void* s4, const void* w, const void* one,
+                            const void* zero, const void* scale,
                             const void* bias, const void* norm, void* conv,
                             void* out, int n, int hs, int ws, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hc = 2 * hs, wc = 2 * ws;
-  const int m = n * hc * wc;
+  const int m = n * (2 * hs) * (2 * ws);
   vcg::stem_conv_kernel<<<(m + vcg::kBM - 1) / vcg::kBM, vcg::kThreads, 0,
                           st>>>(
       static_cast<const uint8_t*>(s4), static_cast<const vcg::bf16*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<const float*>(one), static_cast<const float*>(zero),
       static_cast<const float*>(norm), static_cast<vcg::bf16*>(conv), n, hs,
       ws);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int hp = (hc - 1) / 2 + 1, wp = (wc - 1) / 2 + 1;
-  const size_t total = static_cast<size_t>(n) * hp * wp * 8;
-  vcg::maxpool_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
-                        st>>>(static_cast<const vcg::bf16*>(conv),
-                              static_cast<vcg::bf16*>(out), n, hc, wc, hp, wp);
+  return vcg::bn_relu_maxpool(
+      static_cast<const vcg::bf16*>(conv), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<vcg::bf16*>(out), n,
+      2 * hs, 2 * ws, 64, st);
+}
+
+// x [n, h, w, 3] bf16 normalized frames; w [160, 64] bf16 as above;
+// one/zero [64] f32 (ones, zeros); conv [n, (h-1)/2+1, (w-1)/2+1, 64] bf16.
+extern "C" int vcg_stem_frames_conv(const void* x, const void* w,
+                                    const void* one, const void* zero,
+                                    void* conv, int n, int h, int wd,
+                                    void* stream) {
+  const int m = n * ((h - 1) / 2 + 1) * ((wd - 1) / 2 + 1);
+  vcg::stem_frames_conv_kernel<<<(m + vcg::kBM - 1) / vcg::kBM,
+                                 vcg::kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const vcg::bf16*>(x), static_cast<const vcg::bf16*>(w),
+      static_cast<const float*>(one), static_cast<const float*>(zero),
+      static_cast<vcg::bf16*>(conv), n, h, wd);
   return static_cast<int>(cudaGetLastError());
+}
+
+// x [n, h, w, c] bf16 (c % 8 == 0); scale/bias [c] f32;
+// out [n, (h-1)/2+1, (w-1)/2+1, c] bf16.
+extern "C" int vcg_bn_relu_maxpool(const void* x, const void* scale,
+                                   const void* bias, void* out, int n, int h,
+                                   int w, int c, void* stream) {
+  return vcg::bn_relu_maxpool(
+      static_cast<const vcg::bf16*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<vcg::bf16*>(out), n, h, w,
+      c, static_cast<cudaStream_t>(stream));
 }

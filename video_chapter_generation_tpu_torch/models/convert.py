@@ -8,7 +8,8 @@ entries; kind says how a leaf changes layout:
 - "copy": same layout (embeddings, norms, biases, BN statistics);
 - "row": a flat vector <-> a [1, n] buffer (final_logits_bias).
 
-`from_jax` turns a tree of numpy arrays into a state dict, and
+`from_jax` turns a tree of numpy arrays into a state dict (float leaves
+as float32, int8 leaves as they are), and
 `random_jax_tree` draws a seeded random tree in the JAX layout with the
 shapes of a port model (chip_smoke.py serves full-width models from it).
 The opposite direction needs no code here: the port's state dicts carry
@@ -63,7 +64,9 @@ def from_jax(tree, entries: Sequence[Entry]) -> Dict[str, torch.Tensor]:
     """JAX-layout tree (numpy or array-like leaves) -> port state dict."""
     sd = {}
     for path, key, kind in entries:
-        a = np.asarray(_get(tree, path), dtype=np.float32)
+        a = np.asarray(_get(tree, path))
+        if a.dtype != np.int8:
+            a = a.astype(np.float32)
         # np.array copies: the state dict owns writable, contiguous memory
         sd[key] = torch.from_numpy(np.array(_to_torch_layout(a, kind)))
     return sd
@@ -179,9 +182,25 @@ def two_stream_entries(num_bert_layers: int,
     return out
 
 
+def _dense_q(jax_path, key) -> List[Entry]:
+    """A weight-only int8 Dense (ops/quantize.py:quantize_seq2seq of the
+    JAX package: kernel_q [in, out] and scale [out])."""
+    return [((*jax_path, "kernel_q"), f"{key}.weight_q", "dense"),
+            ((*jax_path, "scale"), f"{key}.scale", "copy"),
+            ((*jax_path, "bias"), f"{key}.bias", "copy")]
+
+
 def seq2seq_entries(cfg) -> List[Entry]:
-    """Pegasus Seq2Seq params <-> HuggingFace Pegasus keys."""
-    out = [(("shared", "embedding"), "model.shared.weight", "copy")]
+    """Pegasus Seq2Seq params <-> HuggingFace Pegasus keys; with
+    cfg.weight_quant the int8 tree of quantize_seq2seq (kernel_q/scale,
+    embedding_q/scale) <-> the port's Int8Linear/Int8Embed keys."""
+    if cfg.weight_quant:
+        dense = _dense_q
+        out = [(("shared", "embedding_q"), "model.shared.embedding_q", "copy"),
+               (("shared", "scale"), "model.shared.scale", "copy")]
+    else:
+        dense = _dense
+        out = [(("shared", "embedding"), "model.shared.weight", "copy")]
     for side, n_layers in (("encoder", cfg.encoder_layers),
                            ("decoder", cfg.decoder_layers)):
         short = "enc" if side == "encoder" else "dec"
@@ -191,11 +210,11 @@ def seq2seq_entries(cfg) -> List[Entry]:
                                      else [])
             for attn in attns:
                 for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-                    out += _dense((fl, attn, proj), f"{hf}.{attn}.{proj}")
+                    out += dense((fl, attn, proj), f"{hf}.{attn}.{proj}")
                 out += _ln((fl, f"{attn}_layer_norm"),
                            f"{hf}.{attn}_layer_norm")
-            out += _dense((fl, "ffn", "fc1"), f"{hf}.fc1")
-            out += _dense((fl, "ffn", "fc2"), f"{hf}.fc2")
+            out += dense((fl, "ffn", "fc1"), f"{hf}.fc1")
+            out += dense((fl, "ffn", "fc2"), f"{hf}.fc2")
             out += _ln((fl, "final_layer_norm"), f"{hf}.final_layer_norm")
         out += _ln((f"{side}_ln",), f"model.{side}.layer_norm")
     out.append((("final_logits_bias",), "final_logits_bias", "row"))
@@ -237,4 +256,18 @@ def from_jax_two_stream(variables, num_bert_layers: int,
 
 
 def from_jax_seq2seq(params, cfg):
+    """Seq2Seq params -> state dict; an int8 tree (the JAX package's
+    quantize_seq2seq) with cfg.weight_quant."""
     return from_jax(params, seq2seq_entries(cfg))
+
+
+def act_scales_from_jax(quant) -> Dict[str, torch.Tensor]:
+    """The JAX ResNet's "quant" collection ({"layer2_block1":
+    {"act_scales": [4]}, ...}) -> the port ResNet's act_scales
+    ({"layer2.1": float32 [4]})."""
+    out = {}
+    for name, leaf in quant.items():
+        stage, block = name[len("layer"):].split("_block")
+        out[f"layer{stage}.{block}"] = torch.from_numpy(
+            np.array(leaf["act_scales"], dtype=np.float32))
+    return out

@@ -10,7 +10,14 @@ on conv1's input). NHWC throughout.
 
 - eval(): BatchNorm folds into a per-channel scale and bias (eps 1e-5) and
   every bottleneck runs as one call of the fused inference kernels in ops/
-  (stem_s2d, tsm_bottleneck, tsm_bottleneck_s2).
+  (stem_s2d or stem_frames, tsm_bottleneck, tsm_bottleneck_s2). The W8A8
+  twin (`ResNet.quantized`; the JAX package's quantize=True,
+  models/resnet.py:785-857) runs blocks 1..n-1 of each stage of layers
+  2-4 with at least two blocks on tsm_bottleneck_int8 instead: the first
+  takes the stage's bf16 activation, the last emits bf16, the rest pass
+  int8. Their activation scales are `act_scales` (ops/quantize.py
+  calibrates them), held outside the state dict as the JAX package holds
+  them outside its checkpoints, in its "quant" collection.
 - train(): BatchNorm normalizes with batch statistics and the running
   averages move by the JAX package's convention (models/resnet.py:543-548,
   :892-898): mean = 0.9 mean + 0.1 mu and var = 0.9 var + 0.1 var_batch
@@ -26,15 +33,21 @@ on conv1's input). NHWC throughout.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import copy
+from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..ops.preprocess import depth_to_space4
-from ..ops.stem import stem_frames_reference, stem_s2d
+from ..ops.stem import stem_frames, stem_s2d
 from ..ops.stem_train import stem_frames_train, stem_s2d_train
 from ..ops.tsm_block import tsm_bottleneck, tsm_bottleneck_s2
+from ..ops.tsm_block_int8 import (
+    QuantBottleneck,
+    int8_bottleneck,
+    quantize_bottleneck,
+)
 from ..ops.tsm_block_train import at_least_f32
 from ..ops.tsm_trunk_train import tsm_trunk_train
 
@@ -105,6 +118,17 @@ class Bottleneck(nn.Module):
             p["sp"], p["bp"] = fold_bn(self.downsample[1])
         return p
 
+    def quantized(self, act_scales) -> QuantBottleneck:
+        """The W8A8 form of this block (JAX models/resnet.py:435-468): the
+        float32 folded weights (not cast first) quantized per output
+        channel, with the block's (sx, sz, sy2, sout)."""
+        s1, b1 = fold_bn(self.bn1)
+        s2, b2 = fold_bn(self.bn2)
+        s3, b3 = fold_bn(self.bn3)
+        w = [_hwio(conv, torch.float32)
+             for conv in (self.conv1, self.conv2, self.conv3)]
+        return quantize_bottleneck(*w, s1, b1, s2, b2, s3, b3, act_scales)
+
     def kind(self) -> str:
         """The training trunk's block kind (ops/tsm_trunk_train.py)."""
         if self.downsample is None:
@@ -147,7 +171,12 @@ class ResNet(nn.Module):
     space-to-depth pack [N, H/4, W/4, 48] of raw uint8 pixels (the stem
     kernel normalizes); "frames": x is normalized [N, H, W, 3] float.
     dtype is the compute type; parameters stay float32 and are folded
-    and cast once, on first use after a load or a move."""
+    and cast once, on first use after a load or a move.
+
+    `act_scales` is None, or, in the W8A8 twin that `quantized` makes, a
+    dict from block name ("layer2.1") to its (sx, sz, sy2, sout); a block
+    without an entry takes unit scales, as the JAX package's "quant"
+    collection initializes them."""
 
     feature_dim = 2048
 
@@ -160,6 +189,7 @@ class ResNet(nn.Module):
             raise ValueError(f"stem_input {stem_input!r}: 's2d' or 'frames'")
         self.n_segment, self.n_div = n_segment, n_div
         self.stem_input, self.dtype = stem_input, dtype
+        self.act_scales: Optional[Dict[str, torch.Tensor]] = None
         self.stage_sizes = tuple(stage_sizes or STAGE_SIZES[depth])
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
@@ -178,8 +208,53 @@ class ResNet(nn.Module):
         return [blk for s in range(len(self.stage_sizes))
                 for blk in getattr(self, f"layer{s + 1}")]
 
+    def block_names(self) -> List[str]:
+        """Module names of blocks(), in order ("layer1.0", ...)."""
+        return [f"layer{s + 1}.{b}" for s, n in enumerate(self.stage_sizes)
+                for b in range(n)]
+
+    def quantized(self, act_scales: Dict[str, torch.Tensor]) -> "ResNet":
+        """The W8A8 twin (the JAX package's clone(quantize=True) applied
+        with a "quant" collection): a shallow copy that shares this
+        model's parameters and buffers, with its own act_scales."""
+        twin = copy.copy(self)
+        twin.act_scales = dict(act_scales)
+        twin._folded = twin._quant_folded = None
+        return twin
+
+    def _quant_plan(self, capture) -> List[Optional[str]]:
+        """Per block: None (bf16 kernels) or the int8 kernel's out_mode
+        (JAX models/resnet.py:793-800, 846-847). No stage quantizes while
+        capturing (the calibration reads float activations)."""
+        plan: List[Optional[str]] = []
+        for stage, n in enumerate(self.stage_sizes):
+            quant = (self.act_scales is not None and stage > 0 and n >= 2
+                     and capture is None and self.n_segment > 0)
+            plan += [None] + [("bf16" if b == n - 1 else "i8") if quant
+                              else None for b in range(1, n)]
+        return plan
+
+    def quant_params(self) -> List[Optional[QuantBottleneck]]:
+        """Bottleneck.quantized of each block the plan quantizes (None
+        elsewhere), made once per fold and per set of act_scales."""
+        self.folded_params()  # refreshes the fold key
+        names = self.block_names()
+        plan = self._quant_plan(None)
+        scales = {n: (self.act_scales[n] if n in self.act_scales
+                      else torch.ones(4)) for n, m in zip(names, plan) if m}
+        key = (self._folded[0], tuple(
+            (n, tuple(torch.as_tensor(v).float().reshape(-1).tolist()))
+            for n, v in scales.items()))
+        if self._quant_folded is None or self._quant_folded[0] != key:
+            with torch.no_grad():
+                qs = [blk.quantized(scales[n]) if n in scales else None
+                      for n, blk in zip(names, self.blocks())]
+            self._quant_folded = (key, qs)
+        return self._quant_folded[1]
+
     def _load_from_state_dict(self, *args, **kwargs):
         self._folded = None  # new weights: fold again on next use
+        self._quant_folded = None
         super()._load_from_state_dict(*args, **kwargs)
 
     def folded_params(self):
@@ -200,10 +275,11 @@ class ResNet(nn.Module):
                                  for blk in self.blocks()])
         return self._folded[1], self._folded[2]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, capture: Optional[dict] = None
+                ) -> torch.Tensor:
         if self.training:
             return self.forward_train(x)
-        return self.forward_eval(x)
+        return self.forward_eval(x, capture)
 
     def forward_train(self, x: torch.Tensor) -> torch.Tensor:
         """Training forward with batch-statistics BatchNorm; updates the
@@ -229,17 +305,33 @@ class ResNet(nn.Module):
         return at_least_f32(y).mean(dim=(1, 2)).to(dt)
 
     @torch.no_grad()
-    def forward_eval(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_eval(self, x: torch.Tensor,
+                     capture: Optional[dict] = None) -> torch.Tensor:
+        """Inference forward -> pooled features [N, 2048]. capture: a dict
+        that receives the stem output under "stem" and each stage's output
+        under "stage{i}" (JAX models/resnet.py:604-613, 726-727, 858-859)."""
         stem, blocks = self.folded_params()
         if self.stem_input == "s2d" and x.dtype == torch.uint8:
             y = stem_s2d(x, stem["w7"], stem["s"], stem["b"],
                          out_dtype=self.dtype)
         else:
             frames = depth_to_space4(x) if self.stem_input == "s2d" else x
-            y = stem_frames_reference(frames.to(self.dtype), stem["w7"],
-                                      stem["s"], stem["b"])
-        for blk, p in zip(self.blocks(), blocks):
-            y = blk.run(y, p, self.n_segment, self.n_div)
+            y = stem_frames(frames.to(self.dtype).contiguous(), stem["w7"],
+                            stem["s"], stem["b"])
+        if capture is not None:
+            capture["stem"] = y
+        plan = self._quant_plan(capture)
+        quant = self.quant_params() if any(plan) else [None] * len(plan)
+        ends = {sum(self.stage_sizes[:s + 1]) - 1: s + 1
+                for s in range(len(self.stage_sizes))}
+        for i, (blk, p) in enumerate(zip(self.blocks(), blocks)):
+            if plan[i]:
+                y = int8_bottleneck(y, quant[i], self.n_segment, self.n_div,
+                                    plan[i], self.dtype)
+            else:
+                y = blk.run(y, p, self.n_segment, self.n_div)
+            if capture is not None and i in ends:
+                capture[f"stage{ends[i]}"] = y
         # global average pool (torchvision avgpool + flatten), f32 sum
         return y.float().mean(dim=(1, 2)).to(self.dtype)
 

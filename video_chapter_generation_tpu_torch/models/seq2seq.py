@@ -9,7 +9,12 @@ PegasusForConditionalGeneration, so the JAX package's
 `convert_hf_seq2seq` reads this state dict as it is. Ported: the Pegasus
 configuration (`pegasus_large`, `tiny`), encode, the incremental decode
 step and greedy `generate`; BART's post-norm / learned positions, beam
-search, sampling and the int8 serving paths are not.
+search and sampling are not. Serving in int8 (JAX :68-84): weight_quant
+swaps every layer Linear for Int8Linear and the shared table for
+Int8Embed (models/quant_layers.py; load a state dict made by
+ops/quantize.py:quantize_seq2seq), and kv_quant keeps the cross-attention
+K/V cache in int8 with scales per (batch, head, channel) that fold into q
+and into the attention output exactly.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .quant_layers import Int8Embed, Int8Linear
 
 NEG_INF = -1e9
 
@@ -37,6 +44,8 @@ class Seq2SeqConfig:
     max_positions: int = 1024
     eos_token_id: int = 1
     decoder_start_token_id: int = 0
+    weight_quant: bool = False
+    kv_quant: bool = False
 
     @classmethod
     def pegasus_large(cls) -> "Seq2SeqConfig":
@@ -68,15 +77,36 @@ def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
     return (1.0 - mask[:, None, None, :].float()) * NEG_INF
 
 
+def _linear(cfg: Seq2SeqConfig, d_in: int, d_out: int) -> nn.Module:
+    """nn.Linear, or its weight-only int8 form (JAX seq2seq.py:139-145)."""
+    return (Int8Linear if cfg.weight_quant else nn.Linear)(d_in, d_out)
+
+
+def quantize_kv(k: torch.Tensor, v: torch.Tensor):
+    """int8 cached K/V heads [B, H, K, hd] with scales per (batch, head,
+    channel): the amax over the K positions (JAX seq2seq.py:361) ->
+    (k_q, k_scale, v_q, v_scale), scales float32 [B, H, 1, hd]."""
+    def quant(x):
+        xf = x.float()
+        amax = xf.abs().amax(dim=2, keepdim=True)
+        scale = torch.clamp(amax, min=1e-8) / 127.0
+        q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+        return q, scale
+
+    k_q, k_scale = quant(k)
+    v_q, v_scale = quant(v)
+    return k_q, k_scale, v_q, v_scale
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: Seq2SeqConfig):
         super().__init__()
         d = cfg.d_model
         self.num_heads = cfg.num_heads
-        self.q_proj = nn.Linear(d, d)
-        self.k_proj = nn.Linear(d, d)
-        self.v_proj = nn.Linear(d, d)
-        self.out_proj = nn.Linear(d, d)
+        self.q_proj = _linear(cfg, d, d)
+        self.k_proj = _linear(cfg, d, d)
+        self.v_proj = _linear(cfg, d, d)
+        self.out_proj = _linear(cfg, d, d)
 
     def heads(self, x: torch.Tensor) -> torch.Tensor:
         """[B, L, D] -> [B, H, L, hd]."""
@@ -88,13 +118,26 @@ class Attention(nn.Module):
 
     def forward(self, q_in, bias, kv_in=None, cached_kv=None):
         """bias: additive float32, broadcastable to [B, H, Q, K];
-        cached_kv: precomputed (k, v) [B, H, K, hd]."""
+        cached_kv: precomputed (k, v) [B, H, K, hd], or the int8 form
+        (k_q, k_scale, v_q, v_scale) of quantize_kv: the key scales fold
+        into q before the scores, the value scales into the attention
+        output after the value product (JAX seq2seq.py:174-190)."""
         q = self.heads(self.q_proj(q_in))
-        k, v = cached_kv if cached_kv is not None else self.project_kv(kv_in)
+        v_scale = None
+        if cached_kv is None:
+            k, v = self.project_kv(kv_in)
+        elif len(cached_kv) == 4:
+            k, k_scale, v, v_scale = cached_kv
+            q = q * k_scale.to(q.dtype)
+            k = k.to(q.dtype)
+        else:
+            k, v = cached_kv
         att = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
-        att = torch.softmax(att.float() + bias, dim=-1).to(v.dtype)
-        ctx = (att @ v).transpose(1, 2).reshape(q_in.shape)
-        return self.out_proj(ctx)
+        att = torch.softmax(att.float() + bias, dim=-1).to(q.dtype)
+        ctx = att @ v.to(q.dtype)
+        if v_scale is not None:
+            ctx = ctx * v_scale.to(ctx.dtype)
+        return self.out_proj(ctx.transpose(1, 2).reshape(q_in.shape))
 
 
 class EncoderLayer(nn.Module):
@@ -103,8 +146,8 @@ class EncoderLayer(nn.Module):
         d = cfg.d_model
         self.self_attn = Attention(cfg)
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
-        self.fc1 = nn.Linear(d, cfg.ffn_dim)
-        self.fc2 = nn.Linear(cfg.ffn_dim, d)
+        self.fc1 = _linear(cfg, d, cfg.ffn_dim)
+        self.fc2 = _linear(cfg, cfg.ffn_dim, d)
         self.final_layer_norm = nn.LayerNorm(d, eps=1e-5)
 
     def forward(self, x, bias):
@@ -121,8 +164,8 @@ class DecoderLayer(nn.Module):
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
         self.encoder_attn = Attention(cfg)
         self.encoder_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
-        self.fc1 = nn.Linear(d, cfg.ffn_dim)
-        self.fc2 = nn.Linear(cfg.ffn_dim, d)
+        self.fc1 = _linear(cfg, d, cfg.ffn_dim)
+        self.fc2 = _linear(cfg, cfg.ffn_dim, d)
         self.final_layer_norm = nn.LayerNorm(d, eps=1e-5)
 
     def step(self, x, position: int, self_cache, cross_kv, self_bias,
@@ -150,7 +193,8 @@ class _Stack(nn.Module):
 class _Backbone(nn.Module):
     def __init__(self, cfg: Seq2SeqConfig):
         super().__init__()
-        self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self.shared = (Int8Embed if cfg.weight_quant else nn.Embedding)(
+            cfg.vocab_size, cfg.d_model)
         self.encoder = _Stack(EncoderLayer(cfg)
                               for _ in range(cfg.encoder_layers))
         self.encoder.layer_norm = nn.LayerNorm(cfg.d_model, eps=1e-5)
@@ -180,7 +224,10 @@ class Seq2Seq(nn.Module):
         return (x.float() + self._sin_pos[positions]).to(x.dtype)
 
     def _head(self, hidden: torch.Tensor) -> torch.Tensor:
-        logits = hidden @ self.model.shared.weight.t()
+        if self.cfg.weight_quant:
+            logits = self.model.shared.logits(hidden)
+        else:
+            logits = hidden @ self.model.shared.weight.t()
         return logits.float() + self.final_logits_bias.float()
 
     @torch.no_grad()
@@ -197,15 +244,17 @@ class Seq2Seq(nn.Module):
     def init_cache(self, batch: int, max_len: int,
                    enc_hidden: torch.Tensor) -> Dict[str, List[Tuple]]:
         """Per-layer zeroed self K/V [B, H, max_len, hd] and the
-        precomputed cross-attention K/V of enc_hidden."""
+        precomputed cross-attention K/V of enc_hidden (int8, with
+        kv_quant; the self cache stays in the model dtype)."""
         cfg = self.cfg
         shape = (batch, cfg.num_heads, max_len, cfg.d_model // cfg.num_heads)
         mk = lambda: torch.zeros(shape, dtype=enc_hidden.dtype,  # noqa: E731
                                  device=enc_hidden.device)
         layers = self.model.decoder.layers
-        return {"self": [(mk(), mk()) for _ in layers],
-                "cross": [layer.encoder_attn.project_kv(enc_hidden)
-                          for layer in layers]}
+        cross = [layer.encoder_attn.project_kv(enc_hidden) for layer in layers]
+        if cfg.kv_quant:
+            cross = [quantize_kv(*kv) for kv in cross]
+        return {"self": [(mk(), mk()) for _ in layers], "cross": cross}
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, position: int, cache,

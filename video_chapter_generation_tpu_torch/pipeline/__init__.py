@@ -1,10 +1,16 @@
 """Per-video orchestration: boundary scoring and title generation."""
 
-from .boundary import make_packed_two_stream_score_fn, pack_to_device, score_clips
+from .boundary import (
+    make_packed_two_stream_score_fn,
+    make_two_stream_score_fn,
+    pack_to_device,
+    score_clips,
+)
 from .whole_video import ChapterPipeline, VideoChapters, bucket_title_fn
 
 __all__ = [
     "make_packed_two_stream_score_fn",
+    "make_two_stream_score_fn",
     "pack_to_device",
     "score_clips",
     "ChapterPipeline",

@@ -1,9 +1,11 @@
 """Batched boundary scoring (counterpart of the JAX package's
-pipeline/boundary.py): the packed two-stream score function and the
-plain per-clip scoring loop."""
+pipeline/boundary.py): the two-stream score functions, on per-clip
+frames and on a video's frame pack, and the per-clip scoring loop."""
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -13,27 +15,82 @@ from ..core.metrics import StepTimer
 from ..data.clip_grid import ClipInfo
 from ..data.loader import collate
 from ..models.fusion import TwoStream
+from ..ops.preprocess import normalize_frames
 
 
 def score_clips(dataset, score_fn: Callable[[Dict[str, np.ndarray]], object],
-                batch_size: int = 16,
-                timer: Optional[StepTimer] = None) -> List[ClipInfo]:
+                batch_size: int = 16, timer: Optional[StepTimer] = None,
+                prefetch: int = 2) -> List[ClipInfo]:
     """Run score_fn (batch dict -> positive-class prob [B]) over every clip
     of an InferClipDataset in static-shape batches (the last one padded by
-    repeating its final row); fills pred_score / pred_label in place."""
+    repeating its final row); fills pred_score / pred_label in place.
+
+    With prefetch > 0 a thread assembles batches (JPEG decode, tokens)
+    that many ahead of the device (JAX pipeline/boundary.py:52-70). An
+    error there is raised here, after the thread has stopped; the JAX
+    producer puts its stop marker in a `finally`, so a failing batch ends
+    its scoring early and the error is lost (ROADMAP queue 3)."""
     timer = timer or StepTimer()
     n = len(dataset)
     infos = dataset.all_clip_infos
-    for start in range(0, n, batch_size):
+    starts = list(range(0, n, batch_size))
+
+    def make_batch(start):
         rows = list(range(start, min(start + batch_size, n)))
         items = [dataset[i] for i in rows]
         items += [items[-1]] * (batch_size - len(rows))
+        return rows, collate(items)
+
+    def score(rows, batch):
         timer.start("device_score")
-        scores = np.asarray(torch.as_tensor(score_fn(collate(items))).cpu())
+        scores = np.asarray(torch.as_tensor(score_fn(batch)).float().cpu())
         timer.stop("device_score", len(rows))
         for j, i in enumerate(rows):
             infos[i].pred_score = float(scores[j])
             infos[i].pred_label = int(scores[j] >= 0.5)
+
+    if prefetch <= 0 or len(starts) < 2:
+        for s in starts:
+            timer.start("host_load")
+            rows, batch = make_batch(s)
+            timer.stop("host_load", len(rows))
+            score(rows, batch)
+        return infos
+
+    q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+    stop = object()
+    failure: List[BaseException] = []
+    halt = threading.Event()
+
+    def producer():
+        try:
+            for s in starts:
+                if halt.is_set():
+                    break
+                q.put(make_batch(s))
+        except Exception as e:  # re-raised by the consumer
+            failure.append(e)
+        finally:
+            q.put(stop)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is stop:
+                break
+            score(*item)
+    finally:
+        halt.set()
+        while thread.is_alive():  # unblock a producer waiting on a full queue
+            try:
+                q.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        thread.join()
+    if failure:
+        raise failure[0]
     return infos
 
 
@@ -46,12 +103,52 @@ def pack_to_device(pack: np.ndarray, device: torch.device) -> torch.Tensor:
     return host.to(device)
 
 
-def make_packed_two_stream_score_fn(model: TwoStream, device: torch.device):
+def _vision(model: TwoStream, quant_scales):
+    """The vision trunk, or its W8A8 twin with quant_scales (from
+    ops/quantize.py:calibrate_two_stream_quant; JAX boundary.py:117-120)."""
+    if quant_scales is None:
+        return model.vision_model
+    return model.vision_model.quantized(quant_scales["vision_model"])
+
+
+def make_two_stream_score_fn(model: TwoStream, device: torch.device,
+                             normalize: bool = True, quant_scales=None):
+    """score(batch) -> positive-class probability [B] float32 on the
+    device, for per-clip frames (ChapterPipeline without a frame pack;
+    JAX boundary.py:105-131). batch["img_clip"] is uint8 [B, T, H, W, 3];
+    with normalize it moves to the device as uint8 and is normalized
+    there, to the vision model's dtype (the JAX package normalizes to
+    float32, boundary.py:124). quant_scales swaps the vision trunk for
+    its W8A8 twin."""
+    vision = _vision(model, quant_scales)
+
+    def to_dev(a):
+        return torch.as_tensor(a).to(device, non_blocking=True)
+
+    @torch.no_grad()
+    def score(batch) -> torch.Tensor:
+        img = to_dev(batch["img_clip"])
+        if normalize:
+            img = normalize_frames(img, vision.dtype)
+        b, t = img.shape[:2]
+        feats = vision(img.reshape(b * t, *img.shape[2:])).reshape(b, t, -1)
+        _, pooled = model.lang_model(to_dev(batch["text_ids"]).long(),
+                                     to_dev(batch["attention_mask"]))
+        _, probs = model.head_probs(pooled, feats)
+        return probs[:, 1]
+
+    return score
+
+
+def make_packed_two_stream_score_fn(model: TwoStream, device: torch.device,
+                                    quant_scales=None):
     """score(batch, pack) -> positive-class probability [B] float32 on the
     device, for ChapterPipeline(frame_pack=True). `pack` is the video's
     [N, hw/4, hw/4, 48] uint8 pack already on the device; the batch's
     [B, T] frame indices gather from it on the device, then vision, text,
-    head and the softmax over the two classes."""
+    head and the softmax over the two classes. quant_scales swaps the
+    vision trunk for its W8A8 twin (JAX boundary.py:159-164)."""
+    vision_model = _vision(model, quant_scales)
 
     def to_dev(a):
         return torch.as_tensor(a).to(device, non_blocking=True)
@@ -60,7 +157,7 @@ def make_packed_two_stream_score_fn(model: TwoStream, device: torch.device):
     def score(batch, pack: torch.Tensor) -> torch.Tensor:
         idx = to_dev(batch["frame_idx"]).long()
         b, t = idx.shape
-        vision = model.vision_model(pack[idx.reshape(-1)]).reshape(b, t, -1)
+        vision = vision_model(pack[idx.reshape(-1)]).reshape(b, t, -1)
         _, pooled = model.lang_model(to_dev(batch["text_ids"]).long(),
                                      to_dev(batch["attention_mask"]))
         _, probs = model.head_probs(pooled, vision)

@@ -1,5 +1,7 @@
-"""Training tasks (counterpart of the JAX package's train/tasks.py; only
-SegmentTask, the base two-stream clip classifier of :169-213, is ported).
+"""Training tasks (counterpart of the JAX package's train/tasks.py):
+SegmentTask, the base two-stream clip classifier of :169-213, and of
+TitleGenTask (:365-383) the model, its weights and its contract, which
+serving needs (its loss and eval are ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from ..models import convert
 from ..models.bert import BertConfig, BertModel
 from ..models.fusion import TwoStream
 from ..models.resnet import STAGE_SIZES, ResNet
+from ..models.seq2seq import Seq2Seq, Seq2SeqConfig
+from ..ops.preprocess import normalize_frames
 from .objectives import clip_classification_loss
 
 TINY_STAGE_SIZES = (1, 1, 1, 1)
@@ -73,10 +77,40 @@ class SegmentTask:
 
     def loss_fn(self, model: TwoStream, batch: Dict[str, np.ndarray],
                 generator: Optional[torch.Generator] = None):
-        """(loss, metrics) of one host batch on the model's device."""
+        """(loss, metrics) of one host batch on the model's device. uint8
+        frames for a frames stem are normalized there, to the compute
+        dtype (train/tasks.py:62-70); an s2d pack goes in raw."""
         dev = model.fusion_head.head.weight.device
         put = lambda k: torch.as_tensor(batch[k]).to(dev, non_blocking=True)  # noqa: E731
-        logits, _ = model(put("img_clip"), put("text_ids").long(),
+        img = put("img_clip")
+        if self.cfg.model.stem_input != "s2d":
+            img = normalize_frames(img, self.dtype)
+        logits, _ = model(img, put("text_ids").long(),
                           put("attention_mask"), train=True,
                           generator=generator)
         return clip_classification_loss(logits, put("label"))
+
+
+class TitleGenTask:
+    """Seq2seq chapter titles (Pegasus): the model (built on the meta
+    device), its seeded random weights and its contract."""
+
+    def __init__(self, cfg: Config, seq2seq_cfg: Seq2SeqConfig):
+        self.cfg = cfg
+        self.s2s_cfg = seq2seq_cfg
+        self.dtype = compute_dtype(cfg)
+        with torch.device("meta"):
+            self.model = Seq2Seq(seq2seq_cfg)
+        self.entries = convert.seq2seq_entries(seq2seq_cfg)
+        self.contract = build_contract(
+            model_kind="title", title_input_len=cfg.data.title_input_len,
+            title_decode_len=cfg.data.title_decode_len,
+            vocab_size=seq2seq_cfg.vocab_size, encoder_attention="full",
+            d_model=seq2seq_cfg.d_model)
+
+    def init_state(self) -> Dict[str, torch.Tensor]:
+        """Seeded random weights (train.seed) in the JAX layout, carried
+        over as a float32 state dict."""
+        tree = convert.random_jax_tree(self.model, self.entries,
+                                       seed=self.cfg.train.seed)
+        return convert.from_jax_seq2seq(tree, self.s2s_cfg)
