@@ -42,7 +42,20 @@
    tsm_bottleneck_int8 10, plus one bf16 calibration call), the restored
    checkpoint, and at least one cut point and one title per chapter for
    each video.
-6. Training. Holds every training kernel entry (the K11 stem and the K12
+6. BigBird-Pegasus and BART titles (K10). Builds bigbird_pegasus_large
+   (bf16, seeded random weights carried over as above) and holds
+   `sparse_band_attention` to its plain version at the serving shape (B
+   8, L 3072, H 16, hd 64, bs 64, 3 random blocks; q, k and v of encoder
+   layer 0 on ids whose rows are valid for 300..3072 tokens), timing
+   kernel, plain version, the library yardstick (SDPA with the
+   equivalent float mask) and the bound; holds the whole block-sparse
+   attention on the card to its float32 form on the CPU for two rows;
+   checks 16 K10 launches per encode and greedy-generates 30 tokens at
+   batch 8 from 3072-token inputs; runs cli/infer_video.main with
+   --title_arch bigbird data.title_input_len=3072 --pipelined from the
+   checkpoint of phase 5, checking 16 K10 launches per title batch and a
+   title per chapter; then one greedy generate of BART-large.
+7. Training. Holds every training kernel entry (the K11 stem and the K12
    bottleneck of each kind, forward and backward, and the K13 trunk's
    recomputation of p) against its plain PyTorch version at every shape
    of one full-width step (8 clips x 16 frames = 128 frames at 224 px,
@@ -54,7 +67,7 @@
    data.batch_size=8) and checks finite losses, moved parameters and BN
    running statistics, exact kernel launch counts per step, and a
    checkpoint that restores.
-7. Prints one JSON line of the kernels, the script's wall time and,
+8. Prints one JSON line of the kernels, the script's wall time and,
    last, the device line.
 
 Any failed phase raises, and the script exits non-zero without printing
@@ -98,6 +111,10 @@ PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_HBM_BYTES = 989e12, 1979e12, 3.35e12
 INFER_VIDEOS, INFER_SEC = 2, 120
 # the W8A8 trunk vs the bf16 kernel trunk on one clip, per frame
 INT8_TRUNK_MIN_COS = 0.98
+# BigBird-Pegasus titles: the serving input length (the JAX CLI's advice
+# for --title_arch bigbird), batch, and the padded lengths of the K10 rows
+BIGBIRD_IN, BIGBIRD_BATCH = 3072, 8
+BIGBIRD_MIN_LEN = 300
 
 
 def fail(msg: str):
@@ -105,10 +122,11 @@ def fail(msg: str):
 
 
 def compare(got, ref):
-    """(max abs error, mean relative error, cosine) in float32."""
+    """(max abs error, mean relative error, cosine), computed in float64
+    (a float32 cosine over millions of elements can read above 1)."""
     import torch
 
-    g, r = got.float().flatten(), ref.float().flatten()
+    g, r = got.double().flatten(), ref.double().flatten()
     d = (g - r).abs()
     cos = torch.nn.functional.cosine_similarity(g, r, dim=0).item()
     return d.max().item(), (d.mean() / r.abs().mean()).item(), cos
@@ -826,7 +844,218 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
                     "launches": launches[name], "max_abs_err": e["max_abs"],
                     "ms": e["ms"], "plain_ms": e["plain_ms"],
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    return out
+    return out, argv
+
+
+def bigbird_phases(dev, smi, cli_argv):
+    """K10 against its plain version at the BigBird-Pegasus serving shape,
+    greedy titles of the full-width BigBird model, cli/infer_video
+    --title_arch bigbird at 3072 tokens, and one BART-large generate.
+    Returns K10's JSON entry."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from video_chapter_generation_tpu_torch.cli import infer_video
+    from video_chapter_generation_tpu_torch.models import convert
+    from video_chapter_generation_tpu_torch.models.seq2seq import (
+        Seq2Seq,
+        Seq2SeqConfig,
+        generate,
+    )
+    from video_chapter_generation_tpu_torch.models.sparse_attention import (
+        _tables,
+        block_sparse_attention,
+    )
+    from video_chapter_generation_tpu_torch.ops.sparse_attention import (
+        sparse_band_attention,
+        sparse_band_attention_reference,
+    )
+
+    bf = torch.bfloat16
+
+    def build(cfg, seed):
+        t0 = time.time()
+        with torch.device("meta"):
+            m = Seq2Seq(cfg)
+        entries = convert.seq2seq_entries(cfg)
+        tree = convert.random_jax_tree(m, entries, seed=seed)
+        m.load_state_dict(convert.from_jax_seq2seq(tree, cfg), assign=True)
+        m.to(dev, bf).eval()
+        print(f"# {type(m).__name__} d_model {cfg.d_model}, "
+              f"{cfg.encoder_layers}+{cfg.decoder_layers} layers, vocab "
+              f"{cfg.vocab_size}: ready in {time.time() - t0:.1f} s",
+              flush=True)
+        return m
+
+    def timed_generate(m, ids, mask, label):
+        out = generate(m, ids, mask, max_len=TITLE_OUT)
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            generate(m, ids, mask, max_len=TITLE_OUT)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        if tuple(out.shape) != (ids.shape[0], TITLE_OUT) or \
+                int(out.min()) < 0 or int(out.max()) >= m.cfg.vocab_size:
+            fail(f"{label} generate gave ids outside the vocabulary")
+        print(f"# {label} greedy titles, batch {ids.shape[0]}, encoder "
+              f"{ids.shape[1]}, {TITLE_OUT} steps: "
+              f"{sorted(times)[1] / TITLE_OUT:.3f} ms per step (encoder "
+              f"included, median of 3) on {smi}; first ids "
+              f"{out[0, :8].tolist()}", flush=True)
+        return out
+
+    cfg = Seq2SeqConfig.bigbird_pegasus_large()
+    big = build(cfg, SEED + 11)
+    b, l, bs = BIGBIRD_BATCH, BIGBIRD_IN, cfg.block_size
+    h, hd = cfg.num_heads, cfg.d_model // cfg.num_heads
+    nb = l // bs
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    ids = torch.randint(3, cfg.vocab_size, (b, l), generator=gen, device=dev)
+    lens = np.linspace(BIGBIRD_MIN_LEN, l, b).astype(int)
+    mask = (torch.arange(l, device=dev)[None]
+            < torch.from_numpy(lens).to(dev)[:, None]).to(torch.int32)
+    ids = ids * mask
+
+    # --- K10 at the serving shape: q, k, v of encoder layer 0 ---
+    layer = big.model.encoder.layers[0]
+    with torch.no_grad():
+        x = layer.self_attn_layer_norm(big._embed(
+            big.model.encoder, ids, torch.arange(l, device=dev)[None]))
+        q, k, v = [proj(x).reshape(b, l, h, hd) for proj in (
+            layer.self_attn.q_proj, layer.self_attn.k_proj,
+            layer.self_attn.v_proj)]
+    tabs = _tables(nb, cfg.num_rand_blocks, 0, None, dev)
+    q_mid = q[:, bs:l - bs]
+    out = torch.empty_like(q)
+    run = lambda: sparse_band_attention(  # noqa: E731
+        q_mid, k, v, mask, *tabs, bs, out)
+    plain = lambda: sparse_band_attention_reference(  # noqa: E731
+        q_mid, k, v, mask, *tabs, bs)
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    max_abs, mean_rel, cos = compare(got, ref)
+    # the library yardstick: SDPA with a float mask, -inf outside each
+    # query block's attended key blocks and -10000 on attended padded keys
+    # (the same function while no random block collides with the window,
+    # which _random_block_map guarantees)
+    ids_t, valid_t = tabs
+    nbq = nb - 2
+    blk = torch.zeros(nbq, nb, dtype=torch.bool, device=dev)
+    on = valid_t.bool()
+    blk[torch.arange(nbq, device=dev)[:, None].expand_as(ids_t)[on],
+        ids_t.long()[on]] = True
+    blk = blk.repeat_interleave(bs, 0).repeat_interleave(bs, 1)
+    pen = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
+    lib_mask = torch.where(blk[None, None], pen, float("-inf")).to(bf)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q_mid, k, v))
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=lib_mask)
+    lib_err = compare(library().transpose(1, 2), ref)
+    k_ms, p_ms, lib_ms = cuda_ms(run), cuda_ms(plain), cuda_ms(library)
+    n_parts = ids_t.shape[1]
+    flops = 4 * b * h * nbq * bs * (n_parts * bs) * hd
+    nbytes = 2 * (2 * q_mid.numel() + k.numel() + v.numel()) + 4 * mask.numel()
+    b_ms, b_by = bound(flops, nbytes)
+    print(f"# {'sparse_band_attn':18s} q_mid {tuple(q_mid.shape)} k/v "
+          f"{tuple(k.shape)} bs {bs} P {n_parts} bf16, rows valid for "
+          f"{lens.tolist()} tokens: max_abs {max_abs:.4g} mean_rel "
+          f"{mean_rel:.3g} cos {cos:.6f} | kernel {k_ms:.3f} ms plain "
+          f"{p_ms:.3f} ms library (SDPA, float mask) {lib_ms:.3f} ms (its "
+          f"cos vs plain {lib_err[2]:.6f}) bound {b_ms:.3f} ms ({b_by}) on "
+          f"{smi}", flush=True)
+    if not (cos >= KERNEL_MIN_COS and mean_rel <= KERNEL_MAX_MEAN_REL):
+        fail("sparse_band_attention disagrees with its plain version")
+    del lib_mask, blk
+
+    # the whole block-sparse attention (kernel, first/last blocks, padded
+    # rows zeroed) on the card vs the plain float32 form on the CPU, for
+    # the shortest and the longest row
+    rows = [0, b - 1]
+    got = block_sparse_attention(q[rows], k[rows], v[rows], mask[rows],
+                                 bs, cfg.num_rand_blocks)
+    want = block_sparse_attention(
+        *(t[rows].float().cpu() for t in (q, k, v)), mask[rows].cpu(), bs,
+        cfg.num_rand_blocks)
+    w_abs, w_rel, w_cos = compare(got.cpu(), want)
+    print(f"# block_sparse_attention, rows of {lens[0]} and {lens[-1]} "
+          f"tokens, kernel bf16 vs plain float32 on the CPU: max_abs "
+          f"{w_abs:.4g} mean_rel {w_rel:.3g} cos {w_cos:.6f}", flush=True)
+    if not (w_cos >= KERNEL_MIN_COS and w_rel <= KERNEL_MAX_MEAN_REL):
+        fail("block_sparse_attention on the card disagrees with the CPU")
+    del q, k, v, x, q_mid, out, got, ref
+
+    # --- greedy titles from 3072-token inputs: 16 K10 launches an encode ---
+    sparse_band_attention.launches = 0
+    with torch.no_grad():
+        enc = big.encode(ids, mask)
+    torch.cuda.synchronize()
+    if sparse_band_attention.launches != cfg.encoder_layers:
+        fail(f"one encode launched K10 {sparse_band_attention.launches} "
+             f"times, not {cfg.encoder_layers}")
+    if not torch.isfinite(enc.float()).all():
+        fail("the BigBird encoder states are not finite")
+    timed_generate(big, ids, mask, "BigBird-Pegasus-large bf16")
+    del big, enc
+    torch.cuda.empty_cache()
+
+    # --- cli/infer_video --title_arch bigbird at 3072 tokens ---
+    build_dir = ROOT / "video_chapter_generation_tpu_torch" / "_build"
+    sparse_band_attention.launches = 0
+    cwd = os.getcwd()
+    os.chdir(build_dir)
+    said = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(said):
+            results = infer_video.main(cli_argv + [
+                "--title_arch", "bigbird", f"data.title_input_len={l}",
+                "--pipelined"])
+    finally:
+        os.chdir(cwd)
+        for line in said.getvalue().splitlines():
+            print(f"# cli: {line}", flush=True)
+    torch.cuda.synchronize()
+    launches = sparse_band_attention.launches
+    wall = time.time() - t0
+    batches = sum(1 for r in results.values() if r.spans)
+    print(f"# infer_video --title_arch bigbird data.title_input_len={l} "
+          f"--pipelined: {len(results)} videos, {batches} title batches, "
+          f"K10 launches {launches}, {wall:.1f} s (models and restore "
+          f"included) on {smi}", flush=True)
+    if "restored checkpoint at epoch 0" not in said.getvalue():
+        fail("infer_video did not restore the checkpoint")
+    if launches != cfg.encoder_layers * batches:
+        fail(f"infer_video launched K10 {launches} times for {batches} "
+             f"title batches, not {cfg.encoder_layers} each")
+    for vid, r in results.items():
+        if not r.cut_points or len(r.titles) != len(r.spans):
+            fail(f"{vid}: {len(r.cut_points)} cut points, "
+                 f"{len(r.titles)} titles for {len(r.spans)} chapters")
+    torch.cuda.empty_cache()
+
+    # --- BART-large: one greedy generate at full width ---
+    bart = build(Seq2SeqConfig.bart_large(), SEED + 17)
+    ids_b = torch.randint(3, bart.cfg.vocab_size, (TITLE_BUCKET, TITLE_IN),
+                          generator=gen, device=dev)
+    timed_generate(bart, ids_b, torch.ones_like(ids_b), "BART-large bf16")
+    del bart
+    torch.cuda.empty_cache()
+
+    return {"name": "sparse_band_attention", "route": "cuda",
+            "source": "video_chapter_generation_tpu_torch/csrc/"
+                      "sparse_attention.cu",
+            "replaces": "video_chapter_generation_tpu/ops/"
+                        "sparse_attention_pallas.py:108",
+            "launches": launches, "max_abs_err": max_abs, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
 
 
 def main() -> int:
@@ -1085,8 +1314,11 @@ def main() -> int:
           f"information only, not a benchmark", flush=True)
 
     title_decode_phase(dev, smi, s2s)
-    infer_kernels = infer_phases(dev, smi, frames, vision, ts_sd, delta)
-    del ts_sd
+    infer_kernels, cli_argv = infer_phases(dev, smi, frames, vision, ts_sd,
+                                           delta)
+    del ts_sd, s2s
+    torch.cuda.empty_cache()
+    bigbird_kernel = bigbird_phases(dev, smi, cli_argv)
     train_kernels = training_phases(dev, smi, frames, vision)
 
     sources = {"stem_s2d": ("csrc/stem_s2d.cu",
@@ -1109,9 +1341,11 @@ def main() -> int:
             # per vision call: the sum over the shapes one call runs
             "ms": sum(st["ms"]), "plain_ms": sum(st["plain_ms"]),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    # inference CLI entries: per 256-frame vision call; training entries:
-    # per step, the sum over the shapes one step runs
-    print(json.dumps({"kernels": kernels + infer_kernels + train_kernels}))
+    # inference CLI entries: per 256-frame vision call; K10: per encoder
+    # layer at the BigBird serving shape, launches from the CLI run;
+    # training entries: per step, the sum over the shapes one step runs
+    print(json.dumps({"kernels": kernels + infer_kernels + [bigbird_kernel]
+                      + train_kernels}))
     print(f"# chip_smoke wall time {time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,8 @@ MODULES = _port_modules()
 def test_port_module_list_is_complete():
     for name in ("ops.tsm_block_train", "ops.stem_train",
                  "ops.tsm_trunk_train", "train.loop", "cli.train_segment",
-                 "core.checkpoint", "data.datasets", "evalkit.boundary"):
+                 "core.checkpoint", "data.datasets", "evalkit.boundary",
+                 "ops.sparse_attention", "models.sparse_attention"):
         assert f"{PORT}.{name}" in MODULES, name
 
 

@@ -438,8 +438,9 @@ def test_title_restore(tmp_path, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["--num_beams", "4"], ["--vision_emb_dir", "embs"],
-    ["--fusion_type", "concat"], ["--sharded"], ["--title_arch", "bigbird"],
-    ["--title_arch", "bart"], ["model.kind=two_stream_window"],
+    ["--fusion_type", "concat"], ["--sharded"],
+    ["--title_arch", "bigbird", "--num_beams", "4"],
+    ["--title_arch", "bart", "--sharded"], ["model.kind=two_stream_window"],
     ["model.kind=text"]])
 def test_infer_video_names_what_is_not_ported(cli_case, extra):
     overrides = [e for e in extra if "=" in e]

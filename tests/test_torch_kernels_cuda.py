@@ -374,3 +374,46 @@ def test_tsm_bottleneck_int8_kernel(dev, x_kind, out_mode):
         assert torch.equal(got, ref_f.to(torch.bfloat16))
     again = tsm_bottleneck_int8(x, *args, t, out_mode=out_mode)
     assert torch.equal(got, again)
+
+
+# --- K10: BigBird block-sparse attention of the middle query blocks ---
+
+
+@pytest.mark.parametrize("bs,hd", [(16, 16), (16, 64), (64, 16), (64, 64)])
+def test_sparse_band_attention_kernel(dev, bs, hd):
+    """Padded keys (a whole block of them in row 1), random ids that may
+    collide with the window (counted twice, as in the plain version); the
+    kernel writes rows bs..L-bs of `out` and nothing else."""
+    import numpy as np
+
+    from video_chapter_generation_tpu_torch.ops.sparse_attention import (
+        sparse_band_attention,
+        sparse_band_attention_reference,
+        structured_ids,
+    )
+
+    g = torch.Generator().manual_seed(10)
+    b, h, nb, r = 2, 3, 12, 3
+    l = nb * bs
+    bf = torch.bfloat16
+    q, k, v = [torch.randn(b, l, h, hd, generator=g).to(dev, bf)
+               for _ in range(3)]
+    mask = torch.ones(b, l, dtype=torch.int32)
+    mask[1, l - 3 * bs - 5:] = 0
+    mask = mask.to(dev)
+    rand_map = np.random.default_rng(bs + hd).integers(
+        0, nb, (nb, r)).astype(np.int32)
+    ids, valid = [torch.from_numpy(a).to(dev)
+                  for a in structured_ids(nb, rand_map)]
+    before = sparse_band_attention.launches
+    out = torch.zeros_like(q)
+    got = sparse_band_attention(q[:, bs:-bs], k, v, mask, ids, valid, bs,
+                                out)
+    torch.cuda.synchronize()
+    assert sparse_band_attention.launches == before + 1
+    _close(got, sparse_band_attention_reference(q[:, bs:-bs], k, v, mask,
+                                                ids, valid, bs))
+    assert not out[:, :bs].any() and not out[:, -bs:].any()
+    with pytest.raises(ValueError, match="bf16"):
+        sparse_band_attention(q[:, bs:-bs].float(), k, v, mask, ids, valid,
+                              bs, out)

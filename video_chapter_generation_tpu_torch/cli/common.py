@@ -14,19 +14,12 @@ from ..data.corpus import VideoCorpus
 from ..data.tokenization import UnigramTokenizer, WordPieceTokenizer
 from ..models.seq2seq import Seq2SeqConfig
 
-# --title_arch values the port does not serve yet, with their ROADMAP item
-TITLE_ARCH_NOT_PORTED = {
-    "bigbird": "the BigBird title model is ROADMAP queue 1 item 9 "
-               "(with kernel K10, queue 2)",
-    "bart": "the BART title model is ROADMAP queue 1 item 9",
-}
-
-
 def parse_config(argv: Optional[List[str]] = None,
                  description: str = "") -> Tuple[Config, argparse.Namespace]:
     """Flags: --config <json file>, --bert_vocab, --spm_tsv, --tiny,
-    --title_arch, --device, plus any number of a.b=c overrides
-    (cli/common.py:22)."""
+    --title_arch, --device, plus any number of a.b=c overrides, before,
+    between or after the flags (cli/common.py:22, whose parser takes
+    them only in one run)."""
     parser = argparse.ArgumentParser(description=description)
     parser.add_argument("--config", type=str, default=None,
                         help="JSON config file")
@@ -36,13 +29,20 @@ def parse_config(argv: Optional[List[str]] = None,
                         help="path to a sentencepiece piece<TAB>score export")
     parser.add_argument("--title_arch", type=str, default="pegasus",
                         choices=("pegasus", "bigbird", "bart"),
-                        help="title-model family; the port serves pegasus")
+                        help="title-model family; bigbird = block-sparse "
+                        "long-context encoder: raise data.title_input_len "
+                        "(e.g. 3072) to use it (at 512 its encoder falls "
+                        "back to full attention)")
     parser.add_argument("--tiny", action="store_true",
                         help="tiny model configs (CI / smoke)")
     parser.add_argument("--device", type=str, default=None,
-                        help="torch device (default: cuda when present)")
+                        help="torch device (default: the card, cuda; "
+                        "pass cpu to run on the CPU)")
     parser.add_argument("overrides", nargs="*", help="a.b=c overrides")
-    args = parser.parse_args(argv)
+    # overrides may stand anywhere among the flags ("... --title_arch
+    # bigbird data.title_input_len=3072"); plain parse_args refuses a
+    # positional that follows a flag once the positionals were consumed
+    args = parser.parse_intermixed_args(argv)
     cfg = Config()
     if args.config:
         with open(args.config) as f:
@@ -75,17 +75,30 @@ def load_bert_tokenizer(args, corpus: Optional[VideoCorpus] = None):
 
 
 def title_s2s_config(args, tokenizer) -> Seq2SeqConfig:
-    """The title model's Seq2SeqConfig (cli/common.py:80-112): Pegasus-large,
-    or the tiny Pegasus with --tiny, at the tokenizer's vocabulary size.
-    --title_arch bigbird|bart exit naming their ROADMAP item."""
+    """The title model's Seq2SeqConfig for --title_arch at the selected
+    size, at the tokenizer's vocabulary size (cli/common.py:80-112):
+    Pegasus-large, BigBird-Pegasus-large or BART-large, or their tiny
+    forms with --tiny (the tiny BigBird has 16-token blocks, 1 random
+    block and 256 positions, so it is sparse from title_input_len=128)."""
     arch = getattr(args, "title_arch", "pegasus")
-    if arch in TITLE_ARCH_NOT_PORTED:
-        raise SystemExit(f"--title_arch {arch} is not ported to the PyTorch "
-                         f"port yet: {TITLE_ARCH_NOT_PORTED[arch]}")
     if args.tiny:
-        return Seq2SeqConfig.tiny(vocab_size=tokenizer.vocab_size)
-    return dataclasses.replace(Seq2SeqConfig.pegasus_large(),
-                               vocab_size=tokenizer.vocab_size)
+        kw = dict(vocab_size=tokenizer.vocab_size)
+        if arch == "bigbird":
+            kw.update(
+                max_positions=256, encoder_attention="block_sparse",
+                block_size=16, num_rand_blocks=1, activation="gelu_new",
+                learned_positions=True, decoder_start_token_id=2,
+                attention_bias=False)
+        elif arch == "bart":
+            kw.update(
+                activation="gelu", pre_norm=False, learned_positions=True,
+                position_offset=2, scale_embedding=False,
+                embed_layernorm=True)
+        return Seq2SeqConfig.tiny(**kw)
+    base = {"pegasus": Seq2SeqConfig.pegasus_large,
+            "bigbird": Seq2SeqConfig.bigbird_pegasus_large,
+            "bart": Seq2SeqConfig.bart_large}[arch]()
+    return dataclasses.replace(base, vocab_size=tokenizer.vocab_size)
 
 
 def load_title_tokenizer(args, corpus: Optional[VideoCorpus] = None):

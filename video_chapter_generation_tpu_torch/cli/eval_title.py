@@ -15,7 +15,8 @@ from ..core.contract import assert_contract
 
 
 def _restore(cfg, task) -> Dict[str, torch.Tensor]:
-    """The title model's float32 state dict: the best title checkpoint in
+    """The title model's float32 state dict, for any title family (the
+    task's config says which): the best title checkpoint in
     cfg.train.ckpt_dir, else the newest, else the task's seeded random
     weights, with a line saying which. A checkpoint of another model kind
     (the boundary model shares the directory in cli/infer_video) is no

@@ -5,18 +5,22 @@ points -> titles (counterpart of the JAX package's cli/infer_video.py).
         model.kind=two_stream data.img_dir=... data.data_file=... \
         data.subtitle_dir=... data.test_vid_file=... train.ckpt_dir=... \
         [--vids vid1,vid2] [--bert_vocab v.txt] [--spm_tsv spm.tsv] \
-        [--int8_vision] [--int8_titles] [--pipelined] [--tiny] \
-        [--device cpu]
+        [--title_arch pegasus|bigbird|bart] [--int8_vision] \
+        [--int8_titles] [--pipelined] [--tiny] [--device cpu]
 
 Runs on the card unless --device says otherwise. The boundary model is
 the best checkpoint in train.ckpt_dir (else the newest; its contract
 must match this config), scoring per-clip frames (uint8 -> normalized on
 the device -> the frames stem, model.stem_input=frames). The title model
-is Pegasus, greedy for data.title_decode_len tokens, from a title
-checkpoint in the same directory, else seeded random weights (a line
-says which). --int8_vision serves the W8A8 vision trunk, its activation
-scales calibrated on the first video's frames; --int8_titles serves
-weight-only int8 Pegasus with an int8 cross-attention cache. Writes
+(--title_arch: Pegasus-large, BigBird-Pegasus-large or BART-large) is
+greedy for data.title_decode_len tokens, from a title checkpoint in the
+same directory, else seeded random weights (a line says which). BigBird
+wants long title inputs: give it data.title_input_len=3072 (its encoder
+then runs the block-sparse kernel K10 in every layer; at the default 512
+it falls back to full attention). --int8_vision serves the W8A8 vision
+trunk, its activation scales calibrated on the first video's frames;
+--int8_titles serves the title model in weight-only int8 with an int8
+cross-attention cache. Writes
 test_results/whole_pipeline_result.txt and prints one JSON line per
 video. Flags the port does not serve yet exit naming their ROADMAP item.
 """

@@ -9,11 +9,13 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """`None` picks CUDA when present, else CPU. Asking for CUDA on a
-    machine without it raises instead of silently running on the CPU."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
+    """`None` means the card: CUDA, or an error where there is none. The
+    CPU is only ever what a caller names (`--device cpu`, the tests), so a
+    machine without a GPU never runs an entry point on the CPU unasked."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+        raise RuntimeError(
+            f"device {dev} requested but CUDA is not available"
+            + (" (the default is the card; pass --device cpu, or "
+               "device='cpu', to run on the CPU)" if device is None else ""))
     return dev

@@ -182,18 +182,25 @@ def two_stream_entries(num_bert_layers: int,
     return out
 
 
-def _dense_q(jax_path, key) -> List[Entry]:
+def _dense_q(jax_path, key, bias=True) -> List[Entry]:
     """A weight-only int8 Dense (ops/quantize.py:quantize_seq2seq of the
     JAX package: kernel_q [in, out] and scale [out])."""
-    return [((*jax_path, "kernel_q"), f"{key}.weight_q", "dense"),
-            ((*jax_path, "scale"), f"{key}.scale", "copy"),
-            ((*jax_path, "bias"), f"{key}.bias", "copy")]
+    out = [((*jax_path, "kernel_q"), f"{key}.weight_q", "dense"),
+           ((*jax_path, "scale"), f"{key}.scale", "copy")]
+    if bias:
+        out.append(((*jax_path, "bias"), f"{key}.bias", "copy"))
+    return out
 
 
 def seq2seq_entries(cfg) -> List[Entry]:
-    """Pegasus Seq2Seq params <-> HuggingFace Pegasus keys; with
-    cfg.weight_quant the int8 tree of quantize_seq2seq (kernel_q/scale,
-    embedding_q/scale) <-> the port's Int8Linear/Int8Embed keys."""
+    """Seq2Seq params <-> HuggingFace Pegasus/BART keys, following the
+    config: attention biases only with cfg.attention_bias, final
+    LayerNorms only with cfg.pre_norm, learned position tables
+    (enc_pos/dec_pos <-> model.{side}.embed_positions) and embedding
+    LayerNorms (enc_embed_ln/dec_embed_ln <-> model.{side}.
+    layernorm_embedding) where the config has them. With cfg.weight_quant
+    the int8 tree of quantize_seq2seq (kernel_q/scale, embedding_q/scale)
+    <-> the port's Int8Linear/Int8Embed keys."""
     if cfg.weight_quant:
         dense = _dense_q
         out = [(("shared", "embedding_q"), "model.shared.embedding_q", "copy"),
@@ -204,19 +211,27 @@ def seq2seq_entries(cfg) -> List[Entry]:
     for side, n_layers in (("encoder", cfg.encoder_layers),
                            ("decoder", cfg.decoder_layers)):
         short = "enc" if side == "encoder" else "dec"
+        if cfg.learned_positions:
+            out.append(((f"{short}_pos", "embedding"),
+                        f"model.{side}.embed_positions.weight", "copy"))
+        if cfg.embed_layernorm:
+            out += _ln((f"{short}_embed_ln",),
+                       f"model.{side}.layernorm_embedding")
         for i in range(n_layers):
             fl, hf = f"{short}_layer{i}", f"model.{side}.layers.{i}"
             attns = ["self_attn"] + (["encoder_attn"] if side == "decoder"
                                      else [])
             for attn in attns:
                 for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-                    out += dense((fl, attn, proj), f"{hf}.{attn}.{proj}")
+                    out += dense((fl, attn, proj), f"{hf}.{attn}.{proj}",
+                                 bias=cfg.attention_bias)
                 out += _ln((fl, f"{attn}_layer_norm"),
                            f"{hf}.{attn}_layer_norm")
             out += dense((fl, "ffn", "fc1"), f"{hf}.fc1")
             out += dense((fl, "ffn", "fc2"), f"{hf}.fc2")
             out += _ln((fl, "final_layer_norm"), f"{hf}.final_layer_norm")
-        out += _ln((f"{side}_ln",), f"model.{side}.layer_norm")
+        if cfg.pre_norm:
+            out += _ln((f"{side}_ln",), f"model.{side}.layer_norm")
     out.append((("final_logits_bias",), "final_logits_bias", "row"))
     return out
 

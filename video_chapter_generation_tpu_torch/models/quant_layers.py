@@ -31,7 +31,9 @@ def quantize_weight(w: torch.Tensor, axis: int = 0):
 
 class Int8Linear(nn.Module):
     """nn.Linear with an int8 weight [out, in] and a float32 scale [out]:
-    y = (x @ weight_q^T) * scale + bias, in x's dtype."""
+    y = (x @ weight_q^T) * scale + bias, in x's dtype; bias=False (the
+    JAX Int8Dense's use_bias, :43-66) leaves the bias out, as BigBird's
+    attention projections do."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True):

@@ -1,17 +1,20 @@
-"""Pegasus-style encoder-decoder with KV-cached greedy decoding
+"""Encoder-decoder title models with KV-cached greedy decoding
 (counterpart of the JAX package's models/seq2seq.py:35-662).
 
-Pre-norm layers with a final LayerNorm on each side, fairseq sinusoidal
-positions (first half sin, second half cos), embeddings scaled by
-sqrt(d_model) (pegasus-large's scale_embedding), and an LM head tied to
-the shared table plus final_logits_bias. Module names follow HuggingFace's
-PegasusForConditionalGeneration, so the JAX package's
-`convert_hf_seq2seq` reads this state dict as it is. Ported: the Pegasus
-configuration (`pegasus_large`, `tiny`), encode, the incremental decode
-step and greedy `generate`; BART's post-norm / learned positions, beam
-search and sampling are not. Serving in int8 (JAX :68-84): weight_quant
-swaps every layer Linear for Int8Linear and the shared table for
-Int8Embed (models/quant_layers.py; load a state dict made by
+Three families from one config (JAX :35-120): Pegasus-large (pre-norm
+with a final LayerNorm on each side, fairseq sinusoidal positions,
+embeddings scaled by sqrt(d_model), relu), BigBird-Pegasus-large (the
+same with learned positions, tanh gelu, bias-free attention and the
+block-sparse encoder self-attention of models/sparse_attention.py, kernel
+K10) and BART-large (post-norm, learned positions at offset 2, an
+embedding LayerNorm, exact gelu). The LM head is tied to the shared table
+plus final_logits_bias. Module names follow HuggingFace's Pegasus/BART
+(`model.{encoder,decoder}.embed_positions` for learned tables,
+`.layernorm_embedding` for BART's embedding LayerNorm), so the JAX
+package's `convert_hf_seq2seq` reads this state dict as it is. Beam
+search and sampling are not ported. Serving in int8 (JAX :68-84):
+weight_quant swaps every layer Linear for Int8Linear and the shared table
+for Int8Embed (models/quant_layers.py; load a state dict made by
 ops/quantize.py:quantize_seq2seq), and kv_quant keeps the cross-attention
 K/V cache in int8 with scales per (batch, head, channel) that fold into q
 and into the attention output exactly.
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .quant_layers import Int8Embed, Int8Linear
+from .sparse_attention import block_sparse_attention
 
 NEG_INF = -1e9
 
@@ -42,14 +46,48 @@ class Seq2SeqConfig:
     num_heads: int = 16
     ffn_dim: int = 4096
     max_positions: int = 1024
+    activation: str = "relu"  # relu | gelu_new (tanh form) | gelu (exact)
+    pre_norm: bool = True  # pegasus: True (+ final LN); bart: False
+    learned_positions: bool = False
+    position_offset: int = 0  # bart: 2
+    scale_embedding: bool = True
+    embed_layernorm: bool = False  # bart: a LayerNorm after the embeddings
+    pad_token_id: int = 0
     eos_token_id: int = 1
     decoder_start_token_id: int = 0
+    # long context (BigBird-Pegasus): block-sparse encoder self-attention
+    encoder_attention: str = "full"  # full | block_sparse
+    attention_bias: bool = True  # BigBird's projections have no biases
+    block_size: int = 64
+    num_rand_blocks: int = 3
+    num_global_blocks: int = 1
     weight_quant: bool = False
     kv_quant: bool = False
 
     @classmethod
     def pegasus_large(cls) -> "Seq2SeqConfig":
         return cls()
+
+    @classmethod
+    def bigbird_pegasus_large(cls) -> "Seq2SeqConfig":
+        """google/bigbird-pegasus-large-arxiv's shape (JAX :91-102): 4096
+        learned positions, gelu_new, bias-free attention, decoder start 2,
+        block-sparse encoder with 64-token blocks and 3 random blocks."""
+        return cls(
+            max_positions=4096, encoder_attention="block_sparse",
+            block_size=64, num_rand_blocks=3, num_global_blocks=1,
+            scale_embedding=True, activation="gelu_new",
+            learned_positions=True, decoder_start_token_id=2,
+            attention_bias=False)
+
+    @classmethod
+    def bart_large(cls) -> "Seq2SeqConfig":
+        """facebook/bart-large's shape (JAX :105-111)."""
+        return cls(
+            vocab_size=50265, encoder_layers=12, decoder_layers=12,
+            activation="gelu", pre_norm=False, learned_positions=True,
+            position_offset=2, scale_embedding=False, embed_layernorm=True,
+            pad_token_id=1, eos_token_id=2, decoder_start_token_id=2)
 
     @classmethod
     def tiny(cls, vocab_size: int = 128, **kw) -> "Seq2SeqConfig":
@@ -77,9 +115,27 @@ def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
     return (1.0 - mask[:, None, None, :].float()) * NEG_INF
 
 
-def _linear(cfg: Seq2SeqConfig, d_in: int, d_out: int) -> nn.Module:
+def _linear(cfg: Seq2SeqConfig, d_in: int, d_out: int,
+            bias: bool = True) -> nn.Module:
     """nn.Linear, or its weight-only int8 form (JAX seq2seq.py:139-145)."""
-    return (Int8Linear if cfg.weight_quant else nn.Linear)(d_in, d_out)
+    return (Int8Linear if cfg.weight_quant else nn.Linear)(d_in, d_out,
+                                                           bias=bias)
+
+
+def _ffn(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    return layer.fc2(layer.act(layer.fc1(x)))
+
+
+def _activation(name: str):
+    """The FFN activation (JAX seq2seq.py:232-242): flax's nn.gelu default
+    is the tanh form, which HF calls gelu_new."""
+    if name == "relu":
+        return F.relu
+    if name == "gelu_new":
+        return lambda y: F.gelu(y, approximate="tanh")
+    if name == "gelu":
+        return F.gelu
+    raise ValueError(f"unknown activation {name!r}")
 
 
 def quantize_kv(k: torch.Tensor, v: torch.Tensor):
@@ -102,11 +158,13 @@ class Attention(nn.Module):
     def __init__(self, cfg: Seq2SeqConfig):
         super().__init__()
         d = cfg.d_model
+        self.cfg = cfg
         self.num_heads = cfg.num_heads
-        self.q_proj = _linear(cfg, d, d)
-        self.k_proj = _linear(cfg, d, d)
-        self.v_proj = _linear(cfg, d, d)
-        self.out_proj = _linear(cfg, d, d)
+        ub = cfg.attention_bias
+        self.q_proj = _linear(cfg, d, d, ub)
+        self.k_proj = _linear(cfg, d, d, ub)
+        self.v_proj = _linear(cfg, d, d, ub)
+        self.out_proj = _linear(cfg, d, d, ub)
 
     def heads(self, x: torch.Tensor) -> torch.Tensor:
         """[B, L, D] -> [B, H, L, hd]."""
@@ -139,27 +197,54 @@ class Attention(nn.Module):
             ctx = ctx * v_scale.to(ctx.dtype)
         return self.out_proj(ctx.transpose(1, 2).reshape(q_in.shape))
 
+    def sparse_self(self, x, mask, rand_map=None):
+        """Block-sparse self-attention over x [B, L, D] with mask [B, L]
+        (JAX seq2seq.py:203-219): q, k, v stay [B, L, H, hd], the layout
+        the K10 kernel reads without a transpose."""
+        cfg = self.cfg
+        b, l, d = x.shape
+        split = lambda t: t.reshape(b, l, self.num_heads, -1)  # noqa: E731
+        ctx = block_sparse_attention(
+            split(self.q_proj(x)), split(self.k_proj(x)),
+            split(self.v_proj(x)), mask, cfg.block_size, cfg.num_rand_blocks,
+            cfg.num_global_blocks, rand_map=rand_map)
+        return self.out_proj(ctx.reshape(b, l, d))
+
 
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: Seq2SeqConfig):
         super().__init__()
         d = cfg.d_model
+        self.cfg = cfg
+        self.act = _activation(cfg.activation)
         self.self_attn = Attention(cfg)
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
         self.fc1 = _linear(cfg, d, cfg.ffn_dim)
         self.fc2 = _linear(cfg, cfg.ffn_dim, d)
         self.final_layer_norm = nn.LayerNorm(d, eps=1e-5)
 
-    def forward(self, x, bias):
-        y = self.self_attn_layer_norm(x)
-        x = x + self.self_attn(y, bias, kv_in=y)
-        return x + self.fc2(F.relu(self.fc1(self.final_layer_norm(x))))
+    def forward(self, x, bias, mask=None, rand_map=None):
+        """Pre- or post-norm (JAX seq2seq.py:256-278); the block-sparse
+        encoder attends with the [B, L] mask, the full one with bias."""
+        def attend(y):
+            if self.cfg.encoder_attention == "block_sparse":
+                return self.self_attn.sparse_self(y, mask, rand_map)
+            return self.self_attn(y, bias, kv_in=y)
+
+        ln1, ln2 = self.self_attn_layer_norm, self.final_layer_norm
+        if self.cfg.pre_norm:
+            x = x + attend(ln1(x))
+            return x + _ffn(self, ln2(x))
+        x = ln1(x + attend(x))
+        return ln2(x + _ffn(self, x))
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: Seq2SeqConfig):
         super().__init__()
         d = cfg.d_model
+        self.pre_norm = cfg.pre_norm
+        self.act = _activation(cfg.activation)
         self.self_attn = Attention(cfg)
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
         self.encoder_attn = Attention(cfg)
@@ -172,16 +257,24 @@ class DecoderLayer(nn.Module):
              cross_bias):
         """One incremental step, x [B, 1, D]: writes this position's K/V
         into the self cache in place (the cache is this call's own
-        buffer), then attends over it and over the cached encoder K/V."""
+        buffer), then attends over it and over the cached encoder K/V;
+        pre- or post-norm (JAX seq2seq.py:327-353)."""
         k_cache, v_cache = self_cache
-        y = self.self_attn_layer_norm(x)
+        ln1 = self.self_attn_layer_norm
+        ln2 = self.encoder_attn_layer_norm
+        ln3 = self.final_layer_norm
+        y = ln1(x) if self.pre_norm else x
         k_t, v_t = self.self_attn.project_kv(y)
         k_cache[:, :, position:position + 1] = k_t
         v_cache[:, :, position:position + 1] = v_t
-        x = x + self.self_attn(y, self_bias, cached_kv=(k_cache, v_cache))
-        x = x + self.encoder_attn(self.encoder_attn_layer_norm(x), cross_bias,
-                                  cached_kv=cross_kv)
-        return x + self.fc2(F.relu(self.fc1(self.final_layer_norm(x))))
+        y = self.self_attn(y, self_bias, cached_kv=(k_cache, v_cache))
+        if self.pre_norm:
+            x = x + y
+            x = x + self.encoder_attn(ln2(x), cross_bias, cached_kv=cross_kv)
+            return x + _ffn(self, ln3(x))
+        x = ln1(x + y)
+        x = ln2(x + self.encoder_attn(x, cross_bias, cached_kv=cross_kv))
+        return ln3(x + _ffn(self, x))
 
 
 class _Stack(nn.Module):
@@ -193,18 +286,25 @@ class _Stack(nn.Module):
 class _Backbone(nn.Module):
     def __init__(self, cfg: Seq2SeqConfig):
         super().__init__()
+        d = cfg.d_model
         self.shared = (Int8Embed if cfg.weight_quant else nn.Embedding)(
-            cfg.vocab_size, cfg.d_model)
+            cfg.vocab_size, d)
         self.encoder = _Stack(EncoderLayer(cfg)
                               for _ in range(cfg.encoder_layers))
-        self.encoder.layer_norm = nn.LayerNorm(cfg.d_model, eps=1e-5)
         self.decoder = _Stack(DecoderLayer(cfg)
                               for _ in range(cfg.decoder_layers))
-        self.decoder.layer_norm = nn.LayerNorm(cfg.d_model, eps=1e-5)
+        for side in (self.encoder, self.decoder):
+            if cfg.learned_positions:
+                side.embed_positions = nn.Embedding(
+                    cfg.max_positions + cfg.position_offset, d)
+            if cfg.embed_layernorm:
+                side.layernorm_embedding = nn.LayerNorm(d, eps=1e-5)
+            if cfg.pre_norm:
+                side.layer_norm = nn.LayerNorm(d, eps=1e-5)
 
 
 class Seq2Seq(nn.Module):
-    """Encoder-decoder with a tied LM head (Pegasus layout)."""
+    """Encoder-decoder with a tied LM head (Pegasus / BigBird / BART)."""
 
     def __init__(self, cfg: Seq2SeqConfig):
         super().__init__()
@@ -214,14 +314,27 @@ class Seq2Seq(nn.Module):
                              torch.zeros(1, cfg.vocab_size))
         # float32 whatever the model's dtype (not a buffer, which .to()
         # would cast); copied to a device on first use there
-        self._sin_pos = torch.from_numpy(
+        self._sin_pos = None if cfg.learned_positions else torch.from_numpy(
             sinusoidal_positions(cfg.max_positions, cfg.d_model))
 
-    def _embed(self, ids: torch.Tensor, positions: torch.Tensor):
-        if self._sin_pos.device != ids.device:
-            self._sin_pos = self._sin_pos.to(ids.device)
-        x = self.model.shared(ids) * math.sqrt(self.cfg.d_model)
-        return (x.float() + self._sin_pos[positions]).to(x.dtype)
+    def _embed(self, side: nn.Module, ids: torch.Tensor,
+               positions: torch.Tensor):
+        """Token embedding (scaled by sqrt(d_model) where the config says),
+        plus the position table, then the embedding LayerNorm where there
+        is one (JAX seq2seq.py:446-462, 484-485)."""
+        cfg = self.cfg
+        x = self.model.shared(ids)
+        if cfg.scale_embedding:
+            x = x * math.sqrt(cfg.d_model)
+        if cfg.learned_positions:
+            x = x + side.embed_positions(positions + cfg.position_offset)
+        else:
+            if self._sin_pos.device != ids.device:
+                self._sin_pos = self._sin_pos.to(ids.device)
+            x = (x.float() + self._sin_pos[positions]).to(x.dtype)
+        if cfg.embed_layernorm:
+            x = side.layernorm_embedding(x)
+        return x
 
     def _head(self, hidden: torch.Tensor) -> torch.Tensor:
         if self.cfg.weight_quant:
@@ -231,14 +344,19 @@ class Seq2Seq(nn.Module):
         return logits.float() + self.final_logits_bias.float()
 
     @torch.no_grad()
-    def encode(self, input_ids: torch.Tensor,
-               attention_mask: torch.Tensor) -> torch.Tensor:
+    def encode(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+               rand_maps=None) -> torch.Tensor:
+        """rand_maps: optional per-layer list of numpy random-block maps
+        for a block-sparse encoder (JAX seq2seq.py:476-493); by default
+        every layer uses the seed-0 map."""
+        enc = self.model.encoder
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
-        x = self._embed(input_ids, pos[None])
+        x = self._embed(enc, input_ids, pos[None])
         bias = _mask_bias(attention_mask)
-        for layer in self.model.encoder.layers:
-            x = layer(x, bias)
-        return self.model.encoder.layer_norm(x)
+        for i, layer in enumerate(enc.layers):
+            x = layer(x, bias, mask=attention_mask,
+                      rand_map=None if rand_maps is None else rand_maps[i])
+        return enc.layer_norm(x) if self.cfg.pre_norm else x
 
     @torch.no_grad()
     def init_cache(self, batch: int, max_len: int,
@@ -261,14 +379,16 @@ class Seq2Seq(nn.Module):
                     enc_mask: torch.Tensor, max_len: int):
         """token [B, 1] at `position` -> (logits [B, V] float32, cache);
         the self caches update in place."""
-        x = self._embed(token, torch.full_like(token, position))
+        dec = self.model.decoder
+        x = self._embed(dec, token, torch.full_like(token, position))
         key_pos = torch.arange(max_len, device=token.device)
         self_bias = torch.where(key_pos <= position, 0.0, NEG_INF)
         cross_bias = _mask_bias(enc_mask)
-        for i, layer in enumerate(self.model.decoder.layers):
+        for i, layer in enumerate(dec.layers):
             x = layer.step(x, position, cache["self"][i], cache["cross"][i],
                            self_bias, cross_bias)
-        x = self.model.decoder.layer_norm(x)
+        if self.cfg.pre_norm:
+            x = dec.layer_norm(x)
         return self._head(x)[:, 0], cache
 
 

@@ -12,7 +12,7 @@ block's activation abs-max and returns per block (sx, sz, sy2, sout):
   sout block output
 
 keyed by the block's module name ("layer2.1"), for ResNet.quantized.
-`quantize_seq2seq` maps a float Pegasus state dict to the int8 one that
+`quantize_seq2seq` maps a float title-model state dict to the int8 one that
 a Seq2Seq built with weight_quant=True loads (models/quant_layers.py).
 """
 
@@ -119,13 +119,16 @@ def _in_core(key: str) -> bool:
 
 def quantize_seq2seq(state_dict: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
-    """Weight-only int8 form of a float Pegasus state dict (quantize.py:
-    192): every 2-d Linear `weight` [out, in] of the layers becomes
-    `weight_q` int8 and `scale` float32 [out] (per output channel, the
-    JAX kernel's axis 0), and the shared table `model.shared.weight`
-    becomes `model.shared.embedding_q` and `model.shared.scale` (per
-    vocab row). Everything else passes through. Load the result into a
-    Seq2Seq built from dataclasses.replace(cfg, weight_quant=True)."""
+    """Weight-only int8 form of a float title-model state dict (Pegasus,
+    BigBird or BART; quantize.py:192): every 2-d Linear `weight` [out, in]
+    of the layers becomes `weight_q` int8 and `scale` float32 [out] (per
+    output channel, the JAX kernel's axis 0), and the shared table
+    `model.shared.weight` becomes `model.shared.embedding_q` and
+    `model.shared.scale` (per vocab row). Everything else passes through:
+    biases (where the layers have them), LayerNorms, learned position
+    tables (`model.*.embed_positions`, outside the layers) and
+    final_logits_bias. Load the result into a Seq2Seq built from
+    dataclasses.replace(cfg, weight_quant=True)."""
     out: Dict[str, torch.Tensor] = {}
     for key, v in state_dict.items():
         if key.endswith(".weight") and v.dim() == 2 and _in_core(key):

@@ -92,8 +92,10 @@ class SegmentTask:
 
 
 class TitleGenTask:
-    """Seq2seq chapter titles (Pegasus): the model (built on the meta
-    device), its seeded random weights and its contract."""
+    """Seq2seq chapter titles (Pegasus, BigBird-Pegasus or BART, as the
+    Seq2SeqConfig says): the model (built on the meta device), its seeded
+    random weights and its contract, which records the encoder's
+    attention (full or block_sparse) as the JAX task does (:376)."""
 
     def __init__(self, cfg: Config, seq2seq_cfg: Seq2SeqConfig):
         self.cfg = cfg
@@ -105,7 +107,8 @@ class TitleGenTask:
         self.contract = build_contract(
             model_kind="title", title_input_len=cfg.data.title_input_len,
             title_decode_len=cfg.data.title_decode_len,
-            vocab_size=seq2seq_cfg.vocab_size, encoder_attention="full",
+            vocab_size=seq2seq_cfg.vocab_size,
+            encoder_attention=seq2seq_cfg.encoder_attention,
             d_model=seq2seq_cfg.d_model)
 
     def init_state(self) -> Dict[str, torch.Tensor]:
