@@ -37,7 +37,8 @@
    writes a checkpoint of the frames-stem model as train_segment does
    (the head bias shifted as in 4) and runs cli/infer_video.main with
    --int8_vision --int8_titles --pipelined over 2 synthetic videos,
-   checking the launch counts (per vision call: stem_frames 1,
+   checking the launch counts (per vision call: normalize_frames 1,
+   stem_frames 1,
    bn_relu_maxpool 1, tsm_bottleneck 3, tsm_bottleneck_s2 3,
    tsm_bottleneck_int8 10, plus one bf16 calibration call), the restored
    checkpoint, and at least one cut point and one title per chapter for
@@ -67,7 +68,24 @@
    data.batch_size=8) and checks finite losses, moved parameters and BN
    running statistics, exact kernel launch counts per step, and a
    checkpoint that restores.
-8. Prints one JSON line of the kernels, the script's wall time and,
+8. The window model (K5, K6, K7). Holds K5 (`tsm_conv1x1_bn_relu` and
+   the epilogue-free `tsm_conv1x1`) to its plain version at the conv1 of
+   all 16 blocks of one 256-frame vision call, beside torch.matmul of the
+   same product on a pre-shifted input (the GEMM part alone), and K5's
+   training backward at one 128-frame step in the gradient bands; K7
+   forward and reverse at every block input and K6 at [16, 16, 224, 224,
+   3] to float32 and bf16, both bit for bit. Then runs cli/train_segment
+   .main on the default config (model.kind two_stream_window: BERT-base,
+   ResNet50-TSM frames stem, bf16, hidden 128, W = 3) for 3 steps of 2
+   windows under tsm_impl auto (with its AUC/mAP eval) and pallas,
+   checking the launch counts per step, a finite loss, moved parameters
+   and BN statistics and the checkpoint; and scores one synthetic video
+   through build_score_fn with InferWindowClipDataset under auto,
+   fusedblk, pallas and fuse_tsm=False, checking launches per vision call
+   (K2/K3 13 and K4 3; K2 12 and K5 4; K5 16; K7 16; each with K6 1 and
+   the frames stem), probabilities in [0, 1], the restored checkpoint,
+   and each trunk against the auto trunk on one clip.
+9. Prints one JSON line of the kernels, the script's wall time and,
    last, the device line.
 
 Any failed phase raises, and the script exits non-zero without printing
@@ -115,6 +133,12 @@ INT8_TRUNK_MIN_COS = 0.98
 # for --title_arch bigbird), batch, and the padded lengths of the K10 rows
 BIGBIRD_IN, BIGBIRD_BATCH = 3072, 8
 BIGBIRD_MIN_LEN = 300
+# the window model: training steps of 2 windows (3 clips x 16 frames each)
+# per tsm_impl, and the scoring batch (4 windows: 192 frames a vision call)
+WINDOW_STEPS, WINDOW_BATCH = 3, 4
+# each non-auto vision trunk vs the auto kernel trunk on one clip, per
+# frame: the same function, rounded to bf16 at other places
+WINDOW_TRUNK_MIN_COS = 0.99
 
 
 def fail(msg: str):
@@ -772,8 +796,8 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
     CheckpointManager(str(ckpt_dir)).save(
         0, {"model": sd, "optimizer": {}, "step": 0},
         metrics={"best_result": float("-inf"), "contract": contract})
-    counted = (stem_frames, bn_relu_maxpool, tsm_bottleneck, tsm_bottleneck_s2,
-               tsm_bottleneck_int8)
+    counted = (normalize_frames, stem_frames, bn_relu_maxpool,
+               tsm_bottleneck, tsm_bottleneck_s2, tsm_bottleneck_int8)
     for fn in counted:
         fn.launches = 0
     cwd = os.getcwd()
@@ -795,10 +819,12 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
     launches = {fn.__name__: fn.launches for fn in counted}
     calls = sum(math.ceil(len(r.clip_scores) / SCORE_BATCH)
                 for r in results.values())
-    per_call = {"stem_frames": 1, "bn_relu_maxpool": 1, "tsm_bottleneck": 3,
+    per_call = {"normalize_frames": 1, "stem_frames": 1,
+                "bn_relu_maxpool": 1, "tsm_bottleneck": 3,
                 "tsm_bottleneck_s2": 3, "tsm_bottleneck_int8": 10}
-    calib = {"stem_frames": 1, "bn_relu_maxpool": 1, "tsm_bottleneck": 13,
-             "tsm_bottleneck_s2": 3, "tsm_bottleneck_int8": 0}
+    calib = {"normalize_frames": 1, "stem_frames": 1, "bn_relu_maxpool": 1,
+             "tsm_bottleneck": 13, "tsm_bottleneck_s2": 3,
+             "tsm_bottleneck_int8": 0}
     want = {k: v * calls + calib[k] for k, v in per_call.items()}
     print(f"# infer_video --int8_vision --int8_titles --pipelined: "
           f"{len(results)} videos, {calls} vision calls (+1 calibration "
@@ -1056,6 +1082,411 @@ def bigbird_phases(dev, smi, cli_argv):
             "launches": launches, "max_abs_err": max_abs, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms}
+
+
+def window_phases(dev, smi, frames, vision):
+    """K5, K6 and K7 against their plain versions at the shapes of one
+    256-frame vision call (and K5's training entry at one 128-frame step),
+    then the window model: cli/train_segment.main on the default config
+    under tsm_impl auto and pallas, and window scoring through
+    build_score_fn under auto, fusedblk, pallas and fuse_tsm=False.
+    Returns the kernels' JSON entries."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from video_chapter_generation_tpu_torch.cli import train_segment
+    from video_chapter_generation_tpu_torch.cli.common import (
+        load_bert_tokenizer,
+        load_corpus,
+        parse_config,
+    )
+    from video_chapter_generation_tpu_torch.cli.eval_segment import (
+        build_score_fn,
+    )
+    from video_chapter_generation_tpu_torch.core.checkpoint import (
+        CheckpointManager,
+    )
+    from video_chapter_generation_tpu_torch.data.clip_grid import (
+        flatten_video_to_clips,
+    )
+    from video_chapter_generation_tpu_torch.data.datasets import (
+        InferWindowClipDataset,
+    )
+    from video_chapter_generation_tpu_torch.data.synth import (
+        make_synth_corpus_on_disk,
+    )
+    from video_chapter_generation_tpu_torch.models.fusion import (
+        TwoStreamWindow,
+    )
+    from video_chapter_generation_tpu_torch.ops.preprocess import (
+        depth_to_space4,
+        normalize_frames,
+        normalize_frames_reference,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem import (
+        bn_relu_maxpool,
+        stem_frames,
+        stem_s2d,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem_train import (
+        stem_train_bwd,
+        stem_train_fwd,
+    )
+    from video_chapter_generation_tpu_torch.ops.temporal_shift import (
+        temporal_shift,
+        temporal_shift_reference,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block import (
+        tsm_bottleneck,
+        tsm_bottleneck_s2,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block_train import (
+        block_train_bwd,
+        block_train_fwd,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_conv import (
+        tsm_conv1x1,
+        tsm_conv1x1_bn_relu,
+        tsm_conv1x1_reference,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_trunk_train import (
+        recompute_p,
+    )
+    from video_chapter_generation_tpu_torch.pipeline.boundary import (
+        score_clips,
+    )
+    from video_chapter_generation_tpu_torch.train.tasks import (
+        SegmentWindowTask,
+    )
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    entries = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                   "flops": 0.0, "bytes": 0.0, "max_abs": 0.0}
+               for k in ("tsm_conv1x1_bn_relu", "tsm_conv1x1",
+                         "normalize_frames", "temporal_shift")}
+
+    def account(name, got, ref, k_ms, p_ms, flops, nbytes, lib_ms=0.0):
+        e = entries[name]
+        e["max_abs"] = max(e["max_abs"], compare(got, ref)[0])
+        e["ms"] += k_ms
+        e["plain_ms"] += p_ms
+        e["library_ms"] += lib_ms
+        e["flops"] += flops
+        e["bytes"] += nbytes
+
+    # the input of every block of one 256-frame vision call, on the
+    # serving trunk's kernels (each block fed the kernel output of the last)
+    stem_p, block_ps = vision.folded_params()
+    y = stem_s2d(frames, stem_p["w7"], stem_p["s"], stem_p["b"])
+    inputs = []
+    for blk, p in zip(vision.blocks(), block_ps):
+        inputs.append(y)
+        y = blk.run(y, p, CLIP_FRAMES, 8)
+    del y
+
+    # --- K5: the conv1 of every block, with and without the epilogue ---
+    for i, (x, p) in enumerate(zip(inputs, block_ps)):
+        nt, h, w, c = x.shape
+        f = p["w1"].shape[1]
+        m = nt * h * w
+        label = f"block {i:2d} {tuple(x.shape)} -> F={f}"
+        ep = (p["s1"], p["b1"])
+        runs = {
+            "tsm_conv1x1_bn_relu": (
+                lambda x=x, p=p, ep=ep: tsm_conv1x1_bn_relu(
+                    x, p["w1"], *ep, CLIP_FRAMES),
+                lambda x=x, p=p, ep=ep: tsm_conv1x1_reference(
+                    x, p["w1"], CLIP_FRAMES, 8, *ep, relu=True)),
+            "tsm_conv1x1": (
+                lambda x=x, p=p: tsm_conv1x1(x, p["w1"], CLIP_FRAMES),
+                lambda x=x, p=p: tsm_conv1x1_reference(x, p["w1"],
+                                                       CLIP_FRAMES))}
+        # the library yardstick: the GEMM part only, on a pre-shifted x
+        xs = temporal_shift_reference(x, CLIP_FRAMES, 8).reshape(m, c)
+        lib_ms = cuda_ms(lambda xs=xs, p=p: torch.matmul(xs, p["w1"]))
+        notes = []
+        for name, (kernel, plain) in runs.items():
+            got, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            max_abs, mean_rel, cos = compare(got, ref)
+            if not (cos >= KERNEL_MIN_COS and mean_rel <= KERNEL_MAX_MEAN_REL):
+                fail(f"{name} {label} disagrees with its plain version: "
+                     f"max_abs {max_abs:.4g} mean_rel {mean_rel:.3g} cos "
+                     f"{cos:.6f}")
+            k_ms, p_ms = cuda_ms(kernel), cuda_ms(plain)
+            account(name, got, ref, k_ms, p_ms, 2 * m * c * f,
+                    2 * (m * c + c * f + m * f) + 8 * f, lib_ms)
+            notes.append(f"{name} cos {cos:.6f} mean_rel {mean_rel:.3g} "
+                         f"kernel {k_ms:.3f} ms plain {p_ms:.3f}")
+        print(f"# {'tsm_conv1x1':18s} {label:36s} {' | '.join(notes)} | "
+              f"GEMM part alone (torch.matmul, pre-shifted) {lib_ms:.3f} ms",
+              flush=True)
+        del xs
+
+    # K5's training entry at one 128-frame step: the backward (dX by a
+    # matmul and the reverse K7 shift, dW by K7 and a matmul) against
+    # autograd through the plain version, in the gradient bands
+    n_train = TRAIN_CLIPS * CLIP_FRAMES
+    bwd_k = bwd_p = 0.0
+    for i, (x, p, blk) in enumerate(zip(inputs, block_ps, vision.blocks())):
+        x = x[:n_train].contiguous()
+        w32 = blk.conv1.weight.detach()[:, :, 0, 0].t().contiguous()
+        xk, wk = x.clone().requires_grad_(), w32.clone().requires_grad_()
+        yk = tsm_conv1x1(xk, wk, CLIP_FRAMES)
+        dy = torch.randn(yk.shape, generator=gen, device=dev).to(bf)
+        xr, wr = x.clone().requires_grad_(), w32.clone().requires_grad_()
+        yr = tsm_conv1x1_reference(xr, wr.to(bf), CLIP_FRAMES)
+        gk = torch.autograd.grad(yk, [xk, wk], dy, retain_graph=True)
+        gr = torch.autograd.grad(yr, [xr, wr], dy, retain_graph=True)
+        torch.cuda.synchronize()
+        worst = 1.0
+        for a, b in zip(gk, gr):
+            _, mean_rel, cos = compare(a, b)
+            worst = min(worst, cos)
+            if not (cos >= GRAD_MIN_COS and mean_rel <= GRAD_MAX_MEAN_REL):
+                fail(f"tsm_conv1x1 backward block {i} disagrees with its "
+                     f"plain version: mean_rel {mean_rel:.3g} cos {cos:.6f}")
+        kb = cuda_ms(lambda: torch.autograd.grad(yk, [xk, wk], dy,
+                                                 retain_graph=True))
+        pb = cuda_ms(lambda: torch.autograd.grad(yr, [xr, wr], dy,
+                                                 retain_graph=True))
+        bwd_k += kb
+        bwd_p += pb
+        print(f"# {'tsm_conv1x1 bwd':18s} block {i:2d} {tuple(x.shape)} "
+              f"grads cos >= {worst:.6f} | backward {kb:.3f} ms (2 matmuls "
+              f"+ 2 K7) plain autograd {pb:.3f} ms", flush=True)
+        del xk, wk, yk, xr, wr, yr, gk, gr
+    print(f"# tsm_conv1x1 backward, one 128-frame step (16 blocks): "
+          f"{bwd_k:.3f} ms, plain {bwd_p:.3f} ms on {smi}", flush=True)
+
+    # --- K7: forward and reverse shift at every block input, bit for bit ---
+    for i, x in enumerate(inputs):
+        for reverse in (False, True):
+            got = temporal_shift(x, CLIP_FRAMES, 8, reverse)
+            ref = temporal_shift_reference(x, CLIP_FRAMES, 8, reverse)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                fail(f"temporal_shift block {i} reverse={reverse}: not its "
+                     f"plain version bit for bit")
+        k_ms = cuda_ms(lambda x=x: temporal_shift(x, CLIP_FRAMES))
+        p_ms = cuda_ms(lambda x=x: temporal_shift_reference(x, CLIP_FRAMES))
+        account("temporal_shift", got, ref, k_ms, p_ms, 0,
+                2 * x.numel() * x.element_size())
+    print(f"# {'temporal_shift':18s} 16 block inputs, forward and reverse "
+          f"bitwise True | forward per vision call: kernel "
+          f"{entries['temporal_shift']['ms']:.3f} ms plain "
+          f"{entries['temporal_shift']['plain_ms']:.3f} ms", flush=True)
+    del inputs
+
+    # --- K6: the decoded frames of one 16-clip call, [16, 16, 224, 224, 3] ---
+    u8 = depth_to_space4(frames).reshape(16, CLIP_FRAMES, 224, 224, 3)
+    u8 = u8.contiguous()
+    for out_dtype in (torch.float32, bf):
+        got = normalize_frames(u8, out_dtype)
+        ref = normalize_frames_reference(u8, out_dtype)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"normalize_frames to {out_dtype}: not its plain version "
+                 f"bit for bit")
+        k_ms = cuda_ms(lambda: normalize_frames(u8, out_dtype))
+        p_ms = cuda_ms(lambda: normalize_frames_reference(u8, out_dtype))
+        if out_dtype == bf:  # the main path's output type
+            account("normalize_frames", got, ref, k_ms, p_ms, 2 * u8.numel(),
+                    u8.numel() * 3)
+        print(f"# {'normalize_frames':18s} {str(tuple(u8.shape)):36s} -> "
+              f"{str(out_dtype)[6:]} bitwise True | kernel {k_ms:.3f} ms "
+              f"plain {p_ms:.3f} ms", flush=True)
+    del u8, got, ref
+    torch.cuda.empty_cache()
+
+    # --- the window model: train_segment on the default config ---
+    build = ROOT / "video_chapter_generation_tpu_torch" / "_build"
+    root = build / "synth_window_corpus"
+    paths = make_synth_corpus_on_disk(
+        str(root), n_videos=2 * WINDOW_STEPS + 2, video_sec=60,
+        seed=SEED + 21, splits={"train": 2 * WINDOW_STEPS, "val": 2})
+    base = [f"data.img_dir={paths['img_dir']}",
+            f"data.data_file={paths['data_file']}",
+            f"data.subtitle_dir={paths['subtitle_dir']}",
+            f"data.train_vid_file={paths['train_vid_file']}",
+            f"data.val_vid_file={paths['val_vid_file']}",
+            "data.batch_size=2", "train.max_epochs=1",
+            # epoch 0 warms up at 0.01 of the rate: 1e-5 moves every
+            # float32 parameter (1e-7, the default's, leaves a scale of 1.0
+            # where it was)
+            "optim.learning_rate=1e-3",
+            "train.keep_checkpoints=1", "train.resume=false"]
+    counted = {f.__name__: f for f in (
+        normalize_frames, stem_train_fwd, stem_train_bwd, block_train_fwd,
+        block_train_bwd, recompute_p, tsm_conv1x1, temporal_shift,
+        stem_frames, bn_relu_maxpool, tsm_bottleneck, tsm_bottleneck_s2,
+        tsm_conv1x1_bn_relu)}
+    runs, seen = {}, {}
+
+    def drive(fn):
+        for f in counted.values():
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: f.launches for k, f in counted.items() if f.launches}
+
+    eval_call = {"normalize_frames": 1, "stem_frames": 1,
+                 "bn_relu_maxpool": 1, "tsm_bottleneck": 13,
+                 "tsm_bottleneck_s2": 3}
+    per_step = {
+        "auto": {"normalize_frames": 1, "stem_train_fwd": 1,
+                 "stem_train_bwd": 1, "block_train_fwd": 16,
+                 "block_train_bwd": 16, "recompute_p": 16},
+        "pallas": {"normalize_frames": 1, "tsm_conv1x1": 16,
+                   "temporal_shift": 32}}
+    for impl in ("auto", "pallas"):
+        ckpt = build / f"window_ckpt_{impl}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        argv = base + [f"model.tsm_impl={impl}", f"train.ckpt_dir={ckpt}",
+                       f"train.log_dir={build / f'window_logs_{impl}'}"]
+        if impl == "auto":  # the AUC/mAP eval once, after the epoch
+            argv.append("train.eval_every_epochs=1")
+        t0 = time.time()
+        trainer, launches = drive(lambda: train_segment.main(argv))
+        wall = time.time() - t0
+        seen[f"train {impl}"] = launches
+        steps = trainer.step
+        want = {k: v * steps for k, v in per_step[impl].items()}
+        if impl == "auto":
+            for k, v in eval_call.items():
+                want[k] = want.get(k, 0) + v  # 2 val videos: one batch
+        print(f"# window train_segment tsm_impl={impl}: {steps} steps of 2 "
+              f"windows (96 frames), {wall:.1f} s (models, data and "
+              f"checkpoint included), launches {launches} on {smi}",
+              flush=True)
+        if not isinstance(trainer.model, TwoStreamWindow) or steps != \
+                WINDOW_STEPS:
+            fail(f"window training ran {steps} steps of "
+                 f"{type(trainer.model).__name__}")
+        if launches != want:
+            fail(f"window training launch counts {launches} != {want}")
+        logs = [json.loads(line) for line in
+                open(build / f"window_logs_{impl}" / "scalars.jsonl")]
+        tags = {r["tag"]: r["value"] for r in logs}
+        if not math.isfinite(tags["train/loss"]):
+            fail(f"window training loss {tags['train/loss']} is not finite")
+        init = SegmentWindowTask(trainer.cfg).init_state()
+        trained = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+        params = {k for k, _ in trainer.model.named_parameters()}
+        frozen = [k for k in init if not k.endswith("num_batches_tracked")
+                  and torch.equal(init[k], trained[k])]
+        # an attention key bias has a zero gradient in exact arithmetic
+        # (softmax ignores a per-query constant): it may stay where it was
+        bad = [k for k in frozen if not k.endswith("key.bias")]
+        print(f"# loss {tags['train/loss']:.4f}"
+              + (f", eval auc {tags['eval/auc']:.3f} m_ap "
+                 f"{tags['eval/m_ap']:.3f}" if "eval/auc" in tags else "")
+              + f"; {len(init) - len(frozen)} of {len(init)} tensors moved "
+              f"({len(params)} parameters; unmoved: {frozen[:4]})",
+              flush=True)
+        if bad:
+            fail(f"window training did not move {bad[:4]}")
+        _, state = CheckpointManager(str(ckpt)).restore_latest()
+        if any(not torch.equal(v, trained[k])
+               for k, v in state["model"].items()):
+            fail("the window checkpoint does not hold the trained model")
+        runs[impl] = (trainer.cfg, argv, trained)
+        del trainer, state, init
+        torch.cuda.empty_cache()
+
+    # --- window scoring through build_score_fn, one synthetic video ---
+    cfg, argv, trained = runs["auto"]
+    cfg, args = parse_config(argv)
+    tok = load_bert_tokenizer(args, load_corpus(cfg, "train"))
+    val = load_corpus(cfg, "val")
+    vid = val.vids[0]
+    clips = flatten_video_to_clips(vid, val.img_dir, val.image_num(vid),
+                                   val.raw_cut_secs(vid), val.subtitles(vid),
+                                   CLIP_FRAMES)
+    ds = InferWindowClipDataset(clips, tok, CLIP_FRAMES, TEXT_LEN,
+                                window_size=1)
+    clip = None
+    feats = {}
+    per_call = {
+        "auto": {"tsm_bottleneck": 13, "tsm_bottleneck_s2": 3},
+        "fusedblk": {"tsm_bottleneck": 12, "tsm_conv1x1_bn_relu": 4},
+        "pallas": {"tsm_conv1x1_bn_relu": 16},
+        "fuse_tsm=False": {"temporal_shift": 16}}
+    for mode in per_call:
+        impl = "pallas" if mode == "fuse_tsm=False" else mode
+        score = build_score_fn(cfg.apply_overrides([f"model.tsm_impl={impl}"]),
+                               args, tok, device=dev)
+        model = score.model
+        if mode == "auto":  # the scorer restores the checkpoint bit for bit
+            for k, v in model.state_dict().items():
+                if not torch.equal(v.cpu(), trained[k].to(v.dtype)):
+                    fail(f"build_score_fn restored {k} differently")
+        model.vision_model.fuse_tsm = mode != "fuse_tsm=False"
+        t0 = time.time()
+        infos, launches = drive(lambda: score_clips(ds, score, WINDOW_BATCH,
+                                                    prefetch=0))
+        wall = time.time() - t0
+        seen[f"score {mode}"] = launches
+        calls = math.ceil(len(ds) / WINDOW_BATCH)
+        want = {k: v * calls for k, v in dict(
+            per_call[mode], normalize_frames=1, stem_frames=1,
+            bn_relu_maxpool=1).items()}
+        probs = np.asarray([c.pred_score for c in infos], np.float64)
+        print(f"# window scoring {mode}: {len(ds)} windows of 3 x "
+              f"{CLIP_FRAMES} frames in {calls} vision calls of "
+              f"{WINDOW_BATCH * 3 * CLIP_FRAMES} frames, {wall:.2f} s, "
+              f"probabilities {probs.min():.4f}..{probs.max():.4f}, "
+              f"launches {launches}", flush=True)
+        if launches != want:
+            fail(f"window scoring {mode} launch counts {launches} != {want}")
+        if not (np.isfinite(probs).all() and (probs >= 0).all()
+                and (probs <= 1).all()):
+            fail(f"window scoring {mode}: probabilities outside [0, 1]")
+        if clip is None:
+            clip = normalize_frames(torch.from_numpy(
+                ds[0]["img_clips"][1]).to(dev), bf)
+        with torch.no_grad():
+            feats[mode] = model.vision_model(clip).float()
+        del score, model
+        torch.cuda.empty_cache()
+    for mode, f in feats.items():
+        cos = torch.nn.functional.cosine_similarity(f, feats["auto"], dim=1)
+        print(f"# vision trunk {mode} vs auto, one clip: per-frame cosine "
+              f"min {cos.min().item():.6f}", flush=True)
+        if cos.min().item() < WINDOW_TRUNK_MIN_COS:
+            fail(f"the {mode} trunk disagrees with the auto kernel trunk")
+    for impl in runs:
+        shutil.rmtree(build / f"window_ckpt_{impl}", ignore_errors=True)
+
+    sources = {
+        "tsm_conv1x1_bn_relu": ("csrc/tsm_conv.cu", "tsm_conv_pallas.py:204"),
+        "tsm_conv1x1": ("csrc/tsm_conv.cu", "tsm_conv_pallas.py:215"),
+        "normalize_frames": ("csrc/frame_ops.cu", "preprocess.py:53"),
+        "temporal_shift": ("csrc/frame_ops.cu", "temporal_shift.py:98")}
+    # each kernel's launches in the run of its path: window scoring under
+    # pallas, training under pallas, scoring under auto (one normalize a
+    # vision call) and scoring with fuse_tsm=False
+    runs_of = {"tsm_conv1x1_bn_relu": "score pallas",
+               "tsm_conv1x1": "train pallas",
+               "normalize_frames": "score auto",
+               "temporal_shift": "score fuse_tsm=False"}
+    out = []
+    for name, e in entries.items():
+        src, replaces = sources[name]
+        b_ms, b_by = bound(e["flops"], e["bytes"])
+        n = seen[runs_of[name]][name]
+        out.append({"name": name, "route": "cuda",
+                    "source": f"video_chapter_generation_tpu_torch/{src}",
+                    "replaces": f"video_chapter_generation_tpu/ops/{replaces}",
+                    "launches": n, "max_abs_err": e["max_abs"],
+                    "ms": e["ms"], "plain_ms": e["plain_ms"],
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": (e["library_ms"] if name.startswith(
+                        "tsm_conv") else None)})
+    return out
 
 
 def main() -> int:
@@ -1320,6 +1751,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     bigbird_kernel = bigbird_phases(dev, smi, cli_argv)
     train_kernels = training_phases(dev, smi, frames, vision)
+    window_kernels = window_phases(dev, smi, frames, vision)
 
     sources = {"stem_s2d": ("csrc/stem_s2d.cu",
                             "video_chapter_generation_tpu/ops/stem_pallas.py:275"),
@@ -1343,9 +1775,11 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     # inference CLI entries: per 256-frame vision call; K10: per encoder
     # layer at the BigBird serving shape, launches from the CLI run;
-    # training entries: per step, the sum over the shapes one step runs
+    # training entries: per step, the sum over the shapes one step runs;
+    # K5 (both entries), K7: per 256-frame vision call; K6: one 16-clip
+    # call's frames; their launches from the window phases' runs
     print(json.dumps({"kernels": kernels + infer_kernels + [bigbird_kernel]
-                      + train_kernels}))
+                      + train_kernels + window_kernels}))
     print(f"# chip_smoke wall time {time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,7 @@ from video_chapter_generation_tpu.data import loader as jax_loader
 from video_chapter_generation_tpu.data import synth as jax_synth
 from video_chapter_generation_tpu.data import tokenization as jax_tok
 from video_chapter_generation_tpu.evalkit import boundary as jax_boundary
+from video_chapter_generation_tpu.evalkit import metrics as jax_metrics
 from video_chapter_generation_tpu_torch.core import config, contract
 from video_chapter_generation_tpu_torch.data import (
     clip_grid,
@@ -25,7 +26,7 @@ from video_chapter_generation_tpu_torch.data import (
     synth,
     tokenization,
 )
-from video_chapter_generation_tpu_torch.evalkit import boundary
+from video_chapter_generation_tpu_torch.evalkit import boundary, metrics
 
 
 @pytest.fixture(scope="module")
@@ -173,3 +174,51 @@ def test_cut_points_and_config_match():
     ov = ["data.batch_size=8", "model.kind=two_stream", "optim.betas=[0.8,0.9]"]
     assert config.Config().apply_overrides(ov).to_dict() == \
         jax_config.Config().apply_overrides(ov).to_dict()
+
+
+@pytest.mark.parametrize("s2d", [False, True])
+def test_window_dataset_items_match(disk, s2d):
+    pa, pb = _corpora(disk)
+    tok_a = tokenization.WordPieceTokenizer.build_from_corpus(_texts(pa), 300)
+    tok_b = jax_tok.WordPieceTokenizer.build_from_corpus(_texts(pb), 300)
+    da = datasets.WindowClipDataset(pa, tok_a, 8, 16, 1, hw=32, s2d=s2d)
+    db = jax_datasets.WindowClipDataset(pb, tok_b, 8, 16, 1, hw=32, s2d=s2d)
+    for epoch in range(2):
+        for i in range(len(da)):
+            _same(da.__getitem__(i, epoch), db.__getitem__(i, epoch))
+    for target in (0, 3, 9):
+        for n, w, skip in ((10, 1, 2), (4, 2, 1)):
+            assert clip_grid.window_clip_indices(target, n, w, skip) == \
+                jax_clip_grid.window_clip_indices(target, n, w, skip)
+    assert clip_grid.window_skip_size(16) == jax_clip_grid.window_skip_size(16)
+
+
+def test_infer_window_dataset_matches(disk):
+    pa, pb = _corpora(disk)
+    tok_a = tokenization.WordPieceTokenizer.build_from_corpus(_texts(pa), 300)
+    tok_b = jax_tok.WordPieceTokenizer.build_from_corpus(_texts(pb), 300)
+    clips_a, clips_b = [], []
+    for vid in pa.vids[:2]:  # two videos: the window stops at each edge
+        clips_a += clip_grid.flatten_video_to_clips(
+            vid, pa.img_dir, pa.image_num(vid), pa.raw_cut_secs(vid),
+            pa.subtitles(vid), 8)
+        clips_b += jax_clip_grid.flatten_video_to_clips(
+            vid, pb.img_dir, pb.image_num(vid), pb.raw_cut_secs(vid),
+            pb.subtitles(vid), 8)
+    ia = datasets.InferWindowClipDataset(clips_a, tok_a, 8, 16, 1, hw=32)
+    ib = jax_datasets.InferWindowClipDataset(clips_b, tok_b, 8, 16, 1, hw=32)
+    assert ia.vid_to_range == ib.vid_to_range
+    for i in range(len(ia)):
+        _same(ia[i], ib[i])
+
+
+def test_ranking_metrics_match():
+    rng = np.random.default_rng(1)
+    for _ in range(5):
+        y = rng.integers(0, 2, 40)
+        s = np.round(rng.random(40), 1)  # ties
+        assert metrics.roc_auc_score(y, s) == jax_metrics.roc_auc_score(y, s)
+        assert metrics.average_precision_score(y, s) == \
+            jax_metrics.average_precision_score(y, s)
+    with pytest.raises(ValueError):
+        metrics.roc_auc_score([1, 1], [0.2, 0.3])

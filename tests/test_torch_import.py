@@ -32,7 +32,9 @@ def test_port_module_list_is_complete():
     for name in ("ops.tsm_block_train", "ops.stem_train",
                  "ops.tsm_trunk_train", "train.loop", "cli.train_segment",
                  "core.checkpoint", "data.datasets", "evalkit.boundary",
-                 "ops.sparse_attention", "models.sparse_attention"):
+                 "ops.sparse_attention", "models.sparse_attention",
+                 "ops.tsm_conv", "ops.temporal_shift", "ops.preprocess",
+                 "evalkit.metrics", "models.fusion", "pipeline.boundary"):
         assert f"{PORT}.{name}" in MODULES, name
 
 

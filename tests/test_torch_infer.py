@@ -443,7 +443,10 @@ def test_title_restore(tmp_path, capsys):
     ["--title_arch", "bart", "--sharded"], ["model.kind=two_stream_window"],
     ["model.kind=text"]])
 def test_infer_video_names_what_is_not_ported(cli_case, extra):
+    """Each names its ROADMAP item; the window model names the JAX
+    package's fault (its infer_video cannot serve it either)."""
     overrides = [e for e in extra if "=" in e]
     flags = [e for e in extra if "=" not in e]
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item"):
+    with pytest.raises(SystemExit, match="ROADMAP (queue 1 item|lists this "
+                       "under the JAX package's faults)"):
         _infer(cli_case, *flags, overrides=overrides)

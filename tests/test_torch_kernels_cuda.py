@@ -417,3 +417,88 @@ def test_sparse_band_attention_kernel(dev, bs, hd):
     with pytest.raises(ValueError, match="bf16"):
         sparse_band_attention(q[:, bs:-bs].float(), k, v, mask, ids, valid,
                               bs, out)
+
+
+# --- K5 (shift + 1x1 conv), K6 (frame normalize), K7 (temporal shift) ---
+
+
+@pytest.mark.parametrize("c,f,t", [(64, 64, 8), (256, 128, 8),
+                                   (1024, 256, 4)])
+def test_tsm_conv_kernel(dev, c, f, t):
+    """Inference (epilogue) and training (bare product) entries against
+    the plain version in the output bands; the training backward (two
+    matmuls and two K7 launches) against autograd through the plain
+    version in the gradient bands."""
+    from video_chapter_generation_tpu_torch.ops.temporal_shift import (
+        temporal_shift,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_conv import (
+        tsm_conv1x1,
+        tsm_conv1x1_bn_relu,
+        tsm_conv1x1_reference,
+    )
+
+    g = torch.Generator().manual_seed(7)
+    bf = torch.bfloat16
+    x = torch.randn(2 * t, 14, 14, c, generator=g).to(dev, bf)
+    w = (torch.randn(c, f, generator=g) / c ** 0.5).to(dev, bf)
+    s = torch.rand(f, generator=g).to(dev) + 0.5
+    b = (0.1 * torch.randn(f, generator=g)).to(dev)
+    before = tsm_conv1x1_bn_relu.launches
+    got = tsm_conv1x1_bn_relu(x, w, s, b, t)
+    torch.cuda.synchronize()
+    assert tsm_conv1x1_bn_relu.launches == before + 1
+    _close(got, tsm_conv1x1_reference(x, w, t, 8, s, b, relu=True))
+
+    wf = w.float()
+    shifts = temporal_shift.launches
+    xk, wk = x.clone().requires_grad_(), wf.clone().requires_grad_()
+    y = tsm_conv1x1(xk, wk, t)
+    dy = torch.randn(y.shape, generator=g).to(dev, bf)
+    y.backward(dy)
+    xr, wr = x.clone().requires_grad_(), wf.clone().requires_grad_()
+    yr = tsm_conv1x1_reference(xr, wr, t)
+    yr.backward(dy)
+    torch.cuda.synchronize()
+    assert temporal_shift.launches == shifts + 2
+    _close(y, yr)
+    _grad_close(xk.grad, xr.grad)
+    _grad_close(wk.grad, wr.grad)
+    assert wk.grad.dtype == torch.float32
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_normalize_kernel_is_exact(dev, out_dtype):
+    from video_chapter_generation_tpu_torch.ops.preprocess import (
+        normalize_frames,
+        normalize_frames_reference,
+    )
+
+    g = torch.Generator().manual_seed(8)
+    u8 = torch.randint(0, 256, (3, 5, 37, 41, 3), generator=g,
+                       dtype=torch.uint8).to(dev)
+    before = normalize_frames.launches
+    got = normalize_frames(u8, out_dtype)
+    torch.cuda.synchronize()
+    assert normalize_frames.launches == before + 1
+    assert torch.equal(got, normalize_frames_reference(u8, out_dtype))
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 256),
+                                     (torch.float32, 64),
+                                     (torch.uint8, 24)])
+def test_shift_kernel_is_exact(dev, dtype, c):
+    from video_chapter_generation_tpu_torch.ops.temporal_shift import (
+        temporal_shift,
+        temporal_shift_reference,
+    )
+
+    g = torch.Generator().manual_seed(9)
+    x = (torch.randn(2 * 8, 7, 7, c, generator=g) * 50).to(dtype).to(dev)
+    for reverse in (False, True):
+        got = temporal_shift(x, 8, 8, reverse)
+        assert torch.equal(got, temporal_shift_reference(x, 8, 8, reverse))
+    xk = x.float().requires_grad_()
+    dy = torch.randn(x.shape, generator=g).to(dev)
+    temporal_shift(xk, 8).backward(dy)
+    assert torch.equal(xk.grad, temporal_shift_reference(dy, 8, 8, True))

@@ -412,6 +412,12 @@ def test_train_segment_cli_tiny(tiny_corpus, tmp_path):
 
 @pytest.mark.parametrize("kind", ["two_stream_window", "text"])
 def test_train_segment_names_what_is_not_ported(tiny_corpus, tmp_path, kind):
-    with pytest.raises(SystemExit, match="ROADMAP queue 1"):
+    """text is not ported; the window model is, but not its
+    model.remat_vision (the large-batch path)."""
+    extra = {"two_stream_window": ["model.remat_vision=true"],
+             "text": []}[kind]
+    want = {"two_stream_window": "ROADMAP queue 2 item 5",
+            "text": "ROADMAP queue 1"}[kind]
+    with pytest.raises(SystemExit, match=want):
         train_segment.main(_argv(tiny_corpus, tmp_path,
-                                 f"model.kind={kind}"))
+                                 f"model.kind={kind}", *extra))

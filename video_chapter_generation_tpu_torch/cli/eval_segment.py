@@ -1,8 +1,8 @@
 """The boundary scorer from a checkpoint (counterpart of the JAX
 package's cli/eval_segment.py). Of that CLI, `build_score_fn` (:109-200)
-is ported, for model.kind=two_stream, as the serving CLI needs it; the
-evaluation itself (AUC/mAP and cut-point P/R/F files) is ROADMAP queue 1
-item 11.
+is ported, for model.kind two_stream and two_stream_window (:143-144,
+194-196); the evaluation itself (AUC/mAP and cut-point P/R/F files) is
+ROADMAP queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -16,8 +16,11 @@ from ..core.checkpoint import CheckpointManager
 from ..core.contract import assert_contract, vocab_hash
 from ..device import resolve_device
 from ..ops.quantize import calibrate_two_stream_quant
-from ..pipeline.boundary import make_two_stream_score_fn
-from ..train.tasks import SegmentTask
+from ..pipeline.boundary import (
+    make_two_stream_score_fn,
+    make_window_score_fn,
+)
+from ..train.tasks import SegmentTask, SegmentWindowTask
 
 
 def build_score_fn(cfg, args, tokenizer,
@@ -27,14 +30,17 @@ def build_score_fn(cfg, args, tokenizer,
     task's seeded random weights. The checkpoint's contract must match
     this config's (core/contract.py), or ContractMismatch is raised.
 
-    calib_clips (uint8 [B, T, H, W, 3] real frames) turns on W8A8 serving
-    of the vision trunk: its activation scales are calibrated on them
+    calib_clips (uint8 [B, T, H, W, 3] real frames; for the window model
+    its window clips flattened to [B*W, T, ...]) turns on W8A8 serving of
+    the vision trunk: its activation scales are calibrated on them
     (ops/quantize.py:calibrate_two_stream_quant) and the scorer runs the
-    quantized twin."""
-    if cfg.model.kind != "two_stream":
+    quantized twin. The window scorer takes InferWindowClipDataset
+    batches ("img_clips"), the base one InferClipDataset batches."""
+    tasks = {"two_stream": SegmentTask, "two_stream_window": SegmentWindowTask}
+    if cfg.model.kind not in tasks:
         raise SystemExit(f"model.kind={cfg.model.kind} is not ported to the "
-                         f"PyTorch port's scorer yet (ROADMAP queue 1 items 5 "
-                         f"and 6)")
+                         f"PyTorch port's scorer yet (ROADMAP queue 1 item "
+                         f"6)")
     dev = resolve_device(device)
     hw = 64 if args.tiny else 224  # train_segment's frame contract
     bert_cfg = None
@@ -42,7 +48,8 @@ def build_score_fn(cfg, args, tokenizer,
         from ..models.bert import BertConfig
 
         bert_cfg = BertConfig.tiny(vocab_size=tokenizer.vocab_size)
-    task = SegmentTask(cfg, tiny=args.tiny, hw=hw, bert_cfg=bert_cfg)
+    task = tasks[cfg.model.kind](cfg, tiny=args.tiny, hw=hw,
+                                 bert_cfg=bert_cfg)
     task.contract = dict(task.contract, vocab_hash=vocab_hash(tokenizer))
 
     ckpt = CheckpointManager(cfg.train.ckpt_dir)
@@ -68,4 +75,6 @@ def build_score_fn(cfg, args, tokenizer,
     if calib_clips is not None:
         quant = calibrate_two_stream_quant(
             model, torch.from_numpy(np.ascontiguousarray(calib_clips)).to(dev))
+    if cfg.model.kind == "two_stream_window":
+        return make_window_score_fn(model, dev, quant_scales=quant)
     return make_two_stream_score_fn(model, dev, quant_scales=quant)

@@ -60,7 +60,15 @@ NOT_PORTED = {
     "--sharded": "sharded serving is ROADMAP queue 1 item 10",
 }
 KIND_NOT_PORTED = {
-    "two_stream_window": "the window model is ROADMAP queue 1 item 5",
+    # the JAX CLI cannot serve it either: its ChapterPipeline builds
+    # per-clip batches ("img_clip", pipeline/whole_video.py:82,177) and
+    # make_window_score_fn reads "img_clips" (pipeline/boundary.py:218)
+    "two_stream_window": "the JAX package's infer_video cannot serve the "
+                         "window model either (its per-clip batches carry "
+                         "no window: a KeyError); ROADMAP lists this under "
+                         "the JAX package's faults. Train and score the "
+                         "window model with cli/train_segment and "
+                         "cli/eval_segment.build_score_fn",
     "text": "the text-only scorer is ROADMAP queue 1 item 6",
 }
 

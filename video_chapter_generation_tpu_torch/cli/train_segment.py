@@ -3,14 +3,15 @@ package's cli/train_segment.py).
 
     python -m video_chapter_generation_tpu_torch.cli.train_segment \
         data.img_dir=... data.data_file=... data.train_vid_file=... \
-        data.val_vid_file=... model.kind=two_stream model.stem_input=s2d \
+        data.val_vid_file=... [model.kind=two_stream] [model.tsm_impl=...] \
         data.batch_size=8 [--bert_vocab vocab.txt] [--tiny] [--device cpu] \
         [--init_streams CKPT_DIR]
 
-Runs on the card unless --device says otherwise. model.kind=two_stream
-is ported; two_stream_window and text are not yet (ROADMAP queue 1).
+Runs on the card unless --device says otherwise. model.kind defaults to
+two_stream_window, the window model (JAX cli/train_segment.py:47-53);
+two_stream is the base model; text is not ported yet (ROADMAP queue 1).
 --init_streams warm-starts the text and vision streams from a checkpoint
-this CLI wrote. Returns the Trainer.
+this CLI wrote, of either model. Returns the Trainer.
 """
 
 from __future__ import annotations
@@ -20,20 +21,20 @@ import sys
 
 from ..core.checkpoint import CheckpointManager
 from ..core.contract import vocab_hash
-from ..data.datasets import ClipDataset
+from ..data.datasets import ClipDataset, WindowClipDataset
 from ..data.loader import DataLoader
 from ..models.bert import BertConfig
 from ..train.loop import Trainer
-from ..train.tasks import SegmentTask
+from ..train.tasks import SegmentTask, SegmentWindowTask
 from .common import load_bert_tokenizer, load_corpus, parse_config
 
 NOT_PORTED = {
-    "two_stream_window": "the window model is ROADMAP queue 1 item 5",
     "text": "the text-only task is ROADMAP queue 1 item 6 (training)",
 }
+TASKS = {"two_stream_window": SegmentWindowTask, "two_stream": SegmentTask}
 
 
-def _warm_start(task: SegmentTask, ckpt_dir: str) -> None:
+def _warm_start(task, ckpt_dir: str) -> None:
     """Replace the task's initial text and vision streams with those of
     the newest checkpoint in ckpt_dir."""
     restored = CheckpointManager(ckpt_dir).restore_raw()
@@ -71,7 +72,7 @@ def main(argv=None) -> Trainer:
     if kind in NOT_PORTED:
         raise SystemExit(f"model.kind={kind} is not ported to the PyTorch "
                          f"port yet: {NOT_PORTED[kind]}")
-    if kind != "two_stream":
+    if kind not in TASKS:
         raise SystemExit(f"unknown model.kind {kind}")
     corpus = load_corpus(cfg, "train")
     val_corpus = load_corpus(cfg, "val")
@@ -82,16 +83,25 @@ def main(argv=None) -> Trainer:
     # raises in torch where a JAX lookup would clamp it)
     bert_cfg = (BertConfig.tiny(vocab_size=tokenizer.vocab_size)
                 if args.tiny else None)
-    task = SegmentTask(cfg, tiny=args.tiny, hw=hw, bert_cfg=bert_cfg)
+    try:
+        task = TASKS[kind](cfg, tiny=args.tiny, hw=hw, bert_cfg=bert_cfg)
+    except ValueError as e:  # a model config the port refuses
+        raise SystemExit(f"model config refused: {e}") from e
     task.contract = dict(task.contract, vocab_hash=vocab_hash(tokenizer))
     if init_streams:
         _warm_start(task, init_streams)
 
+    d, s2d = cfg.data, cfg.model.stem_input == "s2d"
+
     def make_ds(c):
-        return ClipDataset(c, tokenizer, cfg.data.clip_frame_num,
-                           cfg.data.max_text_len, cfg.model.data_mode,
-                           cfg.data.fps, cfg.train.seed, hw,
-                           s2d=cfg.model.stem_input == "s2d")
+        if kind == "two_stream_window":
+            return WindowClipDataset(c, tokenizer, d.clip_frame_num,
+                                     d.max_text_len, d.window_size,
+                                     cfg.model.data_mode, d.fps,
+                                     cfg.train.seed, hw, s2d=s2d)
+        return ClipDataset(c, tokenizer, d.clip_frame_num, d.max_text_len,
+                           cfg.model.data_mode, d.fps, cfg.train.seed, hw,
+                           s2d=s2d)
 
     train_loader = DataLoader(make_ds(corpus), cfg.data.batch_size,
                               seed=cfg.train.seed)

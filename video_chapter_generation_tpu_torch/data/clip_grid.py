@@ -254,3 +254,34 @@ def chapter_spans(
         end = timepoint_secs[i + 1] if i + 1 < len(timepoint_secs) else duration
         spans.append((start, end))
     return spans
+
+
+def window_clip_indices(
+    target_idx: int,
+    num_clips_total: int,
+    window_size: int,
+    skip_size: int = 1,
+) -> List[int]:
+    """Indices of the clips in a target-centered window; -1 marks padding
+    (out-of-range positions, zero-filled by the dataset).
+
+    Mirrors WindowClipDataset (youtube_dataset.py:444-452): neighbors step
+    by skip_size = clip_frame_num // (2*max_offset) grid positions (adjacent
+    NON-overlapping clips), covering target ± window_size*skip_size.
+
+
+    Copied from video_chapter_generation_tpu/data/clip_grid.py:244.
+    """
+    out = []
+    for i in range(
+        target_idx - skip_size * window_size,
+        target_idx + skip_size * window_size + 1,
+        skip_size,
+    ):
+        out.append(i if 0 <= i < num_clips_total else -1)
+    return out
+
+
+def window_skip_size(clip_frame_num: int, max_offset: int = DEFAULT_MAX_OFFSET) -> int:
+    """Copied from video_chapter_generation_tpu/data/clip_grid.py:267."""
+    return clip_frame_num // (2 * max_offset)

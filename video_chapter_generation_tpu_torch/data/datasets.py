@@ -8,7 +8,7 @@ the JAX package.
 from __future__ import annotations
 import json
 from dataclasses import dataclass
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 import numpy as np
 from ..core.seeding import host_rng
 from .clip_grid import (
@@ -18,6 +18,8 @@ from .clip_grid import (
     label_clips,
     subtitle_text_for_window,
     valid_cut_points,
+    window_clip_indices,
+    window_skip_size,
 )
 from .corpus import VideoCorpus
 from .frames import FRAME_HW, FrameCache, load_clip_frames
@@ -106,6 +108,96 @@ class ClipDataset:
         return out
 
 
+class WindowClipDataset:
+    """Flagship training sampler: target clip ± window at skip_size.
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:134.
+    """
+
+    def __init__(self, corpus: VideoCorpus, tokenizer, clip_frame_num: int = 16,
+                 max_text_len: int = 100, window_size: int = 1,
+                 mode: str = "all", fps: int = 1, seed: int = 123,
+                 hw: int = FRAME_HW, s2d: bool = False):
+        self.corpus = corpus
+        self.tokenizer = tokenizer
+        self.clip_frame_num = clip_frame_num
+        self.max_text_len = max_text_len
+        self.window_size = window_size
+        self.mode = mode
+        self.fps = fps
+        self.seed = seed
+        self.hw = hw
+        self.s2d = s2d  # emit uint8 4x4 space-to-depth (stem_input="s2d")
+        self.cache = FrameCache()
+
+    def __len__(self):
+        return len(self.corpus.vids)
+
+    def _encode_window(self, vid, clips, image_num, window_indices):
+        subs = self.corpus.subtitles(vid)
+        W = len(window_indices)
+        T, hw = self.clip_frame_num, self.hw
+        text_ids = np.zeros((W, self.max_text_len), np.int32)
+        masks = np.zeros((W, self.max_text_len), np.int32)
+        imgs = (
+            np.zeros((W, T, hw, hw, 3), np.uint8)
+            if self.mode != "text" else None
+        )
+        starts = np.full((W,), -1, np.int32)
+        for w, idx in enumerate(window_indices):
+            if idx == -1:
+                continue  # zero padding (youtube_dataset.py:459-470)
+            clip = clips[idx]
+            starts[w] = clip[0]
+            text = subtitle_text_for_window(
+                subs, clip[0], clip[1], 1 * self.fps, fps=self.fps
+            )
+            ids, m = encode_clip_text(text, self.tokenizer, self.max_text_len)
+            text_ids[w], masks[w] = ids, m
+            if imgs is not None:
+                imgs[w] = _clip_images(
+                    self.corpus, vid, clip, image_num, self.clip_frame_num,
+                    self.hw, self.cache,
+                )
+        return imgs, text_ids, masks, starts
+
+    def __getitem__(self, i: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        rng = host_rng(self.seed, epoch, i)
+        vid = self.corpus.vids[i]
+        # window variant filters cut points to [4, image_num-4]
+        # (youtube_dataset.py:404-408)
+        image_num, cut_points, clips, labels = _video_clip_structure(
+            self.corpus, vid, self.clip_frame_num, self.fps, cut_mode="infer"
+        )
+        pos = np.flatnonzero(labels == 1)
+        neg = np.flatnonzero(labels == 0)
+        is_positive = int(rng.integers(0, 2)) if len(pos) else 0
+        pool = pos if is_positive else neg
+        target = int(pool[rng.integers(0, len(pool))])
+
+        skip = window_skip_size(self.clip_frame_num, 2 * self.fps)
+        win = window_clip_indices(target, len(clips), self.window_size, skip)
+        imgs, text_ids, masks, starts = self._encode_window(
+            vid, clips, image_num, win
+        )
+        if imgs is not None and self.s2d:
+            from .frames import space_to_depth4
+
+            imgs = space_to_depth4(imgs)
+        out = {
+            "text_ids": text_ids,
+            "attention_mask": masks,
+            "label": np.int32(is_positive),
+            "clip_start_frame": starts,
+            "total_frames": np.int32(image_num),
+            "target_clip_idx": np.int32(target),
+            "total_num_clips": np.int32(len(clips)),
+        }
+        if imgs is not None:
+            out["img_clips"] = imgs
+        return out
+
+
 class InferClipDataset:
     """Sequential eval over precomputed flattened clips (the workhorse).
 
@@ -146,6 +238,81 @@ class InferClipDataset:
             out["img_clip"] = load_clip_frames(
                 info.image_paths, self.hw, self.cache
             )
+        return out
+
+
+class InferWindowClipDataset(InferClipDataset):
+    """Eval with window context: groups flattened clips by video and serves
+    target ± window neighbors (infer_youtube_video_dataset.py:429-577).
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:261.
+    """
+
+    def __init__(self, clips: Sequence[ClipInfo], tokenizer,
+                 clip_frame_num: int = 16, max_text_len: int = 100,
+                 window_size: int = 1, mode: str = "all", fps: int = 1,
+                 hw: int = FRAME_HW):
+        super().__init__(clips, tokenizer, max_text_len, mode, hw)
+        self.clip_frame_num = clip_frame_num
+        self.window_size = window_size
+        self.fps = fps
+        # group flat indices by vid (clips are stored video-contiguous)
+        self.vid_to_range: Dict[str, Tuple[int, int]] = {}
+        for idx, info in enumerate(self.all_clip_infos):
+            if info.vid not in self.vid_to_range:
+                self.vid_to_range[info.vid] = (idx, idx + 1)
+            else:
+                s, _ = self.vid_to_range[info.vid]
+                self.vid_to_range[info.vid] = (s, idx + 1)
+        # per-video frame count for clips_info: the flattened-clips JSON
+        # carries no image_num, so recover it as the max clip end — the
+        # reference's own fallback (infer_youtube_video_dataset.py:645)
+        self.vid_to_total_frames: Dict[str, int] = {
+            vid: max(self.all_clip_infos[k].clip_start_end[1]
+                     for k in range(s, e))
+            for vid, (s, e) in self.vid_to_range.items()
+        }
+
+    def __getitem__(self, i: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        info = self.all_clip_infos[i]
+        start, end = self.vid_to_range[info.vid]
+        n_clips = end - start
+        local = i - start
+        skip = window_skip_size(self.clip_frame_num, 2 * self.fps)
+        win = window_clip_indices(local, n_clips, self.window_size, skip)
+
+        W = len(win)
+        text_ids = np.zeros((W, self.max_text_len), np.int32)
+        masks = np.zeros((W, self.max_text_len), np.int32)
+        imgs = (
+            np.zeros((W, self.clip_frame_num, self.hw, self.hw, 3), np.uint8)
+            if self.mode != "text" else None
+        )
+        starts = np.full((W,), -1, np.int32)
+        for w, idx in enumerate(win):
+            if idx == -1:
+                continue
+            ci = self.all_clip_infos[start + idx]
+            ids, m = encode_clip_text(
+                ci.text_clip, self.tokenizer, self.max_text_len
+            )
+            text_ids[w], masks[w] = ids, m
+            starts[w] = ci.clip_start_end[0]
+            if imgs is not None:
+                imgs[w] = load_clip_frames(ci.image_paths, self.hw, self.cache)
+
+        out = {
+            "text_ids": text_ids,
+            "attention_mask": masks,
+            "label": np.int32(info.clip_label),
+            "clip_index": np.int32(i),
+            "clip_start_frame": starts,
+            "total_frames": np.int32(self.vid_to_total_frames[info.vid]),
+            "target_clip_idx": np.int32(local),
+            "total_num_clips": np.int32(n_clips),
+        }
+        if imgs is not None:
+            out["img_clips"] = imgs
         return out
 
 

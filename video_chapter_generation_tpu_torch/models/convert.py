@@ -76,6 +76,7 @@ def random_jax_tree(model: torch.nn.Module, entries: Sequence[Entry],
                     seed: int = 0) -> dict:
     """A seeded random tree in the JAX layout with `model`'s shapes.
     Kernels and embeddings ~ N(0, 1/fan_in) (flax's lecun-normal scale),
+    the window attention's position bias ~ N(0, 0.02^2) (its flax init),
     norm and BN scales and variances 1, biases and means 0."""
     rng = np.random.default_rng(seed)
     shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
@@ -83,10 +84,17 @@ def random_jax_tree(model: torch.nn.Module, entries: Sequence[Entry],
     for path, key, kind in entries:
         shape = _to_jax_layout(np.empty(shapes[key], np.float32), kind).shape
         leaf = path[-1]
-        if leaf in ("kernel", "embedding"):
-            fan_in = shape[-1] if leaf == "embedding" else int(np.prod(shape[:-1]))
+        if leaf in ("kernel", "embedding") or leaf.endswith("_kernel"):
+            if leaf == "embedding":
+                fan_in = shape[-1]
+            elif len(shape) == 3:  # a stacked Dense: [W, in, out]
+                fan_in = shape[1]
+            else:
+                fan_in = int(np.prod(shape[:-1]))
             a = rng.standard_normal(shape, dtype=np.float32)
             a *= np.float32(1.0 / np.sqrt(fan_in))
+        elif leaf == "window_pos_bias":  # flax normal(0.02)
+            a = 0.02 * rng.standard_normal(shape, dtype=np.float32)
         elif leaf in ("scale", "var"):
             a = np.ones(shape, np.float32)
         else:  # bias, mean, final_logits_bias
@@ -162,24 +170,111 @@ def bert_entries(num_layers: int) -> List[Entry]:
     return out
 
 
-def chapter_head_entries() -> List[Entry]:
-    """mlp ChapterHead params <-> the reference's two_stream.py keys."""
+def _self_attention(jax_path, key) -> List[Entry]:
+    """SelfAttentionHead (models/fusion.py:110): query, key, value, proj."""
+    return [e for name in ("query", "key", "value", "proj")
+            for e in _dense((*jax_path, name), f"{key}.{name}")]
+
+
+def chapter_head_entries(head_type: str = "mlp") -> List[Entry]:
+    """ChapterHead params (mlp or attn) <-> the reference's two_stream.py
+    keys."""
+    head = (_dense(("head",), "head") if head_type == "mlp"
+            else _self_attention(("head",), "head"))
     return (_dense(("lang_proj_head",), "lang_proj_head", bias=False)
             + _dense(("vision_proj_head",), "vision_proj_head", bias=False)
-            + _dense(("head",), "head"))
+            + head)
 
 
-def two_stream_entries(num_bert_layers: int,
-                       stage_sizes: Sequence[int]) -> List[Entry]:
-    """TwoStream variables {params: {lang_model, vision_model,
-    fusion_head}, batch_stats: {vision_model}} <-> port keys."""
+def _streams(num_bert_layers, stage_sizes) -> List[Entry]:
     out = [(("params", "lang_model", *p), f"lang_model.{k}", kind)
            for p, k, kind in bert_entries(num_bert_layers)]
     out += [((p[0], "vision_model", *p[1:]), f"vision_model.{k}", kind)
             for p, k, kind in resnet_entries(stage_sizes)]
-    out += [(("params", "fusion_head", *p), f"fusion_head.{k}", kind)
-            for p, k, kind in chapter_head_entries()]
     return out
+
+
+def two_stream_entries(num_bert_layers: int, stage_sizes: Sequence[int],
+                       head_type: str = "mlp") -> List[Entry]:
+    """TwoStream variables {params: {lang_model, vision_model,
+    fusion_head}, batch_stats: {vision_model}} <-> port keys."""
+    return _streams(num_bert_layers, stage_sizes) + [
+        (("params", "fusion_head", *p), f"fusion_head.{k}", kind)
+        for p, k, kind in chapter_head_entries(head_type)]
+
+
+def _stacked_mlp(jax_path, key, n: int) -> List[Entry]:
+    """StackedMLP: dense{i} ([W, in, out] kernels, same layout) and ln{i}."""
+    out: List[Entry] = []
+    for i in range(n):
+        out += [((*jax_path, f"dense{i}", "kernel"), f"{key}.dense{i}.weight",
+                 "copy"),
+                ((*jax_path, f"dense{i}", "bias"), f"{key}.dense{i}.bias",
+                 "copy")]
+        if i < n - 1:
+            out += _ln((*jax_path, f"ln{i}"), f"{key}.ln{i}")
+    return out
+
+
+def window_head_entries(head_type: str = "mlp") -> List[Entry]:
+    """WindowChapterHead params of one head type (models/fusion.py:269)."""
+    out = (_stacked_mlp(("lang_proj_heads",), "lang_proj_heads", 2)
+           + _stacked_mlp(("vision_proj_heads",), "vision_proj_heads", 3))
+    if head_type == "mlp":
+        return out + _stacked_mlp(("head",), "head", 3)
+    if head_type == "bilinear":
+        return out + [(("bilinear_kernel",), "bilinear_kernel", "copy"),
+                      (("bilinear_bias",), "bilinear_bias", "copy")] \
+            + _ln(("head_ln_in",), "head_ln_in") \
+            + _stacked_mlp(("head",), "head", 2)
+    if head_type == "multiplication":
+        return out + _stacked_mlp(("lang_expand_layers",),
+                                  "lang_expand_layers", 2) \
+            + _ln(("lang_expand_ln",), "lang_expand_ln") \
+            + _stacked_mlp(("head",), "head", 3)
+    if head_type == "self_attn":
+        return out + _self_attention(("head",), "head")
+    if head_type == "cross_attn":
+        out += _ln(("head", "lang_norm"), "head.lang_norm")
+        out += _ln(("head", "vision_norm"), "head.vision_norm")
+        for name in ("frame_pos_encoding", "query_proj", "key_proj",
+                     "value_proj", "out_proj"):
+            out += _dense(("head", name), f"head.{name}")
+        return out
+    raise ValueError(f"unknown head_type {head_type}")
+
+
+def window_attention_entries(num_layers: int = 6) -> List[Entry]:
+    """StackedWindowAttention params (models/fusion.py:373-465)."""
+    out: List[Entry] = []
+    for i in range(num_layers):
+        b = f"block{i}"
+        out += _ln((b, "attention_norm"), f"{b}.attention_norm")
+        for name in ("position_encoding", "query", "key", "value"):
+            out += _dense((b, name), f"{b}.{name}")
+        out.append(((b, "window_pos_bias"), f"{b}.window_pos_bias", "copy"))
+        out += _dense((b, "out_proj"), f"{b}.out_proj")
+        out += _ln((b, "ffn_norm"), f"{b}.ffn_norm")
+        for k in range(4):
+            out += _dense((b, f"ffn{k}"), f"{b}.ffn{k}")
+    out += _ln(("final_layer_norm",), "final_layer_norm")
+    for k in range(4):
+        out += _dense((f"cls{k}",), f"cls{k}")
+        out += _ln((f"cls_ln{k}",), f"cls_ln{k}")
+    return out + _dense(("classifier",), "classifier")
+
+
+def two_stream_window_entries(num_bert_layers: int,
+                              stage_sizes: Sequence[int],
+                              head_type: str = "mlp") -> List[Entry]:
+    """TwoStreamWindow variables {params: {lang_model, vision_model,
+    fusion_head, window_attn}, batch_stats: {vision_model}} <-> port
+    keys."""
+    out = _streams(num_bert_layers, stage_sizes)
+    out += [(("params", "fusion_head", *p), f"fusion_head.{k}", kind)
+            for p, k, kind in window_head_entries(head_type)]
+    return out + [(("params", "window_attn", *p), f"window_attn.{k}", kind)
+                  for p, k, kind in window_attention_entries()]
 
 
 def _dense_q(jax_path, key, bias=True) -> List[Entry]:
@@ -258,16 +353,27 @@ def from_jax_bert(params, num_layers: int):
     return from_jax(params, bert_entries(num_layers))
 
 
-def from_jax_chapter_head(params):
-    return from_jax(params, chapter_head_entries())
+def from_jax_chapter_head(params, head_type: str = "mlp"):
+    return from_jax(params, chapter_head_entries(head_type))
 
 
 def from_jax_two_stream(variables, num_bert_layers: int,
-                        stage_sizes: Sequence[int]):
+                        stage_sizes: Sequence[int], head_type: str = "mlp"):
     """TwoStream {params, batch_stats} -> the port's full state dict
     (parameters and BatchNorm statistics)."""
     return _with_bn_counters(from_jax(
-        variables, two_stream_entries(num_bert_layers, stage_sizes)))
+        variables, two_stream_entries(num_bert_layers, stage_sizes,
+                                      head_type)))
+
+
+def from_jax_two_stream_window(variables, num_bert_layers: int,
+                               stage_sizes: Sequence[int],
+                               head_type: str = "mlp"):
+    """TwoStreamWindow {params, batch_stats} -> the port's full state
+    dict."""
+    return _with_bn_counters(from_jax(
+        variables, two_stream_window_entries(num_bert_layers, stage_sizes,
+                                             head_type)))
 
 
 def from_jax_seq2seq(params, cfg):

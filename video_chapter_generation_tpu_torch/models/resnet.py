@@ -29,31 +29,87 @@ on conv1's input). NHWC throughout.
   models/resnet.py:603-744; the port does not: its plain autograd path
   keeps more on the card than the kernel trunk, so it is no way out of a
   memory limit.)
+
+`tsm_impl` (one value, or one per stage) and `fuse_tsm` pick each block's
+route as the JAX package's models/resnet.py:295-391, 751-756 do on the
+TPU. In eval: "auto", "fusedtrain" and "fusedall" run every block on the
+whole-block kernels (above); "fusedblk" runs the plain stride-1 blocks on
+them and each stage's block 0 as K5 (ops/tsm_conv.py, folded BN1 + ReLU
+in its epilogue) and then the rest of the block as plain torch ops;
+"pallas" runs every block that way; "tap3" and "xla" make conv1 by the
+plain 3-tap or 3-product form. In train, "auto" and "fusedtrain" (a
+single value) take the kernel stem and trunk (above), and any other
+value the per-block path: the plain stem (the K11 stem where a stage is
+"fusedtrain"), then per block conv1 by K5's training entry ("fusedall",
+"fusedblk", "pallas"), by the K12 whole-block kernel ("fusedtrain" in a
+per-stage tuple) or by the 3-tap / 3-product form, and conv2, conv3, the
+projection and batch-stat BN as plain torch ops. fuse_tsm=False shifts
+with K7 (ops/temporal_shift.py) before a plain conv1, in both modes.
+The parameters are the same under every value, so one checkpoint serves
+all. An unknown value raises (the JAX package runs it as "xla").
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.preprocess import depth_to_space4
+from ..ops.preprocess import depth_to_space4, normalize_frames
 from ..ops.stem import stem_frames, stem_s2d
 from ..ops.stem_train import stem_frames_train, stem_s2d_train
-from ..ops.tsm_block import tsm_bottleneck, tsm_bottleneck_s2
+from ..ops.temporal_shift import (
+    temporal_shift,
+    temporal_shift_conv1x1,
+    temporal_shift_conv1x1_3tap,
+)
+from ..ops.tsm_block import (
+    bottleneck_tail_reference,
+    tsm_bottleneck,
+    tsm_bottleneck_s2,
+)
 from ..ops.tsm_block_int8 import (
     QuantBottleneck,
     int8_bottleneck,
     quantize_bottleneck,
 )
-from ..ops.tsm_block_train import at_least_f32
-from ..ops.tsm_trunk_train import tsm_trunk_train
+from ..ops.tsm_block_train import (
+    _block,
+    at_least_f32,
+    bn_train,
+    conv_nhwc,
+    tsm_block_train_reference,
+)
+from ..ops.tsm_conv import tsm_conv1x1, tsm_conv1x1_bn_relu
+from ..ops.tsm_trunk_train import tsm_trunk_train, unpack
 
 STAGE_SIZES = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # running = 0.9 running + 0.1 batch (flax convention)
+# model.tsm_impl values (JAX models/resnet.py:106-154, 328-372, 559-565);
+# "auto" names the whole trunk's per-mode mix, so a per-stage tuple takes
+# the others only
+TSM_IMPLS = ("auto", "fusedtrain", "fusedall", "fusedblk", "pallas", "tap3",
+             "xla")
+_K5_IMPLS = ("fusedall", "fusedblk", "pallas")
+
+
+def check_tsm_impl(tsm_impl, n_stages: int):
+    """A tsm_impl value as ResNet keeps it: one name, or a tuple of one per
+    stage; anything else raises ValueError naming the accepted values."""
+    if isinstance(tsm_impl, str):
+        if tsm_impl not in TSM_IMPLS:
+            raise ValueError(f"tsm_impl {tsm_impl!r}: one of {TSM_IMPLS}, or "
+                             f"one per stage of {TSM_IMPLS[1:]}")
+        return tsm_impl
+    impls = tuple(tsm_impl)
+    if len(impls) != n_stages or any(i not in TSM_IMPLS[1:] for i in impls):
+        raise ValueError(f"tsm_impl {tsm_impl!r}: one of {TSM_IMPLS}, or "
+                         f"{n_stages} per-stage values of {TSM_IMPLS[1:]}")
+    return impls
 
 
 def fold_bn(bn: nn.BatchNorm2d):
@@ -176,21 +232,32 @@ class ResNet(nn.Module):
     `act_scales` is None, or, in the W8A8 twin that `quantized` makes, a
     dict from block name ("layer2.1") to its (sx, sz, sy2, sout); a block
     without an entry takes unit scales, as the JAX package's "quant"
-    collection initializes them."""
+    collection initializes them.
+
+    tsm_impl and fuse_tsm: see the module docstring; both may be set
+    again after construction. remat (the JAX package's
+    model.remat_vision) is not ported and raises."""
 
     feature_dim = 2048
 
     def __init__(self, depth: int = 50, n_segment: int = 0, n_div: int = 8,
                  stem_input: str = "frames",
                  stage_sizes: Optional[Sequence[int]] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, tsm_impl="auto",
+                 fuse_tsm: bool = True, remat: bool = False):
         super().__init__()
         if stem_input not in ("s2d", "frames"):
             raise ValueError(f"stem_input {stem_input!r}: 's2d' or 'frames'")
+        if remat:
+            raise ValueError("model.remat_vision=True is not ported: the "
+                             "large-batch training path is ROADMAP queue 2 "
+                             "item 5")
         self.n_segment, self.n_div = n_segment, n_div
         self.stem_input, self.dtype = stem_input, dtype
         self.act_scales: Optional[Dict[str, torch.Tensor]] = None
         self.stage_sizes = tuple(stage_sizes or STAGE_SIZES[depth])
+        self.tsm_impl = tsm_impl
+        self.fuse_tsm = fuse_tsm
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
         cin = 64
@@ -203,6 +270,37 @@ class ResNet(nn.Module):
                 cin = 4 * f
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self._folded = None
+
+    @property
+    def tsm_impl(self):
+        return self._tsm_impl
+
+    @tsm_impl.setter
+    def tsm_impl(self, value):
+        self._tsm_impl = check_tsm_impl(value, len(self.stage_sizes))
+
+    def stage_impls(self) -> Tuple[str, ...]:
+        """tsm_impl per stage."""
+        if isinstance(self.tsm_impl, str):
+            return (self.tsm_impl,) * len(self.stage_sizes)
+        return self.tsm_impl
+
+    def _trunk_train(self) -> bool:
+        """Training takes the kernel stem and trunk (JAX :729-744)."""
+        return (self.tsm_impl in ("auto", "fusedtrain") and self.fuse_tsm
+                and self.n_segment > 0)
+
+    def eval_route(self, stage: int, blk: "Bottleneck") -> str:
+        """A block's inference route: "block" (the whole-block kernels),
+        "k5", "tap3", "xla" or "unfused" (K7, then a plain conv1)."""
+        impl = self.stage_impls()[stage]
+        whole = impl in ("auto", "fusedtrain", "fusedall") or (
+            impl == "fusedblk" and blk.stride == 1 and blk.downsample is None)
+        if self.fuse_tsm and whole:
+            return "block"
+        if not self.fuse_tsm or self.n_segment == 0:
+            return "unfused"
+        return "k5" if impl in _K5_IMPLS else impl
 
     def blocks(self) -> List[Bottleneck]:
         return [blk for s in range(len(self.stage_sizes))
@@ -229,7 +327,8 @@ class ResNet(nn.Module):
         plan: List[Optional[str]] = []
         for stage, n in enumerate(self.stage_sizes):
             quant = (self.act_scales is not None and stage > 0 and n >= 2
-                     and capture is None and self.n_segment > 0)
+                     and capture is None and self.n_segment > 0
+                     and self.fuse_tsm)
             plan += [None] + [("bf16" if b == n - 1 else "i8") if quant
                               else None for b in range(1, n)]
         return plan
@@ -286,23 +385,77 @@ class ResNet(nn.Module):
         running averages. x as for forward; returns [N, 2048] in
         self.dtype, differentiable in every parameter."""
         dt = self.dtype
-        w7 = _hwio_view(self.conv1)
-        g, b = self.bn1.weight, self.bn1.bias
         blocks = self.blocks()
-        params = [blk.train_params() for blk in blocks]
-        kinds = [blk.kind() for blk in blocks]
-        if self.stem_input == "s2d":
-            y, stem_stats = stem_s2d_train(x, w7, g, b, BN_EPS, dt)
+        if self._trunk_train() or "fusedtrain" in self.stage_impls():
+            w7 = _hwio_view(self.conv1)
+            g, b = self.bn1.weight, self.bn1.bias
+            if self.stem_input == "s2d":
+                y, stem_stats = stem_s2d_train(x, w7, g, b, BN_EPS, dt)
+            else:
+                y, stem_stats = stem_frames_train(x.to(dt), w7, g, b, BN_EPS,
+                                                  dt)
         else:
-            y, stem_stats = stem_frames_train(x.to(dt), w7, g, b, BN_EPS, dt)
-        y, stats = tsm_trunk_train(y, params, kinds, self.n_segment,
-                                   self.n_div, BN_EPS)
+            y, stem_stats = self._plain_stem_train(x)
         update_running(self.bn1, *stem_stats)
+        if self._trunk_train():
+            y, stats = tsm_trunk_train(
+                y, [blk.train_params() for blk in blocks],
+                [blk.kind() for blk in blocks], self.n_segment, self.n_div,
+                BN_EPS)
+        else:
+            stats = []
+            for stage, blk in zip(self._block_stages(), blocks):
+                y, st = self._block_train(stage, blk, y)
+                stats.append(st)
         for blk, st in zip(blocks, stats):
             for i, bn in enumerate(blk.batch_norms()):
                 update_running(bn, st[2 * i], st[2 * i + 1])
         # global average pool, at least float32 sum
         return at_least_f32(y).mean(dim=(1, 2)).to(dt)
+
+    def _block_stages(self) -> List[int]:
+        return [s for s, n in enumerate(self.stage_sizes) for _ in range(n)]
+
+    def _plain_stem_train(self, x):
+        """The stem as plain torch ops (JAX :658-668, 714-725): s2d input
+        unpacked and, if uint8, normalized (K6 on the card); 7x7/2 conv,
+        batch-stat BN, ReLU, 3x3/2 max pool."""
+        dt = self.dtype
+        if self.stem_input == "s2d":
+            frames = depth_to_space4(x)
+            frames = (normalize_frames(frames, dt) if x.dtype == torch.uint8
+                      else frames.to(dt))
+        else:
+            frames = x.to(dt)
+        a, mu, var = bn_train(conv_nhwc(frames, _hwio_view(self.conv1), 2, 3),
+                              self.bn1.weight, self.bn1.bias, BN_EPS)
+        y = F.max_pool2d(torch.relu(a).permute(0, 3, 1, 2), 3, stride=2,
+                         padding=1)
+        return y.permute(0, 2, 3, 1), (mu, var)
+
+    def _block_train(self, stage: int, blk: "Bottleneck", x):
+        """One block of the per-block training path -> (y, stats)."""
+        t, nd = self.n_segment, self.n_div
+        impl = self.stage_impls()[stage]
+        params = unpack(blk.train_params(), blk.kind())
+        if not self.fuse_tsm or t == 0:
+            def conv1(x, w1):
+                return conv_nhwc(temporal_shift(x, t, nd) if t else x, w1)
+        elif impl == "fusedtrain":
+            return _block(x, params, blk.stride, t, nd, BN_EPS)
+        elif impl in _K5_IMPLS:
+            def conv1(x, w1):
+                return tsm_conv1x1(x, w1, t, nd)
+        else:
+            form = (temporal_shift_conv1x1_3tap if impl == "tap3"
+                    else temporal_shift_conv1x1)
+
+            def conv1(x, w1):
+                return form(x, w1.to(x.dtype), t, nd)
+        w1, w2, w3, wp, g1, be1, g2, be2, g3, be3, gp, bep = params
+        return tsm_block_train_reference(
+            x, w1, w2, w3, g1, be1, g2, be2, g3, be3, t, nd, BN_EPS, wp, gp,
+            bep, blk.stride, conv1=conv1)
 
     @torch.no_grad()
     def forward_eval(self, x: torch.Tensor,
@@ -324,16 +477,37 @@ class ResNet(nn.Module):
         quant = self.quant_params() if any(plan) else [None] * len(plan)
         ends = {sum(self.stage_sizes[:s + 1]) - 1: s + 1
                 for s in range(len(self.stage_sizes))}
+        stages = self._block_stages()
         for i, (blk, p) in enumerate(zip(self.blocks(), blocks)):
             if plan[i]:
                 y = int8_bottleneck(y, quant[i], self.n_segment, self.n_div,
                                     plan[i], self.dtype)
             else:
-                y = blk.run(y, p, self.n_segment, self.n_div)
+                y = self._block_eval(stages[i], blk, p, y)
             if capture is not None and i in ends:
                 capture[f"stage{ends[i]}"] = y
         # global average pool (torchvision avgpool + flatten), f32 sum
         return y.float().mean(dim=(1, 2)).to(self.dtype)
+
+    def _block_eval(self, stage: int, blk: "Bottleneck", p: dict, x):
+        """One block at inference, by its eval_route."""
+        route = self.eval_route(stage, blk)
+        if route == "block":
+            return blk.run(x, p, self.n_segment, self.n_div)
+        t, nd = self.n_segment, self.n_div
+        if route == "k5":
+            y1 = tsm_conv1x1_bn_relu(x, p["w1"], p["s1"], p["b1"], t, nd)
+        else:
+            if route == "tap3":
+                y = temporal_shift_conv1x1_3tap(x, p["w1"], t, nd)
+            elif route == "xla":
+                y = temporal_shift_conv1x1(x, p["w1"], t, nd)
+            else:
+                y = (temporal_shift(x, t, nd) if t else x) @ p["w1"]
+            y1 = torch.relu(y * p["s1"] + p["b1"]).to(x.dtype)
+        return bottleneck_tail_reference(
+            y1, x, p["w2"], p["w3"], p["s2"], p["b2"], p["s3"], p["b3"],
+            p["wp"], p["sp"], p["bp"], blk.stride)
 
 
 
@@ -343,11 +517,13 @@ class Resnet50TSM(nn.Module):
     def __init__(self, segments_size: int = 16, shift_div: int = 8,
                  stem_input: str = "frames",
                  stage_sizes: Optional[Sequence[int]] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, tsm_impl="auto",
+                 fuse_tsm: bool = True):
         super().__init__()
         self.base_model = ResNet(50, n_segment=segments_size,
                                  n_div=shift_div, stem_input=stem_input,
-                                 stage_sizes=stage_sizes, dtype=dtype)
+                                 stage_sizes=stage_sizes, dtype=dtype,
+                                 tsm_impl=tsm_impl, fuse_tsm=fuse_tsm)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         b, t = x.shape[0], x.shape[1]

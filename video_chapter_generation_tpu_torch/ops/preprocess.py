@@ -1,12 +1,22 @@
-"""Frame preprocessing: uint8 -> ImageNet-normalized float, and the 4x4
-space-to-depth unpack (counterpart of the JAX package's ops/preprocess.py
-and the s2d unpack in models/resnet.py; the host packs frames with
-data/native_loader.py:space_to_depth4)."""
+"""Frame preprocessing: uint8 -> ImageNet-normalized float (kernel K6),
+and the 4x4 space-to-depth unpack (counterpart of the JAX package's
+ops/preprocess.py and the s2d unpack in models/resnet.py; the host packs
+frames with data/native_loader.py:space_to_depth4).
+
+`normalize_frames` replaces ops/preprocess.py:normalize_frames_pallas: a
+CPU tensor takes `normalize_frames_reference`, a CUDA tensor runs
+csrc/frame_ops.cu (one element per thread, any element count; the same
+multiply and add roundings, so bit for bit the plain version)."""
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
+
+from . import _build
 
 # ImageNet normalization (torchvision convention), as float32 like the JAX
 # package, so both compute the affine from the same rounded constants.
@@ -22,12 +32,55 @@ def affine_consts(device=None):
             torch.as_tensor(bias, device=device))
 
 
-def normalize_frames(frames_u8: torch.Tensor,
-                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def norm_consts(device: torch.device) -> torch.Tensor:
+    """[a0, a1, a2, b0, b1, b2] float32 on device, normalized = u8 * a + b;
+    made once per device (a host copy per call would stall the stream)."""
+    return torch.cat(affine_consts(device)).contiguous()
+
+
+def normalize_frames_reference(frames_u8: torch.Tensor,
+                               out_dtype: torch.dtype = torch.float32
+                               ) -> torch.Tensor:
     """[..., H, W, 3] uint8 -> normalized [..., H, W, 3] float: a multiply
     and an add in float32, then a cast to out_dtype."""
     scale, bias = affine_consts(frames_u8.device)
     return (frames_u8.to(torch.float32) * scale + bias).to(out_dtype)
+
+
+def normalize_frames(frames_u8: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """normalize_frames_reference on a CPU tensor; on a CUDA tensor one
+    launch of vcg_normalize_frames (uint8 in, float32 or bf16 out)."""
+    if frames_u8.device.type == "cpu":
+        return normalize_frames_reference(frames_u8, out_dtype)
+    if frames_u8.device.type != "cuda":
+        raise NotImplementedError(f"normalize_frames on {frames_u8.device}")
+    if frames_u8.dtype != torch.uint8 or frames_u8.shape[-1] != 3:
+        raise ValueError(f"the normalize kernel takes uint8 [..., 3], got "
+                         f"{frames_u8.dtype} {tuple(frames_u8.shape)}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the normalize kernel emits float32 or bfloat16, "
+                         f"not {out_dtype}")
+    x = frames_u8.contiguous()
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    if x.numel() == 0:
+        return out
+    fn = _build.load("frame_ops").vcg_normalize_frames
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    rc = fn(x.data_ptr(), out.data_ptr(), x.numel(),
+            int(out_dtype == torch.bfloat16), norm_consts(x.device).data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    normalize_frames.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"normalize_frames kernel failed: CUDA error {rc}")
+    return out
+
+
+normalize_frames.launches = 0
 
 
 def depth_to_space4(s4: torch.Tensor) -> torch.Tensor:

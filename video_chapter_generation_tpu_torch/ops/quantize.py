@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ..models.quant_layers import quantize_weight
 from .preprocess import normalize_frames
-from .temporal_shift import temporal_shift
+from .temporal_shift import temporal_shift_reference
 
 
 def _amax(v: torch.Tensor) -> torch.Tensor:
@@ -52,7 +52,7 @@ def _block_forward(x, blk, stride: int, proj: bool, n_segment: int,
     s1, b1 = fold_bn(blk.bn1)
     s2, b2 = fold_bn(blk.bn2)
     s3, b3 = fold_bn(blk.bn3)
-    y = temporal_shift(x, n_segment, n_div)
+    y = temporal_shift_reference(x, n_segment, n_div)
     y = y @ _hwio(blk.conv1, dt)
     y1 = torch.relu(y * col(s1) + col(b1)).to(dt)
     w2 = _hwio(blk.conv2, dt).permute(3, 2, 0, 1)

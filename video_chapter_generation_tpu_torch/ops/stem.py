@@ -23,7 +23,11 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .preprocess import affine_consts, depth_to_space4, normalize_frames
+from .preprocess import (
+    depth_to_space4,
+    norm_consts,
+    normalize_frames_reference,
+)
 
 
 def bn_relu_maxpool_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -55,7 +59,7 @@ def stem_s2d_reference(s4: torch.Tensor, w7: torch.Tensor,
                        out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Plain version: unpack s2d -> normalize -> conv stem.
     s4 [N, h, w, 48] uint8 -> [N, h, w, 64] out_dtype."""
-    frames = normalize_frames(depth_to_space4(s4), out_dtype)
+    frames = normalize_frames_reference(depth_to_space4(s4), out_dtype)
     return _conv_stem(frames, w7, scale.float(), bias.float())
 
 
@@ -68,17 +72,11 @@ def stem_frames_reference(frames: torch.Tensor, w7: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _norm_consts(device: torch.device) -> torch.Tensor:
-    """[a0, a1, a2, b0, b1, b2] float32 on device, normalized = u8 * a + b;
-    made once per device (a host copy per call would stall the stream)."""
-    return torch.cat(affine_consts(device)).contiguous()
-
-
-@functools.lru_cache(maxsize=None)
-def _identity_affine(device: torch.device):
-    """(ones [64], zeros [64]) float32 on device: the stem convs'
-    epilogue scale and bias, so that they store the bare conv sum."""
-    return (torch.ones(64, device=device), torch.zeros(64, device=device))
+def identity_affine(device: torch.device, n: int = 64):
+    """(ones [n], zeros [n]) float32 on device: a conv epilogue's scale
+    and bias that store the bare conv sum (exact in fp32); the stem convs
+    use n = 64."""
+    return (torch.ones(n, device=device), torch.zeros(n, device=device))
 
 
 _ARGS = {"vcg_stem_s2d": (9, 3), "vcg_stem_frames_conv": (5, 3),
@@ -126,8 +124,8 @@ def stem_s2d(s4: torch.Tensor, w7: torch.Tensor, scale: torch.Tensor,
     wk = _stem_weight(w7, dev)
     scale = scale.to(device=dev, dtype=torch.float32).contiguous()
     bias = bias.to(device=dev, dtype=torch.float32).contiguous()
-    norm = _norm_consts(dev)
-    one, zero = _identity_affine(dev)
+    norm = norm_consts(dev)
+    one, zero = identity_affine(dev)
     conv = torch.empty(n, 2 * h, 2 * w, 64, dtype=torch.bfloat16, device=dev)
     out = torch.empty(n, h, w, 64, dtype=torch.bfloat16, device=dev)
     fn = _lib("vcg_stem_s2d")
@@ -157,7 +155,7 @@ def stem_frames(x: torch.Tensor, w7: torch.Tensor, scale: torch.Tensor,
                          f"H % 4 == 0, got {x.dtype} {tuple(x.shape)}")
     dev = x.device
     wk = _stem_weight(w7, dev)
-    one, zero = _identity_affine(dev)
+    one, zero = identity_affine(dev)
     conv = torch.empty(n, h // 2, w // 2, 64, dtype=torch.bfloat16,
                        device=dev)
     rc = _lib("vcg_stem_frames_conv")(

@@ -28,8 +28,11 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .preprocess import depth_to_space4, normalize_frames
-from .stem import _norm_consts
+from .preprocess import (
+    depth_to_space4,
+    norm_consts,
+    normalize_frames_reference,
+)
 from .tsm_block_train import bn_train
 
 
@@ -99,7 +102,7 @@ def stem_train_fwd(s4, wk, gb, eps: float):
     part = _workspace(dev, n, h, w)
     rc = _fn("vcg_stem_train_fwd", 1, 9)(
         s4.data_ptr(), int(s4.dtype == torch.uint8), wk.data_ptr(),
-        gb.data_ptr(), _norm_consts(dev).data_ptr(), yc.data_ptr(),
+        gb.data_ptr(), norm_consts(dev).data_ptr(), yc.data_ptr(),
         out.data_ptr(), stats.data_ptr(), vec.data_ptr(), mom.data_ptr(),
         part.data_ptr(), n, h, w, eps,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -122,7 +125,7 @@ def stem_train_bwd(dpool, out, yc, s4, gb, stats, vec, eps: float):
     part = _workspace(dev, n, h, w)
     rc = _fn("vcg_stem_train_bwd", 4, 9)(
         dpool.data_ptr(), out.data_ptr(), yc.data_ptr(), s4.data_ptr(),
-        int(s4.dtype == torch.uint8), _norm_consts(dev).data_ptr(),
+        int(s4.dtype == torch.uint8), norm_consts(dev).data_ptr(),
         gb.data_ptr(), stats.data_ptr(), vec.data_ptr(), da.data_ptr(),
         dw.data_ptr(), dgb.data_ptr(), work.data_ptr(), part.data_ptr(), n, h,
         w, eps, torch.cuda.current_stream(dev).cuda_stream)
@@ -167,7 +170,7 @@ def stem_s2d_train(s4: torch.Tensor, w7: torch.Tensor, gamma, beta,
                          f"{tuple(s4.shape)}")
     if s4.device.type == "cpu":
         frames = depth_to_space4(s4)
-        frames = (normalize_frames(frames, out_dtype)
+        frames = (normalize_frames_reference(frames, out_dtype)
                   if s4.dtype == torch.uint8 else frames.to(out_dtype))
         return stem_train_reference(frames, w7, gamma, beta, eps)
     if s4.device.type != "cuda":

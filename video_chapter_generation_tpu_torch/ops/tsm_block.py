@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .temporal_shift import temporal_shift
+from .temporal_shift import temporal_shift_reference
 
 
 def tsm_bottleneck_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3,
@@ -35,20 +35,41 @@ def tsm_bottleneck_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3,
     Convolutions run in x.dtype; the BN affines, the residual sum and the
     ReLUs in float32, rounded to x.dtype after each ReLU."""
     dt = x.dtype
-    c, f = w1.shape
-    col = lambda v: v.float()[:, None, None]  # noqa: E731
-    as_oihw = lambda w: w.permute(3, 2, 0, 1).to(dt)  # noqa: E731
-    y = temporal_shift(x, n_segment, n_div) if n_segment > 0 else x
-    y = F.conv2d(y.permute(0, 3, 1, 2), as_oihw(w1.reshape(1, 1, c, f)))
-    y = torch.relu(y * col(s1) + col(b1)).to(dt)
-    y = F.conv2d(y, as_oihw(w2), stride=stride, padding=1)
-    y = torch.relu(y * col(s2) + col(b2)).to(dt)
-    y = F.conv2d(y, as_oihw(w3.reshape(1, 1, *w3.shape)))
-    y = y * col(s3) + col(b3)
+    y = (temporal_shift_reference(x, n_segment, n_div) if n_segment > 0
+         else x)
+    y = F.conv2d(y.permute(0, 3, 1, 2), _as_oihw(w1, dt))
+    y1 = torch.relu(y * _col(s1) + _col(b1)).to(dt)
+    return bottleneck_tail_reference(y1.permute(0, 2, 3, 1), x, w2, w3, s2,
+                                     b2, s3, b3, wp, sp, bp, stride)
+
+
+def _col(v):
+    return v.float()[:, None, None]
+
+
+def _as_oihw(w, dt):
+    """HWIO (or a 1x1's [Cin, Cout]) -> OIHW in dt."""
+    if w.dim() == 2:
+        w = w.reshape(1, 1, *w.shape)
+    return w.permute(3, 2, 0, 1).to(dt)
+
+
+def bottleneck_tail_reference(y1, x, w2, w3, s2, b2, s3, b3, wp=None,
+                              sp=None, bp=None, stride: int = 1):
+    """The block after its conv1: y1 = relu(bn1(conv1(shift(x)))) NHWC,
+    then relu(bn2(conv3x3(y1, stride))), bn3(conv1x1(.)), plus x or the
+    projection bn_p(conv1x1(x, stride)), and the last ReLU; as
+    tsm_bottleneck_reference computes them. -> NHWC in x.dtype."""
+    dt = x.dtype
+    y = F.conv2d(y1.permute(0, 3, 1, 2), _as_oihw(w2, dt), stride=stride,
+                 padding=1)
+    y = torch.relu(y * _col(s2) + _col(b2)).to(dt)
+    y = F.conv2d(y, _as_oihw(w3, dt))
+    y = y * _col(s3) + _col(b3)
     res = x.permute(0, 3, 1, 2)
     if wp is not None:
-        res = F.conv2d(res, as_oihw(wp.reshape(1, 1, *wp.shape)),
-                       stride=stride) * col(sp) + col(bp)
+        res = F.conv2d(res, _as_oihw(wp, dt), stride=stride) * _col(sp) \
+            + _col(bp)
     out = torch.relu(y + res).to(dt)
     return out.permute(0, 2, 3, 1).contiguous()
 

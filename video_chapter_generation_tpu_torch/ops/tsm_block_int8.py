@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .temporal_shift import temporal_shift
+from .temporal_shift import temporal_shift_reference
 
 
 def quantize_weight(w: torch.Tensor):
@@ -135,7 +135,7 @@ def int8_bottleneck_plain(x: torch.Tensor, q: QuantBottleneck,
         xq, xf = x, x.float() * sx
     else:
         xq, xf = _rq(x.float(), sx), x.float()
-    xs = temporal_shift(xq, n_segment, n_div)
+    xs = temporal_shift_reference(xq, n_segment, n_div)
     y1 = torch.relu(_idot(xs, q.w1q) * q.a1 + q.b1)
     # im2col of the 3 column taps, quantized as one tensor
     zl = F.pad(y1, (0, 0, 1, 0))[:, :, :w]

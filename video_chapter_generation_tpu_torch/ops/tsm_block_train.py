@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .temporal_shift import temporal_shift
+from .temporal_shift import temporal_shift_reference
 
 
 def at_least_f32(v: torch.Tensor) -> torch.Tensor:
@@ -74,11 +74,17 @@ def conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 def tsm_block_train_reference(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
                               n_segment: int, n_div: int = 8,
                               eps: float = 1e-5, wp=None, gp=None, bep=None,
-                              stride: int = 1):
-    """Plain version on NHWC x [N*T, H, W, C] -> (y, stats)."""
+                              stride: int = 1, conv1=None):
+    """Plain version on NHWC x [N*T, H, W, C] -> (y, stats). conv1(x, w1
+    [C, F]), when given, makes u in place of the shift and the 1x1
+    product (models/resnet.py's per-block training path: its tsm_impl)."""
     c = x.shape[-1]
-    xs = temporal_shift(x, n_segment, n_div) if n_segment > 0 else x
-    u = conv_nhwc(xs, w1.reshape(c, -1))
+    if conv1 is not None:
+        u = conv1(x, w1.reshape(c, -1))
+    else:
+        xs = (temporal_shift_reference(x, n_segment, n_div) if n_segment > 0
+              else x)
+        u = conv_nhwc(xs, w1.reshape(c, -1))
     a1, mu1, v1 = bn_train(u, g1, be1, eps)
     z = conv_nhwc(torch.relu(a1), w2.reshape(3, 3, *w2.shape[-2:]), stride, 1)
     a2, mu2, v2 = bn_train(z, g2, be2, eps)

@@ -3,6 +3,7 @@
 from .boundary import (
     make_packed_two_stream_score_fn,
     make_two_stream_score_fn,
+    make_window_score_fn,
     pack_to_device,
     score_clips,
 )
@@ -11,6 +12,7 @@ from .whole_video import ChapterPipeline, VideoChapters, bucket_title_fn
 __all__ = [
     "make_packed_two_stream_score_fn",
     "make_two_stream_score_fn",
+    "make_window_score_fn",
     "pack_to_device",
     "score_clips",
     "ChapterPipeline",

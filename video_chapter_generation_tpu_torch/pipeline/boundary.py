@@ -1,6 +1,7 @@
 """Batched boundary scoring (counterpart of the JAX package's
 pipeline/boundary.py): the two-stream score functions, on per-clip
-frames and on a video's frame pack, and the per-clip scoring loop."""
+frames and on a video's frame pack, the window model's, and the per-clip
+scoring loop."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 from ..core.metrics import StepTimer
 from ..data.clip_grid import ClipInfo
 from ..data.loader import collate
-from ..models.fusion import TwoStream
+from ..models.fusion import TwoStream, TwoStreamWindow
 from ..ops.preprocess import normalize_frames
 
 
@@ -163,4 +164,32 @@ def make_packed_two_stream_score_fn(model: TwoStream, device: torch.device,
         _, probs = model.head_probs(pooled, vision)
         return probs[:, 1]
 
+    return score
+
+
+def make_window_score_fn(model: TwoStreamWindow, device: torch.device,
+                         quant_scales=None):
+    """score(batch) -> positive-class probability [B] float32 on the
+    device, for InferWindowClipDataset batches (JAX boundary.py:195-220):
+    batch["img_clips"] uint8 [B, W, T, H, W, 3] moves to the device as
+    uint8 and, for a frames stem, is normalized there (K6) to the vision
+    model's dtype; one BERT call over the B*W texts and one vision call
+    over the B*W*T frames. quant_scales (calibrated on the window clips
+    flattened to [B*W, T, ...]) swaps the shared vision trunk for its W8A8
+    twin."""
+    vision = _vision(model, quant_scales)
+
+    def to_dev(a):
+        return torch.as_tensor(a).to(device, non_blocking=True)
+
+    @torch.no_grad()
+    def score(batch) -> torch.Tensor:
+        img = to_dev(batch["img_clips"])
+        if vision.stem_input != "s2d":
+            img = normalize_frames(img, vision.dtype)
+        _, probs = model.serve(img, to_dev(batch["text_ids"]).long(),
+                               to_dev(batch["attention_mask"]), vision)
+        return probs[:, 1]
+
+    score.model = model  # the served model, for callers that inspect it
     return score

@@ -1,6 +1,7 @@
 """Training tasks (counterpart of the JAX package's train/tasks.py):
-SegmentTask, the base two-stream clip classifier of :169-213, and of
-TitleGenTask (:365-383) the model, its weights and its contract, which
+SegmentWindowTask, the flagship window model of :87-166 with its AUC/mAP
+eval; SegmentTask, the base two-stream clip classifier of :169-213; and
+of TitleGenTask (:365-383) the model, its weights and its contract, which
 serving needs (its loss and eval are ROADMAP queue 1 item 6).
 """
 
@@ -13,9 +14,10 @@ import torch
 
 from ..core.config import Config
 from ..core.contract import build_contract
+from ..evalkit.metrics import average_precision_score, roc_auc_score
 from ..models import convert
 from ..models.bert import BertConfig, BertModel
-from ..models.fusion import TwoStream
+from ..models.fusion import WINDOW_HEAD_TYPES, TwoStream, TwoStreamWindow
 from ..models.resnet import STAGE_SIZES, ResNet
 from ..models.seq2seq import Seq2Seq, Seq2SeqConfig
 from ..ops.preprocess import normalize_frames
@@ -36,59 +38,129 @@ def compute_dtype(cfg: Config) -> torch.dtype:
     return torch.float32
 
 
-class SegmentTask:
-    """Base (non-window) two-stream clip classifier: BERT + ResNet50-TSM +
-    the mlp ChapterHead, binary clip cross entropy."""
+class _SegmentBase:
+    """What the two clip classifiers share: the streams' configuration
+    (train/tasks.py:33-59: the ResNet takes model.tsm_impl and
+    model.remat_vision), frame preparation and the device batch."""
 
-    def __init__(self, cfg: Config, tiny: bool = False, hw: int = 224,
-                 bert_cfg: Optional[BertConfig] = None):
+    def __init__(self, cfg: Config, tiny: bool, hw: int,
+                 bert_cfg: Optional[BertConfig]):
         self.cfg = cfg
         self.hw = hw
-        seg = cfg.data.clip_frame_num
         self.dtype = compute_dtype(cfg)
         self.bert_cfg = bert_cfg or (BertConfig.tiny() if tiny
                                      else BertConfig())
         self.stage_sizes = TINY_STAGE_SIZES if tiny else STAGE_SIZES[50]
-        if cfg.model.head_type != "mlp":
-            raise NotImplementedError(
-                f"head_type {cfg.model.head_type!r} is not ported")
-        with torch.device("meta"):
-            self.model = TwoStream(
-                BertModel(self.bert_cfg),
-                ResNet(50, n_segment=seg, n_div=cfg.model.tsm_n_div,
-                       stem_input=cfg.model.stem_input,
-                       stage_sizes=self.stage_sizes, dtype=self.dtype),
-                segment_size=seg, hidden_size=cfg.model.hidden_size,
-                head_type="mlp", dtype=self.dtype)
-        self.entries = convert.two_stream_entries(self.bert_cfg.num_layers,
-                                                  self.stage_sizes)
-        self.contract = build_contract(
-            model_kind="two_stream", head_type=cfg.model.head_type,
-            clip_frame_num=seg, max_text_len=cfg.data.max_text_len,
-            frame_hw=hw, data_mode=cfg.model.data_mode)
+
+    def _streams(self):
+        m = self.cfg.model
+        return (BertModel(self.bert_cfg),
+                ResNet(50, n_segment=self.cfg.data.clip_frame_num,
+                       n_div=m.tsm_n_div, stem_input=m.stem_input,
+                       stage_sizes=self.stage_sizes, dtype=self.dtype,
+                       tsm_impl=m.tsm_impl, remat=m.remat_vision))
 
     def init_state(self) -> Dict[str, torch.Tensor]:
         """Seeded random weights (train.seed) drawn in the JAX layout and
         carried over by models/convert.py, as a float32 state dict."""
         tree = convert.random_jax_tree(self.model, self.entries,
                                        seed=self.cfg.train.seed)
-        return convert.from_jax_two_stream(tree, self.bert_cfg.num_layers,
-                                           self.stage_sizes)
+        return convert._with_bn_counters(convert.from_jax(tree,
+                                                          self.entries))
+
+    def _batch(self, model, batch, img_key: str):
+        """(frames, ids, mask) on the model's device. uint8 frames for a
+        frames stem are normalized there, to the compute dtype (K6; train/
+        tasks.py:62-70); an s2d pack goes in raw."""
+        dev = model.lang_model.pooler.dense.weight.device
+        put = lambda k: torch.as_tensor(batch[k]).to(dev, non_blocking=True)  # noqa: E731
+        img = put(img_key)
+        if self.cfg.model.stem_input != "s2d":
+            img = normalize_frames(img, self.dtype)
+        return img, put("text_ids").long(), put("attention_mask")
+
+
+class SegmentWindowTask(_SegmentBase):
+    """The flagship: TwoStreamWindow, binary clip cross entropy, AUC/mAP
+    eval (train/tasks.py:87-166). head_dropout is the heads' dropout rate
+    (0 turns it off, as the JAX package's deterministic=True does)."""
+
+    def __init__(self, cfg: Config, tiny: bool = False, hw: int = 224,
+                 bert_cfg: Optional[BertConfig] = None,
+                 head_dropout: float = 0.1):
+        super().__init__(cfg, tiny, hw, bert_cfg)
+        seg = cfg.data.clip_frame_num
+        with torch.device("meta"):
+            self.model = TwoStreamWindow(
+                *self._streams(), window_size=cfg.data.window_size,
+                segment_size=seg, hidden_size=cfg.model.hidden_size,
+                head_type=cfg.model.head_type, dtype=self.dtype,
+                dropout=head_dropout)
+        self.entries = convert.two_stream_window_entries(
+            self.bert_cfg.num_layers, self.stage_sizes, cfg.model.head_type)
+        self.contract = build_contract(
+            model_kind="two_stream_window", head_type=cfg.model.head_type,
+            clip_frame_num=seg, window_size=cfg.data.window_size,
+            max_text_len=cfg.data.max_text_len, frame_hw=hw,
+            data_mode=cfg.model.data_mode)
+
+    def loss_fn(self, model: TwoStreamWindow, batch: Dict[str, np.ndarray],
+                generator: Optional[torch.Generator] = None):
+        img, ids, mask = self._batch(model, batch, "img_clips")
+        logits, _ = model(img, ids, mask, train=True, generator=generator)
+        return clip_classification_loss(logits, torch.as_tensor(
+            batch["label"]).to(logits.device))
+
+    def eval_fn(self, model: TwoStreamWindow, loader):
+        """(mAP, {"auc", "m_ap"}) of the positive-class scores over the
+        loader; both 0 when the labels hold one class only."""
+        scores, labels = [], []
+        for batch in loader:
+            _, prob = model.serve(*self._batch(model, batch, "img_clips"))
+            scores.append(prob[:, 1].float().cpu().numpy())
+            labels.append(np.asarray(batch["label"]))
+        y, s = np.concatenate(labels), np.concatenate(scores)
+        if 0 < y.sum() < len(y):
+            auc = roc_auc_score(y, s)
+            m_ap = average_precision_score(y, s)
+        else:
+            auc = m_ap = 0.0
+        return m_ap, {"auc": auc, "m_ap": m_ap}
+
+
+class SegmentTask(_SegmentBase):
+    """Base (non-window) two-stream clip classifier: BERT + ResNet50-TSM +
+    the ChapterHead, binary clip cross entropy. model.head_type "attn"
+    builds the attention head; a window-only type builds the mlp head,
+    as the JAX task does (:183-184), and the contract records the type
+    asked for."""
+
+    def __init__(self, cfg: Config, tiny: bool = False, hw: int = 224,
+                 bert_cfg: Optional[BertConfig] = None):
+        super().__init__(cfg, tiny, hw, bert_cfg)
+        seg = cfg.data.clip_frame_num
+        asked = cfg.model.head_type
+        if asked not in ("attn",) + WINDOW_HEAD_TYPES:
+            raise ValueError(f"unknown head_type {asked}")
+        head = "attn" if asked == "attn" else "mlp"
+        with torch.device("meta"):
+            self.model = TwoStream(*self._streams(), segment_size=seg,
+                                   hidden_size=cfg.model.hidden_size,
+                                   head_type=head, dtype=self.dtype)
+        self.entries = convert.two_stream_entries(self.bert_cfg.num_layers,
+                                                  self.stage_sizes, head)
+        self.contract = build_contract(
+            model_kind="two_stream", head_type=asked,
+            clip_frame_num=seg, max_text_len=cfg.data.max_text_len,
+            frame_hw=hw, data_mode=cfg.model.data_mode)
 
     def loss_fn(self, model: TwoStream, batch: Dict[str, np.ndarray],
                 generator: Optional[torch.Generator] = None):
-        """(loss, metrics) of one host batch on the model's device. uint8
-        frames for a frames stem are normalized there, to the compute
-        dtype (train/tasks.py:62-70); an s2d pack goes in raw."""
-        dev = model.fusion_head.head.weight.device
-        put = lambda k: torch.as_tensor(batch[k]).to(dev, non_blocking=True)  # noqa: E731
-        img = put("img_clip")
-        if self.cfg.model.stem_input != "s2d":
-            img = normalize_frames(img, self.dtype)
-        logits, _ = model(img, put("text_ids").long(),
-                          put("attention_mask"), train=True,
-                          generator=generator)
-        return clip_classification_loss(logits, put("label"))
+        """(loss, metrics) of one host batch on the model's device."""
+        img, ids, mask = self._batch(model, batch, "img_clip")
+        logits, _ = model(img, ids, mask, train=True, generator=generator)
+        return clip_classification_loss(logits, torch.as_tensor(
+            batch["label"]).to(logits.device))
 
 
 class TitleGenTask:
