@@ -56,18 +56,24 @@
    --title_arch bigbird data.title_input_len=3072 --pipelined from the
    checkpoint of phase 5, checking 16 K10 launches per title batch and a
    title per chapter; then one greedy generate of BART-large.
-7. Training. Holds every training kernel entry (the K11 stem and the K12
-   bottleneck of each kind, forward and backward, and the K13 trunk's
-   recomputation of p) against its plain PyTorch version at every shape
-   of one full-width step (8 clips x 16 frames = 128 frames at 224 px,
-   bf16), with the forward output, the batch statistics and every
-   gradient compared and both timed; holds the trunk Function bit for bit
-   to the chain of per-block Functions and checks that it keeps no p;
-   then trains the port's cli/train_segment on a synthetic corpus
-   for a few AdamW steps (BERT-base, ResNet50-TSM s2d, mlp head,
-   data.batch_size=8) and checks finite losses, moved parameters and BN
-   running statistics, exact kernel launch counts per step, and a
-   checkpoint that restores.
+7. Training. Holds every training kernel entry (the K11 stem, the K12
+   bottleneck of each kind forward and backward with its finale, and the
+   K13 trunk's links and recomputation of p) against its plain PyTorch
+   version at every shape of one full-width step (8 clips x 16 frames =
+   128 frames at 224 px, bf16), with the forward output, the batch
+   statistics and every gradient compared and both timed; holds each
+   link bit for bit to what the per-block chain computes there, and the
+   trunk Function's forward bit for bit to the chain of per-block
+   Functions, its gradients in the bands, two of its runs bit for bit,
+   and checks that it keeps no p; then trains the port's
+   cli/train_segment on a synthetic corpus for a few AdamW steps
+   (BERT-base, ResNet50-TSM s2d, mlp head, data.batch_size=8) and checks
+   finite losses, moved parameters and BN running statistics, exact
+   kernel launch counts per step (the finale and its backward once, 15
+   links each way) and a checkpoint that restores. Then
+   model.remat_vision: one vision step with every block checkpointed,
+   bit for bit the per-block chain, peak memory beside the chain's and
+   the fused trunk's, and 2 train_segment steps with remat on.
 8. The window model (K5, K6, K7). Holds K5 (`tsm_conv1x1_bn_relu` and
    the epilogue-free `tsm_conv1x1`) to its plain version at the conv1 of
    all 16 blocks of one 256-frame vision call, beside torch.matmul of the
@@ -222,6 +228,13 @@ def training_phases(dev, smi, frames, vision):
         block_train_bwd,
         block_train_fwd,
         conv_nhwc,
+        finale_bwd,
+        finale_fwd,
+        finale_reference,
+        trunk_link_bwd,
+        trunk_link_bwd_reference,
+        trunk_link_fwd,
+        trunk_link_fwd_reference,
         tsm_block_train_reference,
     )
     from video_chapter_generation_tpu_torch.ops.tsm_trunk_train import (
@@ -241,6 +254,10 @@ def training_phases(dev, smi, frames, vision):
                    "bytes": 0.0, "max_abs": 0.0}
                for k in ("stem_s2d_train_fwd", "stem_s2d_train_bwd",
                          "tsm_block_train_fwd", "tsm_block_train_bwd",
+                         "tsm_trunk_train_finale_fwd",
+                         "tsm_trunk_train_finale_bwd",
+                         "tsm_trunk_train_link_fwd",
+                         "tsm_trunk_train_link_bwd",
                          "tsm_trunk_train_recompute_p")}
 
     def held(name, label, pairs, grads=False):
@@ -274,6 +291,308 @@ def training_phases(dev, smi, frames, vision):
     def grad_of(y, wrt, dy):
         return torch.autograd.grad(y, [t for t in wrt if t is not None], dy,
                                    retain_graph=True)
+
+    def link_phase(below, st, dy, label):
+        """K13's two links between block `below` and block st (whose input
+        is below's y) against their plain versions, and bit for bit
+        against what the per-block chain computes there."""
+        f, fb, cb = st.f, below.f, below.co
+        p, r = below.saved[2], below.residual()
+        aff = [below.vec[4 * fb + k * cb:4 * fb + (k + 1) * cb]
+               for k in range(4)]
+        sap_sbp = aff[2:] if below.proj else (None, None)
+        x_l, u_l, mom_l = trunk_link_fwd(st, below)
+        xr, ur, momr = trunk_link_fwd_reference(p, r, aff[0], aff[1],
+                                                *sap_sbp, st.wf[0], t, 8)
+        stats_l, _, _ = block_train_fwd(x_l, st.wf, st.gb, st.stride, t, 8,
+                                        1e-5, linked=(u_l, mom_l))
+        torch.cuda.synchronize()
+        n_st = 4 * f + (4 if st.proj else 2) * st.co  # the slots written
+        same = {"x": torch.equal(x_l, st.x),
+                "u": torch.equal(u_l, st.saved[0]),
+                "stats": torch.equal(stats_l[:n_st], st.stats[:n_st])}
+        if not all(same.values()):
+            fail(f"trunk_link_fwd {label}: not the chain's bit for bit: "
+                 f"{same}")
+        w_f = held("tsm_trunk_train_link_fwd", label,
+                   [(x_l, xr), (u_l, ur), (mom_l[:2 * f], momr.flatten())])
+        dq, mom3 = st.finale_backward(dy)
+        dx_chain, _ = st.backward(dq, mom3)
+        dq_c, mom3_c = below.finale_backward(dx_chain)
+        res, _ = st.backward(dq, mom3, link=True)
+        dq_l, mom3_l = trunk_link_bwd(st, below, res)
+        a, e, fv = st.abc1.view(3, -1)
+        du = (a * st.da1.float() + e * st.saved[0].float() + fv).to(bf)
+        mup = (below.stats[4 * fb + 2 * cb:4 * fb + 3 * cb] if below.proj
+               else None)
+
+        def plain_bwd():
+            return trunk_link_bwd_reference(
+                du, st.wf[0], res, st.x, p, below.saved[3],
+                below.stats[4 * fb:4 * fb + cb], mup, t, 8)
+
+        dq_r, mom3_r = plain_bwd()
+        torch.cuda.synchronize()
+        if not torch.equal(dq_l, dq_c):
+            fail(f"trunk_link_bwd {label}: dq is not the chain's bit for bit")
+        nm = 3 if below.proj else 2
+        w_b = held("tsm_trunk_train_link_bwd", label, [(dq_l, dq_r)])
+        w_m = held("tsm_trunk_train_link_bwd", label,
+                   [(mom3_l[k * cb:(k + 1) * cb], mom3_r[k])
+                    for k in range(nm)]
+                   + [(mom3_l[:nm * cb], mom3_c[:nm * cb])], True)
+        # the same sums as the chain's finale backward in another order
+        w_c = compare(mom3_l[:nm * cb], mom3_c[:nm * cb])
+        kf = cuda_ms(lambda: trunk_link_fwd(st, below))
+        pf = cuda_ms(lambda: trunk_link_fwd_reference(
+            p, r, aff[0], aff[1], *sap_sbp, st.wf[0], t, 8))
+        kb = cuda_ms(lambda: trunk_link_bwd(st, below, res))
+        pb = cuda_ms(plain_bwd)
+        m = st.x.numel() // cb
+        account("tsm_trunk_train_link_fwd", kf, pf, 2 * m * cb * f,
+                2 * (3 * m * cb + m * f + cb * f) + 16 * cb)
+        account("tsm_trunk_train_link_bwd", kb, pb, 2 * m * cb * f,
+                2 * ((4 if below.proj else 3) * m * cb + 2 * m * f + cb * f
+                     + m * cb) + 12 * f + 8 * cb)
+        print(f"# {'trunk links':18s} {label:44s} fwd x/u bitwise True, vs "
+              f"plain cos {w_f[2]:.6f} | bwd dq bitwise True, vs plain cos "
+              f"{w_b[2]:.6f}, moments cos {w_m[2]:.6f} mean_rel {w_m[1]:.3g} "
+              f"(vs the chain's: mean_rel {w_c[1]:.3g}) | fwd kernel {kf:.3f} ms plain {pf:.3f} | bwd kernel "
+              f"{kb:.3f} ms plain {pb:.3f}", flush=True)
+
+    def trunk_phase(trunk_in, blocks, y_shape):
+        """K13: the trunk Function against the chain of per-block
+        Functions on the same kernels. The forward must agree bit for bit
+        (the links compute the finales' values, and the recomputed p is
+        the forward's), the gradients in the bands (the backward moments
+        sum in another order), two runs of the trunk bit for bit, and the
+        trunk must keep less on the card after its forward: no p."""
+        tparams = [blk.train_params() for blk in blocks]
+        kinds = [blk.kind() for blk in blocks]
+        dy = torch.randn(y_shape, generator=gen, device=dev).to(bf)
+        n_fwd = 1 + sum(6 if k == "plain" else 8 for k in kinds)
+
+        def run(fn, params):
+            x_in = trunk_in.detach().clone().requires_grad_()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            y, stats = fn(x_in, params)
+            kept = torch.cuda.memory_allocated(dev) - base
+            wrt = [x_in] + [q for p in params for q in p if q is not None]
+            grads = torch.autograd.grad(y, wrt, dy)
+            return kept, [y] + [s for st in stats for s in st] + list(grads)
+
+        def chain(x_in, params):
+            stats = []
+            for p12, kind in zip(params, kinds):
+                x_in, st = _block(x_in, p12, STRIDES[kind], t, 8, 1e-5)
+                stats.append(st)
+            return x_in, stats
+
+        def trunk(x_in, ps):
+            return tsm_trunk_train(x_in, ps, kinds, t)
+
+        counters = (recompute_p, trunk_link_fwd, trunk_link_bwd, finale_fwd,
+                    finale_bwd, block_train_fwd, block_train_bwd)
+        for fn in counters:
+            fn.launches = 0
+        kept_t, out_t = run(trunk, [leaves(p) for p in tparams])
+        torch.cuda.synchronize()
+        one_step = {fn.__name__: fn.launches for fn in counters}
+        kept_c, out_c = run(chain, [leaves(unpack(p, k))
+                                    for p, k in zip(tparams, kinds)])
+        _, out_t2 = run(trunk, [leaves(p) for p in tparams])
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out_t[:n_fwd],
+                                                     out_c[:n_fwd])):
+            fail("tsm_trunk_train's forward differs from the chain's")
+        # leaves: x, then each block's parameters in order; the top
+        # block's gradients come before any link, the others after one
+        # link or more, whose moment order batch-stat BN amplifies
+        rels = [compare(a, b) for a, b in zip(out_t[n_fwd:], out_c[n_fwd:])]
+        worst = (max(r[0] for r in rels), max(r[1] for r in rels),
+                 min(r[2] for r in rels))
+        worst_leaf = max(range(len(rels)), key=lambda i: rels[i][1])
+        n_top = 9 if kinds[-1] == "plain" else 12
+        top_rel = max(r[1] for r in rels[-n_top:])
+        if not (worst[2] >= GRAD_MIN_COS and worst[1] <= GRAD_MAX_MEAN_REL):
+            fail(f"tsm_trunk_train's gradients leave the band around the "
+                 f"chain's: {worst}")
+        if not all(torch.equal(a, b) for a, b in zip(out_t, out_t2)):
+            fail("two runs of tsm_trunk_train differ")
+        del out_t, out_c, out_t2
+        dparams = [[q.detach() for q in p] for p in tparams]
+        dparams12 = [unpack(p, k) for p, k in zip(dparams, kinds)]
+        _, states = trunk_train_fwd(trunk_in, dparams, kinds, t, 8, 1e-5)
+        p_bytes = sum(st.saved[1].numel() // st.f * st.co * 2
+                      for st in states)
+        # the caching allocator may hand a tensor a cached block up to 1
+        # MiB larger than it asked for
+        if kept_c - kept_t < p_bytes - len(states) * 2 ** 20:
+            fail(f"the trunk keeps {kept_t} bytes after its forward, the "
+                 f"chain {kept_c}: fewer than the {p_bytes} bytes of p saved")
+
+        def chain_fwd():
+            out, x_in = [], trunk_in
+            for p12, kind in zip(dparams12, kinds):
+                st = BlockTrainState(p12, STRIDES[kind], t, 8, 1e-5)
+                st.forward(x_in)
+                x_in = st.finale()
+                out.append(st)
+            return out
+
+        def chain_bwd(chain_states):
+            g = dy
+            for st in reversed(chain_states):
+                g, _ = st.backward(*st.finale_backward(g))
+
+        kf = cuda_ms(lambda: trunk_train_fwd(trunk_in, dparams, kinds, t, 8,
+                                             1e-5))
+        kb = cuda_ms(lambda: trunk_train_bwd(dy, list(states)))
+        chain_states = chain_fwd()
+        cf, cb = cuda_ms(chain_fwd), cuda_ms(lambda: chain_bwd(chain_states))
+        # bounds: the trunk Function's inputs read once and outputs written
+        # once: forward x and the weights (float32) in, the residuals it
+        # keeps (each block's input past the first, u, z, pr) and y out;
+        # backward dy, those residuals and the weights in, dx and the
+        # float32 weight gradients out; the backward's products twice the
+        # forward's, plus the recomputed p
+        f_flops = f_bytes = b_flops = b_bytes = 0
+        for i, st in enumerate(states):
+            nt, h, w, c = st.x.shape
+            fl, m_in, m_out, nw = block_work(nt, h, w, c, st.f, st.co,
+                                             st.stride, st.proj)
+            kept = 2 * (m_in * st.f + m_out * st.f
+                        + (m_out * st.co if st.proj else 0)
+                        + (m_in * c if i else 0))
+            f_flops += fl
+            b_flops += 2 * fl + 2 * m_out * st.f * st.co
+            f_bytes += 4 * nw + kept
+            b_bytes += 8 * nw + kept
+        f_bytes += 2 * (trunk_in.numel() + dy.numel())
+        b_bytes += 2 * (trunk_in.numel() + 2 * dy.numel())
+        bf_ms, bf_by = bound(f_flops, f_bytes)
+        bb_ms, bb_by = bound(b_flops, b_bytes)
+        del states, chain_states
+        torch.cuda.empty_cache()
+        print(f"# {'tsm_trunk_train':18s} {str(tuple(trunk_in.shape)):44s} "
+              f"vs block chain: forward bitwise True, gradients worst cos "
+              f"{worst[2]:.6f} mean_rel {worst[1]:.3g} (leaf {worst_leaf} of "
+              f"{len(rels)}; the top block's worst mean_rel {top_rel:.3g}), "
+              f"two runs bitwise "
+              f"True; kept after the forward {kept_t} bytes vs {kept_c} "
+              f"({kept_c - kept_t} less, p is {p_bytes}); launches per "
+              f"forward+backward {one_step} | trunk fwd {kf:.3f} ms bwd "
+              f"{kb:.3f} ms, chain fwd {cf:.3f} ms bwd {cb:.3f} ms, bound "
+              f"fwd {bf_ms:.3f} ms ({bf_by}) bwd {bb_ms:.3f} ms ({bb_by}) "
+              f"on {smi}", flush=True)
+
+    def remat_phase(x0, trunk_peak, argv, paths):
+        """model.remat_vision: one full-width training step of the vision
+        trunk with each block on its K12 Function under a checkpoint, bit
+        for bit the same chain of Functions without one; peak memory of
+        the two and of the fused trunk; then train_segment with
+        model.remat_vision=true for 2 steps of TRAIN_CLIPS clips."""
+        counters = (stem_train_fwd, stem_train_bwd, block_train_fwd,
+                    block_train_bwd, finale_fwd, finale_bwd, trunk_link_fwd,
+                    trunk_link_bwd, recompute_p)
+        params = list(vision.parameters())
+        saved_buffers = [b.detach().clone() for b in vision.buffers()]
+        cot = {}
+
+        def step(remat, impl):
+            vision.remat, vision.tsm_impl = remat, impl
+            vision.train()
+            try:
+                out = vision.forward_train(x0)
+                if "dy" not in cot:
+                    cot["dy"] = torch.randn(out.shape, generator=gen,
+                                            device=dev).to(out.dtype)
+                return [out] + list(torch.autograd.grad(out, params,
+                                                        cot["dy"]))
+            finally:
+                vision.remat, vision.tsm_impl = False, "auto"
+                vision.eval()
+                with torch.no_grad():
+                    for b, v in zip(vision.buffers(), saved_buffers):
+                        b.copy_(v)
+
+        modes = {"remat": (True, "auto"),
+                 "chain": (False, ("fusedtrain",) * 4),
+                 "trunk": (False, "auto")}
+        got, peaks, ms, counts = {}, {}, {}, {}
+        for name, mode in modes.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            for fn in counters:
+                fn.launches = 0
+            out = step(*mode)
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated(dev) - base
+            counts[name] = {fn.__name__: fn.launches for fn in counters
+                            if fn.launches}
+            if name != "trunk":
+                got[name] = out
+            del out
+            ms[name] = cuda_ms(lambda mode=mode: step(*mode))
+        if not all(torch.equal(a, b) for a, b in zip(got["remat"],
+                                                     got["chain"])):
+            fail("the remat vision step differs from the chain of per-block "
+                 "Functions")
+        n = len(vision.blocks())
+        want = {"stem_train_fwd": 1, "stem_train_bwd": 1,
+                "block_train_fwd": 2 * n, "finale_fwd": 2 * n,
+                "block_train_bwd": n, "finale_bwd": n}
+        if counts["remat"] != want:
+            fail(f"remat vision step launches {counts['remat']} != {want}")
+        del got
+        torch.cuda.empty_cache()
+        print(f"# remat vision step ({tuple(x0.shape)} u8, stem to pooled "
+              f"features, forward+backward): outputs and gradients bitwise "
+              f"the per-block chain's; launches {counts['remat']}; peak "
+              f"device memory above the start: remat {peaks['remat']} bytes, "
+              f"chain {peaks['chain']}, fused trunk {peaks['trunk']}; step "
+              f"ms: remat {ms['remat']:.3f}, chain {ms['chain']:.3f}, fused "
+              f"trunk {ms['trunk']:.3f} on {smi}", flush=True)
+
+        # train_segment with model.remat_vision=true: 2 steps
+        vids = open(paths["train_vid_file"]).read().split()
+        remat_vids = build / "remat_train_vids.txt"
+        remat_vids.write_text("\n".join(vids[:2 * TRAIN_CLIPS]) + "\n")
+        rargv = [a for a in argv if not a.startswith(
+            ("data.train_vid_file=", "train.ckpt_dir=", "train.log_dir="))]
+        rargv += [f"data.train_vid_file={remat_vids}",
+                  "model.remat_vision=true",
+                  f"train.ckpt_dir={build / 'remat_ckpt'}",
+                  f"train.log_dir={build / 'remat_logs'}"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.time()
+        trainer = train_segment.main(rargv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps = trainer.step
+        launches = {fn.__name__: fn.launches for fn in counters
+                    if fn.launches}
+        want = {k: v * steps for k, v in want.items()}
+        logs = [json.loads(line) for line in
+                open(build / "remat_logs" / "scalars.jsonl")]
+        loss = [r["value"] for r in logs if r["tag"] == "train/loss"][-1]
+        step_s = trainer.timer.summary()["train_step"]["seconds"] / steps
+        print(f"# train_segment model.remat_vision=true: {steps} steps of "
+              f"{TRAIN_CLIPS} clips in {wall:.1f} s, {step_s * 1e3:.1f} ms a "
+              f"step (first-step build included), peak device memory "
+              f"{peak} bytes (without remat {trunk_peak}), loss {loss:.4f}, "
+              f"launches {launches} on {smi}", flush=True)
+        if steps != 2 or not math.isfinite(loss) or launches != want:
+            fail(f"train_segment with remat: {steps} steps, loss {loss}, "
+                 f"launches {launches} != {want}")
+        del trainer
+        torch.cuda.empty_cache()
 
     # --- K11: the training stem ---
     stem_w = [vision.conv1.weight.permute(2, 3, 1, 0), vision.bn1.weight,
@@ -312,19 +631,23 @@ def training_phases(dev, smi, frames, vision):
           f"{pb:.3f}", flush=True)
     x = y.detach()
 
-    # --- K12: every bottleneck of the trunk, each fed the kernel output ---
+    # --- K12: every bottleneck of the trunk, each fed the kernel output;
+    # from block 1 on, K13's two links between it and the block below ---
     blocks = vision.blocks()
     t = CLIP_FRAMES
     trunk_in = x
+    below = None
     for i, blk in enumerate(blocks):
         kind = blk.kind()
         stride = 2 if kind == "s2" else 1
         params = unpack(blk.train_params(), kind)
         pk = leaves(params)
         xk = x.detach().clone().requires_grad_()
-        st = BlockTrainState(x, pk, stride, t, 8, 1e-5)
+        st = BlockTrainState(pk, stride, t, 8, 1e-5)
+        st.forward(x)
+        st.finale()
         dy = torch.randn(st.y.shape, generator=gen, device=dev).to(bf)
-        dxk, gk = st.backward(dy)
+        dxk, gk = st.backward(*st.finale_backward(dy))
         pp = leaves(params)
         w1, w2, w3, wp, g1, be1, g2, be2, g3, be3, gp, bep = pp
         yr, str_ = tsm_block_train_reference(
@@ -338,17 +661,25 @@ def training_phases(dev, smi, frames, vision):
                      [(st.y, yr)] + list(zip(st.stats_tuple(), str_)))
         gk = [dxk] + [g for g in gk if g is not None]
         w_grad = held("tsm_block_train_bwd", label, list(zip(gk, gr)), True)
-        kf = cuda_ms(lambda: block_train_fwd(x, st.wf, st.gb, stride, t, 8,
-                                             1e-5))
+        f, co = st.f, st.co
+
+        def block_fwd():
+            stats, vec, saved = block_train_fwd(x, st.wf, st.gb, stride, t,
+                                                8, 1e-5)
+            finale_fwd(saved[2], saved[3] if st.proj else x, vec, f, co,
+                       st.proj)
+
+        def block_bwd():
+            dq, mom3 = st.finale_backward(dy)
+            block_train_bwd(dq, mom3, x, st.saved, st.wb, st.gb, st.stats,
+                            st.vec, stride, t, 8, 1e-5)
+
+        kf, kb = cuda_ms(block_fwd), cuda_ms(block_bwd)
         pf = cuda_ms(lambda: tsm_block_train_reference(
             xk, w1, w2, w3, g1, be1, g2, be2, g3, be3, t, 8, 1e-5, wp, gp,
             bep, stride))
-        kb = cuda_ms(lambda: block_train_bwd(
-            dy, x, st.saved, st.y, st.wb, st.gb, st.stats, st.vec, stride,
-            t, 8, 1e-5))
         pb = cuda_ms(lambda: grad_of(yr, [xk] + pp, dy))
         nt, h, w, c = x.shape
-        f, co = st.f, st.co
         flops, m_in, m_out, nw = block_work(nt, h, w, c, f, co, stride,
                                             st.proj)
         act_out = 2 * (m_in * f + m_out * f + m_out * co * (3 if st.proj
@@ -363,6 +694,43 @@ def training_phases(dev, smi, frames, vision):
               f"{w_grad[2]:.6f} mean_rel {w_grad[1]:.3g} | fwd kernel "
               f"{kf:.3f} ms plain {pf:.3f} | bwd kernel {kb:.3f} ms plain "
               f"{pb:.3f}", flush=True)
+
+        # the finale and its backward prologue alone (the trunk launches
+        # them for its top block only)
+        p, r = st.saved[2], st.residual()
+        aff = [st.vec[4 * f + k * co:4 * f + (k + 1) * co] for k in range(4)]
+        mus = (st.stats[4 * f:4 * f + co],
+               st.stats[4 * f + 2 * co:4 * f + 3 * co])
+        sap_sbp = aff[2:] if st.proj else (None, None)
+
+        def plain_finale_bwd():
+            dq = torch.where(st.y > 0, dy, torch.zeros_like(dy))
+            dqf = dq.float()
+            rows = [dqf.sum((0, 1, 2)),
+                    (dqf * (p.float() - mus[0])).sum((0, 1, 2))]
+            if st.proj:
+                rows.append((dqf * (r.float() - mus[1])).sum((0, 1, 2)))
+            return dq, torch.cat(rows)
+
+        yf_r = finale_reference(p, r, aff[0], aff[1], *sap_sbp)
+        dq_k, mom3_k = st.finale_backward(dy)
+        dq_r, mom3_r = plain_finale_bwd()
+        torch.cuda.synchronize()
+        w_ff = held("tsm_trunk_train_finale_fwd", label, [(st.y, yf_r)])
+        w_fb = held("tsm_trunk_train_finale_bwd", label,
+                    [(dq_k, dq_r), (mom3_k[:mom3_r.numel()], mom3_r)], True)
+        m_y = st.y.numel()
+        account("tsm_trunk_train_finale_fwd",
+                cuda_ms(lambda: finale_fwd(p, r, st.vec, f, co, st.proj)),
+                cuda_ms(lambda: finale_reference(p, r, aff[0], aff[1],
+                                                 *sap_sbp)),
+                0, 2 * m_y * 3 + 16 * co)
+        account("tsm_trunk_train_finale_bwd",
+                cuda_ms(lambda: st.finale_backward(dy)),
+                cuda_ms(plain_finale_bwd), 0,
+                2 * m_y * (5 if st.proj else 4) + 12 * co)
+        print(f"# {'finale':18s} {label:44s} fwd cos {w_ff[2]:.6f} bwd cos "
+              f"{w_fb[2]:.6f} mean_rel {w_fb[1]:.3g}", flush=True)
 
         # K13's own launch: the block's p made again from its saved z, bit
         # for bit the forward's p, and held to its plain version
@@ -383,61 +751,14 @@ def training_phases(dev, smi, frames, vision):
         print(f"# {'recompute_p':18s} {label:44s} p cos {w_p[2]:.6f} mean_rel "
               f"{w_p[1]:.3g} bitwise True | kernel {kr:.3f} ms plain "
               f"{pr_ms:.3f}", flush=True)
+        if below is not None:
+            link_phase(below, st, dy, label)
+        below = st
         x = st.y.detach()
-        del st, yr, gr, p_k, p_r
+        del yr, gr, p_k, p_r
 
-    # --- K13: the trunk Function against the chain of per-block
-    # Functions on the same kernels. They must agree bit for bit (the
-    # recomputed p is the forward's, and no kernel reduces with atomics),
-    # and the trunk must keep less on the card after its forward: no p.
-    tparams = [blk.train_params() for blk in blocks]
-    kinds = [blk.kind() for blk in blocks]
-    dy = torch.randn(x.shape, generator=gen, device=dev).to(bf)
-
-    def run(fn, params):
-        x_in = trunk_in.detach().clone().requires_grad_()
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated(dev)
-        y, stats = fn(x_in, params)
-        kept = torch.cuda.memory_allocated(dev) - base
-        wrt = [x_in] + [q for p in params for q in p if q is not None]
-        grads = torch.autograd.grad(y, wrt, dy)
-        return kept, [y] + [s for st in stats for s in st] + list(grads)
-
-    def chain(x_in, params):
-        stats = []
-        for p12, kind in zip(params, kinds):
-            x_in, st = _block(x_in, p12, STRIDES[kind], t, 8, 1e-5)
-            stats.append(st)
-        return x_in, stats
-
-    kept_t, out_t = run(lambda x_in, ps: tsm_trunk_train(x_in, ps, kinds, t),
-                        [leaves(p) for p in tparams])
-    kept_c, out_c = run(chain, [leaves(unpack(p, k))
-                                for p, k in zip(tparams, kinds)])
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(out_t, out_c)):
-        fail("tsm_trunk_train and the chain of per-block Functions differ")
-    del out_t, out_c
-    dparams = [[q.detach() for q in p] for p in tparams]
-    _, states = trunk_train_fwd(trunk_in, dparams, kinds, t, 8, 1e-5)
-    p_bytes = sum(st.y.numel() * 2 for st in states)  # p is y's shape
-    # the caching allocator may hand a tensor a cached block up to 1 MiB
-    # larger than it asked for
-    if kept_c - kept_t < p_bytes - len(states) * 2 ** 20:
-        fail(f"the trunk keeps {kept_t} bytes after its forward, the chain "
-             f"{kept_c}: fewer than the {p_bytes} bytes of p saved")
-    kf = cuda_ms(lambda: trunk_train_fwd(trunk_in, dparams, kinds, t, 8,
-                                         1e-5))
-    kb = cuda_ms(lambda: trunk_train_bwd(dy, list(states)))
-    del states
-    torch.cuda.empty_cache()
-    print(f"# {'tsm_trunk_train':18s} {str(tuple(trunk_in.shape)):44s} "
-          f"vs block chain: bitwise True; kept after the forward {kept_t} "
-          f"bytes vs {kept_c} ({kept_c - kept_t} less, p is {p_bytes}) | "
-          f"fwd {kf:.3f} ms bwd {kb:.3f} ms (blocks' sum "
-          f"{entries['tsm_block_train_fwd']['ms']:.3f} / "
-          f"{entries['tsm_block_train_bwd']['ms']:.3f}) on {smi}", flush=True)
+    del below
+    trunk_phase(trunk_in, blocks, x.shape)
 
     # --- the main path: the port's train_segment, a few full-width steps ---
     build = ROOT / "video_chapter_generation_tpu_torch" / "_build"
@@ -459,6 +780,10 @@ def training_phases(dev, smi, frames, vision):
                "stem_s2d_train_bwd": stem_train_bwd,
                "tsm_block_train_fwd": block_train_fwd,
                "tsm_block_train_bwd": block_train_bwd,
+               "tsm_trunk_train_finale_fwd": finale_fwd,
+               "tsm_trunk_train_finale_bwd": finale_bwd,
+               "tsm_trunk_train_link_fwd": trunk_link_fwd,
+               "tsm_trunk_train_link_bwd": trunk_link_bwd,
                "tsm_trunk_train_recompute_p": recompute_p}
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in counted.values():
@@ -470,9 +795,15 @@ def training_phases(dev, smi, frames, vision):
     peak = torch.cuda.max_memory_allocated(dev)
     launches = {name: fn.launches for name, fn in counted.items()}
     steps = trainer.step
+    # per step: the top block's finale and its backward prologue only, a
+    # link between each two blocks, p made again once per block
     per_step = {"stem_s2d_train_fwd": 1, "stem_s2d_train_bwd": 1,
                 "tsm_block_train_fwd": len(blocks),
                 "tsm_block_train_bwd": len(blocks),
+                "tsm_trunk_train_finale_fwd": 1,
+                "tsm_trunk_train_finale_bwd": 1,
+                "tsm_trunk_train_link_fwd": len(blocks) - 1,
+                "tsm_trunk_train_link_bwd": len(blocks) - 1,
                 "tsm_trunk_train_recompute_p": len(blocks)}
     want = {k: v * steps for k, v in per_step.items()}
     print(f"# train_segment: {steps} steps of {TRAIN_CLIPS} clips in "
@@ -511,24 +842,34 @@ def training_phases(dev, smi, frames, vision):
           f"information only", flush=True)
     del trainer, model
     torch.cuda.empty_cache()
+    remat_phase(x0, peak, argv, paths)
 
-    sources = {"stem": ("csrc/stem_train.cu",
-                        "video_chapter_generation_tpu/ops/"
-                        "stem_train_pallas.py:329"),
-               "block": ("csrc/conv_train.cu",
-                         "video_chapter_generation_tpu/ops/"
-                         "tsm_block_train_pallas.py:1483"),
-               "trunk": ("csrc/conv_train.cu",
-                         "video_chapter_generation_tpu/ops/"
-                         "tsm_trunk_train_pallas.py:118")}
+    pallas = "video_chapter_generation_tpu/ops/"
+    sources = {
+        "stem_s2d_train_fwd": ("stem_train.cu", "stem_train_pallas.py:329"),
+        "stem_s2d_train_bwd": ("stem_train.cu", "stem_train_pallas.py:329"),
+        "tsm_block_train_fwd": ("conv_train.cu",
+                                "tsm_block_train_pallas.py:1483"),
+        "tsm_block_train_bwd": ("conv_train.cu",
+                                "tsm_block_train_pallas.py:1483"),
+        "tsm_trunk_train_finale_fwd": ("conv_train.cu",
+                                       "tsm_trunk_train_pallas.py:118"),
+        "tsm_trunk_train_finale_bwd": ("conv_train.cu",
+                                       "tsm_trunk_train_pallas.py:118"),
+        "tsm_trunk_train_link_fwd": ("conv_train.cu",
+                                     "tsm_block_train_pallas.py:1027"),
+        "tsm_trunk_train_link_bwd": ("conv_train.cu",
+                                     "tsm_block_train_pallas.py:679"),
+        "tsm_trunk_train_recompute_p": ("conv_train.cu",
+                                        "tsm_trunk_train_pallas.py:118")}
     out = []
     for name, e in entries.items():
-        src, replaces = sources[name.split("_")[0] if name.startswith("stem")
-                                else name.split("_")[1]]
+        src, replaces = sources[name]
         b_ms, b_by = bound(e["flops"], e["bytes"])
         out.append({"name": name, "route": "cuda",
-                    "source": f"video_chapter_generation_tpu_torch/{src}",
-                    "replaces": replaces, "launches": launches[name],
+                    "source": f"video_chapter_generation_tpu_torch/csrc/{src}",
+                    "replaces": pallas + replaces,
+                    "launches": launches[name],
                     "max_abs_err": e["max_abs"], "ms": e["ms"],
                     "plain_ms": e["plain_ms"], "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": None})
@@ -1145,6 +1486,10 @@ def window_phases(dev, smi, frames, vision):
     from video_chapter_generation_tpu_torch.ops.tsm_block_train import (
         block_train_bwd,
         block_train_fwd,
+        finale_bwd,
+        finale_fwd,
+        trunk_link_bwd,
+        trunk_link_fwd,
     )
     from video_chapter_generation_tpu_torch.ops.tsm_conv import (
         tsm_conv1x1,
@@ -1321,7 +1666,8 @@ def window_phases(dev, smi, frames, vision):
             "train.keep_checkpoints=1", "train.resume=false"]
     counted = {f.__name__: f for f in (
         normalize_frames, stem_train_fwd, stem_train_bwd, block_train_fwd,
-        block_train_bwd, recompute_p, tsm_conv1x1, temporal_shift,
+        block_train_bwd, finale_fwd, finale_bwd, trunk_link_fwd,
+        trunk_link_bwd, recompute_p, tsm_conv1x1, temporal_shift,
         stem_frames, bn_relu_maxpool, tsm_bottleneck, tsm_bottleneck_s2,
         tsm_conv1x1_bn_relu)}
     runs, seen = {}, {}
@@ -1339,7 +1685,9 @@ def window_phases(dev, smi, frames, vision):
     per_step = {
         "auto": {"normalize_frames": 1, "stem_train_fwd": 1,
                  "stem_train_bwd": 1, "block_train_fwd": 16,
-                 "block_train_bwd": 16, "recompute_p": 16},
+                 "block_train_bwd": 16, "finale_fwd": 1, "finale_bwd": 1,
+                 "trunk_link_fwd": 15, "trunk_link_bwd": 15,
+                 "recompute_p": 16},
         "pallas": {"normalize_frames": 1, "tsm_conv1x1": 16,
                    "temporal_shift": 32}}
     for impl in ("auto", "pallas"):

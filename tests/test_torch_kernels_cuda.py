@@ -119,6 +119,8 @@ def test_block_train_kernel(dev, stride, proj, c, f):
         _block,
         block_train_bwd,
         block_train_fwd,
+        finale_bwd,
+        finale_fwd,
         tsm_block_train_reference,
     )
 
@@ -139,11 +141,11 @@ def test_block_train_kernel(dev, stride, proj, c, f):
             xs, ps[0], ps[1], ps[2], ps[4], ps[5], ps[6], ps[7], ps[8],
             ps[9], t, 8, 1e-5, ps[3], ps[10], ps[11], stride)
 
-    f0, b0 = block_train_fwd.launches, block_train_bwd.launches
+    counters = (block_train_fwd, block_train_bwd, finale_fwd, finale_bwd)
+    before = [fn.launches for fn in counters]
     y, st, gk = _grad_run(kern, x, params, dy)
     torch.cuda.synchronize()
-    assert (block_train_fwd.launches, block_train_bwd.launches) == (f0 + 1,
-                                                                    b0 + 1)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1] * 4
     yr, str_, gr = _grad_run(plain, x, params, dy)
     _close(y, yr)
     for a, b in zip(st, str_):
@@ -190,7 +192,15 @@ def test_stem_train_kernel(dev):
 
 
 def test_trunk_train_kernel(dev):
-    from video_chapter_generation_tpu_torch.ops.tsm_block_train import _block
+    from video_chapter_generation_tpu_torch.ops.tsm_block_train import (
+        _block,
+        block_train_bwd,
+        block_train_fwd,
+        finale_bwd,
+        finale_fwd,
+        trunk_link_bwd,
+        trunk_link_fwd,
+    )
     from video_chapter_generation_tpu_torch.ops.tsm_trunk_train import (
         STRIDES,
         recompute_p,
@@ -241,19 +251,32 @@ def test_trunk_train_kernel(dev):
         kept = torch.cuda.memory_allocated(dev) - base
         return kept, (y, stats, torch.autograd.grad(y, [xs] + ps, dy))
 
-    r0 = recompute_p.launches
+    counters = (recompute_p, trunk_link_fwd, trunk_link_bwd, finale_fwd,
+                finale_bwd, block_train_fwd, block_train_bwd)
+    before = [fn.launches for fn in counters]
     kept_t, (y, st, gk) = kept_after_forward(
         lambda xs, ps: tsm_trunk_train(xs, regroup(ps), kinds, t))
     torch.cuda.synchronize()
-    assert recompute_p.launches == r0 + len(kinds)
-    # the recomputed p is the forward's p: the trunk agrees bit for bit
-    # with the chain of per-block Functions, and keeps no p (each block's
-    # p has the shape of its output)
+    n = len(kinds)
+    # p made again once per block; a link between each two blocks; the
+    # finale and its backward prologue for the top block only
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [
+        n, n - 1, n - 1, 1, 1, n, n]
+    # the links compute what the finales compute: the forward agrees bit
+    # for bit with the chain of per-block Functions, and keeps no p (each
+    # block's p has the shape of its output); the backward moments sum in
+    # another order, so the gradients agree in the bands, and two runs of
+    # the trunk bit for bit
     kept_c, (yc, stc, gc) = kept_after_forward(chain)
     assert torch.equal(y, yc)
     assert all(torch.equal(a, b) for s, sc in zip(st, stc)
                for a, b in zip(s, sc))
-    assert all(torch.equal(a, b) for a, b in zip(gk, gc))
+    for a, b in zip(gk, gc):
+        _grad_close(a, b)
+    _, (y2, st2, gk2) = kept_after_forward(
+        lambda xs, ps: tsm_trunk_train(xs, regroup(ps), kinds, t))
+    assert torch.equal(y, y2)
+    assert all(torch.equal(a, b) for a, b in zip(gk, gk2))
     # two blocks at 16 x 16 x 256 and two at 8 x 8 x 512, 2t frames, bf16
     p_bytes = 2 * (2 * t) * (16 * 16 * 256 + 8 * 8 * 512) * 2
     # (less up to 1 MiB a block: the caching allocator may hand a tensor a
@@ -273,6 +296,65 @@ def test_trunk_train_kernel(dev):
     for a, b in zip(gk, gr):
         got, ref = a.float().flatten(), b.float().flatten()
         assert torch.nn.functional.cosine_similarity(got, ref, dim=0) >= 0.99
+
+
+@pytest.mark.parametrize("kinds", [("proj", "plain"), ("plain", "plain"),
+                                   ("plain", "s2"), ("s2", "plain")],
+                         ids=lambda k: "->".join(k))
+def test_trunk_link_kernels(dev, kinds):
+    """Each link against its plain version: x, u and the moments of u
+    forward; dq of the block below and its moments backward."""
+    from video_chapter_generation_tpu_torch.ops.tsm_block_train import (
+        BlockTrainState,
+        trunk_link_bwd,
+        trunk_link_bwd_reference,
+        trunk_link_fwd,
+        trunk_link_fwd_reference,
+    )
+
+    g = torch.Generator().manual_seed(7)
+    t = 8
+    c0, f0 = {"proj": (64, 64), "plain": (256, 64), "s2": (256, 128)}[
+        kinds[0]]
+    co0 = 4 * f0 if kinds[0] != "plain" else c0
+    f1 = co0 // 4 if kinds[1] == "plain" else co0 // 2
+    co1 = co0 if kinds[1] == "plain" else 4 * f1
+    states = []
+    for kind, c, f, co in ((kinds[0], c0, f0, co0), (kinds[1], co0, f1, co1)):
+        states.append(BlockTrainState(
+            _block_params(g, dev, c, f, co, kind != "plain"),
+            2 if kind == "s2" else 1, t, 8, 1e-5))
+    below, st = states
+    x0 = torch.relu(torch.randn(2 * t, 16, 16, c0, generator=g)).to(
+        dev, torch.bfloat16)
+    below.forward(x0)
+    x, u, mom = trunk_link_fwd(st, below)
+    vb = below.vec
+    fb, cb = below.f, below.co
+    aff = [vb[4 * fb + i * cb:4 * fb + (i + 1) * cb] for i in range(4)]
+    p_below, r_below = below.saved[2], below.residual()
+    xr, ur, momr = trunk_link_fwd_reference(
+        p_below, r_below, aff[0], aff[1], *(aff[2:] if below.proj else
+                                            (None, None)),
+        st.wf[0], t, 8)
+    _close(x, xr)
+    _close(u, ur)
+    _close(mom[:2 * st.f], momr.flatten())
+    st.forward(None, below)
+    st.finale()
+    dy = torch.randn(st.y.shape, generator=g).to(dev, torch.bfloat16)
+    res, _ = st.backward(*st.finale_backward(dy), link=True)
+    dq, mom3 = trunk_link_bwd(st, below, res)
+    a, e, f = st.abc1.view(3, -1)
+    du = (a * st.da1.float() + e * st.saved[0].float() + f).to(torch.bfloat16)
+    sb = below.stats
+    dqr, mom3r = trunk_link_bwd_reference(
+        du, st.wf[0], res, st.x, p_below, below.saved[3],
+        sb[4 * fb:4 * fb + cb], sb[4 * fb + 2 * cb:4 * fb + 3 * cb]
+        if below.proj else None, t, 8)
+    _close(dq, dqr)
+    for k in range(3 if below.proj else 2):
+        _grad_close(mom3[k * cb:(k + 1) * cb], mom3r[k])
 
 
 def test_training_kernels_are_deterministic(dev):

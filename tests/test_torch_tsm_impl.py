@@ -175,6 +175,31 @@ def test_per_stage_training_runs_every_route():
     assert all(not torch.equal(v, after[k]) for k, v in before.items())
 
 
+@pytest.mark.parametrize("impl,fuse", [("auto", True), ("pallas", True),
+                                       (("fusedtrain", "pallas", "tap3",
+                                         "xla"), True), ("auto", False)],
+                         ids=["auto", "pallas", "per_stage", "unfused"])
+def test_remat_trains_every_route(impl, fuse):
+    """remat=True (model.remat_vision) on each block's route: the same
+    output, gradients and running statistics as remat=False, exactly
+    (the same functions, computed again), float64."""
+    tree = _tree(8)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (B * T, HW, HW, 3)))
+    runs = []
+    for remat in (True, False):
+        net = _port(tree, torch.float64, tsm_impl=impl, fuse_tsm=fuse,
+                    remat=remat).train()
+        y = net(x)
+        y.square().mean().backward()
+        runs.append((y, [p.grad for p in net.parameters()],
+                     [b for b in net.buffers()]))
+    (y0, g0, b0), (y1, g1, b1) = runs
+    assert torch.equal(y0, y1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert all(torch.equal(a, b) for a, b in zip(b0, b1))
+
+
 def test_unknown_values_and_remat_are_refused():
     with pytest.raises(ValueError, match="one of"):
         ResNet(50, n_segment=T, tsm_impl="pallas2")
@@ -185,12 +210,13 @@ def test_unknown_values_and_remat_are_refused():
     net = ResNet(50, n_segment=T)
     with pytest.raises(ValueError, match="one of"):
         net.tsm_impl = "fused"
-    with pytest.raises(ValueError, match="ROADMAP queue 2 item 5"):
-        ResNet(50, n_segment=T, remat=True)
+    # remat is no longer refused: it trains (test_remat_trains_every_route)
+    assert ResNet(50, n_segment=T, remat=True).remat
     # the config knobs reach the trunk through the tasks
-    cfg = Config().apply_overrides(["model.tsm_impl=fusedblk"])
-    assert SegmentTask(cfg, tiny=True).model.vision_model.tsm_impl == \
-        "fusedblk"
-    for bad in (["model.tsm_impl=fast"], ["model.remat_vision=true"]):
-        with pytest.raises(ValueError):
-            SegmentTask(Config().apply_overrides(bad), tiny=True)
+    cfg = Config().apply_overrides(["model.tsm_impl=fusedblk",
+                                    "model.remat_vision=true"])
+    vision = SegmentTask(cfg, tiny=True).model.vision_model
+    assert vision.tsm_impl == "fusedblk" and vision.remat
+    with pytest.raises(ValueError):
+        SegmentTask(Config().apply_overrides(["model.tsm_impl=fast"]),
+                    tiny=True)

@@ -161,6 +161,104 @@ struct ActA {
   }
 };
 
+// A bottleneck's finale on 8 channels from ch: relu(bf16(sa3 * p + sb3)
+// + r'), r' = r (identity residual) or bf16(sap * r + sbp) (projection,
+// sap != null); the rounding of every step is part of the contract (the
+// trunk's link must give what the standalone finale gives, bit for bit).
+__device__ __forceinline__ uint4 finale8(uint4 praw, uint4 rraw,
+                                         const float* sa3, const float* sb3,
+                                         const float* sap, const float* sbp,
+                                         int ch) {
+  float pv[8], rv[8], out[8];
+  unpack8(praw, pv);
+  unpack8(rraw, rv);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float a3 = __bfloat162float(
+        __float2bfloat16_rn(fmaf(pv[e], sa3[ch + e], sb3[ch + e])));
+    const float rr =
+        sap == nullptr
+            ? rv[e]
+            : __bfloat162float(__float2bfloat16_rn(
+                  fmaf(rv[e], sap[ch + e], sbp[ch + e])));
+    out[e] = fmaxf(a3 + rr, 0.0f);
+  }
+  return pack8(out);
+}
+
+// The trunk's forward link (tsm_trunk_train_pallas.py: _fk1 with prev):
+// the A operand of block N's conv1 is shift(x) with x = block N-1's
+// finale of (p, r), computed as it loads; x itself is written to x_out
+// once, by the blocks of column tile 0.
+struct LinkXf {
+  const bf16* p;
+  const bf16* r;
+  const float* sa3;
+  const float* sb3;
+  const float* sap;  // null: block N-1 has an identity residual
+  const float* sbp;
+  bf16* x_out;
+  int t, fold;
+};
+
+// Forward A tile of a 1x1 stride-1 conv whose input is LinkXf's x; thread
+// layout as ActA. The chunk of row m at channel ch reads frame src = the
+// frame the shift takes it from; at a clip edge, where the shift reads
+// zero, src wraps to the clip's other end and the value is written to
+// x_out but not used. The map (row, ch) -> (src, ch) is one to one, so
+// every element of x_out is written exactly once.
+struct LinkA {
+  LinkXf a;
+  int c, plane, kc;
+  int rn[2], rpix[2];
+  bool rok[2];
+
+  __device__ void init(const LinkXf& a_, const ConvGeo& g, int m0) {
+    a = a_;
+    c = g.c;
+    plane = g.h * g.w;
+    kc = threadIdx.x & 3;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + (threadIdx.x >> 2) + i * 64;
+      rok[i] = m < g.m;
+      const int mm = rok[i] ? m : 0;
+      rn[i] = mm / plane;
+      rpix[i] = mm - rn[i] * plane;
+    }
+  }
+
+  __device__ void load(bf16* as, int k0) const {
+    const int ch = k0 + kc * 8;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (rok[i]) {
+        int nn = rn[i];
+        bool use = true;
+        if (a.fold) {
+          const int tt = nn % a.t;
+          if (ch < a.fold) {
+            use = tt < a.t - 1;
+            nn += use ? 1 : 1 - a.t;
+          } else if (ch < 2 * a.fold) {
+            use = tt > 0;
+            nn += use ? -1 : a.t - 1;
+          }
+        }
+        const size_t off =
+            (static_cast<size_t>(nn) * plane + rpix[i]) * c + ch;
+        const uint4 xv = finale8(ldg16(a.p + off), ldg16(a.r + off), a.sa3,
+                                 a.sb3, a.sap, a.sbp, ch);
+        if (blockIdx.y == 0) *reinterpret_cast<uint4*>(a.x_out + off) = xv;
+        if (use) v = xv;
+      }
+      const int r = (threadIdx.x >> 2) + i * 64;
+      *reinterpret_cast<uint4*>(as + r * kALd + kc * 8) = v;
+    }
+  }
+};
+
 // Dgrad A tile: rows are INPUT pixels of the forward conv g, k = (kh, kw,
 // f) over the output-gradient channels. Input pixel ih receives output
 // row oh = (ih + pad - kh) / stride where that divides and is in range.
@@ -319,32 +417,55 @@ __device__ __forceinline__ void moments_add(float* s0, float* s1, int col,
   }
 }
 
-// Per-block moment slots: one row of BN columns per warp row.
-template <int BN>
+// moments_add for three sums at once (the trunk's backward link).
+__device__ __forceinline__ void moments_add3(float* s0, float* s1,
+                                             float* s2, int col,
+                                             float (&a)[3][8]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+#pragma unroll
+      for (int off = 2; off < 32; off <<= 1)
+        a[k][e] += __shfl_xor_sync(0xffffffffu, a[k][e], off);
+  if ((threadIdx.x & 31) < 2) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      s0[col + e] += a[0][e];
+      s1[col + e] += a[1][e];
+      s2[col + e] += a[2][e];
+    }
+  }
+}
+
+// Per-block moment slots: R rows of BN columns per warp row.
+template <int BN, int R = 2>
 struct MomSlots {
-  float v[Tile<BN>::kWarpsM][2][BN];
+  float v[Tile<BN>::kWarpsM][R][BN];
 
   __device__ void zero() {
     float* p = &v[0][0][0];
-    for (int i = threadIdx.x; i < Tile<BN>::kWarpsM * 2 * BN; i += kThreads)
+    for (int i = threadIdx.x; i < Tile<BN>::kWarpsM * R * BN; i += kThreads)
       p[i] = 0.0f;
   }
 
-  __device__ float* s0() { return v[(threadIdx.x >> 5) / Tile<BN>::kWarpsN][0]; }
-  __device__ float* s1() { return v[(threadIdx.x >> 5) / Tile<BN>::kWarpsN][1]; }
+  __device__ float* slot(int r) {
+    return v[(threadIdx.x >> 5) / Tile<BN>::kWarpsN][r];
+  }
+  __device__ float* s0() { return slot(0); }
+  __device__ float* s1() { return slot(1); }
 
   // After a __syncthreads: this block's partial moments, summed over the
-  // warp rows in order, into row blockIdx.x of part [rows][2][n].
-  __device__ void store(float* part, int n, int n0) const {
-    float* row = part + static_cast<size_t>(blockIdx.x) * 2 * n;
-    for (int i = threadIdx.x; i < BN; i += kThreads) {
-      float a = 0.0f, b = 0.0f;
-      for (int r = 0; r < Tile<BN>::kWarpsM; ++r) {
-        a += v[r][0][i];
-        b += v[r][1][i];
-      }
-      row[n0 + i] = a;
-      row[n + n0 + i] = b;
+  // warp rows in order, into row blockIdx.x of part [rows][nrows][n]
+  // (the first nrows <= R slots).
+  __device__ void store(float* part, int n, int n0, int nrows = R) const {
+    float* row = part + static_cast<size_t>(blockIdx.x) * nrows * n;
+    for (int i = threadIdx.x; i < nrows * BN; i += kThreads) {
+      const int k = i / BN;
+      const int j = i - k * BN;
+      float a = 0.0f;
+      for (int r = 0; r < Tile<BN>::kWarpsM; ++r) a += v[r][k][j];
+      row[k * n + n0 + j] = a;
     }
   }
 };

@@ -47,6 +47,15 @@ projection and batch-stat BN as plain torch ops. fuse_tsm=False shifts
 with K7 (ops/temporal_shift.py) before a plain conv1, in both modes.
 The parameters are the same under every value, so one checkpoint serves
 all. An unknown value raises (the JAX package runs it as "xla").
+
+remat=True (model.remat_vision; JAX :566-570, 747-749) trains every
+block on the per-block route of its stage's tsm_impl, "auto" taking the
+K12 whole-block kernel as "fusedtrain" does, and rematerializes each:
+torch.utils.checkpoint (non-reentrant) keeps a block's input and drops
+the rest after the forward, and the backward runs the block's forward
+again before its own backward. The stem is the K11 one wherever the
+trunk would be. The BN running averages move once a step, from the
+first forward's statistics.
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.preprocess import depth_to_space4, normalize_frames
 from ..ops.stem import stem_frames, stem_s2d
@@ -236,7 +246,7 @@ class ResNet(nn.Module):
 
     tsm_impl and fuse_tsm: see the module docstring; both may be set
     again after construction. remat (the JAX package's
-    model.remat_vision) is not ported and raises."""
+    model.remat_vision): see the module docstring."""
 
     feature_dim = 2048
 
@@ -248,10 +258,7 @@ class ResNet(nn.Module):
         super().__init__()
         if stem_input not in ("s2d", "frames"):
             raise ValueError(f"stem_input {stem_input!r}: 's2d' or 'frames'")
-        if remat:
-            raise ValueError("model.remat_vision=True is not ported: the "
-                             "large-batch training path is ROADMAP queue 2 "
-                             "item 5")
+        self.remat = remat
         self.n_segment, self.n_div = n_segment, n_div
         self.stem_input, self.dtype = stem_input, dtype
         self.act_scales: Optional[Dict[str, torch.Tensor]] = None
@@ -285,10 +292,16 @@ class ResNet(nn.Module):
             return (self.tsm_impl,) * len(self.stage_sizes)
         return self.tsm_impl
 
+    def _kernel_stem_train(self) -> bool:
+        """Training takes the K11 stem (JAX :651-668)."""
+        return ("fusedtrain" in self.stage_impls()
+                or (self.tsm_impl == "auto" and self.fuse_tsm
+                    and self.n_segment > 0))
+
     def _trunk_train(self) -> bool:
-        """Training takes the kernel stem and trunk (JAX :729-744)."""
+        """Training takes the kernel trunk (JAX :729-746)."""
         return (self.tsm_impl in ("auto", "fusedtrain") and self.fuse_tsm
-                and self.n_segment > 0)
+                and self.n_segment > 0 and not self.remat)
 
     def eval_route(self, stage: int, blk: "Bottleneck") -> str:
         """A block's inference route: "block" (the whole-block kernels),
@@ -386,7 +399,7 @@ class ResNet(nn.Module):
         self.dtype, differentiable in every parameter."""
         dt = self.dtype
         blocks = self.blocks()
-        if self._trunk_train() or "fusedtrain" in self.stage_impls():
+        if self._kernel_stem_train():
             w7 = _hwio_view(self.conv1)
             g, b = self.bn1.weight, self.bn1.bias
             if self.stem_input == "s2d":
@@ -405,7 +418,13 @@ class ResNet(nn.Module):
         else:
             stats = []
             for stage, blk in zip(self._block_stages(), blocks):
-                y, st = self._block_train(stage, blk, y)
+                if self.remat:
+                    # the first forward's statistics move the running
+                    # averages below; the recomputation's are dropped
+                    y, st = checkpoint(self._block_train, stage, blk, y,
+                                       use_reentrant=False)
+                else:
+                    y, st = self._block_train(stage, blk, y)
                 stats.append(st)
         for blk, st in zip(blocks, stats):
             for i, bn in enumerate(blk.batch_norms()):
@@ -441,7 +460,7 @@ class ResNet(nn.Module):
         if not self.fuse_tsm or t == 0:
             def conv1(x, w1):
                 return conv_nhwc(temporal_shift(x, t, nd) if t else x, w1)
-        elif impl == "fusedtrain":
+        elif impl in ("auto", "fusedtrain"):
             return _block(x, params, blk.stride, t, nd, BN_EPS)
         elif impl in _K5_IMPLS:
             def conv1(x, w1):

@@ -1,4 +1,5 @@
-"""Training-mode TSM bottleneck with batch-statistics BatchNorm (kernel K12).
+"""Training-mode TSM bottleneck with batch-statistics BatchNorm (kernel K12),
+and the links that fuse it across the blocks of the trunk (kernel K13).
 
 Counterpart of the JAX package's ops/tsm_block_train_pallas.py:
 
@@ -18,8 +19,18 @@ caller's running-average update; the stats carry no gradient.
 A CPU tensor takes the plain version (`tsm_block_train_reference`: convs
 plus explicit batch-stat BN, differentiated by autograd). A CUDA tensor
 runs csrc/conv_train.cu through `_BlockTrain`, a torch.autograd.Function
-whose forward and backward are one C call each (`block_train_fwd`,
-`block_train_bwd`); there is no fallback to the plain version.
+whose forward is two C calls (`block_train_fwd` up to p, `finale_fwd`)
+and whose backward is two (`finale_bwd`, `block_train_bwd`); there is no
+fallback to the plain version.
+
+The trunk (ops/tsm_trunk_train.py) calls the same entries through
+`BlockTrainState` and replaces every finale but the top block's by the
+two links of tsm_trunk_train_pallas.py (`_fk1`/`_bk1`/`_bk1_s2` with
+prev): `trunk_link_fwd` (block N's conv1, computing block N-1's finale
+as it loads and writing block N's input once) and `trunk_link_bwd`
+(block N's conv1 data gradient, whose epilogue applies block N-1's relu
+mask and takes its BN3/BNp backward moments). Their plain versions are
+`trunk_link_fwd_reference` and `trunk_link_bwd_reference`.
 
 Weights come in the JAX package's layout: w1 [C, F] (or [1, 1, C, F]),
 w2 [3, 3, F, F] HWIO, w3 [F, Co], wp [C, Co]; gammas and betas are float32.
@@ -97,16 +108,62 @@ def tsm_block_train_reference(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
     return torch.relu(a3 + ap), (mu1, v1, mu2, v2, mu3, v3, mup, vp)
 
 
+def finale_reference(p, r, sa3, sb3, sap=None, sbp=None):
+    """Plain version of a block's finale: relu(bn3(p) + r') with r' = r
+    (identity) or bnp(r) (sap given), each BN affine rounded to p's dtype
+    and the add and relu in at least float32, as the kernels round."""
+    dt = p.dtype
+    a3 = (at_least_f32(p) * sa3 + sb3).to(dt)
+    rr = r if sap is None else (at_least_f32(r) * sap + sbp).to(dt)
+    return torch.relu(at_least_f32(a3) + at_least_f32(rr)).to(dt)
+
+
+def trunk_link_fwd_reference(p, r, sa3, sb3, sap, sbp, w1, n_segment: int,
+                             n_div: int = 8):
+    """Plain version of the trunk's forward link (trunk_link_fwd): block
+    N's input x = finale_reference(p, r, ...) of block N-1, u =
+    conv1x1(shift(x), w1 [C, F]) in x's dtype, and mom [2, F] = (sum u,
+    sum u^2) in at least float32. Returns (x, u, mom)."""
+    x = finale_reference(p, r, sa3, sb3, sap, sbp)
+    u = conv_nhwc(temporal_shift_reference(x, n_segment, n_div),
+                  w1.reshape(x.shape[-1], -1))
+    uf = at_least_f32(u)
+    return x, u, torch.stack([uf.sum((0, 1, 2)), (uf * uf).sum((0, 1, 2))])
+
+
+def trunk_link_bwd_reference(du, w1, res, x, p, pr, mu3, mup,
+                             n_segment: int, n_div: int = 8):
+    """Plain version of the trunk's backward link (trunk_link_bwd): block
+    N's input gradient dx = unshift(conv1x1(du, w1^T)) + res, rounded to
+    du's dtype; block N-1's dq = dx * (x > 0), with x block N's input (the
+    relu output of block N-1's finale); and that block's BN3/BNp backward
+    moments mom [3, C] = (sum dq, sum dq (p - mu3), sum dq (pr - mup), a
+    row of zeros without pr) in at least float32. du is the gradient of
+    block N's u (BN1's backward applied). Returns (dq, mom)."""
+    c = x.shape[-1]
+    dxm = conv_nhwc(du, w1.reshape(c, -1).t())
+    dx = (at_least_f32(temporal_shift_reference(dxm, n_segment, n_div,
+                                                reverse=True))
+          + at_least_f32(res)).to(du.dtype)
+    dq = torch.where(x > 0, dx, torch.zeros_like(dx))
+    dqf = at_least_f32(dq)
+    dims = (0, 1, 2)
+    rows = [dqf.sum(dims), (dqf * (at_least_f32(p) - mu3)).sum(dims),
+            (dqf * (at_least_f32(pr) - mup)).sum(dims) if pr is not None
+            else torch.zeros_like(mu3, dtype=dqf.dtype)]
+    return dq, torch.stack(rows)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels (csrc/conv_train.cu)
 # ---------------------------------------------------------------------------
 
 
-def _fn(name: str, n_ptr: int, n_int: int):
+def _fn(name: str, n_ptr: int, n_int: int, eps: bool = True):
     fn = getattr(_build.load("conv_train"), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + ([ctypes.c_float] if eps else []) + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -115,8 +172,20 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _counted(wrapper, rc: int):
+    """Count one launch of wrapper's entry; raise if it failed."""
+    wrapper.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel failed: CUDA error "
+                           f"{rc}")
+
+
 def _workspace(device, nt, h, w, c, f, co, stride) -> torch.Tensor:
-    """The float32 scratch of per-block partial sums both entries need
+    """The float32 scratch of per-block partial sums the entries need
     (their size comes from vcg_block_train_workspace)."""
     fn = _build.load("conv_train").vcg_block_train_workspace
     if fn.argtypes is None:
@@ -184,83 +253,162 @@ def _check(x, f, co, stride, n_segment, n_div, proj):
 
 
 def block_train_fwd(x, wf, gb, stride: int, n_segment: int, n_div: int,
-                    eps: float):
-    """One launch of vcg_block_train_fwd. wf: kernel_weights(...)[0]; gb:
-    pack_affines(...). Returns (y, stats, vec, (u, z, p, pr))."""
+                    eps: float, linked=None):
+    """One launch of vcg_block_train_fwd: the block's forward up to p, no
+    finale. wf: kernel_weights(...)[0]; gb: pack_affines(...); linked:
+    (u, mom) from trunk_link_fwd, whose launch was this block's conv1.
+    Returns (stats, vec, (u, z, p, pr))."""
     w1, w2, w3, wp = wf
     f, co = w1.shape[1], w3.shape[1]
     nt, h, w, c, fold = _check(x, f, co, stride, n_segment, n_div,
                                wp is not None)
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     dev, bf = x.device, torch.bfloat16
-    u = torch.empty(nt, h, w, f, dtype=bf, device=dev)
+    n_vec = 4 * f + 4 * co
+    stats, vec = torch.empty(2, n_vec, dtype=torch.float32,
+                             device=dev).unbind(0)
+    if linked is None:
+        u = torch.empty(nt, h, w, f, dtype=bf, device=dev)
+        mom = torch.empty(n_vec, dtype=torch.float32, device=dev)
+    else:
+        u, mom = linked
     z = torch.empty(nt, ho, wo, f, dtype=bf, device=dev)
     p = torch.empty(nt, ho, wo, co, dtype=bf, device=dev)
     pr = torch.empty_like(p) if wp is not None else None
-    y = torch.empty_like(p)
-    n_vec = 4 * f + 4 * co
-    stats, vec, mom = torch.empty(3, n_vec, dtype=torch.float32,
-                                  device=dev).unbind(0)
     part = _workspace(dev, nt, h, w, c, f, co, stride)
-    rc = _fn("vcg_block_train_fwd", 15, 9)(
+    rc = _fn("vcg_block_train_fwd", 14, 10)(
         x.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(), _ptr(wp),
         gb.data_ptr(), u.data_ptr(), z.data_ptr(), p.data_ptr(), _ptr(pr),
-        y.data_ptr(), stats.data_ptr(), vec.data_ptr(), mom.data_ptr(),
-        part.data_ptr(), nt, h, w, c, f, co, stride, n_segment, fold, eps,
-        torch.cuda.current_stream(dev).cuda_stream)
-    block_train_fwd.launches += 1
-    if rc != 0:
-        raise RuntimeError(f"block_train_fwd kernel failed: CUDA error {rc}")
-    return y, stats, vec, (u, z, p, pr)
+        stats.data_ptr(), vec.data_ptr(), mom.data_ptr(), part.data_ptr(),
+        nt, h, w, c, f, co, stride, n_segment, fold, int(linked is not None),
+        eps, _stream(dev))
+    _counted(block_train_fwd, rc)
+    return stats, vec, (u, z, p, pr)
 
 
-def block_train_bwd(dy, x, saved, y, wb, gb, stats, vec, stride: int,
-                    n_segment: int, n_div: int, eps: float):
-    """One launch of vcg_block_train_bwd. wb: kernel_weights(...)[1].
-    Returns (dx bf16, dw1, dw2 [9F, F], dw3, dwp or None, dgb) with the
-    weight and affine gradients in float32."""
+def finale_fwd(p, r, vec, f: int, co: int, proj: bool) -> torch.Tensor:
+    """One launch of vcg_finale_fwd: y = relu(bn3(p) + (r or bnp(r)))
+    with the block's vec (r is the block input, or pr when proj)."""
+    y = torch.empty_like(p)
+    rc = _fn("vcg_finale_fwd", 4, 4, eps=False)(
+        p.data_ptr(), r.data_ptr(), vec.data_ptr(), y.data_ptr(),
+        p.numel() // co, f, co, int(proj), _stream(p.device))
+    _counted(finale_fwd, rc)
+    return y
+
+
+def finale_bwd(dy, y, p, pr, stats, f: int, co: int, part):
+    """One launch of vcg_finale_bwd: dq = dy * (y > 0) and mom3 [3Co] =
+    (sum dq, sum dq (p - mu3), sum dq (pr - mup), 0 without pr)."""
+    dy = dy.to(torch.bfloat16).contiguous()
+    dq = torch.empty_like(p)
+    mom3 = torch.empty(3 * co, dtype=torch.float32, device=p.device)
+    rc = _fn("vcg_finale_bwd", 8, 3, eps=False)(
+        dy.data_ptr(), y.data_ptr(), p.data_ptr(), _ptr(pr),
+        stats.data_ptr(), dq.data_ptr(), mom3.data_ptr(), part.data_ptr(),
+        p.numel() // co, f, co, _stream(p.device))
+    _counted(finale_bwd, rc)
+    return dq, mom3
+
+
+def block_train_bwd(dq, mom3, x, saved, wb, gb, stats, vec, stride: int,
+                    n_segment: int, n_div: int, eps: float,
+                    link: bool = False):
+    """One launch of vcg_block_train_bwd from dq and mom3 (finale_bwd, or
+    the block above's trunk_link_bwd). wb: kernel_weights(...)[1].
+    Returns (dx, dw1, dw2 [9F, F], dw3, dwp or None, dgb, da1, abc1) with
+    the weight and affine gradients in float32. link: conv1's data
+    gradient is left to trunk_link_bwd (which takes da1 and abc1, BN1's
+    backward vectors); dx is then the projection's data gradient, or None
+    without a projection."""
     u, z, p, pr = saved
     w1t, w2t, w3t, wpt = wb
     f, co = w1t.shape[0], w3t.shape[0]
-    nt, h, w, c, fold = _check(x, f, co, stride, n_segment, n_div,
-                               wpt is not None)
+    proj = wpt is not None
+    nt, h, w, c, fold = _check(x, f, co, stride, n_segment, n_div, proj)
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32
-    dy = dy.to(bf).contiguous()
-    dx = torch.empty(nt, h, w, c, dtype=bf, device=dev)
+    dx = (torch.empty(nt, h, w, c, dtype=bf, device=dev)
+          if proj or not link else None)
     dw1 = torch.empty(c, f, dtype=f32, device=dev)
     dw2 = torch.empty(9 * f, f, dtype=f32, device=dev)
     dw3 = torch.empty(f, co, dtype=f32, device=dev)
-    dwp = torch.empty(c, co, dtype=f32, device=dev) if wpt is not None else None
+    dwp = torch.empty(c, co, dtype=f32, device=dev) if proj else None
     dgb = torch.empty(4 * f + 4 * co, dtype=f32, device=dev)
-    dq = torch.empty_like(p)
     da2 = torch.empty_like(z)
     da1 = torch.empty_like(u)
-    work = torch.empty(9 * co + 10 * f, dtype=f32, device=dev)
+    work = torch.empty(10 * f + 6 * co, dtype=f32, device=dev)
     part = _workspace(dev, nt, h, w, c, f, co, stride)
-    rc = _fn("vcg_block_train_bwd", 25, 9)(
-        dy.data_ptr(), x.data_ptr(), u.data_ptr(), z.data_ptr(), p.data_ptr(),
-        _ptr(pr), y.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
-        w3t.data_ptr(), _ptr(wpt), gb.data_ptr(), stats.data_ptr(),
-        vec.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
-        dw3.data_ptr(), _ptr(dwp), dgb.data_ptr(), dq.data_ptr(),
+    rc = _fn("vcg_block_train_bwd", 24, 10)(
+        dq.data_ptr(), mom3.data_ptr(), x.data_ptr(), u.data_ptr(),
+        z.data_ptr(), p.data_ptr(), _ptr(pr), w1t.data_ptr(),
+        w2t.data_ptr(), w3t.data_ptr(), _ptr(wpt), gb.data_ptr(),
+        stats.data_ptr(), vec.data_ptr(), _ptr(dx), dw1.data_ptr(),
+        dw2.data_ptr(), dw3.data_ptr(), _ptr(dwp), dgb.data_ptr(),
         da2.data_ptr(), da1.data_ptr(), work.data_ptr(), part.data_ptr(),
-        nt, h, w, c, f, co, stride, n_segment, fold, eps,
-        torch.cuda.current_stream(dev).cuda_stream)
-    block_train_bwd.launches += 1
-    if rc != 0:
-        raise RuntimeError(f"block_train_bwd kernel failed: CUDA error {rc}")
-    return dx, dw1, dw2, dw3, dwp, dgb
+        nt, h, w, c, f, co, stride, n_segment, fold, int(link), eps,
+        _stream(dev))
+    _counted(block_train_bwd, rc)
+    return dx, dw1, dw2, dw3, dwp, dgb, da1, work[-3 * f:]
 
 
-block_train_fwd.launches = 0
-block_train_bwd.launches = 0
+def trunk_link_fwd(st: "BlockTrainState", below: "BlockTrainState"):
+    """One launch of vcg_trunk_link_fwd: block st's conv1 with the finale
+    of the block below computed as it loads (from below's p, its residual
+    and vec). Returns (x, u, mom): st's input, written once, its u and
+    the moments of u in the first 2F floats of mom [4F + 4Co]."""
+    p, r = below.saved[2], below.residual()
+    nt, h, w, c = p.shape
+    w1 = st.wf[0]
+    fold = c // st.n_div
+    dev = p.device
+    x = torch.empty_like(p)
+    u = torch.empty(nt, h, w, st.f, dtype=torch.bfloat16, device=dev)
+    mom = torch.empty(4 * st.f + 4 * st.co, dtype=torch.float32, device=dev)
+    part = _workspace(dev, nt, h, w, c, st.f, st.co, st.stride)
+    rc = _fn("vcg_trunk_link_fwd", 8, 9, eps=False)(
+        p.data_ptr(), r.data_ptr(), below.vec.data_ptr(), w1.data_ptr(),
+        x.data_ptr(), u.data_ptr(), mom.data_ptr(), part.data_ptr(),
+        nt, h, w, c, st.f, below.f, int(below.proj), st.t, fold,
+        _stream(dev))
+    _counted(trunk_link_fwd, rc)
+    return x, u, mom
+
+
+def trunk_link_bwd(st: "BlockTrainState", below: "BlockTrainState", res):
+    """One launch of vcg_trunk_link_bwd: block st's conv1 data gradient
+    (from the da1 and abc1 its backward(link=True) kept) unshifted onto
+    res, masked by st's input into the dq of the block below, with that
+    block's BN3/BNp backward moments. Returns (dq, mom3 [3C])."""
+    x, u = st.x, st.saved[0]
+    nt, h, w, c = x.shape
+    fold = c // st.n_div
+    dev = x.device
+    dq = torch.empty_like(x)
+    mom3 = torch.empty(3 * c, dtype=torch.float32, device=dev)
+    part = _workspace(dev, nt, h, w, c, st.f, st.co, st.stride)
+    rc = _fn("vcg_trunk_link_bwd", 12, 8, eps=False)(
+        st.da1.data_ptr(), u.data_ptr(), st.abc1.data_ptr(),
+        st.wb[0].data_ptr(), res.data_ptr(), x.data_ptr(),
+        below.saved[2].data_ptr(), _ptr(below.saved[3]),
+        below.stats.data_ptr(), dq.data_ptr(), mom3.data_ptr(),
+        part.data_ptr(), nt, h, w, c, st.f, below.f, st.t, fold,
+        _stream(dev))
+    _counted(trunk_link_bwd, rc)
+    return dq, mom3
+
+
+for _wrapper in (block_train_fwd, block_train_bwd, finale_fwd, finale_bwd,
+                 trunk_link_fwd, trunk_link_bwd):
+    _wrapper.launches = 0
 
 
 class BlockTrainState:
-    """What one block's forward keeps for its backward (CUDA path):
-    x, y and saved = (u, z, p, pr)."""
+    """One bottleneck on the CUDA kernels: its weights in the kernels'
+    layouts and what its forward keeps for its backward: x (its input),
+    saved = (u, z, p, pr), stats, vec and, where it ran its own finale,
+    y."""
 
-    def __init__(self, x, params, stride, n_segment, n_div, eps):
+    def __init__(self, params, stride, n_segment, n_div, eps):
         w1, w2, w3, wp, g1, be1, g2, be2, g3, be3, gp, bep = params
         self.shapes = [t.shape for t in (w1, w2, w3, wp) if t is not None]
         self.wf, self.wb = kernel_weights(w1, w2, w3, wp)
@@ -269,19 +417,56 @@ class BlockTrainState:
         self.gb = pack_affines(f, co, g1, be1, g2, be2, g3, be3, gp, bep)
         self.stride, self.t, self.n_div, self.eps = (stride, n_segment,
                                                       n_div, eps)
+        self.x = self.y = self.saved = None
+
+    def forward(self, x=None, below=None):
+        """The forward up to p, from the input x or, in the trunk, from
+        the block below through trunk_link_fwd."""
+        linked = None
+        if below is not None:
+            x, u, mom = trunk_link_fwd(self, below)
+            linked = (u, mom)
         self.x = x
-        self.y, self.stats, self.vec, self.saved = block_train_fwd(
-            x, self.wf, self.gb, stride, n_segment, n_div, eps)
+        self.stats, self.vec, self.saved = block_train_fwd(
+            x, self.wf, self.gb, self.stride, self.t, self.n_div, self.eps,
+            linked)
+
+    def residual(self):
+        """What the finale adds to bn3(p): pr (through BNp) or x."""
+        return self.saved[3] if self.proj else self.x
+
+    def finale(self):
+        self.y = finale_fwd(self.saved[2], self.residual(), self.vec, self.f,
+                            self.co, self.proj)
+        return self.y
+
+    def finale_backward(self, dy):
+        """-> (dq, mom3) of the block's own finale (needs its y and p)."""
+        part = _workspace(self.x.device, *self.x.shape, self.f, self.co,
+                          self.stride)
+        return finale_bwd(dy, self.y, self.saved[2], self.saved[3],
+                          self.stats, self.f, self.co, part)
+
+    def set_p(self, p):
+        u, z, _, pr = self.saved
+        self.saved = (u, z, p, pr)
 
     def stats_tuple(self):
         return split_stats(self.stats, self.f, self.co, self.proj)
 
-    def backward(self, dy):
-        """-> (dx, grads in the parameter order w1 w2 w3 wp g1 be1 g2 be2
-        g3 be3 gp bep; None for an absent projection)."""
-        dx, dw1, dw2, dw3, dwp, dgb = block_train_bwd(
-            dy, self.x, self.saved, self.y, self.wb, self.gb, self.stats,
-            self.vec, self.stride, self.t, self.n_div, self.eps)
+    def backward(self, dq, mom3, link=False):
+        """From dq and mom3 -> (dx, grads in the parameter order w1 w2 w3
+        wp g1 be1 g2 be2 g3 be3 gp bep; None for an absent projection).
+        link: conv1's data gradient is left to trunk_link_bwd: dx is then
+        the residual gradient it adds to (dq itself, or the projection's
+        data gradient), and da1 and abc1 stay here for it."""
+        dx, dw1, dw2, dw3, dwp, dgb, da1, abc1 = block_train_bwd(
+            dq, mom3, self.x, self.saved, self.wb, self.gb, self.stats,
+            self.vec, self.stride, self.t, self.n_div, self.eps, link)
+        if link:
+            self.da1, self.abc1 = da1, abc1
+            if dx is None:
+                dx = dq
         shapes = iter(self.shapes)
         dws = [dw.reshape(next(shapes)) if dw is not None else None
                for dw in (dw1, dw2, dw3, dwp)]
@@ -294,21 +479,29 @@ class BlockTrainState:
 class _BlockTrain(torch.autograd.Function):
     """One bottleneck on the CUDA kernels; inputs x, then the 12 block
     parameters (w1 w2 w3 wp g1 be1 g2 be2 g3 be3 gp bep, wp/gp/bep None
-    without a projection)."""
+    without a projection). Its activations are saved through autograd,
+    so a checkpoint around the block (model.remat_vision) drops them
+    after the forward and makes them again for the backward."""
 
     @staticmethod
     def forward(ctx, x, stride, n_segment, n_div, eps, *params):
-        st = BlockTrainState(x.contiguous(), params, stride, n_segment,
-                             n_div, eps)
+        st = BlockTrainState(params, stride, n_segment, n_div, eps)
+        st.forward(x.contiguous())
+        y = st.finale()
+        ctx.save_for_backward(st.x, *st.saved, y)
+        st.x = st.y = st.saved = None
         ctx.state = st
         ctx.dtypes = [None if p is None else p.dtype for p in params]
         stats = st.stats_tuple()
         ctx.mark_non_differentiable(*stats)
-        return (st.y, *stats)
+        return (y, *stats)
 
     @staticmethod
     def backward(ctx, dy, *_dstats):
-        dx, grads = ctx.state.backward(dy)
+        st = ctx.state
+        x, u, z, p, pr, y = ctx.saved_tensors
+        st.x, st.y, st.saved = x, y, (u, z, p, pr)
+        dx, grads = st.backward(*st.finale_backward(dy))
         ctx.state = None
         grads = [None if g is None else g.to(dt)
                  for g, dt in zip(grads, ctx.dtypes)]

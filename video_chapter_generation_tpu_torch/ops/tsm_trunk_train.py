@@ -1,5 +1,5 @@
 """Training-mode ResNet-TSM trunk: every bottleneck under one autograd
-Function (kernel K13).
+Function, fused across blocks (kernel K13).
 
 Counterpart of the JAX package's ops/tsm_trunk_train_pallas.py:118
 `tsm_trunk_train(x, blocks, kinds, n_segment, n_div, eps)` with the same
@@ -13,17 +13,32 @@ block kinds and parameter tuples (:58-68):
 Returns (y, stats): the trunk output and one stats tuple per block.
 
 On the card, `_TrunkTrain` runs the K12 entries of csrc/conv_train.cu
-block after block and, as the JAX trunk does (:96-101), keeps no block's
-p, the largest tensor of a block (4F channels): its forward drops each p
-once the block's finale has read it, and its backward makes p again from
-the saved z just before that block's backward (`recompute_p`, one launch
-of vcg_block_train_recompute_p, the forward's FK3 on the same operands,
-so bit for bit the forward's p). Per block it keeps x (the block below's
-y, the same tensor), u, z and, in a projection block, pr. The JAX
-trunk's cross-block fusion (block N-1's finale inside block N's conv1,
-block N's conv1 data-gradient epilogue doing block N-1's relu mask and
-BN3 moments) is not ported yet. A CPU tensor chains the plain block
-versions under autograd.
+block after block, linked as the JAX trunk links them:
+
+- forward: block N's conv1 is `trunk_link_fwd`, which computes block
+  N-1's finale as it loads (bit for bit what `finale_fwd` gives) and
+  writes block N's input x once; only the top block launches
+  `finale_fwd`.
+- backward: `finale_bwd` runs for the top block only; every other
+  block's dq and BN3/BNp backward moments come from the epilogue of the
+  block above's conv1 data gradient (`trunk_link_bwd`), which adds its
+  residual gradient, applies the relu mask (x > 0) and sums the moments
+  in per-tile rows reduced in a fixed order. The moments sum in another
+  order than `finale_bwd`'s, so gradients may differ from the per-block
+  chain's in the last bits; the forward does not.
+- as the JAX trunk does (:96-101), the trunk keeps no block's p, the
+  largest tensor of a block (4F channels): its forward drops each p once
+  the link above (or the top finale) has read it, and its backward makes
+  p again from the saved z (`recompute_p`, one launch of
+  vcg_block_train_recompute_p, the forward's FK3 on the same operands, so
+  bit for bit the forward's p): the top block's before its finale
+  backward, block N-1's just before block N's backward link, which reads
+  it, as does block N-1's own backward next. Per block it keeps x (its
+  input), u, z and, in a projection block, pr. Where the JAX link
+  recovers pr of a projection block by inverting the finale
+  (tsm_block_train_pallas.py:769-780), the port reads the pr it keeps.
+
+A CPU tensor chains the plain block versions under autograd.
 """
 
 from __future__ import annotations
@@ -37,6 +52,7 @@ from . import _build
 from .tsm_block_train import (
     BlockTrainState,
     _workspace,
+    trunk_link_bwd,
     tsm_block_train_reference,
 )
 
@@ -96,31 +112,39 @@ recompute_p.launches = 0
 
 
 def trunk_train_fwd(x, blocks, kinds, n_segment, n_div, eps):
-    """The trunk's forward on the kernels -> (y, per-block states, each
-    without its p)."""
-    states = []
+    """The trunk's forward on the kernels -> (y, per-block states, none
+    of them keeping its p)."""
+    states, below = [], None
     for params, kind in zip(blocks, kinds):
-        st = BlockTrainState(x, unpack(params, kind), STRIDES[kind],
-                             n_segment, n_div, eps)
-        u, z, _, pr = st.saved
-        st.saved = (u, z, None, pr)
+        st = BlockTrainState(unpack(params, kind), STRIDES[kind], n_segment,
+                             n_div, eps)
+        st.forward(x, below)
+        if below is not None:
+            below.set_p(None)
         states.append(st)
-        x = st.y
-    return x, states
+        below, x = st, None
+    y = below.finale()
+    below.set_p(None)
+    return y, states
 
 
 def trunk_train_bwd(dy, states):
-    """The trunk's backward on the kernels, p made again per block -> (dx,
-    per-block grads in the 12-slot order). Frees each block's saved
-    tensors as it goes."""
+    """The trunk's backward on the kernels -> (dx, per-block grads in the
+    12-slot order). Frees each block's saved tensors as it goes."""
     grads = [None] * len(states)
-    for i in reversed(range(len(states))):
-        st = states[i]
-        u, z, _, pr = st.saved
-        st.saved = (u, z, recompute_p(st), pr)
-        dy, grads[i] = st.backward(dy)
+    top = states[-1]
+    top.set_p(recompute_p(top))
+    dq, mom3 = top.finale_backward(dy)
+    for i in range(len(states) - 1, 0, -1):
+        st, below = states[i], states[i - 1]
+        res, grads[i] = st.backward(dq, mom3, link=True)
+        st.set_p(None)
+        below.set_p(recompute_p(below))
+        dq, mom3 = trunk_link_bwd(st, below, res)
         states[i] = None
-    return dy, grads
+    dx, grads[0] = states[0].backward(dq, mom3)
+    states[0] = None
+    return dx, grads
 
 
 class _TrunkTrain(torch.autograd.Function):

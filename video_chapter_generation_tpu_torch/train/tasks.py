@@ -62,11 +62,16 @@ class _SegmentBase:
 
     def init_state(self) -> Dict[str, torch.Tensor]:
         """Seeded random weights (train.seed) drawn in the JAX layout and
-        carried over by models/convert.py, as a float32 state dict."""
+        carried over by models/convert.py, as a float32 state dict (float64
+        under model.compute_dtype=float64)."""
         tree = convert.random_jax_tree(self.model, self.entries,
                                        seed=self.cfg.train.seed)
-        return convert._with_bn_counters(convert.from_jax(tree,
-                                                          self.entries))
+        state = convert._with_bn_counters(convert.from_jax(tree,
+                                                           self.entries))
+        if self.dtype == torch.float64:
+            state = {k: v.double() if v.is_floating_point() else v
+                     for k, v in state.items()}
+        return state
 
     def _batch(self, model, batch, img_key: str):
         """(frames, ids, mask) on the model's device. uint8 frames for a
