@@ -91,8 +91,31 @@
    (K2/K3 13 and K4 3; K2 12 and K5 4; K5 16; K7 16; each with K6 1 and
    the frames stem), probabilities in [0, 1], the restored checkpoint,
    and each trunk against the auto trunk on one clip.
-9. Prints one JSON line of the kernels, the script's wall time and,
-   last, the device line.
+9. int8_s2 (K14a, K14b). Holds the W8A8 stride-2 block0
+   (`tsm_bottleneck_s2_planar_int8`) to its plain version at the three
+   block0 shapes of a 256-frame vision call of the s2d serving trunk,
+   calibrated on the card, with models/resnet.py INT8_S2_BLOCKS on (int8
+   outputs equal, else one quantum apart on fewer than 1e-3 of them; its
+   bf16 output mode on the same inputs in the bf16 bands), each
+   block fed the kernel output of the block before, and the int8 stem
+   (`stem_s2d_int8`) to its plain version bit for bit at [256, 56, 56,
+   48]; then runs the vision call with the switch (per call: stem 1,
+   stride-1 bf16 bottleneck 3, K14a 3, K9 10, K4 0; per-frame cosine >=
+   0.98 to the bf16 trunk) and cli/infer_video.main --int8_vision
+   --pipelined with the switch on from the checkpoint of phase 5 (the
+   same counts per vision call plus the bf16 calibration call; a cut
+   point and a title per chapter).
+10. chain (K15). Holds `tsm_bottleneck_chain` at the four stage chains of
+   a 256-frame vision call (layer1 blocks 1-2 ... layer4 blocks 1-2) to
+   its plain version (bf16 bands) and bit for bit to the per-block K2/K3
+   launches, and `tsm_bottleneck_halo_chain` bit for bit to it, timing
+   the chain, the per-block sequence and the plain version; then runs
+   the vision call with chain_blocks=True (per call: stem 1, K2/K3 1, K4
+   3, K15 4) and checks its features equal chain_blocks=False.
+11. Prints one JSON line of the kernels, the wall time of each phase
+   and of the script and, last, the device line. The title decode of 4
+   and each of 5-10 also print their wall time as they end ("serving",
+   1-4 up to the title decode, prints only on that line).
 
 Any failed phase raises, and the script exits non-zero without printing
 the final line; it also fails where CUDA is absent or the package is
@@ -185,6 +208,44 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def hold(entries, name, label, kernel, plain, flops, nbytes,
+         exact_int=False, exact=False):
+    """Run kernel and plain on the same inputs, hold the kernel to the plain
+    version (exact_int: int8 outputs equal, or one quantum apart on fewer
+    than 1e-3 of them; exact: bit for bit; else the bf16 bands), time both
+    and add both times and the work to entries[name]. Returns the kernel's
+    output."""
+    import torch
+
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    e = entries[name]
+    if exact_int:  # int8 activations: count the quanta that differ
+        diff = (got.int() - ref.int()).abs()
+        n_diff, worst = int((diff != 0).sum()), int(diff.max())
+        note = f"int8 differ {n_diff} of {diff.numel()} (max {worst})"
+        e["max_abs"] = max(e["max_abs"], float(worst))
+        ok = n_diff == 0 or (worst <= 1 and n_diff < 1e-3 * diff.numel())
+    else:
+        max_abs, mean_rel, cos = compare(got, ref)
+        bitwise = torch.equal(got, ref)
+        note = (f"max_abs {max_abs:.4g} mean_rel {mean_rel:.3g} cos "
+                f"{cos:.6f} bitwise {bitwise}")
+        e["max_abs"] = max(e["max_abs"], max_abs)
+        ok = bitwise if exact else (cos >= KERNEL_MIN_COS
+                                    and mean_rel <= KERNEL_MAX_MEAN_REL)
+    k_ms, p_ms = cuda_ms(kernel), cuda_ms(plain)
+    e["ms"] += k_ms
+    e["plain_ms"] += p_ms
+    e["flops"] += flops
+    e["bytes"] += nbytes
+    print(f"# {name:19s} {label:44s} {note} | kernel {k_ms:.3f} ms plain "
+          f"{p_ms:.3f} ms", flush=True)
+    if not ok:
+        fail(f"{name} {label} disagrees with its plain version: {note}")
+    return got
 
 
 def block_work(nt, h, w, c, f, co, stride, proj):
@@ -1014,31 +1075,8 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
                          "tsm_bottleneck_int8")}
 
     def held(name, label, kernel, plain, flops, nbytes, exact_int=False):
-        got, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        e = entries[name]
-        if exact_int:  # int8 activations: count the quanta that differ
-            diff = (got.int() - ref.int()).abs()
-            n_diff, worst = int((diff != 0).sum()), int(diff.max())
-            note = f"int8 differ {n_diff} of {diff.numel()} (max {worst})"
-            e["max_abs"] = max(e["max_abs"], float(worst))
-            ok = n_diff == 0 or (worst <= 1 and n_diff < 1e-3 * diff.numel())
-        else:
-            max_abs, mean_rel, cos = compare(got, ref)
-            note = (f"max_abs {max_abs:.4g} mean_rel {mean_rel:.3g} cos "
-                    f"{cos:.6f} bitwise {torch.equal(got, ref)}")
-            e["max_abs"] = max(e["max_abs"], max_abs)
-            ok = cos >= KERNEL_MIN_COS and mean_rel <= KERNEL_MAX_MEAN_REL
-        k_ms, p_ms = cuda_ms(kernel), cuda_ms(plain)
-        e["ms"] += k_ms
-        e["plain_ms"] += p_ms
-        e["flops"] += flops
-        e["bytes"] += nbytes
-        print(f"# {name:19s} {label:44s} {note} | kernel {k_ms:.3f} ms plain "
-              f"{p_ms:.3f} ms", flush=True)
-        if not ok:
-            fail(f"{name} {label} disagrees with its plain version: {note}")
-        return got
+        return hold(entries, name, label, kernel, plain, flops, nbytes,
+                    exact_int)
 
     # the frames-stem trunk on the serving trunk's weights (shared storage)
     with torch.device("meta"):
@@ -1837,6 +1875,324 @@ def window_phases(dev, smi, frames, vision):
     return out
 
 
+def int8_s2_phases(dev, smi, frames, vision, cli_argv):
+    """K14a and K14b against their plain versions, the W8A8 vision call
+    with INT8_S2_BLOCKS on, then cli/infer_video --int8_vision with it on.
+    Returns the kernels' JSON entries."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import video_chapter_generation_tpu_torch.models.resnet as port_resnet
+    from video_chapter_generation_tpu_torch.cli import infer_video
+    from video_chapter_generation_tpu_torch.models.resnet import _hwio
+    from video_chapter_generation_tpu_torch.ops.preprocess import (
+        normalize_frames,
+    )
+    from video_chapter_generation_tpu_torch.ops.quantize import (
+        calibrate_resnet_quant,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem import (
+        bn_relu_maxpool,
+        stem_frames,
+        stem_int8,
+        stem_int8_weights,
+        stem_s2d,
+        stem_s2d_int8_plain,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block import (
+        tsm_bottleneck,
+        tsm_bottleneck_s2,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block_int8 import (
+        int8_bottleneck,
+        int8_s2_bottleneck,
+        int8_s2_bottleneck_plain,
+        tsm_bottleneck_int8,
+        tsm_bottleneck_s2_planar_int8,
+    )
+
+    bf = torch.bfloat16
+    entries = {k: {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0,
+                   "max_abs": 0.0}
+               for k in ("tsm_bottleneck_s2_planar_int8", "stem_s2d_int8")}
+    stem_p, block_ps = vision.folded_params()
+    n, hs = frames.shape[0], frames.shape[1]
+
+    # --- K14b: the weight-only int8 stem at the serving stem shape ---
+    sw = stem_int8_weights(_hwio(vision.conv1, torch.float32), stem_p["s"],
+                           stem_p["b"])
+    y8 = hold(entries, "stem_s2d_int8", f"{tuple(frames.shape)} u8",
+              lambda: stem_int8(frames, sw),
+              lambda: stem_s2d_int8_plain(frames, *sw),
+              # the stem's own ops, as K1 counts them (not the zeros
+              # that the phase packing adds to the [432, 256] weight)
+              2 * n * 4 * hs * hs * 147 * 64,
+              frames.numel() + 432 * 256 + 4 * 10 * 256
+              + n * hs * hs * 64 * 2, exact=True)
+    y16 = stem_s2d(frames, stem_p["w7"], stem_p["s"], stem_p["b"])
+    _, mean_rel, cos = compare(y8, y16)
+    print(f"# int8 stem vs the bf16 stem (K1) on the same frames: cosine "
+          f"{cos:.6f} mean_rel {mean_rel:.3g} (the weight rounding)",
+          flush=True)
+    del y8, y16
+
+    old = port_resnet.INT8_S2_BLOCKS
+    port_resnet.INT8_S2_BLOCKS = True
+    try:
+        # --- K14a: the W8A8 trunk block by block, each fed the last ---
+        t0 = time.time()
+        vq = vision.quantized(calibrate_resnet_quant(vision, frames))
+        torch.cuda.synchronize()
+        print(f"# calibrated the s2d serving trunk on {n} frames in "
+              f"{time.time() - t0:.2f} s", flush=True)
+        plan = vq._quant_plan(None, (hs, hs))
+        if plan.count("s2") != 3 or sum(1 for m in plan if m and m != "s2") \
+                != 10:
+            fail(f"INT8_S2_BLOCKS plan {plan}")
+        qps = vq.quant_params(plan)
+        y = stem_s2d(frames, stem_p["w7"], stem_p["s"], stem_p["b"])
+        for i, (blk, p) in enumerate(zip(vision.blocks(), block_ps)):
+            mode = plan[i]
+            if mode is None:
+                y = blk.run(y, p, CLIP_FRAMES, 8)
+            elif mode != "s2":
+                y = int8_bottleneck(y, qps[i], CLIP_FRAMES, 8, mode, bf)
+            else:
+                q = qps[i]
+                nt, h, w, c = y.shape
+                f, co = q.f, q.w3q.shape[1]
+                m, mo = nt * h * w, nt * h * w // 4
+                xb = y
+                # the bf16 output mode on the same input, in the bf16 bands
+                got = int8_s2_bottleneck(xb, q, CLIP_FRAMES, 8, "bf16")
+                ref = int8_s2_bottleneck_plain(xb, q, CLIP_FRAMES, 8)[0]
+                max_abs, mean_rel, cos = compare(got, ref.to(bf))
+                print(f"# tsm_bottleneck_s2_planar_int8 block {i:2d} -> bf16: "
+                      f"max_abs {max_abs:.4g} mean_rel {mean_rel:.3g} cos "
+                      f"{cos:.6f} bitwise {torch.equal(got, ref.to(bf))}",
+                      flush=True)
+                if not (cos >= KERNEL_MIN_COS
+                        and mean_rel <= KERNEL_MAX_MEAN_REL):
+                    fail(f"K14a block {i} bf16 out disagrees with its plain "
+                         f"version")
+                del got, ref
+                y = hold(
+                    entries, "tsm_bottleneck_s2_planar_int8",
+                    f"block {i:2d} {tuple(xb.shape)} {str(xb.dtype)[6:]} "
+                    f"-> i8 F={f}",
+                    lambda xb=xb, q=q: int8_s2_bottleneck(xb, q, CLIP_FRAMES,
+                                                          8, "i8"),
+                    lambda xb=xb, q=q: int8_s2_bottleneck_plain(
+                        xb, q, CLIP_FRAMES, 8)[1],
+                    2 * (m * c * f + mo * (9 * f * f + f * co + c * co)),
+                    xb.numel() * xb.element_size()
+                    + (c * f + 9 * f * f + f * co + c * co) + mo * co,
+                    exact_int=True)
+        del y
+
+        # --- the W8A8 vision call with the switch, counted ---
+        counted = (stem_s2d, tsm_bottleneck, tsm_bottleneck_s2,
+                   tsm_bottleneck_int8, tsm_bottleneck_s2_planar_int8)
+        for fn in counted:
+            fn.launches = 0
+        f_int8 = vq(frames).float()
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted}
+        want = {"stem_s2d": 1, "tsm_bottleneck": 3, "tsm_bottleneck_s2": 0,
+                "tsm_bottleneck_int8": 10,
+                "tsm_bottleneck_s2_planar_int8": 3}
+        f_bf16 = vision(frames).float()
+        cos = torch.nn.functional.cosine_similarity(f_int8, f_bf16, dim=1)
+        print(f"# W8A8 vision call with INT8_S2_BLOCKS, {n} frames: "
+              f"launches {launches}; per-frame cosine to the bf16 kernel "
+              f"trunk min {cos.min().item():.6f}", flush=True)
+        if launches != want:
+            fail(f"INT8_S2_BLOCKS vision call launches {launches} != {want}")
+        if cos.min().item() < INT8_TRUNK_MIN_COS:
+            fail("the INT8_S2_BLOCKS trunk disagrees with the bf16 trunk")
+        s2_launches = launches["tsm_bottleneck_s2_planar_int8"]
+        del f_int8, f_bf16, vq
+
+        # --- cli/infer_video --int8_vision with the switch on ---
+        counted = (normalize_frames, stem_frames, bn_relu_maxpool,
+                   tsm_bottleneck, tsm_bottleneck_s2, tsm_bottleneck_int8,
+                   tsm_bottleneck_s2_planar_int8)
+        for fn in counted:
+            fn.launches = 0
+        build = ROOT / "video_chapter_generation_tpu_torch" / "_build"
+        cwd = os.getcwd()
+        os.chdir(build)  # the CLI writes test_results/ where it runs
+        said = io.StringIO()
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(said):
+                results = infer_video.main(cli_argv + ["--int8_vision",
+                                                       "--pipelined"])
+        finally:
+            os.chdir(cwd)
+            for line in said.getvalue().splitlines():
+                print(f"# cli: {line}", flush=True)
+        torch.cuda.synchronize()
+    finally:
+        port_resnet.INT8_S2_BLOCKS = old
+    wall = time.time() - t0
+    if "restored checkpoint at epoch 0" not in said.getvalue():
+        fail("infer_video did not restore the checkpoint")
+    launches = {fn.__name__: fn.launches for fn in counted}
+    calls = sum(math.ceil(len(r.clip_scores) / SCORE_BATCH)
+                for r in results.values())
+    per_call = {"normalize_frames": 1, "stem_frames": 1,
+                "bn_relu_maxpool": 1, "tsm_bottleneck": 3,
+                "tsm_bottleneck_s2": 0, "tsm_bottleneck_int8": 10,
+                "tsm_bottleneck_s2_planar_int8": 3}
+    calib = {"normalize_frames": 1, "stem_frames": 1, "bn_relu_maxpool": 1,
+             "tsm_bottleneck": 13, "tsm_bottleneck_s2": 3}
+    want = {k: v * calls + calib.get(k, 0) for k, v in per_call.items()}
+    print(f"# infer_video --int8_vision --pipelined, INT8_S2_BLOCKS on: "
+          f"{len(results)} videos, {calls} vision calls (+1 calibration "
+          f"call), launches {launches}, {wall:.1f} s on {smi}", flush=True)
+    if launches != want:
+        fail(f"infer_video INT8_S2_BLOCKS launch counts {launches} != {want}")
+    for vid, r in results.items():
+        scores = np.asarray(r.clip_scores, np.float64)
+        print(f"# {vid}: {len(scores)} clips, cut points {r.cut_points}, "
+              f"{len(r.titles)} titles", flush=True)
+        if not (np.isfinite(scores).all() and (scores >= 0).all()
+                and (scores <= 1).all()):
+            fail(f"{vid}: clip scores outside [0, 1]")
+        if not r.cut_points or len(r.titles) != len(r.spans):
+            fail(f"{vid}: {len(r.cut_points)} cut points, "
+                 f"{len(r.titles)} titles for {len(r.spans)} chapters")
+    torch.cuda.empty_cache()
+
+    sources = {"tsm_bottleneck_s2_planar_int8": (
+        "csrc/tsm_bottleneck_int8.cu", "tsm_block_int8_pallas.py:344"),
+        "stem_s2d_int8": ("csrc/stem_s2d.cu", "stem_pallas.py:372")}
+    # K14a's launches from the counted vision call; K14b is an op that no
+    # model path runs (as in the JAX package), so its path count is 0
+    counts = {"tsm_bottleneck_s2_planar_int8": s2_launches,
+              "stem_s2d_int8": 0}
+    out = []
+    for name, e in entries.items():
+        src, replaces = sources[name]
+        b_ms, b_by = bound(e["flops"], e["bytes"], PEAK_INT8_OPS)
+        out.append({"name": name, "route": "cuda",
+                    "source": f"video_chapter_generation_tpu_torch/{src}",
+                    "replaces": f"video_chapter_generation_tpu/ops/{replaces}",
+                    "launches": counts[name], "max_abs_err": e["max_abs"],
+                    "ms": e["ms"], "plain_ms": e["plain_ms"],
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return out
+
+
+def chain_phases(dev, smi, frames, vision):
+    """K15 against its plain version and the per-block K2/K3 sequence at
+    the four stage chains of a 256-frame vision call, through both entries,
+    then the vision call with chain_blocks=True. Returns the kernel's JSON
+    entry."""
+    import torch
+
+    from video_chapter_generation_tpu_torch.ops.stem import stem_s2d
+    from video_chapter_generation_tpu_torch.ops.tsm_block import (
+        tsm_bottleneck,
+        tsm_bottleneck_chain,
+        tsm_bottleneck_chain_plain,
+        tsm_bottleneck_halo_chain,
+        tsm_bottleneck_s2,
+    )
+
+    e = {"ms": 0.0, "plain_ms": 0.0, "seq_ms": 0.0, "flops": 0.0,
+         "bytes": 0.0, "max_abs": 0.0}
+    stem_p, block_ps = vision.folded_params()
+    y = stem_s2d(frames, stem_p["w7"], stem_p["s"], stem_p["b"])
+    start = 0
+    for stage, n in enumerate(vision.stage_sizes):
+        layer = list(getattr(vision, f"layer{stage + 1}"))
+        y = layer[0].run(y, block_ps[start], CLIP_FRAMES, 8)
+        blocks = [layer[k].chain_params(block_ps[start + k])
+                  for k in range(1, n)]
+        x = y
+
+        def sequence(x=x, blocks=blocks):
+            for blk in blocks:
+                x = tsm_bottleneck(x, *blk, CLIP_FRAMES)
+            return x
+
+        got = tsm_bottleneck_chain(x, blocks, CLIP_FRAMES)
+        # the pair-merged output where the width is even (not layer4's 7)
+        halo = tsm_bottleneck_halo_chain(x, blocks, CLIP_FRAMES,
+                                         planar_out=x.shape[2] % 2 == 0)
+        ref = tsm_bottleneck_chain_plain(x, blocks, CLIP_FRAMES)
+        seq = sequence()
+        torch.cuda.synchronize()
+        max_abs, mean_rel, cos = compare(got, ref)
+        same_seq = torch.equal(got, seq)
+        same_halo = torch.equal(halo, got.view(halo.shape))
+        k_ms = cuda_ms(lambda x=x, blocks=blocks: tsm_bottleneck_chain(
+            x, blocks, CLIP_FRAMES))
+        s_ms = cuda_ms(sequence)
+        p_ms = cuda_ms(lambda x=x, blocks=blocks: tsm_bottleneck_chain_plain(
+            x, blocks, CLIP_FRAMES))
+        nt, h, w, c = x.shape
+        f = blocks[0][0].shape[1]
+        e["ms"] += k_ms
+        e["seq_ms"] += s_ms
+        e["plain_ms"] += p_ms
+        e["flops"] += len(blocks) * block_work(nt, h, w, c, f, c, 1,
+                                               False)[0]
+        e["bytes"] += 2 * x.numel() * 2 + len(blocks) * 2 * (
+            2 * c * f + 9 * f * f)
+        e["max_abs"] = max(e["max_abs"], max_abs)
+        print(f"# tsm_bottleneck_chain layer{stage + 1} blocks 1-{n - 1} "
+              f"{tuple(x.shape)} F={f}: vs plain max_abs {max_abs:.4g} "
+              f"mean_rel {mean_rel:.3g} cos {cos:.6f}; bit for bit the "
+              f"per-block K2/K3 sequence {same_seq}, halo entry {same_halo} "
+              f"| chain {k_ms:.3f} ms, K2/K3 sequence {s_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms", flush=True)
+        if not (same_seq and same_halo and cos >= KERNEL_MIN_COS
+                and mean_rel <= KERNEL_MAX_MEAN_REL):
+            fail(f"tsm_bottleneck_chain at layer{stage + 1} disagrees")
+        y = got
+        start += n
+    del x, y, got, halo, ref, seq
+
+    counted = (stem_s2d, tsm_bottleneck, tsm_bottleneck_s2,
+               tsm_bottleneck_chain)
+    unchained = vision(frames)
+    for fn in counted:
+        fn.launches = 0
+    vision.chain_blocks = True
+    try:
+        feats = vision(frames)
+        torch.cuda.synchronize()
+    finally:
+        vision.chain_blocks = False
+    launches = {fn.__name__: fn.launches for fn in counted}
+    want = {"stem_s2d": 1, "tsm_bottleneck": 1, "tsm_bottleneck_s2": 3,
+            "tsm_bottleneck_chain": 4}
+    same = torch.equal(feats, unchained)
+    print(f"# bf16 vision call with chain_blocks=True, {frames.shape[0]} "
+          f"frames: launches {launches}; features equal to "
+          f"chain_blocks=False: {same}; chains {e['ms']:.3f} ms against "
+          f"{e['seq_ms']:.3f} ms for the per-block K2/K3 launches on {smi}",
+          flush=True)
+    if launches != want:
+        fail(f"chain_blocks vision call launches {launches} != {want}")
+    if not same:
+        fail("chain_blocks=True changes the features")
+    b_ms, b_by = bound(e["flops"], e["bytes"])
+    return {"name": "tsm_bottleneck_chain", "route": "cuda",
+            "source": "video_chapter_generation_tpu_torch/csrc/tsm_chain.cu",
+            "replaces": "video_chapter_generation_tpu/ops/"
+                        "tsm_block_pallas.py:868",
+            "launches": launches["tsm_bottleneck_chain"],
+            "max_abs_err": e["max_abs"], "ms": e["ms"],
+            "plain_ms": e["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2092,14 +2448,27 @@ def main() -> int:
           f"({wall:.1f} s for {len(results)} videos, pipelined) on {smi}; "
           f"information only, not a benchmark", flush=True)
 
-    title_decode_phase(dev, smi, s2s)
-    infer_kernels, cli_argv = infer_phases(dev, smi, frames, vision, ts_sd,
-                                           delta)
+    laps = {"serving": time.time() - t_start}
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        laps[name] = time.time() - t0
+        print(f"# phase {name}: {laps[name]:.1f} s", flush=True)
+        return out
+
+    timed("title_decode", title_decode_phase, dev, smi, s2s)
+    infer_kernels, cli_argv = timed("infer", infer_phases, dev, smi, frames,
+                                    vision, ts_sd, delta)
     del ts_sd, s2s
     torch.cuda.empty_cache()
-    bigbird_kernel = bigbird_phases(dev, smi, cli_argv)
-    train_kernels = training_phases(dev, smi, frames, vision)
-    window_kernels = window_phases(dev, smi, frames, vision)
+    bigbird_kernel = timed("bigbird", bigbird_phases, dev, smi, cli_argv)
+    train_kernels = timed("training", training_phases, dev, smi, frames,
+                          vision)
+    window_kernels = timed("window", window_phases, dev, smi, frames, vision)
+    int8_s2_kernels = timed("int8_s2", int8_s2_phases, dev, smi, frames,
+                            vision, cli_argv)
+    chain_kernel = timed("chain", chain_phases, dev, smi, frames, vision)
 
     sources = {"stem_s2d": ("csrc/stem_s2d.cu",
                             "video_chapter_generation_tpu/ops/stem_pallas.py:275"),
@@ -2125,10 +2494,14 @@ def main() -> int:
     # layer at the BigBird serving shape, launches from the CLI run;
     # training entries: per step, the sum over the shapes one step runs;
     # K5 (both entries), K7: per 256-frame vision call; K6: one 16-clip
-    # call's frames; their launches from the window phases' runs
+    # call's frames; their launches from the window phases' runs; K14a,
+    # K14b and K15: per 256-frame vision call, launches from the
+    # INT8_S2_BLOCKS and chain_blocks vision calls (K14b: no model path)
     print(json.dumps({"kernels": kernels + infer_kernels + [bigbird_kernel]
-                      + train_kernels + window_kernels}))
-    print(f"# chip_smoke wall time {time.time() - t_start:.1f} s")
+                      + train_kernels + window_kernels + int8_s2_kernels
+                      + [chain_kernel]}))
+    print(f"# phase seconds {json.dumps(laps)}; chip_smoke wall time "
+          f"{time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

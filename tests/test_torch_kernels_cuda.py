@@ -584,3 +584,104 @@ def test_shift_kernel_is_exact(dev, dtype, c):
     dy = torch.randn(x.shape, generator=g).to(dev)
     temporal_shift(xk, 8).backward(dy)
     assert torch.equal(xk.grad, temporal_shift_reference(dy, 8, 8, True))
+
+
+# --- K14a: the W8A8 stride-2 block0; K14b: the int8 stem ---
+
+
+@pytest.mark.parametrize("x_kind,out_mode", [
+    ("i8", "i8"), ("i8", "bf16"), ("bf16", "i8"), ("bf16", "bf16")])
+def test_tsm_bottleneck_s2_int8_kernel(dev, x_kind, out_mode):
+    """Bit for bit the plain version: the same float operations, the int8
+    products exact."""
+    from video_chapter_generation_tpu_torch.ops.tsm_block_int8 import (
+        int8_s2_bottleneck_reference,
+        tsm_bottleneck_s2_planar_int8,
+    )
+
+    g = torch.Generator().manual_seed(10)
+    t, c, f = 4, 256, 128
+    mk = lambda *s: (torch.randn(*s, generator=g) * 0.05).to(dev)  # noqa: E731
+    aff = lambda n: ((torch.randn(n, generator=g) * 0.1 + 1).to(dev),  # noqa: E731
+                     (torch.randn(n, generator=g) * 0.1).to(dev))
+    (s1, b1), (s2, b2), (s3, b3), (sp, bp) = aff(f), aff(f), aff(4 * f), \
+        aff(4 * f)
+    args = (mk(c, f), mk(3, 3, f, f), mk(f, 4 * f), s1, b1, s2, b2, s3, b3,
+            mk(c, 4 * f), sp, bp, torch.tensor([0.05, 0.03, 0.02, 0.05]))
+    if x_kind == "i8":
+        x = torch.randint(-127, 128, (2 * t, 14, 10, c), generator=g,
+                          dtype=torch.int8).to(dev)
+    else:
+        x = torch.randn(2 * t, 14, 10, c, generator=g).to(dev, torch.bfloat16)
+    before = tsm_bottleneck_s2_planar_int8.launches
+    got = tsm_bottleneck_s2_planar_int8(x.view(2 * t, 14, 5, 2 * c), *args,
+                                        t, out_mode=out_mode)
+    torch.cuda.synchronize()
+    assert tsm_bottleneck_s2_planar_int8.launches == before + 1
+    assert got.shape == (2 * t, 7, 5, 4 * f)
+    ref_f, ref_q = int8_s2_bottleneck_reference(x, *args, t)
+    if out_mode == "i8":
+        assert got.dtype == torch.int8
+        assert torch.equal(got, ref_q), (got != ref_q).sum().item()
+    else:
+        assert torch.equal(got, ref_f.to(torch.bfloat16))
+
+
+def test_stem_s2d_int8_kernel(dev):
+    """Bit for bit the plain version (the same float operations, the bias
+    rows summed in the same order)."""
+    from video_chapter_generation_tpu_torch.ops.stem import (
+        stem_int8_weights,
+        stem_s2d_int8,
+        stem_s2d_int8_plain,
+        stem_s2d_reference,
+    )
+
+    g = torch.Generator().manual_seed(11)
+    s4 = torch.randint(0, 256, (4, 14, 14, 48), generator=g,
+                       dtype=torch.uint8).to(dev)
+    w7 = (torch.randn(7, 7, 3, 64, generator=g) * 0.05).to(dev)
+    s = torch.rand(64, generator=g).to(dev) + 0.5
+    b = (torch.randn(64, generator=g) * 0.1).to(dev)
+    before = stem_s2d_int8.launches
+    got = stem_s2d_int8(s4, w7, s, b)
+    torch.cuda.synchronize()
+    assert stem_s2d_int8.launches == before + 1
+    assert torch.equal(got, stem_s2d_int8_plain(s4, *stem_int8_weights(
+        w7, s, b)))
+    _close(got, stem_s2d_reference(s4, w7, s, b))  # the bf16 stem, near
+
+
+# --- K15: a chain of plain bottlenecks in one launch ---
+
+
+@pytest.mark.parametrize("nblk,c,f", [(2, 256, 64), (3, 512, 128),
+                                      (1, 1024, 256)])
+def test_tsm_bottleneck_chain_kernel(dev, nblk, c, f):
+    """One launch, bit for bit the per-block K2/K3 launches, near the plain
+    version; both entries."""
+    from video_chapter_generation_tpu_torch.ops.tsm_block import (
+        tsm_bottleneck_chain,
+        tsm_bottleneck_chain_plain,
+        tsm_bottleneck_halo_chain,
+    )
+
+    g = torch.Generator().manual_seed(12)
+    t, bf = 8, torch.bfloat16
+    x = torch.relu(torch.randn(2 * t, 12, 12, c, generator=g)).to(dev, bf)
+    mk = lambda *s: (torch.randn(*s, generator=g) * 0.05).to(dev, bf)  # noqa: E731
+    one = lambda n: torch.rand(n, generator=g).to(dev) + 0.5  # noqa: E731
+    zero = lambda n: (torch.randn(n, generator=g) * 0.1).to(dev)  # noqa: E731
+    blocks = [(mk(c, f), mk(3, 3, f, f), mk(f, c), one(f), zero(f), one(f),
+               zero(f), one(c), zero(c)) for _ in range(nblk)]
+    before = tsm_bottleneck_chain.launches
+    got = tsm_bottleneck_chain(x, blocks, t)
+    halo = tsm_bottleneck_halo_chain(x, blocks, t, planar_out=True)
+    torch.cuda.synchronize()
+    assert tsm_bottleneck_chain.launches == before + 2
+    seq = x
+    for blk in blocks:
+        seq = tsm_bottleneck(seq, *blk, t)
+    assert torch.equal(got, seq)
+    assert torch.equal(halo, seq.view(2 * t, 12, 6, 2 * c))
+    _close(got, tsm_bottleneck_chain_plain(x, blocks, t))

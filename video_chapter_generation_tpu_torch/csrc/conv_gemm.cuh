@@ -225,8 +225,10 @@ __device__ void conv_gemm_tile(Smem<BN>& sm, const ALoader& al, const bf16* w,
           v[e] = ep[r * 16 + c8 + e] * scale[gn + e] + bias[gn + e];
         if (res != nullptr) {
           alignas(16) bf16 rv[8];
-          *reinterpret_cast<uint4*>(rv) = *reinterpret_cast<const uint4*>(
-              res + static_cast<size_t>(gm) * nout + gn);
+          // through L2 (ld.global.cg): a chained residual was written by
+          // other blocks of the same launch (tsm_chain.cu)
+          *reinterpret_cast<uint4*>(rv) = __ldcg(reinterpret_cast<const uint4*>(
+              res + static_cast<size_t>(gm) * nout + gn));
           for (int e = 0; e < 8; ++e) v[e] += __bfloat162float(rv[e]);
         }
         alignas(16) bf16 o[8];

@@ -1,10 +1,11 @@
-// W8A8 inference TSM bottleneck (stride 1, identity residual) for Hopper
-// (sm_90a), kernel K9.
+// W8A8 inference TSM bottlenecks for Hopper (sm_90a): the stride-1 plain
+// block (kernel K9) and the stride-2 projection block0 (kernel K14a).
 //
-// Replaces video_chapter_generation_tpu/ops/tsm_block_int8_pallas.py:
-// tsm_bottleneck_int8_pallas (_kernel_flat_i8, _kernel_halo_i8). It
-// computes the integer spec of that file (:26-39) exactly as its plain
-// version, ops/tsm_block_int8.py:int8_bottleneck_plain, does:
+// vcg_tsm_bottleneck_int8 replaces video_chapter_generation_tpu/ops/
+// tsm_block_int8_pallas.py:tsm_bottleneck_int8_pallas (_kernel_flat_i8,
+// _kernel_halo_i8). It computes the integer spec of that file (:26-39)
+// exactly as its plain version, ops/tsm_block_int8.py:
+// int8_bottleneck_plain, does:
 //
 //   xq   = x (int8) or clip(round(x / sx))            (stage entry, bf16)
 //   y1   = relu(f32(shift(xq) @ w1q) * a1 + b1)
@@ -14,96 +15,68 @@
 //   out  = relu((f32(y2q @ w3q) * a3 + b3) + xf),  xf = xq * sx or x
 //   store clip(round(out / sout)) as int8, or out as bf16.
 //
-// Rounding follows the plain version: a division by each scale
-// (__fdiv_rn; the TPU kernel multiplies by a reciprocal), round half to
+// vcg_tsm_bottleneck_s2_int8 replaces tsm_block_int8_pallas.py:
+// tsm_bottleneck_s2_planar_int8_pallas (_kernel_s2_planar_i8, :250), whose
+// integer spec is int8_s2_bottleneck_reference (:609); its plain version
+// is ops/tsm_block_int8.py:int8_s2_bottleneck_plain. conv1 runs as above
+// at full resolution; conv2 runs at stride 2 with pad (1, 1), output pixel
+// (oh, ow) reading y1q at (2 oh + dr - 1, 2 ow + dc - 1), the same per-tap
+// dequant and tap order; then
+//   out  = relu((f32(y2q @ w3q) * a3 + b3) + (f32(xq[2oh, 2ow] @ wpq) * ap
+//          + bp))
+// with the projection on the same quantized input. The TPU kernel's
+// pair-merged input is a row-major view of NHWC, so this entry reads NHWC.
+//
+// Rounding follows the plain versions: a division by each scale
+// (__fdiv_rn; the TPU kernels multiply by a reciprocal), round half to
 // even (__float2int_rn), every product and sum rounded on its own
 // (__fmul_rn/__fadd_rn: nvcc would otherwise contract them into FMAs),
 // and each row tap of the 3x3 kept in its own int32 accumulator, turned
 // into float once (the sum of one tap reaches 3F * 127^2 > 2^24, so where
 // it is rounded matters) and added in the reference's order.
 //
-// What bounds it on the H100: the int8 products. The block does
-// 2 * M * (C*F + 9*F*F + F*C) integer ops against about one byte per
-// activation element, far above the card's ridge point. This first
-// version is three launches of one int8 implicit-GEMM tile
-// (mma.sync.m16n8k32 s8 x s8 -> s32, 128 x 128 x 64 tiles, cp.async two
-// stages): conv1 (the temporal shift folded into the A load, and the
-// stage entry's quantization too), conv2 (three row taps, each a K = 3F
-// GEMM), conv3 (the residual in the epilogue). y1q and y2q round-trip
-// device memory as int8. wgmma/TMA, and keeping y1/y2 on chip, are left
-// for later.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// What bounds them on the H100: the int8 products. A block does
+// 2 * (M * C*F + Mo * (9*F*F + F*Cout [+ C*Cout])) integer ops against
+// about one byte per activation element, far above the card's ridge
+// point. This first version is three launches of the int8 implicit-GEMM
+// tile of int8_gemm.cuh: conv1 (the temporal shift folded into the A load,
+// and the stage entry's quantization too), conv2 (three row taps, each a
+// K = 3F GEMM), conv3 (K9: the residual in the epilogue; K14a: a second
+// GEMM in the same block for the projection, read at even rows and
+// columns of x). y1q and y2q round-trip device memory as int8. The TPU
+// kernel's row tiles with a one-row halo exist for VMEM only and are not
+// carried over. wgmma/TMA, and keeping y1/y2 on chip, are left for later.
+#include "int8_gemm.cuh"
 
 namespace vcg8 {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kBM = 128;       // output pixels per block
-constexpr int kBN = 128;       // output channels per block
-constexpr int kBK = 64;        // reduction depth (bytes) per stage
-constexpr int kThreads = 256;  // eight warps: 2 (M) x 4 (N), 64 x 32 each
-constexpr int kLd = kBK + 16;  // smem pitch (bytes): conflict-free words
-constexpr int kFM = 4;         // m16 tiles per warp
-constexpr int kFN = 4;         // n8 tiles per warp
-
-struct Smem {
-  alignas(16) int8_t a[2][kBM * kLd];  // A tile, [row][k]
-  alignas(16) int8_t b[2][kBN * kLd];  // W tile, [n][k] (W is stored N x K)
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;  // a source size of 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// clip(round(v / s), -127, 127): IEEE division, round half to even
-__device__ __forceinline__ int quant(float v, float s) {
-  const int q = __float2int_rn(__fdiv_rn(v, s));
-  return min(max(q, -127), 127);
-}
-
-// Thread i owns 16-byte chunk (i % 4) of A rows i / 4 and i / 4 + 64.
-struct Rows {
-  int kc, r[2], pix[2];
-  bool ok[2];
-  __device__ void init(int m0, int m) {
-    kc = threadIdx.x & 3;
-    for (int i = 0; i < 2; ++i) {
-      r[i] = (threadIdx.x >> 2) + i * 64;
-      pix[i] = m0 + r[i];
-      ok[i] = pix[i] < m;
-      if (!ok[i]) pix[i] = 0;
-    }
+// 16 channels of x at pixel offset `off` (elements) into the A tile: int8
+// x streams in with cp.async; bf16 x (the stage entry) is loaded,
+// quantized with sx and stored. Zeros where !ok.
+__device__ __forceinline__ void load_x16(int8_t* dst, const void* x,
+                                         size_t off, bool ok, int x_i8,
+                                         float sx) {
+  if (x_i8) {
+    cp_async16(dst, static_cast<const int8_t*>(x) + (ok ? off : 0), ok);
+    return;
   }
-};
+  alignas(16) int8_t q[16];
+  if (ok) {
+    alignas(16) bf16 v[16];
+    const uint4* src =
+        reinterpret_cast<const uint4*>(static_cast<const bf16*>(x) + off);
+    reinterpret_cast<uint4*>(v)[0] = src[0];
+    reinterpret_cast<uint4*>(v)[1] = src[1];
+    for (int e = 0; e < 16; ++e)
+      q[e] = static_cast<int8_t>(quant(__bfloat162float(v[e]), sx));
+  } else {
+    for (int e = 0; e < 16; ++e) q[e] = 0;
+  }
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(q);
+}
 
 // conv1's A: x at the shifted frame (fold 0 reads frame t + 1, fold 1
 // frame t - 1, zero at the clip edges; frames are time-major per clip).
-// int8 x streams in with cp.async; bf16 x (the stage entry) is loaded,
-// quantized with sx and stored.
 struct Conv1A {
   const void* x;
   int c, hw, t, fold, x_i8;
@@ -125,45 +98,57 @@ struct Conv1A {
           ok = ok && tt > 0;
         }
       }
-      int8_t* dst = as + rows.r[i] * kLd + rows.kc * 16;
-      const size_t off = static_cast<size_t>(ok ? p : 0) * c + ch;
-      if (x_i8) {
-        cp_async16(dst, static_cast<const int8_t*>(x) + off, ok);
-      } else {
-        alignas(16) int8_t q[16];
-        if (ok) {
-          alignas(16) bf16 v[16];
-          const uint4* src =
-              reinterpret_cast<const uint4*>(static_cast<const bf16*>(x) + off);
-          reinterpret_cast<uint4*>(v)[0] = src[0];
-          reinterpret_cast<uint4*>(v)[1] = src[1];
-          for (int e = 0; e < 16; ++e)
-            q[e] = static_cast<int8_t>(quant(__bfloat162float(v[e]), sx));
-        } else {
-          for (int e = 0; e < 16; ++e) q[e] = 0;
-        }
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(q);
-      }
+      load_x16(as + rows.r[i] * kLd + rows.kc * 16, x,
+               static_cast<size_t>(p) * c + ch, ok, x_i8, sx);
     }
   }
 };
 
-// conv2's A for row tap dr: K runs over (dc, c) of y1q at (h + dr - 1,
-// w + dc - 1), zero outside the image (the 3x3's pad).
-struct Conv2A {
-  const int8_t* y1q;
-  int f, h, w, dr;
-  int n_[2], h_[2], w_[2];
+// The projection's A (K14a): x unshifted at input pixel (2 oh, 2 ow) of
+// output pixel (oh, ow).
+struct ProjA {
+  const void* x;
+  int c, x_i8;
+  float sx;
+  size_t src[2];
   Rows rows;
 
-  __device__ void init(int m0, int m) {
+  __device__ void init(int m0, int m, int h, int w, int ho, int wo) {
     rows.init(m0, m);
     for (int i = 0; i < 2; ++i) {
       const int p = rows.pix[i];
-      n_[i] = p / (h * w);
-      const int rem = p - n_[i] * h * w;
-      h_[i] = rem / w;
-      w_[i] = rem - h_[i] * w;
+      const int n = p / (ho * wo);
+      const int rem = p - n * ho * wo;
+      const int oh = rem / wo, ow = rem - (rem / wo) * wo;
+      src[i] = ((static_cast<size_t>(n) * h + 2 * oh) * w + 2 * ow) * c;
+    }
+  }
+
+  __device__ void load(int8_t* as, int k0) const {
+    const int ch = k0 + rows.kc * 16;
+    for (int i = 0; i < 2; ++i)
+      load_x16(as + rows.r[i] * kLd + rows.kc * 16, x, src[i] + ch,
+               rows.ok[i], x_i8, sx);
+  }
+};
+
+// conv2's A for row tap dr at output pixel (oh, ow): K runs over (dc, c)
+// of y1q at (oh * stride + dr - 1, ow * stride + dc - 1), zero outside the
+// image (the 3x3's pad).
+struct Conv2A {
+  const int8_t* y1q;
+  int f, h, w, stride, dr;
+  int n_[2], h_[2], w_[2];
+  Rows rows;
+
+  __device__ void init(int m0, int m, int ho, int wo) {
+    rows.init(m0, m);
+    for (int i = 0; i < 2; ++i) {
+      const int p = rows.pix[i];
+      n_[i] = p / (ho * wo);
+      const int rem = p - n_[i] * ho * wo;
+      h_[i] = (rem / wo) * stride;
+      w_[i] = (rem - (rem / wo) * wo) * stride;
     }
   }
 
@@ -196,107 +181,31 @@ struct RowA {
   }
 };
 
-// W tile: rows n0.. of wt [nout, k_total] (K contiguous), 64 bytes each.
-__device__ __forceinline__ void load_w(int8_t* bs, const int8_t* wt,
-                                       int k_total, int k0, int n0) {
-  const int kc = threadIdx.x & 3;
-  for (int i = 0; i < 2; ++i) {
-    const int r = (threadIdx.x >> 2) + i * 64;
-    cp_async16(bs + r * kLd + kc * 16,
-               wt + static_cast<size_t>(n0 + r) * k_total + k0 + kc * 16,
-               true);
-  }
-}
-
-// acc += A[m0.., :k_total] x W[n0.., :k_total]^T for this block's tile.
-template <class ALoader>
-__device__ void gemm_tile(Smem& sm, const ALoader& al, const int8_t* wt,
-                          int k_total, int n0, int (&acc)[kFM][kFN][4]) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int ktiles = k_total / kBK;
-  al.load(sm.a[0], 0);
-  load_w(sm.b[0], wt, k_total, 0, n0);
-  cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < ktiles) {
-      al.load(sm.a[s ^ 1], (kt + 1) * kBK);
-      load_w(sm.b[s ^ 1], wt, k_total, (kt + 1) * kBK, n0);
-    }
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      uint32_t af[kFM][4], bfr[kFN][2];
-#pragma unroll
-      for (int i = 0; i < kFM; ++i) {
-        const int8_t* p = sm.a[s] + (wm * 64 + i * 16 + g) * kLd + kk + tg * 4;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kLd);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kLd + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < kFN; ++j) {
-        const int8_t* p = sm.b[s] + (wn * 32 + j * 8 + g) * kLd + kk + tg * 4;
-        bfr[j][0] = *reinterpret_cast<const uint32_t*>(p);
-        bfr[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < kFM; ++i)
-#pragma unroll
-        for (int j = 0; j < kFN; ++j) mma_s8(acc[i][j], af[i], bfr[j]);
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ void zero(int (&acc)[kFM][kFN][4]) {
-#pragma unroll
-  for (int i = 0; i < kFM; ++i)
-#pragma unroll
-    for (int j = 0; j < kFN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-}
-
-// Calls fn(row, col, i, j, e) for each accumulator element this thread
-// holds: element e of tile (i, j) sits at row g (+8 for e >= 2), column
-// 2 * tg + (e & 1) of the m16 x n8 tile.
-template <class Fn>
-__device__ __forceinline__ void each_element(int m0, int n0, Fn fn) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-#pragma unroll
-  for (int i = 0; i < kFM; ++i)
-#pragma unroll
-    for (int j = 0; j < kFN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        fn(m0 + wm * 64 + i * 16 + g + (e >= 2 ? 8 : 0),
-           n0 + wn * 32 + j * 8 + 2 * tg + (e & 1), i, j, e);
-}
-
 struct Params {
   const void* x;         // [m, c] int8 or bf16
   const int8_t* w1t;     // [f, c]
   const int8_t* w2t;     // [3, f, 3f]: row tap, out channel, (dc, c)
-  const int8_t* w3t;     // [c, f]
+  const int8_t* w3t;     // [cout, f]
+  const int8_t* wpt;     // [cout, c] (K14a) or null
   const float *a1, *b1;  // [f]
   const float *a2, *b2;  // [3f] (row tap major), [f]
-  const float *a3, *b3;  // [c]
+  const float *a3, *b3;  // [cout]
+  const float *ap, *bp;  // [cout] (K14a) or null
   int8_t* y1q;           // [m, f] scratch
-  int8_t* y2q;           // [m, f] scratch
-  void* out;             // [m, c] int8 or bf16
+  int8_t* y2q;           // [m2, f] scratch
+  void* out;             // [m2, cout] int8 or bf16
   float sx, sz, sy2, sout;
   int m, h, w, c, f, t, fold, x_i8, out_i8;
+  int ho, wo, m2, cout, stride;  // conv2's stride and output (K9: 1, h, w)
 };
+
+__device__ __forceinline__ void store_out(const Params& p, size_t o,
+                                          float out) {
+  if (p.out_i8)
+    static_cast<int8_t*>(p.out)[o] = static_cast<int8_t>(quant(out, p.sout));
+  else
+    static_cast<bf16*>(p.out)[o] = __float2bfloat16_rn(out);
+}
 
 __global__ void __launch_bounds__(kThreads) conv1_kernel(Params p) {
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
@@ -323,8 +232,8 @@ __global__ void __launch_bounds__(kThreads) conv2_kernel(Params p) {
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
   __shared__ Smem sm;
   Conv2A al;
-  al.y1q = p.y1q; al.f = p.f; al.h = p.h; al.w = p.w;
-  al.init(m0, p.m);
+  al.y1q = p.y1q; al.f = p.f; al.h = p.h; al.w = p.w; al.stride = p.stride;
+  al.init(m0, p.m2, p.ho, p.wo);
   int acc[kFM][kFN][4];
   float sum[kFM][kFN][4];
   const int taps[3] = {1, 0, 2};  // the reference's order: centre, top, bottom
@@ -341,13 +250,14 @@ __global__ void __launch_bounds__(kThreads) conv2_kernel(Params p) {
     });
   }
   each_element(m0, n0, [&](int row, int col, int i, int j, int e) {
-    if (row >= p.m) return;
+    if (row >= p.m2) return;
     const float y2 = fmaxf(__fadd_rn(sum[i][j][e], p.b2[col]), 0.0f);
     p.y2q[static_cast<size_t>(row) * p.f + col] =
         static_cast<int8_t>(quant(y2, p.sy2));
   });
 }
 
+// K9's conv3: the identity residual xf in the epilogue.
 __global__ void __launch_bounds__(kThreads) conv3_kernel(Params p) {
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
   __shared__ Smem sm;
@@ -366,17 +276,92 @@ __global__ void __launch_bounds__(kThreads) conv3_kernel(Params p) {
         p.x_i8 ? __fmul_rn(static_cast<float>(static_cast<const int8_t*>(p.x)[o]),
                            p.sx)
                : __bfloat162float(static_cast<const bf16*>(p.x)[o]);
-    const float out = fmaxf(__fadd_rn(y3, xf), 0.0f);
-    if (p.out_i8)
-      static_cast<int8_t*>(p.out)[o] = static_cast<int8_t>(quant(out, p.sout));
-    else
-      static_cast<bf16*>(p.out)[o] = __float2bfloat16_rn(out);
+    store_out(p, o, fmaxf(__fadd_rn(y3, xf), 0.0f));
   });
+}
+
+// K14a's conv3: y3 = y2q @ w3q, then the projection xq[2oh, 2ow] @ wpq in
+// the same block (a second GEMM over the same shared memory), summed in
+// the epilogue.
+__global__ void __launch_bounds__(kThreads) conv3_proj_kernel(Params p) {
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  __shared__ Smem sm;
+  int acc[kFM][kFN][4];
+  float y3[kFM][kFN][4];
+  {
+    RowA al;
+    al.a = p.y2q; al.k_total = p.f;
+    al.rows.init(m0, p.m2);
+    zero(acc);
+    gemm_tile(sm, al, p.w3t, p.f, n0, acc);
+  }
+  each_element(m0, n0, [&](int, int col, int i, int j, int e) {
+    y3[i][j][e] = __fadd_rn(
+        __fmul_rn(__int2float_rn(acc[i][j][e]), p.a3[col]), p.b3[col]);
+  });
+  ProjA al;
+  al.x = p.x; al.c = p.c; al.x_i8 = p.x_i8; al.sx = p.sx;
+  al.init(m0, p.m2, p.h, p.w, p.ho, p.wo);
+  zero(acc);
+  gemm_tile(sm, al, p.wpt, p.c, n0, acc);
+  each_element(m0, n0, [&](int row, int col, int i, int j, int e) {
+    if (row >= p.m2) return;
+    const float res = __fadd_rn(
+        __fmul_rn(__int2float_rn(acc[i][j][e]), p.ap[col]), p.bp[col]);
+    store_out(p, static_cast<size_t>(row) * p.cout + col,
+              fmaxf(__fadd_rn(y3[i][j][e], res), 0.0f));
+  });
+}
+
+static Params make_params(const void* x, const void* w1t, const void* w2t,
+                          const void* w3t, const void* a1, const void* b1,
+                          const void* a2, const void* b2, const void* a3,
+                          const void* b3, void* y1q, void* y2q, void* out,
+                          float sx, float sz, float sy2, float sout, int nt,
+                          int h, int w, int c, int f, int t, int fold,
+                          int x_i8, int out_i8) {
+  Params p;
+  p.x = x;
+  p.w1t = static_cast<const int8_t*>(w1t);
+  p.w2t = static_cast<const int8_t*>(w2t);
+  p.w3t = static_cast<const int8_t*>(w3t);
+  p.wpt = nullptr;
+  p.a1 = static_cast<const float*>(a1); p.b1 = static_cast<const float*>(b1);
+  p.a2 = static_cast<const float*>(a2); p.b2 = static_cast<const float*>(b2);
+  p.a3 = static_cast<const float*>(a3); p.b3 = static_cast<const float*>(b3);
+  p.ap = p.bp = nullptr;
+  p.y1q = static_cast<int8_t*>(y1q);
+  p.y2q = static_cast<int8_t*>(y2q);
+  p.out = out;
+  p.sx = sx; p.sz = sz; p.sy2 = sy2; p.sout = sout;
+  p.m = nt * h * w; p.h = h; p.w = w; p.c = c; p.f = f; p.t = t;
+  p.fold = fold; p.x_i8 = x_i8; p.out_i8 = out_i8;
+  p.ho = h; p.wo = w; p.m2 = p.m; p.cout = c; p.stride = 1;
+  return p;
+}
+
+// conv1 and conv2 (both blocks), then the block's conv3: K9's with the
+// identity residual, or K14a's with the projection (proj).
+static int run(const Params& p, bool proj, cudaStream_t st) {
+  const unsigned mt = (p.m + kBM - 1) / kBM;
+  const unsigned mt2 = (p.m2 + kBM - 1) / kBM;
+  conv1_kernel<<<dim3(mt, p.f / kBN), kThreads, 0, st>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  conv2_kernel<<<dim3(mt2, p.f / kBN), kThreads, 0, st>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid3(mt2, p.cout / kBN);
+  if (proj)
+    conv3_proj_kernel<<<grid3, kThreads, 0, st>>>(p);
+  else
+    conv3_kernel<<<grid3, kThreads, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace vcg8
 
-// x [n*t, h, w, c] int8 (x_i8) or bf16; w1t [f, c], w2t [3, f, 3f],
+// K9. x [n*t, h, w, c] int8 (x_i8) or bf16; w1t [f, c], w2t [3, f, 3f],
 // w3t [c, f] int8 (transposed: K contiguous); a1/b1 [f], a2 [3f], b2 [f],
 // a3/b3 [c] f32; y1q, y2q [n*t*h*w, f] int8 scratch; out [n*t, h, w, c]
 // int8 (out_i8) or bf16. Needs c % 128 == 0, f % 128 == 0, fold % 16 == 0.
@@ -386,28 +371,32 @@ extern "C" int vcg_tsm_bottleneck_int8(
     const void* a3, const void* b3, void* y1q, void* y2q, void* out,
     float sx, float sz, float sy2, float sout, int nt, int h, int w, int c,
     int f, int t, int fold, int x_i8, int out_i8, void* stream) {
-  vcg8::Params p;
-  p.x = x;
-  p.w1t = static_cast<const int8_t*>(w1t);
-  p.w2t = static_cast<const int8_t*>(w2t);
-  p.w3t = static_cast<const int8_t*>(w3t);
-  p.a1 = static_cast<const float*>(a1); p.b1 = static_cast<const float*>(b1);
-  p.a2 = static_cast<const float*>(a2); p.b2 = static_cast<const float*>(b2);
-  p.a3 = static_cast<const float*>(a3); p.b3 = static_cast<const float*>(b3);
-  p.y1q = static_cast<int8_t*>(y1q);
-  p.y2q = static_cast<int8_t*>(y2q);
-  p.out = out;
-  p.sx = sx; p.sz = sz; p.sy2 = sy2; p.sout = sout;
-  p.m = nt * h * w; p.h = h; p.w = w; p.c = c; p.f = f; p.t = t;
-  p.fold = fold; p.x_i8 = x_i8; p.out_i8 = out_i8;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned mt = (p.m + vcg8::kBM - 1) / vcg8::kBM;
-  vcg8::conv1_kernel<<<dim3(mt, f / vcg8::kBN), vcg8::kThreads, 0, st>>>(p);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  vcg8::conv2_kernel<<<dim3(mt, f / vcg8::kBN), vcg8::kThreads, 0, st>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  vcg8::conv3_kernel<<<dim3(mt, c / vcg8::kBN), vcg8::kThreads, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const vcg8::Params p = vcg8::make_params(
+      x, w1t, w2t, w3t, a1, b1, a2, b2, a3, b3, y1q, y2q, out, sx, sz, sy2,
+      sout, nt, h, w, c, f, t, fold, x_i8, out_i8);
+  return vcg8::run(p, false, static_cast<cudaStream_t>(stream));
+}
+
+// K14a. x [n*t, h, w, c] int8 (x_i8) or bf16, h and w even; w1t [f, c],
+// w2t [3, f, 3f], w3t [cout, f], wpt [cout, c] int8; a1/b1 [f], a2 [3f],
+// b2 [f], a3/b3/ap/bp [cout] f32; y1q [n*t*h*w, f] and y2q
+// [n*t*(h/2)*(w/2), f] int8 scratch; out [n*t, h/2, w/2, cout] int8
+// (out_i8) or bf16. Needs c % 64 == 0, f % 128 == 0, cout % 128 == 0,
+// fold % 16 == 0.
+extern "C" int vcg_tsm_bottleneck_s2_int8(
+    const void* x, const void* w1t, const void* w2t, const void* w3t,
+    const void* wpt, const void* a1, const void* b1, const void* a2,
+    const void* b2, const void* a3, const void* b3, const void* ap,
+    const void* bp, void* y1q, void* y2q, void* out, float sx, float sz,
+    float sy2, float sout, int nt, int h, int w, int c, int f, int cout,
+    int t, int fold, int x_i8, int out_i8, void* stream) {
+  vcg8::Params p = vcg8::make_params(
+      x, w1t, w2t, w3t, a1, b1, a2, b2, a3, b3, y1q, y2q, out, sx, sz, sy2,
+      sout, nt, h, w, c, f, t, fold, x_i8, out_i8);
+  p.wpt = static_cast<const int8_t*>(wpt);
+  p.ap = static_cast<const float*>(ap);
+  p.bp = static_cast<const float*>(bp);
+  p.ho = h / 2; p.wo = w / 2; p.m2 = nt * p.ho * p.wo;
+  p.cout = cout; p.stride = 2;
+  return vcg8::run(p, true, static_cast<cudaStream_t>(stream));
 }

@@ -17,7 +17,18 @@ on conv1's input). NHWC throughout.
   takes the stage's bf16 activation, the last emits bf16, the rest pass
   int8. Their activation scales are `act_scales` (ops/quantize.py
   calibrates them), held outside the state dict as the JAX package holds
-  them outside its checkpoints, in its "quant" collection.
+  them outside its checkpoints, in its "quant" collection. With the
+  module switch INT8_S2_BLOCKS (JAX :41-46, read at forward time) the
+  block0 of a quantized stage runs the W8A8 stride-2 kernel
+  (tsm_bottleneck_s2_planar_int8, K14a) where the stage before "links" to
+  it, and that stage's last block then emits int8 when it is quantized
+  too: see `_links` and `_quant_plan`.
+- chain_blocks=True (JAX :572-579, 805-831): in eval, blocks 1..n-1 of a
+  stage with n >= 3 blocks on the whole-block route, not quantized, run
+  as one tsm_bottleneck_chain launch (K15). The JAX package leaves a
+  stage unchained where its TPU kernels would not fit VMEM (224 px:
+  layer2, `_chain_stage` :901-916); the port chains every such stage,
+  the same function.
 - train(): BatchNorm normalizes with batch statistics and the running
   averages move by the JAX package's convention (models/resnet.py:543-548,
   :892-898): mean = 0.9 mean + 0.1 mu and var = 0.9 var + 0.1 var_batch
@@ -79,12 +90,15 @@ from ..ops.temporal_shift import (
 from ..ops.tsm_block import (
     bottleneck_tail_reference,
     tsm_bottleneck,
+    tsm_bottleneck_chain,
     tsm_bottleneck_s2,
 )
 from ..ops.tsm_block_int8 import (
     QuantBottleneck,
     int8_bottleneck,
+    int8_s2_bottleneck,
     quantize_bottleneck,
+    quantize_s2_bottleneck,
 )
 from ..ops.tsm_block_train import (
     _block,
@@ -105,6 +119,11 @@ BN_MOMENTUM = 0.9  # running = 0.9 running + 0.1 batch (flax convention)
 TSM_IMPLS = ("auto", "fusedtrain", "fusedall", "fusedblk", "pallas", "tap3",
              "xla")
 _K5_IMPLS = ("fusedall", "fusedblk", "pallas")
+
+# W8A8 stride-2 block0s (K14a) and int8 stage tails under a quantized twin
+# (JAX models/resnet.py:41-46; off there by default). Read at forward
+# time, so a test or a script may set it.
+INT8_S2_BLOCKS = False
 
 
 def check_tsm_impl(tsm_impl, n_stages: int):
@@ -195,6 +214,25 @@ class Bottleneck(nn.Module):
              for conv in (self.conv1, self.conv2, self.conv3)]
         return quantize_bottleneck(*w, s1, b1, s2, b2, s3, b3, act_scales)
 
+    def quantized_s2(self, act_scales) -> QuantBottleneck:
+        """The W8A8 form of a stride-2 projection block0 (JAX
+        models/resnet.py:470-500): quantized as `quantized`, and the
+        projection too."""
+        s1, b1 = fold_bn(self.bn1)
+        s2, b2 = fold_bn(self.bn2)
+        s3, b3 = fold_bn(self.bn3)
+        sp, bp = fold_bn(self.downsample[1])
+        w = [_hwio(conv, torch.float32) for conv in
+             (self.conv1, self.conv2, self.conv3, self.downsample[0])]
+        return quantize_s2_bottleneck(*w[:3], s1, b1, s2, b2, s3, b3, w[3],
+                                      sp, bp, act_scales)
+
+    def chain_params(self, p: dict) -> tuple:
+        """A plain block's folded weights as tsm_bottleneck_chain takes
+        them (w1, w2, w3, s1, b1, s2, b2, s3, b3)."""
+        return tuple(p[k] for k in ("w1", "w2", "w3", "s1", "b1", "s2", "b2",
+                                    "s3", "b3"))
+
     def kind(self) -> str:
         """The training trunk's block kind (ops/tsm_trunk_train.py)."""
         if self.downsample is None:
@@ -246,7 +284,7 @@ class ResNet(nn.Module):
 
     tsm_impl and fuse_tsm: see the module docstring; both may be set
     again after construction. remat (the JAX package's
-    model.remat_vision): see the module docstring."""
+    model.remat_vision) and chain_blocks: see the module docstring."""
 
     feature_dim = 2048
 
@@ -254,11 +292,13 @@ class ResNet(nn.Module):
                  stem_input: str = "frames",
                  stage_sizes: Optional[Sequence[int]] = None,
                  dtype: torch.dtype = torch.float32, tsm_impl="auto",
-                 fuse_tsm: bool = True, remat: bool = False):
+                 fuse_tsm: bool = True, remat: bool = False,
+                 chain_blocks: bool = False):
         super().__init__()
         if stem_input not in ("s2d", "frames"):
             raise ValueError(f"stem_input {stem_input!r}: 's2d' or 'frames'")
         self.remat = remat
+        self.chain_blocks = chain_blocks
         self.n_segment, self.n_div = n_segment, n_div
         self.stem_input, self.dtype = stem_input, dtype
         self.act_scales: Optional[Dict[str, torch.Tensor]] = None
@@ -333,34 +373,85 @@ class ResNet(nn.Module):
         twin._folded = twin._quant_folded = None
         return twin
 
-    def _quant_plan(self, capture) -> List[Optional[str]]:
-        """Per block: None (bf16 kernels) or the int8 kernel's out_mode
-        (JAX models/resnet.py:793-800, 846-847). No stage quantizes while
-        capturing (the calibration reads float activations)."""
+    def _links(self, hw) -> List[bool]:
+        """links[s]: stage s's last block feeds stage s+1's block0 on the
+        W8A8 stride-2 route (JAX models/resnet.py:765-782, where the link
+        is a planar layout; here a route condition). hw: the stem output's
+        (H, W). It holds when the producer is stride 1, both ends take the
+        whole-block route and the consumer's input H and W are even."""
+        links = []
+        h, w = hw
+        for s in range(len(self.stage_sizes) - 1):
+            if s > 0:  # stage s's output: its block0 halves (pad 1, 3x3)
+                h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+            prod = getattr(self, f"layer{s + 1}")[-1]
+            cons = getattr(self, f"layer{s + 2}")[0]
+            links.append(h % 2 == 0 and w % 2 == 0 and prod.stride == 1
+                         and self.n_segment > 0
+                         and self.eval_route(s, prod) == "block"
+                         and self.eval_route(s + 1, cons) == "block")
+        return links
+
+    def _quant_plan(self, capture, hw=None) -> List[Optional[str]]:
+        """Per block: None (bf16 kernels), "s2" (the W8A8 stride-2 block0,
+        int8 out) or the int8 kernel's out_mode (JAX models/resnet.py:
+        785-800, 846-855). No stage quantizes while capturing (the
+        calibration reads float activations). The stride-2 block0s and
+        the int8 tails need INT8_S2_BLOCKS and the stem output's (H, W),
+        hw; without hw none is planned."""
+        sizes = self.stage_sizes
+        quant = [self.act_scales is not None and stage > 0 and n >= 2
+                 and capture is None and self.n_segment > 0 and self.fuse_tsm
+                 for stage, n in enumerate(sizes)]
+        links = (self._links(hw) if INT8_S2_BLOCKS and hw is not None
+                 else [False] * (len(sizes) - 1))
         plan: List[Optional[str]] = []
-        for stage, n in enumerate(self.stage_sizes):
-            quant = (self.act_scales is not None and stage > 0 and n >= 2
-                     and capture is None and self.n_segment > 0
-                     and self.fuse_tsm)
-            plan += [None] + [("bf16" if b == n - 1 else "i8") if quant
-                              else None for b in range(1, n)]
+        for stage, n in enumerate(sizes):
+            plan.append("s2" if quant[stage] and links[stage - 1] else None)
+            if not quant[stage]:
+                plan += [None] * (n - 1)
+                continue
+            # the tail emits int8 when the next stage's block0 takes it
+            tail = ("i8" if stage + 1 < len(sizes) and links[stage]
+                    and quant[stage + 1] else "bf16")
+            plan += ["i8"] * (n - 2) + [tail]
         return plan
 
-    def quant_params(self) -> List[Optional[QuantBottleneck]]:
-        """Bottleneck.quantized of each block the plan quantizes (None
-        elsewhere), made once per fold and per set of act_scales."""
+    def _chained(self, plan, capture) -> List[bool]:
+        """Per stage: blocks 1.. run as one chain (chain_blocks; JAX
+        :805-831): eval, no capture, at least 3 blocks, none quantized,
+        all on the whole-block route."""
+        out = []
+        i = 0
+        for stage, n in enumerate(self.stage_sizes):
+            layer = getattr(self, f"layer{stage + 1}")
+            out.append(self.chain_blocks and capture is None and n >= 3
+                       and self.n_segment > 0
+                       and not any(plan[i:i + n])
+                       and all(self.eval_route(stage, blk) == "block"
+                               for blk in list(layer)[1:]))
+            i += n
+        return out
+
+    def quant_params(self, plan=None) -> List[Optional[QuantBottleneck]]:
+        """Bottleneck.quantized (quantized_s2 for an "s2" block0) of each
+        block the plan quantizes (None elsewhere), made once per fold, per
+        plan and per set of act_scales. plan: _quant_plan's, by default
+        the one without stride-2 blocks."""
         self.folded_params()  # refreshes the fold key
         names = self.block_names()
-        plan = self._quant_plan(None)
+        plan = self._quant_plan(None) if plan is None else plan
         scales = {n: (self.act_scales[n] if n in self.act_scales
                       else torch.ones(4)) for n, m in zip(names, plan) if m}
-        key = (self._folded[0], tuple(
+        key = (self._folded[0], tuple(plan), tuple(
             (n, tuple(torch.as_tensor(v).float().reshape(-1).tolist()))
             for n, v in scales.items()))
         if self._quant_folded is None or self._quant_folded[0] != key:
             with torch.no_grad():
-                qs = [blk.quantized(scales[n]) if n in scales else None
-                      for n, blk in zip(names, self.blocks())]
+                qs = [None if m is None
+                      else blk.quantized_s2(scales[n]) if m == "s2"
+                      else blk.quantized(scales[n])
+                      for n, m, blk in zip(names, plan, self.blocks())]
             self._quant_folded = (key, qs)
         return self._quant_folded[1]
 
@@ -492,19 +583,31 @@ class ResNet(nn.Module):
                             stem["s"], stem["b"])
         if capture is not None:
             capture["stem"] = y
-        plan = self._quant_plan(capture)
-        quant = self.quant_params() if any(plan) else [None] * len(plan)
-        ends = {sum(self.stage_sizes[:s + 1]) - 1: s + 1
-                for s in range(len(self.stage_sizes))}
-        stages = self._block_stages()
-        for i, (blk, p) in enumerate(zip(self.blocks(), blocks)):
-            if plan[i]:
-                y = int8_bottleneck(y, quant[i], self.n_segment, self.n_div,
-                                    plan[i], self.dtype)
-            else:
-                y = self._block_eval(stages[i], blk, p, y)
-            if capture is not None and i in ends:
-                capture[f"stage{ends[i]}"] = y
+        plan = self._quant_plan(capture, tuple(y.shape[1:3]))
+        quant = self.quant_params(plan) if any(plan) else [None] * len(plan)
+        chained = self._chained(plan, capture)
+        start = 0
+        for stage, n in enumerate(self.stage_sizes):
+            layer = list(getattr(self, f"layer{stage + 1}"))
+            for b, blk in enumerate(layer):
+                i = start + b
+                if b == 1 and chained[stage]:
+                    y = tsm_bottleneck_chain(
+                        y, [layer[k].chain_params(blocks[start + k])
+                            for k in range(1, n)],
+                        self.n_segment, self.n_div)
+                    break
+                if plan[i] == "s2":
+                    y = int8_s2_bottleneck(y, quant[i], self.n_segment,
+                                           self.n_div, "i8", self.dtype)
+                elif plan[i]:
+                    y = int8_bottleneck(y, quant[i], self.n_segment,
+                                        self.n_div, plan[i], self.dtype)
+                else:
+                    y = self._block_eval(stage, blk, blocks[i], y)
+            start += n
+            if capture is not None:
+                capture[f"stage{stage + 1}"] = y
         # global average pool (torchvision avgpool + flatten), f32 sum
         return y.float().mean(dim=(1, 2)).to(self.dtype)
 

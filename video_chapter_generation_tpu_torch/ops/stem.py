@@ -8,7 +8,15 @@
   the same stem on normalized NHWC frames. Its conv launch rounds the
   conv output to bf16 and hands it to `bn_relu_maxpool`;
 - `bn_relu_maxpool` replaces stem_pallas.py:bn_relu_maxpool_pallas (K8):
-  folded BN + ReLU + 3x3/2 max pool (pad 1) on any NHWC activation.
+  folded BN + ReLU + 3x3/2 max pool (pad 1) on any NHWC activation;
+- `stem_s2d_int8` replaces stem_pallas.py:stem_s2d_int8_pallas (K14b):
+  the weight-only int8 stem on the raw uint8 s2d pack. x - 128 is an exact
+  int8; per s2d cell one int8 product over the 3x3 cell neighbourhood
+  gives the 4 conv-output phases, with the normalize scale folded into the
+  per-output-channel int8 weight; the normalize bias and the +128 come
+  back through one bias row per tap that lies inside the frame, then BN,
+  ReLU and the 3x3/2 max pool. Like the JAX package, no model path calls
+  it (its models/resnet.py:687-693 keeps the bf16 stem with quantize=True).
 
 Each has a plain version (`*_reference`). A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel, and any other device raises.
@@ -19,15 +27,18 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import _build
 from .preprocess import (
+    affine_consts,
     depth_to_space4,
     norm_consts,
     normalize_frames_reference,
 )
+from .tsm_block_int8 import _idot, quantize_weight
 
 
 def bn_relu_maxpool_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -80,7 +91,7 @@ def identity_affine(device: torch.device, n: int = 64):
 
 
 _ARGS = {"vcg_stem_s2d": (9, 3), "vcg_stem_frames_conv": (5, 3),
-         "vcg_bn_relu_maxpool": (4, 4)}
+         "vcg_bn_relu_maxpool": (4, 4), "vcg_stem_s2d_int8": (8, 3)}
 
 
 def _lib(name: str):
@@ -197,6 +208,138 @@ def bn_relu_maxpool(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _phase_selection() -> np.ndarray:
+    """stem_pallas.py:125 _phase_selection: sel [4, 432, 147] float32,
+    sel[ph, rk, dd] = 1 where row dd = (dr*7+dc)*3+c of the flattened
+    [147, 64] stem kernel feeds im2col lane rk = tap_r*144 + tap_c*48 +
+    ch48 of s2d cell (I, J) for output phase ph = pr*2+pc, the conv pixel
+    (2I+pr, 2J+pc): dr = 4*tap_r + di - 2*pr - 1, dc likewise."""
+    tr, tc, di, dj, c = (a.reshape(-1) for a in np.meshgrid(
+        np.arange(3), np.arange(3), np.arange(4), np.arange(4),
+        np.arange(3), indexing="ij"))
+    sel = np.zeros((4, 432, 147), np.float32)
+    for ph in range(4):
+        p_r, p_c = ph // 2, ph % 2
+        dr = 4 * tr + di - 2 * p_r - 1
+        dc = 4 * tc + dj - 2 * p_c - 1
+        valid = (dr >= 0) & (dr <= 6) & (dc >= 0) & (dc <= 6)
+        rows = np.arange(432)[valid]
+        sel[ph, rows, (dr[valid] * 7 + dc[valid]) * 3 + c[valid]] = 1.0
+    return sel
+
+
+def stem_weight_im2col(w7: torch.Tensor) -> torch.Tensor:
+    """stem_pallas.py:111 _stem_weight_im2col in float32: the [7, 7, 3, 64]
+    kernel as the phase-packed im2col weight [432, 256], column
+    ph * 64 + f (each entry one weight or 0, so exact)."""
+    sel = torch.from_numpy(_phase_selection()).to(w7.device)
+    w = w7.reshape(147, 64).float()
+    return torch.einsum("prd,df->rpf", sel, w).reshape(432, 256)
+
+
+def stem_int8_weights(w7: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor):
+    """The int8 stem's weights (stem_pallas.py:380-400), on w7's device:
+    (wq int8 [432, 256], sv float32 [256], wb float32 [10, 256]). wq is the
+    im2col weight with the normalize scale folded in, quantized per output
+    column (scale sw); sv = sw * BN scale; wb rows 0-8 are each tap's share
+    of the normalize bias and the +128 (sum over its 48 channels of
+    weight x normalize(128)), BN-scaled, and row 9 is the BN bias."""
+    dev = w7.device
+    a3, b3 = affine_consts(dev)
+    a48 = a3.repeat(16)
+    bp48 = a48 * 128.0 + b3.repeat(16)  # normalize(128) per s2d channel
+    w2 = stem_weight_im2col(w7)
+    wq, sw = quantize_weight(w2 * a48.repeat(9)[:, None])
+    s_bn = scale.to(device=dev, dtype=torch.float32).reshape(64).repeat(4)
+    b_bn = bias.to(device=dev, dtype=torch.float32).reshape(64).repeat(4)
+    wb9 = torch.einsum("tkc,k->tc", w2.reshape(9, 48, 256), bp48) * s_bn
+    return wq, sw * s_bn, torch.cat([wb9, b_bn[None]])
+
+
+def stem_s2d_int8_plain(s4: torch.Tensor, wq: torch.Tensor, sv: torch.Tensor,
+                        wb: torch.Tensor,
+                        out_dtype: torch.dtype = torch.bfloat16
+                        ) -> torch.Tensor:
+    """Plain version of K14b (_stem_kernel_i8, stem_pallas.py:339) on
+    stem_int8_weights: z = the 3x3 cell neighbourhood of s4 - 128 (zero
+    outside the frame), acc = z @ wq exactly (float64), bias = the wb rows
+    of the taps inside the frame added in tap order from 0, then wb[9];
+    y = relu(f32(acc) * sv + bias) in out_dtype, then the 3x3/2 max pool
+    of the conv output (2I+pr, 2J+pc). s4 [N, h, w, 48] uint8 ->
+    [N, h, w, 64]."""
+    n, hs, ws, _ = s4.shape
+    xp = F.pad(s4.double() - 128.0, (0, 0, 1, 1, 1, 1))
+    z = torch.cat([xp[:, tr:tr + hs, tc:tc + ws]
+                   for tr in range(3) for tc in range(3)], dim=-1)
+    acc = _idot(z, wq)
+    ii = torch.arange(hs, device=s4.device)[:, None]
+    jj = torch.arange(ws, device=s4.device)[None, :]
+    bias = torch.zeros(hs, ws, 256, device=s4.device)
+    for t in range(9):
+        r, c = ii - 1 + t // 3, jj - 1 + t % 3
+        inside = ((r >= 0) & (r < hs) & (c >= 0) & (c < ws))[..., None]
+        bias = torch.where(inside, bias + wb[t], bias)
+    bias = bias + wb[9]
+    y = torch.relu(acc * sv + bias).to(out_dtype)
+    conv = y.reshape(n, hs, ws, 2, 2, 64).permute(0, 1, 3, 2, 4, 5)
+    conv = conv.reshape(n, 2 * hs, 2 * ws, 64)
+    pooled = F.max_pool2d(conv.permute(0, 3, 1, 2), 3, stride=2, padding=1)
+    return pooled.permute(0, 2, 3, 1).contiguous()
+
+
+def stem_s2d_int8(s4: torch.Tensor, w7: torch.Tensor, scale: torch.Tensor,
+                  bias: torch.Tensor,
+                  out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Weight-only int8 stem, s4 [N, h, w, 48] uint8 raw pixels ->
+    [N, h, w, 64]; w7 [7, 7, 3, 64] (HWIO), scale/bias [64] the folded BN:
+    stem_int8_weights, then stem_int8."""
+    return stem_int8(s4, stem_int8_weights(w7.to(s4.device), scale, bias),
+                     out_dtype)
+
+
+def stem_int8(s4: torch.Tensor, weights, out_dtype=torch.bfloat16
+              ) -> torch.Tensor:
+    """stem_s2d_int8 on weights made ahead, (wq, sv, wb) of
+    stem_int8_weights. On a CUDA tensor one launch of vcg_stem_s2d_int8
+    (bfloat16 out), counted in stem_s2d_int8.launches."""
+    if s4.dtype != torch.uint8 or s4.dim() != 4 or s4.shape[-1] != 48:
+        raise ValueError(f"stem_s2d_int8 takes uint8 [N,h,w,48], got "
+                         f"{s4.dtype} {tuple(s4.shape)}")
+    wq, sv, wb = weights
+    if s4.device.type == "cpu":
+        return stem_s2d_int8_plain(s4, wq, sv, wb, out_dtype)
+    if s4.device.type != "cuda":
+        raise NotImplementedError(f"stem_s2d_int8 on {s4.device}")
+    if out_dtype != torch.bfloat16:
+        raise ValueError("the int8 stem kernel emits bfloat16")
+    if not s4.is_contiguous() or s4.data_ptr() % 16:
+        raise ValueError("stem_s2d_int8 takes a contiguous, 16-byte aligned "
+                         "s2d pack")
+    if (tuple(wq.shape) != (432, 256) or wq.dtype != torch.int8
+            or any(t.device != s4.device for t in weights)):
+        raise ValueError("stem_int8 takes stem_int8_weights on s4's device")
+    n, h, w, _ = s4.shape
+    dev = s4.device
+    wt = torch.zeros(256, 448, dtype=torch.int8, device=dev)
+    wt[:, :432] = wq.t()
+    sv, wb = sv.float().contiguous(), wb.float().contiguous()
+    one, zero = identity_affine(dev)
+    conv = torch.empty(n, 2 * h, 2 * w, 64, dtype=torch.bfloat16, device=dev)
+    out = torch.empty(n, h, w, 64, dtype=torch.bfloat16, device=dev)
+    rc = _lib("vcg_stem_s2d_int8")(
+        s4.data_ptr(), wt.data_ptr(), sv.data_ptr(), wb.data_ptr(),
+        one.data_ptr(), zero.data_ptr(), conv.data_ptr(), out.data_ptr(), n,
+        h, w, torch.cuda.current_stream(dev).cuda_stream)
+    stem_s2d_int8.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"stem_s2d_int8 kernel launch failed: CUDA error "
+                           f"{rc}")
+    return out
+
+
 stem_s2d.launches = 0
+stem_s2d_int8.launches = 0
 stem_frames.launches = 0
 bn_relu_maxpool.launches = 0

@@ -11,8 +11,14 @@ NHWC, so one NHWC kernel serves both). Both run csrc/tsm_bottleneck.cu:
     y2  = relu(bn2(conv3x3(y1, stride)))
     out = relu(bn3(conv1x1(y2)) + (x or bn_p(conv1x1(x, stride))))
 
-`tsm_bottleneck_reference` is the plain version. A CPU tensor takes it;
-a CUDA tensor launches the kernel. Weights come in the JAX package's
+`tsm_bottleneck_chain` (kernel K15) replaces tsm_bottleneck_chain_pallas
+and tsm_bottleneck_halo_chain_pallas: a run of consecutive stride-1
+plain blocks in one launch of csrc/tsm_chain.cu. `tsm_bottleneck_halo_chain`
+is the same function (its halo tiling exists for VMEM only), so it runs
+the same launch.
+
+`tsm_bottleneck_reference` and `tsm_bottleneck_chain_plain` are the plain
+versions. A CPU tensor takes them; a CUDA tensor launches the kernel. Weights come in the JAX package's
 layout: w1 [C, F], w2 [3, 3, F, F] (HWIO), w3 [F, Cout], wp [C, Cout];
 s*/b* are the inference-folded BatchNorm scale and bias.
 """
@@ -168,3 +174,105 @@ def tsm_bottleneck_s2(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, wp, sp, bp,
 
 tsm_bottleneck.launches = 0
 tsm_bottleneck_s2.launches = 0
+
+
+def tsm_bottleneck_chain_plain(x, blocks, n_segment: int, n_div: int = 8,
+                               planar_out: bool = False):
+    """Plain version of the chain: tsm_bottleneck_reference of each block
+    in turn; with planar_out, the pair-merged view [N*T, H, W/2, 2C]."""
+    for blk in blocks:
+        x = tsm_bottleneck_reference(x, *blk, n_segment, n_div)
+    return pair_merge(x) if planar_out else x
+
+
+def pair_merge(x: torch.Tensor) -> torch.Tensor:
+    """NHWC [N*T, H, W, C] as the TPU kernels' pair-merged ("planar")
+    layout [N*T, H, W/2, 2C]: a view."""
+    nt, h, w, c = x.shape
+    if w % 2:
+        raise ValueError(f"a pair-merged layout needs an even width, got {w}")
+    return x.view(nt, h, w // 2, 2 * c)
+
+
+_MAX_CHAIN = 24  # csrc/tsm_chain.cu kMaxChain
+
+
+def _chain_lib():
+    fn = _build.load("tsm_chain").vcg_tsm_bottleneck_chain
+    if fn.argtypes is None:
+        arr = ctypes.POINTER(ctypes.c_void_p)
+        fn.argtypes = ([ctypes.c_void_p] + [arr] * 9 + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def tsm_bottleneck_chain(x, blocks, n_segment: int, n_div: int = 8,
+                         planar_out: bool = False):
+    """A chain of stride-1 non-projection bottlenecks (blocks 1.. of a
+    stage), x [N*T, H, W, C] -> [N*T, H, W, C], or with planar_out the
+    pair-merged view [N*T, H, W/2, 2C] of it. blocks: one tuple per block
+    (w1 [C, F], w2 [3, 3, F, F], w3 [F, C], s1, b1, s2, b2 [F], s3, b3 [C])
+    in tsm_bottleneck's layouts. On a CUDA tensor one launch of the K15
+    kernel, counted in tsm_bottleneck_chain.launches."""
+    blocks = [tuple(b) for b in blocks]
+    if x.device.type == "cpu":
+        return tsm_bottleneck_chain_plain(x, blocks, n_segment, n_div,
+                                          planar_out)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"tsm_bottleneck_chain on {x.device}")
+    nt, h, w, c = x.shape
+    bf = torch.bfloat16
+    if x.dtype != bf or not x.is_contiguous():
+        raise ValueError("the chain kernel takes contiguous bf16 NHWC")
+    if not 1 <= len(blocks) <= _MAX_CHAIN:
+        raise ValueError(f"a chain of {len(blocks)} blocks: 1 to "
+                         f"{_MAX_CHAIN}")
+    f = blocks[0][0].shape[1]
+    fold = c // n_div if n_segment > 0 else 0
+    if c % 64 or f % 64 or fold % 8 or nt % max(n_segment, 1):
+        raise ValueError(f"unsupported widths C={c} F={f} fold={fold} "
+                         f"N*T={nt} T={n_segment}")
+    shapes = ((c, f), (3, 3, f, f), (f, c)) + ((f,),) * 4 + ((c,),) * 2
+    for k, blk in enumerate(blocks):
+        if len(blk) != 9:
+            raise ValueError("a chain block is (w1, w2, w3, s1, b1, s2, b2, "
+                             "s3, b3)")
+        for i, (t, want) in enumerate(zip(blk, shapes)):
+            dt = bf if i < 3 else torch.float32
+            if (tuple(t.shape) != want or t.dtype != dt or t.device != x.device
+                    or not t.is_contiguous()):
+                raise ValueError(f"block {k} tensor {i} must be contiguous "
+                                 f"{dt} {want} on {x.device}, got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+    dev = x.device
+    n = len(blocks)
+    y1 = torch.empty(nt * h * w, f, dtype=bf, device=dev)
+    y2 = torch.empty(nt * h * w, f, dtype=bf, device=dev)
+    bufs = [torch.empty_like(x) if n > k + 1 else None for k in range(2)]
+    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    out = torch.empty_like(x)
+    ptrs = [(ctypes.c_void_p * n)(*(blk[i].data_ptr() for blk in blocks))
+            for i in range(9)]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = _chain_lib()(
+        x.data_ptr(), *ptrs, y1.data_ptr(), y2.data_ptr(), ptr(bufs[0]),
+        ptr(bufs[1]), bar.data_ptr(), out.data_ptr(), n, nt, h, w, c, f,
+        max(n_segment, 1), fold, torch.cuda.current_stream(dev).cuda_stream)
+    tsm_bottleneck_chain.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"tsm_bottleneck_chain kernel failed: CUDA error "
+                           f"{rc}")
+    return pair_merge(out) if planar_out else out
+
+
+def tsm_bottleneck_halo_chain(x, blocks, n_segment: int, n_div: int = 8,
+                              planar_out: bool = False):
+    """tsm_block_pallas.py:978 tsm_bottleneck_halo_chain_pallas: the same
+    function as tsm_bottleneck_chain (its row tiles with halos are a VMEM
+    workaround of the TPU), so the same plain version and the same K15
+    launch, counted in tsm_bottleneck_chain.launches."""
+    return tsm_bottleneck_chain(x, blocks, n_segment, n_div, planar_out)
+
+
+tsm_bottleneck_chain.launches = 0

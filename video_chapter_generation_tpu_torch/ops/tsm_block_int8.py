@@ -1,4 +1,4 @@
-"""W8A8 inference TSM bottleneck (kernel K9).
+"""W8A8 inference TSM bottlenecks (kernels K9 and K14a).
 
 `tsm_bottleneck_int8` replaces the JAX package's
 ops/tsm_block_int8_pallas.py:tsm_bottleneck_int8_pallas with the CUDA
@@ -23,7 +23,23 @@ reciprocal, :69-71, which can round a boundary value the other way):
     out  = relu((f32(y2q @ w3q) * a3 + b3) + xf),  xf = xq * sx or x
     outq = clip(round(out / sout))
 
-with a1 = sx*sw1*s1, a2 = sz*sw2*[s2, s2, s2], a3 = sy2*sw3*s3. Weights
+with a1 = sx*sw1*s1, a2 = sz*sw2*[s2, s2, s2], a3 = sy2*sw3*s3.
+
+`tsm_bottleneck_s2_planar_int8` (kernel K14a, the same CUDA source)
+replaces tsm_block_int8_pallas.py:tsm_bottleneck_s2_planar_int8_pallas:
+the stride-2 projection block0 of a quantized stage, whose integer spec
+is int8_s2_bottleneck_reference (:609): conv1 as above at full
+resolution; conv2 at stride 2 with pad (1, 1), the same per-tap dequant
+summed in the order dr 1, 0, 2, then + b2; and
+
+    out  = relu((f32(y2q @ w3q) * a3 + b3) + (f32(xq[::2, ::2] @ wpq) * ap
+           + bp)),   ap = sx*swp*sp
+
+with the projection on the same quantized input. It is
+`quantize_s2_bottleneck` followed by `int8_s2_bottleneck`; its plain
+version is `int8_s2_bottleneck_plain`. Its pair-merged input
+[N*T, H, W/2, 2C] is a row-major view of NHWC, so the wrapper views it
+back, and the model passes NHWC. Weights
 are quantized from the float32 folded parameters (models/resnet.py:447-449
 of the JAX package does not cast them first). The integer dots of the
 plain version run as float64 matmuls (exact below 2^53; torch has no
@@ -40,6 +56,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .temporal_shift import temporal_shift_reference
+from .tsm_block import pair_merge
 
 
 def quantize_weight(w: torch.Tensor):
@@ -185,9 +202,18 @@ def int8_bottleneck(x, q: QuantBottleneck, n_segment: int, n_div: int = 8,
                     out_dtype: torch.dtype = torch.bfloat16):
     """tsm_bottleneck_int8 on a block quantized ahead (the model caches
     each block's QuantBottleneck). On a CUDA tensor it launches the kernel
-    and counts the launch in tsm_bottleneck_int8.launches."""
-    if out_mode not in ("i8", "bf16"):
-        raise ValueError(f"out_mode {out_mode!r}: 'i8' or 'bf16'")
+    and counts the launch in tsm_bottleneck_int8.launches. out_mode
+    "planar" and "planar_i8" (tsm_block_int8_pallas.py:148, :573-577)
+    return the pair-merged view [N*T, H, W/2, 2C] of the "bf16" and "i8"
+    results."""
+    if out_mode not in ("i8", "bf16", "planar", "planar_i8"):
+        raise ValueError(f"out_mode {out_mode!r}: 'i8', 'bf16', 'planar' "
+                         f"or 'planar_i8'")
+    if out_mode.startswith("planar"):
+        out = int8_bottleneck(x, q, n_segment, n_div,
+                              "i8" if out_mode == "planar_i8" else "bf16",
+                              out_dtype)
+        return pair_merge(out)
     if x.device.type == "cpu":
         out, outq = int8_bottleneck_plain(x, q, n_segment, n_div)
         return outq if out_mode == "i8" else out.to(out_dtype)
@@ -231,3 +257,153 @@ def int8_bottleneck(x, q: QuantBottleneck, n_segment: int, n_div: int = 8,
 
 
 tsm_bottleneck_int8.launches = 0
+
+
+@dataclass
+class QuantS2Bottleneck(QuantBottleneck):
+    """A stride-2 projection block's QuantBottleneck (w3q [F, Cout]) plus
+    the projection: wpq [C, Cout] int8 per output channel, wpt its
+    transpose for the kernel, ap = sx*swp*sp and bp float32 [Cout]."""
+    wpq: torch.Tensor = None
+    wpt: torch.Tensor = None
+    ap: torch.Tensor = None
+    bp: torch.Tensor = None
+
+
+def quantize_s2_bottleneck(w1, w2, w3, s1, b1, s2, b2, s3, b3, wp, sp, bp,
+                           act_scales) -> QuantS2Bottleneck:
+    """quantize_bottleneck, and wp [C, Cout] quantized per output channel
+    (tsm_block_int8_pallas.py:371), with its folded BN (sp, bp)."""
+    q = quantize_bottleneck(w1, w2, w3, s1, b1, s2, b2, s3, b3, act_scales)
+    c = q.w1q.shape[0]
+    wpq, swp = quantize_weight(wp.reshape(c, -1).float())
+    dev = q.w1q.device
+    vec = lambda v: v.to(device=dev, dtype=torch.float32).reshape(-1)  # noqa: E731
+    return QuantS2Bottleneck(
+        **{k: getattr(q, k) for k in q.__dataclass_fields__},
+        wpq=wpq, wpt=wpq.t().contiguous(), ap=q.sc[0] * swp * vec(sp),
+        bp=vec(bp))
+
+
+def int8_s2_bottleneck_plain(x: torch.Tensor, q: QuantS2Bottleneck,
+                             n_segment: int, n_div: int = 8):
+    """The stride-2 integer spec (tsm_block_int8_pallas.py:609) on NHWC
+    x [N*T, H, W, C] (int8, or float: the stage entry), H and W even ->
+    (out float32, out int8), both [N*T, H/2, W/2, Cout]."""
+    h, w = x.shape[1:3]
+    f = q.f
+    sx, sz, sy2, sout = q.sc[0], q.sc[1], q.sc[2], q.sc[3]
+    xq = x if x.dtype == torch.int8 else _rq(x.float(), sx)
+    xs = temporal_shift_reference(xq, n_segment, n_div)
+    y1 = torch.relu(_idot(xs, q.w1q) * q.a1 + q.b1)
+    ho, wo = h // 2, w // 2
+    y1p = F.pad(y1, (0, 0, 1, 1, 1, 1))
+    acc = None
+    for dr in (1, 0, 2):
+        rows = y1p[:, dr: dr + 2 * ho: 2]  # padded rows 2r + dr
+        z = torch.cat([rows[:, :, 0: 2 * wo: 2], rows[:, :, 1: 2 * wo + 1: 2],
+                       rows[:, :, 2: 2 * wo + 2: 2]], dim=-1)
+        d = (_idot(_rq(z, sz), q.w2q[:, dr * f:(dr + 1) * f])
+             * q.a2[dr * f:(dr + 1) * f])
+        acc = d if acc is None else acc + d
+    y2 = torch.relu(acc + q.b2)
+    y3 = _idot(_rq(y2, sy2), q.w3q) * q.a3 + q.b3
+    res = _idot(xq[:, ::2, ::2], q.wpq) * q.ap + q.bp
+    out = torch.relu(y3 + res)
+    return out, _rq(out, sout)
+
+
+def int8_s2_bottleneck_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, wp,
+                                 sp, bp, act_scales, n_segment: int,
+                                 n_div: int = 8):
+    """tsm_block_int8_pallas.py:609 int8_s2_bottleneck_reference on NHWC x:
+    -> (out float32, out int8)."""
+    q = quantize_s2_bottleneck(w1, w2, w3, s1, b1, s2, b2, s3, b3, wp, sp,
+                               bp, act_scales)
+    return int8_s2_bottleneck_plain(x, q, n_segment, n_div)
+
+
+def _s2_lib():
+    fn = _build.load("tsm_bottleneck_int8").vcg_tsm_bottleneck_s2_int8
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_float] * 4
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def tsm_bottleneck_s2_planar_int8(xpm, w1, w2, w3, s1, b1, s2, b2, s3, b3,
+                                  wp, sp, bp, act_scales, n_segment: int,
+                                  n_div: int = 8, out_mode: str = "i8",
+                                  out_dtype: torch.dtype = torch.bfloat16):
+    """W8A8 stride-2 projection bottleneck on the pair-merged input
+    xpm [N*T, H, W/2, 2C] int8 (inside a stage; scale act_scales[0]) or
+    float (the stage entry, quantized in the kernel) -> [N*T, H/2, W/2,
+    Cout] int8 (out_mode "i8") or out_dtype (any other out_mode, as the
+    JAX function). w1/w2/w3/wp are the float folded weights, s*/b*/sp/bp
+    the folded BN: quantize_s2_bottleneck, then int8_s2_bottleneck."""
+    nt, h, wh, c2 = xpm.shape
+    x = xpm.reshape(nt, h, 2 * wh, c2 // 2)
+    q = quantize_s2_bottleneck(w1, w2, w3, s1, b1, s2, b2, s3, b3, wp, sp,
+                               bp, act_scales)
+    return int8_s2_bottleneck(x, q, n_segment, n_div,
+                              "i8" if out_mode == "i8" else "bf16", out_dtype)
+
+
+def int8_s2_bottleneck(x, q: QuantS2Bottleneck, n_segment: int,
+                       n_div: int = 8, out_mode: str = "i8",
+                       out_dtype: torch.dtype = torch.bfloat16):
+    """The stride-2 block on NHWC x [N*T, H, W, C] (H, W even) with a
+    block quantized ahead -> [N*T, H/2, W/2, Cout] int8 ("i8") or
+    out_dtype ("bf16"). On a CUDA tensor it launches the K14a kernel and
+    counts the launch in tsm_bottleneck_s2_planar_int8.launches."""
+    if out_mode not in ("i8", "bf16"):
+        raise ValueError(f"out_mode {out_mode!r}: 'i8' or 'bf16'")
+    nt, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"the stride-2 int8 block needs an even H and W, "
+                         f"got {h}x{w}")
+    if x.device.type == "cpu":
+        out, outq = int8_s2_bottleneck_plain(x, q, n_segment, n_div)
+        return outq if out_mode == "i8" else out.to(out_dtype)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"tsm_bottleneck_s2_planar_int8 on "
+                                  f"{x.device}")
+    f = q.f
+    cout = q.w3q.shape[1]
+    x_i8 = x.dtype == torch.int8
+    if not (x_i8 or x.dtype == torch.bfloat16) or not x.is_contiguous():
+        raise ValueError(f"tsm_bottleneck_s2_planar_int8 takes contiguous "
+                         f"int8 or bf16 NHWC, got {x.dtype}")
+    if out_mode == "bf16" and out_dtype != torch.bfloat16:
+        raise ValueError("the int8 kernel emits int8 or bfloat16")
+    fold = c // n_div
+    if (c % 64 or f % 128 or cout % 128 or q.w1q.shape[0] != c or fold % 16
+            or n_segment <= 0 or nt % n_segment):
+        raise ValueError(f"unsupported widths C={c} F={f} Cout={cout} "
+                         f"fold={fold} N*T={nt} T={n_segment}")
+    for t in (q.w1t, q.w2t, q.w3t, q.wpt, q.a1, q.a2, q.a3, q.ap):
+        if t.device != x.device:
+            raise ValueError("quantized weights must be on x's device")
+    dev = x.device
+    ho, wo = h // 2, w // 2
+    y1q = torch.empty(nt * h * w, f, dtype=torch.int8, device=dev)
+    y2q = torch.empty(nt * ho * wo, f, dtype=torch.int8, device=dev)
+    out = torch.empty(nt, ho, wo, cout, device=dev,
+                      dtype=torch.int8 if out_mode == "i8" else torch.bfloat16)
+    sx, sz, sy2, sout = q.scalars
+    rc = _s2_lib()(
+        x.data_ptr(), q.w1t.data_ptr(), q.w2t.data_ptr(), q.w3t.data_ptr(),
+        q.wpt.data_ptr(), q.a1.data_ptr(), q.b1.data_ptr(), q.a2.data_ptr(),
+        q.b2.data_ptr(), q.a3.data_ptr(), q.b3.data_ptr(), q.ap.data_ptr(),
+        q.bp.data_ptr(), y1q.data_ptr(), y2q.data_ptr(), out.data_ptr(), sx,
+        sz, sy2, sout, nt, h, w, c, f, cout, n_segment, fold, int(x_i8),
+        int(out_mode == "i8"), torch.cuda.current_stream(dev).cuda_stream)
+    tsm_bottleneck_s2_planar_int8.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"tsm_bottleneck_s2_planar_int8 kernel failed: "
+                           f"CUDA error {rc}")
+    return out
+
+
+tsm_bottleneck_s2_planar_int8.launches = 0
