@@ -65,7 +65,10 @@
    link bit for bit to what the per-block chain computes there, and the
    trunk Function's forward bit for bit to the chain of per-block
    Functions, its gradients in the bands, two of its runs bit for bit,
-   and checks that it keeps no p; then trains the port's
+   and checks that it keeps no p; prints K12's device time a step by
+   kernel (each conv's forward GEMM, dgrad, wgrad, the BN-vector and
+   reduction kernels, the finale) from one torch.profiler trace of each
+   direction over one call of every block; then trains the port's
    cli/train_segment on a synthetic corpus for a few AdamW steps
    (BERT-base, ResNet50-TSM s2d, mlp head, data.batch_size=8) and checks
    finite losses, moved parameters and BN running statistics, exact
@@ -698,6 +701,76 @@ def training_phases(dev, smi, frames, vision):
     t = CLIP_FRAMES
     trunk_in = x
     below = None
+    passes = []  # (x, state, dy) of each block, for k12_split
+
+    def block_fwd(x, st):
+        stats, vec, saved = block_train_fwd(x, st.wf, st.gb, st.stride, t, 8,
+                                            1e-5)
+        finale_fwd(saved[2], saved[3] if st.proj else x, vec, st.f, st.co,
+                   st.proj)
+
+    def block_bwd(x, st, dy):
+        dq, mom3 = st.finale_backward(dy)
+        block_train_bwd(dq, mom3, x, st.saved, st.wb, st.gb, st.stats, st.vec,
+                        st.stride, t, 8, 1e-5)
+
+    def k12_split():
+        """K12's device time a step by what its kernels compute, from one
+        torch.profiler trace of each direction over one call of every
+        block: the forward GEMM of each conv (conv1, proj, conv2, conv3 in
+        launch order), dgrad, wgrad, the BN-vector and reduction kernels,
+        the finale; information only."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        def kind(name):
+            for key in ("finale", "wgrad", "dgrad", "conv_fwd"):
+                if key in name:
+                    return key
+            return ("bn/reduce" if "reduce" in name or "bn_" in name
+                    else "other")
+
+        parts = []
+        for direction in ("fwd", "bwd"):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for xb, st, dyb in passes:
+                    if direction == "fwd":
+                        block_fwd(xb, st)
+                    else:
+                        block_bwd(xb, st, dyb)
+                torch.cuda.synchronize()
+            kern = sorted((e for e in prof.events()
+                           if e.device_type == DeviceType.CUDA),
+                          key=lambda e: e.time_range.start)
+            # the forward of each block ends with its finale: within its
+            # run of kernels the GEMMs are conv1, [proj,] conv2, conv3
+            names = {}
+            if direction == "fwd":
+                segs, cur = [], []
+                for e in kern:
+                    cur.append(e)
+                    if kind(e.name) == "finale":
+                        segs.append(cur)
+                        cur = []
+                for seg, (_, st, _) in zip(segs, passes):
+                    gemms = [e for e in seg if kind(e.name) == "conv_fwd"]
+                    labels = (("conv1", "proj", "conv2", "conv3") if st.proj
+                              else ("conv1", "conv2", "conv3"))
+                    for e, c in zip(gemms[len(gemms) - len(labels):], labels):
+                        names[id(e)] = c
+            split = {}
+            for e in kern:
+                k = names.get(id(e), kind(e.name))
+                if k == "conv_fwd":
+                    k = "conv ?"
+                split[k] = split.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
+            if not split:
+                return "not measured: the profiler saw no device time"
+            split["total"] = sum(split.values())
+            parts.append(f"{direction} " + ", ".join(
+                f"{k} {v:.3f}" for k, v in split.items()))
+        return "; ".join(parts)
     for i, blk in enumerate(blocks):
         kind = blk.kind()
         stride = 2 if kind == "s2" else 1
@@ -724,18 +797,9 @@ def training_phases(dev, smi, frames, vision):
         w_grad = held("tsm_block_train_bwd", label, list(zip(gk, gr)), True)
         f, co = st.f, st.co
 
-        def block_fwd():
-            stats, vec, saved = block_train_fwd(x, st.wf, st.gb, stride, t,
-                                                8, 1e-5)
-            finale_fwd(saved[2], saved[3] if st.proj else x, vec, f, co,
-                       st.proj)
-
-        def block_bwd():
-            dq, mom3 = st.finale_backward(dy)
-            block_train_bwd(dq, mom3, x, st.saved, st.wb, st.gb, st.stats,
-                            st.vec, stride, t, 8, 1e-5)
-
-        kf, kb = cuda_ms(block_fwd), cuda_ms(block_bwd)
+        kf = cuda_ms(lambda: block_fwd(x, st))
+        kb = cuda_ms(lambda: block_bwd(x, st, dy))
+        passes.append((x, st, dy))
         pf = cuda_ms(lambda: tsm_block_train_reference(
             xk, w1, w2, w3, g1, be1, g2, be2, g3, be3, t, 8, 1e-5, wp, gp,
             bep, stride))
@@ -819,6 +883,14 @@ def training_phases(dev, smi, frames, vision):
         del yr, gr, p_k, p_r
 
     del below
+    try:
+        split = k12_split()
+    except Exception as exc:  # the split is information only
+        split = f"not measured ({type(exc).__name__}: {exc})"
+    print(f"# K12 device ms a step by kernel ({len(passes)} blocks, one "
+          f"traced call each): {split} on {smi}", flush=True)
+    del passes
+    torch.cuda.empty_cache()
     trunk_phase(trunk_in, blocks, x.shape)
 
     # --- the main path: the port's train_segment, a few full-width steps ---

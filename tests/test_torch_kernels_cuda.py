@@ -113,7 +113,9 @@ def _block_params(g, dev, c, f, co, proj):
 
 @pytest.mark.parametrize("stride,proj,c,f", [(1, False, 256, 64),
                                             (1, True, 64, 64),
-                                            (2, True, 256, 128)])
+                                            (2, True, 256, 128),
+                                            (1, False, 2048, 512),
+                                            (2, True, 1024, 512)])
 def test_block_train_kernel(dev, stride, proj, c, f):
     from video_chapter_generation_tpu_torch.ops.tsm_block_train import (
         _block,
@@ -375,6 +377,40 @@ def test_training_kernels_are_deterministic(dev):
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
 
 
+@pytest.mark.parametrize("stride,proj,c,f", [(1, False, 256, 64),
+                                            (2, True, 1024, 512)])
+def test_k5_k12_runs_are_bitwise_equal(dev, stride, proj, c, f):
+    """Two runs of K12's forward and backward, and of both K5 entries,
+    agree bit for bit: every sum on the wgmma mainloop has a fixed order
+    (K5's persistent grid hands tiles out by block index, not by arrival)."""
+    from video_chapter_generation_tpu_torch.ops.tsm_block_train import _block
+    from video_chapter_generation_tpu_torch.ops.tsm_conv import (
+        tsm_conv1x1,
+        tsm_conv1x1_bn_relu,
+    )
+
+    g = torch.Generator().manual_seed(9)
+    t, hw, bf = 8, 14, torch.bfloat16
+    co = 4 * f if proj else c
+    x = torch.relu(torch.randn(2 * t, hw, hw, c, generator=g)).to(dev, bf)
+    params = _block_params(g, dev, c, f, co, proj)
+    ho = hw // stride
+    dy = torch.randn(2 * t, ho, ho, co, generator=g).to(dev, bf)
+    runs = [_grad_run(lambda xs, ps: _block(xs, ps, stride, t, 8, 1e-5), x,
+                      params, dy) for _ in range(2)]
+    (y0, s0, g0), (y1, s1, g1) = runs
+    assert torch.equal(y0, y1)
+    assert all(torch.equal(a, b) for a, b in zip(s0, s1))
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+    w = (torch.randn(c, f, generator=g) / c ** 0.5).to(dev, bf)
+    sc = torch.rand(f, generator=g).to(dev) + 0.5
+    b = (0.1 * torch.randn(f, generator=g)).to(dev)
+    for fn in (lambda: tsm_conv1x1_bn_relu(x, w, sc, b, t),
+               lambda: tsm_conv1x1(x, w, t)):
+        assert torch.equal(fn(), fn())
+
+
 # --- serving kernels of the inference CLI: K8 (frames stem, BN + ReLU +
 # pool) and K9 (W8A8 bottleneck). The pool and the int8 block compute the
 # same float operations as their plain versions in the same order, so
@@ -504,13 +540,15 @@ def test_sparse_band_attention_kernel(dev, bs, hd):
 # --- K5 (shift + 1x1 conv), K6 (frame normalize), K7 (temporal shift) ---
 
 
-@pytest.mark.parametrize("c,f,t", [(64, 64, 8), (256, 128, 8),
-                                   (1024, 256, 4)])
-def test_tsm_conv_kernel(dev, c, f, t):
+@pytest.mark.parametrize("c,f,t,hw", [(64, 64, 8, 14), (256, 128, 8, 14),
+                                      (1024, 256, 4, 14), (2048, 512, 8, 7),
+                                      (128, 128, 3, 5)])
+def test_tsm_conv_kernel(dev, c, f, t, hw):
     """Inference (epilogue) and training (bare product) entries against
     the plain version in the output bands; the training backward (two
     matmuls and two K7 launches) against autograd through the plain
-    version in the gradient bands."""
+    version in the gradient bands. M = 2 t hw^2 rows is never a multiple
+    of the 128-row tile (150 at 5x5)."""
     from video_chapter_generation_tpu_torch.ops.temporal_shift import (
         temporal_shift,
     )
@@ -522,7 +560,7 @@ def test_tsm_conv_kernel(dev, c, f, t):
 
     g = torch.Generator().manual_seed(7)
     bf = torch.bfloat16
-    x = torch.randn(2 * t, 14, 14, c, generator=g).to(dev, bf)
+    x = torch.randn(2 * t, hw, hw, c, generator=g).to(dev, bf)
     w = (torch.randn(c, f, generator=g) / c ** 0.5).to(dev, bf)
     s = torch.rand(f, generator=g).to(dev) + 0.5
     b = (0.1 * torch.randn(f, generator=g)).to(dev)

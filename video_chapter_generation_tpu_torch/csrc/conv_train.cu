@@ -32,53 +32,779 @@
 // (vcg_trunk_link_bwd: relu mask of x_N, dq of block N-1 and its BN3/BNp
 // moments), so only the top block launches the two finale kernels.
 //
-// What bounds it on the H100: the products. The block does
-// 2 * M * (C*F + 9*F*F + F*4F [+ C*4F]) flops forward and twice that
-// backward against a few bytes per flop, above the card's ridge point.
-// This version uses WMMA bf16 tiles of 128 x 64/128 with loads through
-// registers; wgmma/TMA and on-chip chaining of a block's three convs are
-// left for later.
+// Design (Hopper): the forward, data-gradient and weight-gradient GEMMs
+// run on hopper_gemm.cuh's mainloop, wgmma m64nBNk16 from 128-byte-
+// swizzled shared memory. Every operand arrives raw (x; p and r for the
+// link; da and v for a gradient) and is transformed on the arrived stage
+// just before the product (BN + ReLU, the finale, the BN backward ga * da
+// + ge * v + gf). Weights, and operands that are plain [rows][channels]
+// tiles (1x1 stride-1 convs of an unshifted input, the stride-2
+// projection's gradient, every weight gradient's G), come as TMA boxes;
+// gathers (3x3 taps, the shift, the link) by cp.async. Forward and
+// data-gradient blocks own one 128-row tile (BN 64 or 128 columns), so
+// their per-block moment rows and reduce_rows are as before; the forward
+// stores and takes its moments straight from the accumulator registers
+// (store_tile). A stride-2 data gradient skips the products that are zero
+// by construction: the 1x1 projection's runs over the output pixels, the
+// 3x3's over one parity class of input pixels a blockIdx.z with only the
+// taps that reach it (a quarter of the work each). The weight gradient
+// reads both operands MN-major (pixels, the reduction, are the rows of
+// both), split over pixel ranges into float32 slices summed in order; the
+// moment sums run in a fixed order too: no float atomics anywhere.
+//
+// What bounds it on the H100: bytes. A block's forward does 2 * M * (C*F
+// + 9*F*F + F*4F [+ C*4F]) flops and twice that backward; at layer 1 and
+// 128 frames that is ~56 GFLOP against ~0.72 GB read and written once (x
+// in; u, z, p and y out), ~78 flop/byte, below the card's ~295 flop/byte
+// ridge. Each deeper layer halves the activation bytes for the same flops
+// (layer 4 is above the ridge), and a whole step, summed as chip_smoke.py
+// counts it, is bound by bytes.
 #include <algorithm>
 #include <initializer_list>
 
+#include "hopper_gemm.cuh"
 #include "train_gemm.cuh"
 
 namespace vcg {
 
-template <int BN, class AL, class Xf>
-__global__ void __launch_bounds__(kThreads)
-    conv_fwd_kernel(Xf a, ConvGeo g, const bf16* w, bf16* out,
-                    float* part) {
-  __shared__ Smem<BN> sm;
-  __shared__ MomSlots<BN> ms;
+using namespace hop;
+
+// Ring depths: the forward keeps two blocks an SM at three stages; the
+// gradients stage twice the bytes (a raw operand beside each tile), so
+// two stages keep two blocks an SM.
+constexpr int kFwdStages = 3;
+constexpr int kGradStages = 2;
+
+// ---------------------------------------------------------------------------
+// Operand sources of the mainloop (hopper_gemm.cuh). Each block owns one
+// 128-row tile; thread i copies chunk i % 8 of tile rows i / 8 + 32 j,
+// j < 4, of every A stage, and recomputes where a chunk came from when it
+// transforms it (at(): false where the operand is zero).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int a_row(int j) {
+  return (threadIdx.x >> 3) + 32 * j;
+}
+
+__device__ __forceinline__ uint4& chunk_at(uint8_t* tile, int j) {
+  return *reinterpret_cast<uint4*>(tile + swz(a_row(j), threadIdx.x & 7));
+}
+
+// Forward A: an activation (ActXf: the shift, or the previous BN + ReLU),
+// rows the output pixels of g, k = (kh, kw, c). Padding is zero after
+// the transform, as in the reference.
+struct ActPart {
+  static constexpr int kAux = 0;
+  static constexpr bool kGrad = false;
+  ActXf a;
+  ConvGeo g;
+  const CUtensorMap* amap;  // a.x as [n h w][c], boxes 128 x 64
+  int m0;
+  int rn[4], roh[4], row_[4];
+  bool rok[4];
+
+  // A 1x1 stride-1 conv of an unshifted x reads a dense [M][C] tile: one
+  // TMA box (rows past M read zeros and are not transformed)
+  __device__ bool dense() const {
+    return g.ks == 1 && g.stride == 1 && g.pad == 0 && a.fold == 0;
+  }
+  __device__ int tma_bytes() const { return dense() ? kATile : 0; }
+  __device__ void tma(uint8_t* st, uint8_t*, int k0, uint64_t* bar) const {
+    if (tma_lane(2, 0)) tma_load(st, amap, k0, m0, bar);
+  }
+  __device__ void use_map(const CUtensorMap* m) { amap = m; }
+
+  __device__ void init(int m0_) {
+    m0 = m0_;
+    const int plane = g.ho * g.wo;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0_ + a_row(j);
+      rok[j] = m < g.m;
+      const int mm = rok[j] ? m : 0;
+      rn[j] = mm / plane;
+      const int rem = mm - rn[j] * plane;
+      roh[j] = rem / g.wo;
+      row_[j] = rem - roh[j] * g.wo;
+    }
+  }
+
+  // The tap (kh, kw) and channel of this thread's chunk at k0.
+  __device__ bool tap(int k0, int& kh, int& kw, int& ch) const {
+    const int k = k0 + (threadIdx.x & 7) * 8;
+    if (k >= g.k) return false;
+    const int t = k / g.c;
+    ch = k - t * g.c;
+    kh = t / g.ks;
+    kw = t - kh * g.ks;
+    return true;
+  }
+
+  __device__ bool at(int j, int kh, int kw, int ch, size_t& off) const {
+    if (!rok[j]) return false;
+    const int ih = roh[j] * g.stride - g.pad + kh;
+    const int iw = row_[j] * g.stride - g.pad + kw;
+    if (ih < 0 || ih >= g.h || iw < 0 || iw >= g.w) return false;
+    int nn = rn[j];
+    if (a.fold && ch < 2 * a.fold) {
+      const int tt = nn % a.t;
+      if (ch < a.fold) {
+        if (tt == a.t - 1) return false;
+        ++nn;
+      } else {
+        if (tt == 0) return false;
+        --nn;
+      }
+    }
+    off = ((static_cast<size_t>(nn) * g.h + ih) * g.w + iw) * g.c + ch;
+    return true;
+  }
+
+  __device__ int w_row(int k0) const { return k0; }
+
+  // The cp.async copies of this thread's chunks (none for a dense stage,
+  // which comes by TMA).
+  __device__ void load(uint8_t* st, uint8_t*, int k0) const {
+    int kh = 0, kw = 0, ch = 0;
+    const bool kok = tap(k0, kh, kw, ch);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      size_t off = 0;
+      const bool ok = kok && at(j, kh, kw, ch, off);
+      cp_async16(&chunk_at(st, j), a.x + off, ok);
+    }
+  }
+
+  __device__ void xform(uint8_t* st, uint8_t*, int k0) const {
+    int kh, kw, ch;
+    if (a.sa == nullptr || !tap(k0, kh, kw, ch)) return;
+    float sa[8], sb[8];
+    vec8(a.sa + ch, sa);
+    vec8(a.sb + ch, sb);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      size_t off;
+      if (!at(j, kh, kw, ch, off)) continue;
+      float v[8];
+      unpack8(chunk_at(st, j), v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = fmaxf(fmaf(v[e], sa[e], sb[e]), 0.0f);
+      chunk_at(st, j) = pack8(v);
+    }
+  }
+};
+
+// The trunk's forward link (tsm_trunk_train_pallas.py: _fk1 with prev):
+// the A operand of block N's conv1 is shift(x) with x = block N-1's
+// finale of (p, r); p and r arrive raw (r beside the A tile) and the
+// finale runs on the arrived stage. x itself is written to x_out once, by
+// the blocks of column tile 0. The chunk of row m at channel ch reads
+// frame src = the frame the shift takes it from; at a clip edge, where
+// the shift reads zero, src wraps to the clip's other end and the value
+// is written to x_out but not used. The map (row, ch) -> (src, ch) is one
+// to one, so every element of x_out is written exactly once.
+struct LinkPart {
+  static constexpr int kAux = kATile;
+  static constexpr bool kGrad = false;
+  __device__ bool dense() const { return false; }
+  __device__ int tma_bytes() const { return 0; }
+  __device__ void tma(uint8_t*, uint8_t*, int, uint64_t*) const {}
+  __device__ void use_map(const CUtensorMap*) {}
+  LinkXf a;
+  ConvGeo g;
+  int rn[4], rpix[4];
+  bool rok[4];
+
+  __device__ void init(int m0) {
+    const int plane = g.h * g.w;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + a_row(j);
+      rok[j] = m < g.m;
+      const int mm = rok[j] ? m : 0;
+      rn[j] = mm / plane;
+      rpix[j] = mm - rn[j] * plane;
+    }
+  }
+
+  __device__ bool at(int j, int k0, size_t& off, int& ch, bool& use) const {
+    ch = k0 + (threadIdx.x & 7) * 8;
+    if (!rok[j] || ch >= g.c) return false;
+    int nn = rn[j];
+    use = true;
+    if (a.fold && ch < 2 * a.fold) {
+      const int tt = nn % a.t;
+      if (ch < a.fold) {
+        use = tt < a.t - 1;
+        nn += use ? 1 : 1 - a.t;
+      } else {
+        use = tt > 0;
+        nn += use ? -1 : a.t - 1;
+      }
+    }
+    off = (static_cast<size_t>(nn) * g.h * g.w + rpix[j]) * g.c + ch;
+    return true;
+  }
+
+  __device__ int w_row(int k0) const { return k0; }
+
+  __device__ void load(uint8_t* st, uint8_t* aux, int k0) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      size_t off = 0;
+      int ch;
+      bool use;
+      const bool ok = at(j, k0, off, ch, use);
+      cp_async16(&chunk_at(st, j), a.p + off, ok);
+      cp_async16(&chunk_at(aux, j), a.r + off, ok);
+    }
+  }
+
+  __device__ void xform(uint8_t* st, uint8_t* aux, int k0) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      size_t off;
+      int ch;
+      bool use;
+      if (!at(j, k0, off, ch, use)) continue;
+      const uint4 xv = finale8(chunk_at(st, j), chunk_at(aux, j), a.sa3, a.sb3,
+                               a.sap, a.sbp, ch);
+      if (blockIdx.y == 0) *reinterpret_cast<uint4*>(a.x_out + off) = xv;
+      chunk_at(st, j) = use ? xv : make_uint4(0, 0, 0, 0);
+    }
+  }
+};
+
+// Data-gradient A: rows are INPUT pixels of the forward conv g, k = (kh,
+// kw, f) over the output-gradient channels; da and v arrive raw (v beside
+// the A tile) and the BN backward runs on the arrived stage. Input pixel
+// ih receives output row oh = (ih + pad - kh) / stride where that divides
+// and is in range. A stride-2 conv skips the products that are zero by
+// construction: a 1x1 one (kSub) runs over the output pixels, each
+// writing the input pixel (2 oh, 2 ow) (the caller zeroes the others),
+// and a 3x3 one (kParity) runs one launch row of blocks per parity class
+// (blockIdx.z = 2 a + b: input pixels (2 i + a, 2 j + b)) over that
+// class's taps only (kh = 1 for a = 0, kh = 0 and 2 for a = 1; kw alike).
+enum { kRows = 0, kSub = 1, kParity = 2 };
+
+struct GradPart {
+  static constexpr int kAux = kATile;
+  static constexpr bool kGrad = true;
+  GradXf gx;
+  ConvGeo g;
+  int mode;
+  int a, b;  // kParity: this block's class
+  const CUtensorMap* dmap;  // da and v as [n ho wo][nout], boxes 128 x 64
+  const CUtensorMap* vmap;
+  int m0;
+  int rn[4], rih[4], riw[4];
+  bool rok[4];
+
+  // A 1x1 stride-1 conv (rows: its pixels) and kSub (rows: the output
+  // pixels) read dense [M][nout] tiles of da and v: one TMA box each
+  __device__ bool dense() const {
+    return mode == kSub || (mode == kRows && g.ks == 1 && g.stride == 1);
+  }
+  __device__ int tma_bytes() const { return dense() ? 2 * kATile : 0; }
+  __device__ void tma(uint8_t* st, uint8_t* aux, int k0,
+                      uint64_t* bar) const {
+    if (tma_lane(2, 0)) tma_load(st, dmap, k0, m0, bar);
+    if (tma_lane(2, 1)) tma_load(aux, vmap, k0, m0, bar);
+  }
+
+  __host__ __device__ static int mode_of(const ConvGeo& g) {
+    if (g.stride == 2 && g.ks == 1 && g.pad == 0) return kSub;
+    if (g.stride == 2 && g.ks == 3 && g.pad == 1) return kParity;
+    return kRows;
+  }
+
+  // rows of this block's class
+  __host__ __device__ int rows(int a_, int b_) const {
+    if (mode == kSub) return g.n * g.ho * g.wo;
+    if (mode == kParity) return g.n * ((g.h - a_ + 1) / 2) * ((g.w - b_ + 1) / 2);
+    return g.n * g.h * g.w;
+  }
+
+  __device__ int ncols() const { return mode == kParity ? (g.w - b + 1) / 2 : g.w; }
+
+  __device__ int k_total() const {
+    if (mode == kSub) return g.nout;
+    if (mode == kParity) return (a ? 2 : 1) * (b ? 2 : 1) * g.nout;
+    return g.ks * g.ks * g.nout;
+  }
+
+  __device__ void init(int m0_) {
+    m0 = m0_;
+    const int w = ncols();
+    const int plane = (mode == kParity ? (g.h - a + 1) / 2 : g.h) * w;
+    const int total = rows(a, b);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0_ + a_row(j);
+      rok[j] = m < total;
+      const int mm = rok[j] ? m : 0;
+      rn[j] = mode == kSub ? mm : mm / plane;
+      const int rem = mm - rn[j] * plane;
+      rih[j] = rem / w;
+      riw[j] = rem - rih[j] * w;
+      if (mode == kParity) {
+        rih[j] = 2 * rih[j] + a;
+        riw[j] = 2 * riw[j] + b;
+      }
+    }
+  }
+
+  // The tap (kh, kw) and channel of this thread's chunk at k0.
+  __device__ bool tap(int k0, int& kh, int& kw, int& ch) const {
+    const int k = k0 + (threadIdx.x & 7) * 8;
+    if (k >= k_total()) return false;
+    const int t = k / g.nout;
+    ch = k - t * g.nout;
+    if (mode == kParity) {
+      const int nkw = b ? 2 : 1;
+      const int ti = t / nkw;
+      kh = a ? 2 * ti : 1;
+      kw = b ? 2 * (t - ti * nkw) : 1;
+    } else {
+      kh = t / g.ks;
+      kw = t - kh * g.ks;
+    }
+    return true;
+  }
+
+  // The row of the weight's transpose [ks ks nout][C] that stage k0 reads.
+  __device__ int w_row(int k0) const {
+    if (mode != kParity) return k0;
+    int kh, kw, ch;
+    const int t = k0 / g.nout;
+    const int nkw = b ? 2 : 1;
+    kh = a ? 2 * (t / nkw) : 1;
+    kw = b ? 2 * (t % nkw) : 1;
+    ch = k0 - t * g.nout;
+    return (kh * g.ks + kw) * g.nout + ch;
+  }
+
+  __device__ bool at(int j, int kh, int kw, int ch, size_t& off) const {
+    if (!rok[j]) return false;
+    if (mode == kSub) {
+      off = static_cast<size_t>(rn[j]) * gx.c + ch;
+      return true;
+    }
+    int oh = rih[j] + g.pad - kh;
+    int ow = riw[j] + g.pad - kw;
+    if (oh < 0 || ow < 0) return false;
+    if (g.stride == 2) {
+      if ((oh & 1) || (ow & 1)) return false;
+      oh >>= 1;
+      ow >>= 1;
+    }
+    if (oh >= g.ho || ow >= g.wo) return false;
+    off = ((static_cast<size_t>(rn[j]) * g.ho + oh) * g.wo + ow) * gx.c + ch;
+    return true;
+  }
+
+  // The row of dX that tile row gm (< rows) computes.
+  __device__ size_t dest(int gm) const {
+    if (mode == kRows) return gm;
+    const int w = mode == kSub ? g.wo : ncols();
+    const int plane = (mode == kSub ? g.ho : (g.h - a + 1) / 2) * w;
+    const int n = gm / plane;
+    const int rem = gm - n * plane;
+    const int i = rem / w;
+    const int jj = rem - i * w;
+    const int ih = mode == kSub ? 2 * i : 2 * i + a;
+    const int iw = mode == kSub ? 2 * jj : 2 * jj + b;
+    return (static_cast<size_t>(n) * g.h + ih) * g.w + iw;
+  }
+
+  // As ActPart::load, da into the A tile and v beside it.
+  __device__ void load(uint8_t* st, uint8_t* aux, int k0) const {
+    int kh = 0, kw = 0, ch = 0;
+    const bool kok = tap(k0, kh, kw, ch);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      size_t off = 0;
+      const bool ok = kok && at(j, kh, kw, ch, off);
+      cp_async16(&chunk_at(st, j), gx.da + off, ok);
+      cp_async16(&chunk_at(aux, j), gx.v + off, ok);
+    }
+  }
+
+  __device__ void xform(uint8_t* st, uint8_t* aux, int k0) const {
+    int kh, kw, ch;
+    if (!tap(k0, kh, kw, ch)) return;
+    float ga[8], ge[8], gf[8];
+    vec8(gx.ga + ch, ga);
+    vec8(gx.ge + ch, ge);
+    vec8(gx.gf + ch, gf);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      size_t off;
+      if (!at(j, kh, kw, ch, off)) continue;
+      float d[8], v[8];
+      unpack8(chunk_at(st, j), d);
+      unpack8(chunk_at(aux, j), v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        d[e] = fmaf(ga[e], d[e], fmaf(ge[e], v[e], gf[e]));
+      chunk_at(st, j) = pack8(d);
+    }
+  }
+};
+
+// A forward or data-gradient product: A from Part, B = columns n0.. of a
+// weight [k_total][n] by TMA (wmap). Stage: A tile, B tile, Part's raw
+// staging.
+template <int BN, class Part>
+struct WeightSrc {
+  static constexpr int kStageBytes = kATile + BN * 128 + Part::kAux;
+  static constexpr bool kTma = true;
+  Part part;
+  const CUtensorMap* wmap;
+  int n0;
+
+  __device__ void load(uint8_t* st, uint64_t* bar, int, int kt) {
+    uint8_t* aux = st + kATile + BN * 128;
+    const bool dense = part.dense();
+    if (!dense) part.load(st, aux, kt * kHBK);
+    if (threadIdx.x == 0) mbar_expect(bar, BN * 128 + part.tma_bytes());
+    tma_w<BN>(st + kATile, wmap, part.w_row(kt * kHBK), n0, bar, 0);
+    if (dense) part.tma(st, aux, kt * kHBK, bar);
+  }
+  __device__ void xform(uint8_t* st, int, int kt) {
+    part.xform(st, st + kATile + BN * 128, kt * kHBK);
+  }
+};
+
+// Ring depth of a forward or data-gradient product.
+template <class Part>
+__host__ __device__ constexpr int stages_of() {
+  return Part::kGrad ? kGradStages : kFwdStages;
+}
+
+template <int BN, class Part>
+constexpr int weight_smem() {
+  return stages_of<Part>() * WeightSrc<BN, Part>::kStageBytes + kAlignSlack;
+}
+
+// The K loop of this block's tile; then the ring is free for the
+// epilogue's staging and moment slots.
+template <int BN, class Part>
+__device__ void weight_gemm(uint8_t* sm, const Part& part,
+                            const CUtensorMap* wmap, int n0, int k_total,
+                            float (&acc)[BN / 2]) {
+  constexpr int S = stages_of<Part>();
+  __shared__ alignas(8) uint64_t bars[S];
+  WeightSrc<BN, Part> src{part, wmap, n0};
+  if (threadIdx.x == 0) tma_prefetch(wmap);
+  Mainloop<BN, S, 0, WeightSrc<BN, Part>> ml(sm, bars, src, 1,
+                                              (k_total + kHBK - 1) / kHBK);
+  ml.tile(acc);
+  ml.finish();
+}
+
+template <int BN>
+using WarpMoments = MomSlots<BN, 2, 8>;
+
+template <int BN, class Part>
+__global__ void __launch_bounds__(kThreads, 2)
+    conv_fwd_kernel(Part pa, ConvGeo g, bf16* out, float* part,
+                    const __grid_constant__ CUtensorMap wmap,
+                    const __grid_constant__ CUtensorMap amap) {
+  uint8_t* sm = aligned_smem();
   const int m0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * BN;
+  pa.init(m0);
+  pa.use_map(&amap);
+  float acc[BN / 2];
+  weight_gemm<BN>(sm, pa, &wmap, n0, g.k, acc);
+  // the ring is free: this warp's store staging, then the moment slots
+  WarpMoments<BN>& ms = *reinterpret_cast<WarpMoments<BN>*>(sm + kStoreBytes);
   ms.zero();
-  AL al;
-  al.init(a, g, m0);
-  Acc<BN> acc;
-  mainloop_w<BN>(sm, al, w, g.k, g.nout, n0, acc);
-  epilogue<BN>(sm.epi[threadIdx.x >> 5], acc,
-               [&](int r, int c, float(&v)[8]) {
-                 const int gm = m0 + r;
-                 const bool valid = gm < g.m;
-                 alignas(16) bf16 o[8];
-                 float s[8], q[8];
-#pragma unroll
-                 for (int e = 0; e < 8; ++e) {
-                   o[e] = __float2bfloat16_rn(v[e]);
-                   const float f = valid ? __bfloat162float(o[e]) : 0.0f;
-                   s[e] = f;
-                   q[e] = f * f;
-                 }
-                 if (valid)
-                   *reinterpret_cast<uint4*>(
-                       out + static_cast<size_t>(gm) * g.nout + n0 + c) =
-                       *reinterpret_cast<const uint4*>(o);
-                 moments_add(ms.s0(), ms.s1(), c, s, q);
-               });
+  __syncthreads();
+  store_tile<BN>(sm + (threadIdx.x >> 5) * 1024, acc, Identity{}, out, g.nout,
+                 m0 + (threadIdx.x >> 5) * 16, g.m, n0, ms.s0(), ms.s1());
   __syncthreads();
   ms.store(part, g.nout, n0);
+}
+
+// Weight gradient: dW[K, N] = A^T G over a range of pixels, both operands
+// MN-major (the pixels, the reduction, are their rows). Stage: A^T as two
+// panels [64 pixels][64 k] (tile rows k 0-63 and 64-127), G [64 pixels]
+// [BN] (da arrives there, v beside it; the BN backward runs on the
+// arrived stage). Thread i copies chunk i % 16 of the tile's 128 k for
+// pixels i / 16 + 16 j, j < 4, and G chunk i % (BN / 8) of pixels
+// i / (BN / 8) + (256 / (BN / 8)) j.
+template <int BN>
+struct WgradSrc {
+  // A^T, G, v, then one byte a thread: which of its A^T chunks hold data
+  static constexpr int kMaskAt = kATile + 2 * BN * 128;
+  static constexpr int kStageBytes = kMaskAt + 1024;
+  static constexpr bool kTma = true;
+  static constexpr int kCpr = BN / 8;
+  static constexpr int kGRows = kThreads / kCpr;
+  ActXf a;
+  ConvGeo g;
+  GradXf gx;
+  // G's da and v as [m][nout], and (dense()) x as [n h w][c], as TMA
+  // boxes of 64 pixels x 64: chunks split at multiples of 64 pixels, so a
+  // stage's boxes end inside the split or at the tensor's end, where TMA
+  // reads zeros
+  const CUtensorMap* amap;
+  const CUtensorMap* gmap;
+  const CUtensorMap* vmap;
+  int m_begin, m_end, n0;
+  int ch, kh, kw;  // this thread's k chunk
+  bool kok;
+  // the output pixel (n, oh, ow) of each of this thread's A^T rows in the
+  // next stage to load, advanced 64 pixels a stage without dividing
+  int pn[4], poh[4], pow_[4];
+  int step_h, step_w;
+  // the BN vectors of the block's A rows (sa, sb: 2 x 128) and G columns
+  // (ga, ge, gf: 3 x BN), in shared memory
+  float* vecs;
+
+  // After init and a __syncthreads, vecs holds the block's vectors.
+  __device__ void init(int k0, float* vecs_) {
+    vecs = vecs_;
+    const int plane = g.ho * g.wo;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m_begin + a_pix(j);
+      pn[j] = m / plane;
+      const int rem = m - pn[j] * plane;
+      poh[j] = rem / g.wo;
+      pow_[j] = rem - poh[j] * g.wo;
+    }
+    step_h = kHBK / g.wo;
+    step_w = kHBK - step_h * g.wo;
+    const int k = k0 + (threadIdx.x & 15) * 8;
+    kok = k < g.k;
+    const int tap = (kok ? k : 0) / g.c;
+    ch = (kok ? k : 0) - tap * g.c;
+    kh = tap / g.ks;
+    kw = tap - kh * g.ks;
+    for (int i = threadIdx.x; i < kBM; i += kThreads) {
+      const int kr = k0 + i;
+      const int c = kr < g.k ? kr % g.c : 0;
+      vecs[i] = a.sa != nullptr ? a.sa[c] : 0.0f;
+      vecs[kBM + i] = a.sa != nullptr ? a.sb[c] : 0.0f;
+    }
+    for (int i = threadIdx.x; i < BN; i += kThreads) {
+      vecs[2 * kBM + i] = gx.ga[n0 + i];
+      vecs[2 * kBM + BN + i] = gx.ge[n0 + i];
+      vecs[2 * kBM + 2 * BN + i] = gx.gf[n0 + i];
+    }
+  }
+
+  __device__ void vecs8(int at, float (&o)[8]) const {
+    const float4 lo = *reinterpret_cast<const float4*>(vecs + at);
+    const float4 hi = *reinterpret_cast<const float4*>(vecs + at + 4);
+    o[0] = lo.x; o[1] = lo.y; o[2] = lo.z; o[3] = lo.w;
+    o[4] = hi.x; o[5] = hi.y; o[6] = hi.z; o[7] = hi.w;
+  }
+
+  __device__ int a_pix(int j) const { return (threadIdx.x >> 4) + 16 * j; }
+  __device__ int g_pix(int j) const {
+    return threadIdx.x / kCpr + kGRows * j;
+  }
+
+  // Row j of the stage being loaded (kt): where its chunk comes from.
+  __device__ bool a_at(int j, int kt, size_t& off) const {
+    if (!kok || m_begin + kt * kHBK + a_pix(j) >= m_end) return false;
+    int nn = pn[j];
+    const int ih = poh[j] * g.stride - g.pad + kh;
+    const int iw = pow_[j] * g.stride - g.pad + kw;
+    if (ih < 0 || ih >= g.h || iw < 0 || iw >= g.w) return false;
+    if (a.fold && ch < 2 * a.fold) {
+      const int tt = nn % a.t;
+      if (ch < a.fold) {
+        if (tt == a.t - 1) return false;
+        ++nn;
+      } else {
+        if (tt == 0) return false;
+        --nn;
+      }
+    }
+    off = ((static_cast<size_t>(nn) * g.h + ih) * g.w + iw) * g.c + ch;
+    return true;
+  }
+
+  // Move every row 64 pixels on (after loading a stage).
+  __device__ void advance() {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      poh[j] += step_h;
+      pow_[j] += step_w;
+      if (pow_[j] >= g.wo) {
+        pow_[j] -= g.wo;
+        ++poh[j];
+      }
+      while (poh[j] >= g.ho) {
+        poh[j] -= g.ho;
+        ++pn[j];
+      }
+    }
+  }
+
+  __device__ bool g_at(int j, int kt, size_t& off) const {
+    const int m = m_begin + kt * kHBK + g_pix(j);
+    off = static_cast<size_t>(m) * gx.c + n0 + (threadIdx.x % kCpr) * 8;
+    return m < m_end;
+  }
+
+  __device__ uint4& a_chunk(uint8_t* st, int j) const {
+    return *reinterpret_cast<uint4*>(st + mn_off(a_pix(j), threadIdx.x & 15));
+  }
+  __device__ uint4& g_chunk(uint8_t* buf, int j) const {
+    return *reinterpret_cast<uint4*>(
+        buf + mn_off(g_pix(j), threadIdx.x % kCpr));
+  }
+
+  // A 1x1 stride-1 conv of an unshifted x: A^T is a dense [M][C] tile
+  __device__ bool dense() const {
+    return g.ks == 1 && g.stride == 1 && g.pad == 0 && a.fold == 0;
+  }
+
+  __device__ void load(uint8_t* st, uint64_t* bar, int, int kt) {
+    const int p0 = m_begin + kt * kHBK;
+    const bool dn = dense();
+    if (threadIdx.x == 0) mbar_expect(bar, 2 * BN * 128 + (dn ? kATile : 0));
+#pragma unroll
+    for (int p = 0; p < BN / 64; ++p) {
+      if (tma_lane(0, p))
+        tma_load(st + kATile + p * kPanel, gmap, n0 + 64 * p, p0, bar);
+      if (tma_lane(2, p))
+        tma_load(st + kATile + BN * 128 + p * kPanel, vmap, n0 + 64 * p, p0,
+                 bar);
+    }
+    if (dn) {
+      const int k0 = blockIdx.x * kBM;
+      if (tma_lane(4, 0)) tma_load(st, amap, k0, p0, bar);
+      if (tma_lane(4, 1)) tma_load(st + kPanel, amap, k0 + 64, p0, bar);
+    }
+    uint32_t mask = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (dn) {
+        mask |= (kok && p0 + a_pix(j) < m_end) << j;
+        continue;
+      }
+      size_t off = 0;
+      const bool ok = a_at(j, kt, off);
+      mask |= ok << j;
+      cp_async16(&a_chunk(st, j), a.x + (ok ? off : 0), ok);
+    }
+    st[kMaskAt + threadIdx.x] = static_cast<uint8_t>(mask);
+    advance();
+  }
+
+  __device__ void xform(uint8_t* st, int, int kt) {
+    if (a.sa != nullptr) {
+      float sa[8], sb[8];
+      vecs8((threadIdx.x & 15) * 8, sa);
+      vecs8(kBM + (threadIdx.x & 15) * 8, sb);
+      const uint32_t mask = st[kMaskAt + threadIdx.x];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (!((mask >> j) & 1)) continue;
+        float v[8];
+        unpack8(a_chunk(st, j), v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = fmaxf(fmaf(v[e], sa[e], sb[e]), 0.0f);
+        a_chunk(st, j) = pack8(v);
+      }
+    }
+    const int gc = (threadIdx.x % kCpr) * 8;
+    float ga[8], ge[8], gf[8];
+    vecs8(2 * kBM + gc, ga);
+    vecs8(2 * kBM + BN + gc, ge);
+    vecs8(2 * kBM + 2 * BN + gc, gf);
+#pragma unroll
+    for (int j = 0; j < kHBK / kGRows; ++j) {
+      size_t off;
+      if (!g_at(j, kt, off)) continue;
+      float d[8], v[8];
+      unpack8(g_chunk(st + kATile, j), d);
+      unpack8(g_chunk(st + kATile + BN * 128, j), v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d[e] = fmaf(ga[e], d[e], fmaf(ge[e], v[e], gf[e]));
+      g_chunk(st + kATile, j) = pack8(d);
+    }
+  }
+};
+
+// One 128 x BN tile of dW over pixels [m_begin, m_end); grid (k tiles, n
+// tiles, pixel splits); split z stores its float32 partial sums into
+// slice z of dw [splits][k][nout] (no atomics: the caller sums the
+// slices in order).
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 2)
+    conv_wgrad_kernel(WgradSrc<BN> src, int chunk, float* dw,
+                      const __grid_constant__ CUtensorMap amap,
+                      const __grid_constant__ CUtensorMap gmap,
+                      const __grid_constant__ CUtensorMap vmap) {
+  __shared__ alignas(8) uint64_t bars[kGradStages];
+  uint8_t* sm = aligned_smem();
+  src.amap = &amap;
+  src.gmap = &gmap;
+  src.vmap = &vmap;
+  const ConvGeo& g = src.g;
+  const int k0 = blockIdx.x * kBM;
+  src.n0 = blockIdx.y * BN;
+  src.m_begin = blockIdx.z * chunk;
+  src.m_end = min(g.m, src.m_begin + chunk);
+  if (src.m_begin >= src.m_end) return;
+  __shared__ alignas(16) float vecs[2 * kBM + 3 * BN];
+  src.init(k0, vecs);
+  __syncthreads();
+  float acc[BN / 2];
+  {
+    Mainloop<BN, kGradStages, 1, WgradSrc<BN>> ml(
+        sm, bars, src, 1, (src.m_end - src.m_begin + kHBK - 1) / kHBK);
+    ml.tile(acc);
+    ml.finish();
+  }
+  float* ep = reinterpret_cast<float*>(sm) + (threadIdx.x >> 5) * 16 * kEpiLd;
+  float* slice = dw + static_cast<size_t>(blockIdx.z) * g.k * g.nout;
+  hop::epilogue<BN>(ep, acc, [&](int r, int c, float(&v)[8]) {
+    const int k = k0 + r;
+    if (k < g.k) {
+      float* dst = slice + static_cast<size_t>(k) * g.nout + src.n0 + c;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dst[e] = v[e];
+    }
+  });
+}
+
+// Halve the N values of every lane over the lanes that differ in bit
+// `off` (xor shuffles): the lane with the bit set keeps and sums the upper
+// half, the other the lower.
+template <int N>
+__device__ __forceinline__ void halve(float* v, int off) {
+  const bool up = threadIdx.x & off;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float send = up ? v[i] : v[i + N / 2];
+    const float keep = up ? v[i + N / 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+  }
+}
+
+// Column sums over the 16 lanes of one parity (the 16 rows epilogue() hands
+// them) of N values a lane, in a fixed order: four halvings (lane bits 1-4)
+// leave lane l the sums of values idx .. idx + N / 16 - 1, idx = (N / 2)
+// b1 + (N / 4) b2 + (N / 8) b3 + (N / 16) b4, b = l's bits. 15 (N = 16)
+// or 30 (N = 32) shuffles where summing each value alone takes 4 N.
+template <int N>
+__device__ __forceinline__ int sum_rows(float (&v)[N]) {
+  halve<N>(v, 2);
+  halve<N / 2>(v, 4);
+  halve<N / 4>(v, 8);
+  halve<N / 8>(v, 16);
+  const int l = threadIdx.x;
+  return (N / 2) * ((l >> 1) & 1) + (N / 4) * ((l >> 2) & 1) +
+         (N / 8) * ((l >> 3) & 1) + (N / 16) * ((l >> 4) & 1);
 }
 
 // What the data-gradient epilogue does with dX[Mi, C] (C = g.c):
@@ -139,31 +865,34 @@ static DgradEpi epi_unshift(void* out, const void* res, int t, int fold) {
 }
 
 template <int BN>
-__global__ void __launch_bounds__(kThreads)
-    conv_dgrad_kernel(GradXf gx, ConvGeo g, const bf16* wt, DgradEpi ep) {
-  __shared__ Smem<BN> sm;
+__global__ void __launch_bounds__(kThreads, 2)
+    conv_dgrad_kernel(GradXf gx, ConvGeo g, DgradEpi ep,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const __grid_constant__ CUtensorMap dmap,
+                      const __grid_constant__ CUtensorMap vmap) {
+  uint8_t* sm = aligned_smem();
   const int m0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * BN;
-  const int mi = g.n * g.h * g.w;
   const int plane = g.h * g.w;
-  GradA al;
-  al.init(gx, g, m0);
-  Acc<BN> acc;
-  mainloop_w<BN>(sm, al, wt, g.ks * g.ks * g.nout, g.c, n0, acc);
-  // the A tiles are done with (mainloop_w ends on a barrier): the moment
-  // slots live there
-  static_assert(sizeof(MomSlots<BN, 3>) <= sizeof(sm.a), "moment slots");
-  MomSlots<BN, 3>& ms = *reinterpret_cast<MomSlots<BN, 3>*>(&sm.a[0][0]);
+  GradPart pa{gx, g, GradPart::mode_of(g), static_cast<int>(blockIdx.z >> 1),
+              static_cast<int>(blockIdx.z & 1), &dmap, &vmap};
+  const int mi = pa.rows(pa.a, pa.b);
+  pa.init(m0);
+  float acc[BN / 2];
+  weight_gemm<BN>(sm, pa, &wmap, n0, pa.k_total(), acc);
+  float* epi = reinterpret_cast<float*>(sm) + (threadIdx.x >> 5) * 16 * kEpiLd;
+  MomSlots<BN, 3, 8>& ms = *reinterpret_cast<MomSlots<BN, 3, 8>*>(
+      sm + kEpiBytes);
   ms.zero();
   __syncthreads();
-  epilogue<BN>(sm.epi[threadIdx.x >> 5], acc, [&](int r, int c,
-                                                  float(&v)[8]) {
+  hop::epilogue<BN>(epi, acc, [&](int r, int c, float(&v)[8]) {
     const int gm = m0 + r;
     const bool valid = gm < mi;
     const int col = n0 + c;
     if (ep.mode == kMask) {
+      const size_t row = valid ? pa.dest(gm) : 0;
       float lv[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      if (valid) unpack8(ldg16(ep.v + static_cast<size_t>(gm) * g.c + col), lv);
+      if (valid) unpack8(ldg16(ep.v + row * g.c + col), lv);
       alignas(16) bf16 o[8];
       float s[8], q[8];
 #pragma unroll
@@ -175,14 +904,20 @@ __global__ void __launch_bounds__(kThreads)
         q[e] = d * (lv[e] - ep.mu[col + e]);
       }
       if (valid)
-        *reinterpret_cast<uint4*>(ep.out + static_cast<size_t>(gm) * g.c +
-                                  col) = *reinterpret_cast<const uint4*>(o);
-      moments_add(ms.s0(), ms.s1(), c, s, q);
+        *reinterpret_cast<uint4*>(ep.out + row * g.c + col) =
+            *reinterpret_cast<const uint4*>(o);
+      float m[16];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        m[e] = s[e];
+        m[8 + e] = q[e];
+      }
+      const int idx = sum_rows(m);
+      ms.slot(idx >> 3)[c + (idx & 7)] += m[0];
     } else if (ep.mode == kStore) {
       if (valid)
-        *reinterpret_cast<uint4*>(ep.out + static_cast<size_t>(gm) * g.c +
-                                  col) = pack8(v);
-    } else {
+        *reinterpret_cast<uint4*>(ep.out + pa.dest(gm) * g.c + col) = pack8(v);
+    } else {  // 1x1 stride 1 (kRows): tile row gm is dX row gm
       float mom[3][8] = {};
       if (valid) {
         int dest = gm;
@@ -222,13 +957,27 @@ __global__ void __launch_bounds__(kThreads)
         }
         *reinterpret_cast<uint4*>(ep.out + off) = pack8(o);
       }
-      if (ep.mode == kLink)
-        moments_add3(ms.slot(0), ms.slot(1), ms.slot(2), c, mom);
+      if (ep.mode == kLink) {
+        float m[32];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          m[e] = mom[0][e];
+          m[8 + e] = mom[1][e];
+          m[16 + e] = mom[2][e];
+          m[24 + e] = 0.0f;
+        }
+        const int idx = sum_rows(m);
+        if (idx < 24) {
+          ms.slot(idx >> 3)[c + (idx & 7)] += m[0];
+          ms.slot(idx >> 3)[c + (idx & 7) + 1] += m[1];
+        }
+      }
     }
   });
   if (ep.mode == kMask || ep.mode == kLink) {
     __syncthreads();
-    ms.store(ep.part, g.c, n0, ep.mode == kLink ? 3 : 2);
+    ms.store(ep.part, g.c, n0, ep.mode == kLink ? 3 : 2,
+             blockIdx.z * gridDim.x + blockIdx.x);
   }
 }
 
@@ -238,11 +987,15 @@ __global__ void finale_fwd_kernel(const bf16* p, const bf16* r,
                                   const float* sa3, const float* sb3,
                                   const float* sap, const float* sbp, bf16* y,
                                   size_t chunks, int c) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       i < chunks; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const int ch = static_cast<int>((i * 8) % c);
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+  int ch = static_cast<int>((i * 8) % c);
+  const int step = static_cast<int>((stride * 8) % c);
+  for (; i < chunks; i += stride) {
     *reinterpret_cast<uint4*>(y + i * 8) =
         finale8(ldg16(p + i * 8), ldg16(r + i * 8), sa3, sb3, sap, sbp, ch);
+    ch += step;
+    if (ch >= c) ch -= c;
   }
 }
 
@@ -261,7 +1014,9 @@ __global__ void __launch_bounds__(kThreads)
   const int cc = threadIdx.x % cpr;
   const int rsub = threadIdx.x / cpr;
   const int ch = cc * 8;
-  float s0[8] = {0}, s1[8] = {0}, s2[8] = {0};
+  float s0[8] = {0}, s1[8] = {0}, s2[8] = {0}, m3[8], mp[8];
+  vec8(mu3 + ch, m3);
+  if (pr != nullptr) vec8(mup + ch, mp);
   for (int row = blockIdx.x * rows + rsub; row < m; row += gridDim.x * rows) {
     const size_t off = static_cast<size_t>(row) * c + ch;
     float d[8], yv[8], pv[8], rv[8];
@@ -273,8 +1028,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 8; ++e) {
       d[e] = __bfloat162float(__float2bfloat16_rn(yv[e] > 0.0f ? d[e] : 0.0f));
       s0[e] += d[e];
-      s1[e] += d[e] * (pv[e] - mu3[ch + e]);
-      if (pr != nullptr) s2[e] += d[e] * (rv[e] - mup[ch + e]);
+      s1[e] += d[e] * (pv[e] - m3[e]);
+      if (pr != nullptr) s2[e] += d[e] * (rv[e] - mp[e]);
     }
     *reinterpret_cast<uint4*>(dq + off) = pack8(d);
   }
@@ -322,51 +1077,140 @@ static GradXf grad(const void* da, const void* v, const float* abc, int c) {
   return g;
 }
 
-// The forward conv (A through loader AL from Xf: ActA for an activation,
-// LinkA for the trunk's link), then its moments [2][nout] from the
-// blocks' partial rows (part holds mt * 2 * nout floats).
-template <class AL = ActA, class Xf = ActXf>
+static ActPart part_of(const ActXf& a, const ConvGeo& g) {
+  return ActPart{a, g};
+}
+
+static LinkPart part_of(const LinkXf& a, const ConvGeo& g) {
+  return LinkPart{a, g};
+}
+
+// The activation a dense forward A tile reads (ActPart; LinkPart reads
+// none, its map is never used).
+static const void* dense_src(const ActXf& a) { return a.x; }
+static const void* dense_src(const LinkXf& a) { return a.p; }
+
+template <int BN, class Part, class Xf>
+static cudaError_t launch_fwd(const Part& pa, const Xf& a, const ConvGeo& g,
+                              const void* w, void* out, float* part,
+                              dim3 grid, cudaStream_t st) {
+  constexpr int smem = weight_smem<BN, Part>();
+  CUtensorMap wmap, amap;
+  cudaError_t e = tensor_map(&wmap, w, g.k, g.nout, kHBK);
+  if (e == cudaSuccess)
+    e = tensor_map(&amap, dense_src(a), static_cast<uint64_t>(g.n) * g.h * g.w,
+                   g.c, kBM);
+  if (e == cudaSuccess) e = allow_smem<conv_fwd_kernel<BN, Part>>(smem);
+  if (e != cudaSuccess) return e;
+  conv_fwd_kernel<BN, Part><<<grid, kThreads, smem, st>>>(
+      pa, g, static_cast<bf16*>(out), part, wmap, amap);
+  return cudaGetLastError();
+}
+
+// The forward conv (A from Xf: ActXf for an activation, LinkXf for the
+// trunk's link), then its moments [2][nout] from the blocks' partial rows
+// (part holds mt * 2 * nout floats).
+template <class Xf>
 static cudaError_t conv_fwd(const Xf& a, const ConvGeo& g, const void* w,
                             void* out, float* mom, float* part,
                             cudaStream_t st) {
-  const dim3 grid((g.m + kBM - 1) / kBM, g.nout % 128 == 0 ? g.nout / 128
-                                                           : g.nout / 64);
-  const bf16* wk = static_cast<const bf16*>(w);
-  bf16* o = static_cast<bf16*>(out);
-  if (g.nout % 128 == 0)
-    conv_fwd_kernel<128, AL, Xf><<<grid, kThreads, 0, st>>>(a, g, wk, o,
-                                                             part);
-  else
-    conv_fwd_kernel<64, AL, Xf><<<grid, kThreads, 0, st>>>(a, g, wk, o,
-                                                            part);
-  cudaError_t e = cudaGetLastError();
+  const bool wide = g.nout % 128 == 0;
+  const dim3 grid((g.m + kBM - 1) / kBM, wide ? g.nout / 128 : g.nout / 64);
+  const auto pa = part_of(a, g);
+  cudaError_t e = wide ? launch_fwd<128>(pa, a, g, w, out, part, grid, st)
+                       : launch_fwd<64>(pa, a, g, w, out, part, grid, st);
   if (e != cudaSuccess) return e;
   return reduce_rows(part, grid.x, 2 * g.nout, mom, st);
 }
 
+template <int BN>
+static cudaError_t launch_dgrad(const GradXf& gx, const ConvGeo& g,
+                                const void* wt, const DgradEpi& ep, dim3 grid,
+                                cudaStream_t st) {
+  constexpr int smem = weight_smem<BN, GradPart>();
+  const uint64_t mo = static_cast<uint64_t>(g.n) * g.ho * g.wo;
+  CUtensorMap wmap, dmap, vmap;
+  cudaError_t e = tensor_map(&wmap, wt, g.ks * g.ks * g.nout, g.c, kHBK);
+  if (e == cudaSuccess) e = tensor_map(&dmap, gx.da, mo, g.nout, kBM);
+  if (e == cudaSuccess) e = tensor_map(&vmap, gx.v, mo, g.nout, kBM);
+  if (e == cudaSuccess) e = allow_smem<conv_dgrad_kernel<BN>>(smem);
+  if (e != cudaSuccess) return e;
+  conv_dgrad_kernel<BN><<<grid, kThreads, smem, st>>>(gx, g, ep, wmap, dmap,
+                                                       vmap);
+  return cudaGetLastError();
+}
+
+// Grid of a data-gradient conv: row tiles (of the largest parity class
+// under kParity, one class a z), column tiles.
+static dim3 dgrad_grid(const ConvGeo& g) {
+  GradPart pa{};
+  pa.g = g;
+  pa.mode = GradPart::mode_of(g);
+  const int rows = pa.rows(0, 0);
+  return dim3((rows + kBM - 1) / kBM, g.c % 128 == 0 ? g.c / 128 : g.c / 64,
+              pa.mode == kParity ? 4 : 1);
+}
+
 // The data-gradient conv; kMask (kLink) also reduces its moments into mom
-// [2][C] ([3][C]); ep.part holds mt * 2 (3) * C floats.
+// [2][C] ([3][C]); ep.part holds x * z * 2 (3) * C floats (dgrad_grid). A
+// 1x1 stride-2 conv zeroes ep.out first: only every other row and column
+// of dX receives a gradient.
 static cudaError_t conv_dgrad(const GradXf& gx, const ConvGeo& g,
                               const void* wt, const DgradEpi& ep, float* mom,
                               cudaStream_t st) {
-  const int mi = g.n * g.h * g.w;
-  const bool wide = g.c % 128 == 0;
-  const dim3 grid((mi + kBM - 1) / kBM, wide ? g.c / 128 : g.c / 64);
-  const bf16* wk = static_cast<const bf16*>(wt);
-  if (wide)
-    conv_dgrad_kernel<128><<<grid, kThreads, 0, st>>>(gx, g, wk, ep);
-  else
-    conv_dgrad_kernel<64><<<grid, kThreads, 0, st>>>(gx, g, wk, ep);
-  cudaError_t e = cudaGetLastError();
+  const dim3 grid = dgrad_grid(g);
+  cudaError_t e = cudaSuccess;
+  if (GradPart::mode_of(g) == kSub)
+    e = cudaMemsetAsync(ep.out, 0,
+                        static_cast<size_t>(g.n) * g.h * g.w * g.c * 2, st);
+  if (e == cudaSuccess)
+    e = grid.y * 128 == static_cast<unsigned>(g.c)
+            ? launch_dgrad<128>(gx, g, wt, ep, grid, st)
+            : launch_dgrad<64>(gx, g, wt, ep, grid, st);
   if (e != cudaSuccess || (ep.mode != kMask && ep.mode != kLink)) return e;
-  return reduce_rows(ep.part, grid.x, (ep.mode == kLink ? 3 : 2) * g.c, mom,
-                     st);
+  return reduce_rows(ep.part, grid.x * grid.z,
+                     (ep.mode == kLink ? 3 : 2) * g.c, mom, st);
 }
 
-// Pixel splits of a weight gradient (see wgrad_grid).
+// Grid of the weight gradient: (k tiles, column tiles, pixel splits), with
+// enough splits for about four waves of blocks on 132 SMs, each split at
+// least 8 stages (512 pixels) and a whole number of stages.
+static dim3 wgrad_hgrid(const ConvGeo& g, int bn, int* chunk) {
+  const int kt = (g.k + kBM - 1) / kBM;
+  const int nt = g.nout / bn;
+  int z = std::max(1, (4 * 132) / (kt * nt));
+  z = std::min(z, (g.m + 511) / 512);
+  int c = (g.m + z - 1) / z;
+  c = (c + kHBK - 1) / kHBK * kHBK;
+  *chunk = c;
+  return dim3(kt, nt, (g.m + c - 1) / c);
+}
+
+// Pixel splits of a weight gradient.
 static int wgrad_splits(const ConvGeo& g) {
   int chunk = 0;
-  return wgrad_grid(g.k, g.nout, g.nout % 128 == 0 ? 128 : 64, g.m, &chunk).z;
+  return wgrad_hgrid(g, g.nout % 128 == 0 ? 128 : 64, &chunk).z;
+}
+
+template <int BN>
+static cudaError_t launch_wgrad(const ActXf& a, const ConvGeo& g,
+                                const GradXf& gx, float* dst, dim3* grid,
+                                cudaStream_t st) {
+  constexpr int smem = kGradStages * WgradSrc<BN>::kStageBytes + kAlignSlack;
+  cudaError_t e = allow_smem<conv_wgrad_kernel<BN>>(smem);
+  if (e != cudaSuccess) return e;
+  CUtensorMap amap, gmap, vmap;
+  e = tensor_map(&amap, a.x, static_cast<uint64_t>(g.n) * g.h * g.w, g.c,
+                 kHBK);
+  if (e == cudaSuccess) e = tensor_map(&gmap, gx.da, g.m, g.nout, kHBK);
+  if (e == cudaSuccess) e = tensor_map(&vmap, gx.v, g.m, g.nout, kHBK);
+  if (e != cudaSuccess) return e;
+  int chunk = 0;
+  *grid = wgrad_hgrid(g, BN, &chunk);
+  WgradSrc<BN> src{a, g, gx};
+  conv_wgrad_kernel<BN><<<*grid, kThreads, smem, st>>>(src, chunk, dst, amap,
+                                                       gmap, vmap);
+  return cudaGetLastError();
 }
 
 // dw [k, nout] f32 = the weight gradient; with more than one pixel split
@@ -375,25 +1219,11 @@ static int wgrad_splits(const ConvGeo& g) {
 static cudaError_t conv_wgrad(const ActXf& a, const ConvGeo& g,
                               const GradXf& gx, float* dw, float* part,
                               cudaStream_t st) {
-  ActT al;
-  al.a = a;
-  al.g = g;
-  int chunk = 0;
+  float* dst = wgrad_splits(g) > 1 ? part : dw;
   dim3 grid;
-  if (g.nout % 128 == 0) {
-    GradT<128> gl;
-    gl.gx = gx;
-    grid = wgrad_grid(g.k, g.nout, 128, g.m, &chunk);
-    wgrad_kernel<128, ActT, GradT<128>><<<grid, kThreads, 0, st>>>(
-        al, gl, chunk, g.m, g.k, g.nout, grid.z > 1 ? part : dw);
-  } else {
-    GradT<64> gl;
-    gl.gx = gx;
-    grid = wgrad_grid(g.k, g.nout, 64, g.m, &chunk);
-    wgrad_kernel<64, ActT, GradT<64>><<<grid, kThreads, 0, st>>>(
-        al, gl, chunk, g.m, g.k, g.nout, grid.z > 1 ? part : dw);
-  }
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = g.nout % 128 == 0
+                      ? launch_wgrad<128>(a, g, gx, dst, &grid, st)
+                      : launch_wgrad<64>(a, g, gx, dst, &grid, st);
   if (e != cudaSuccess || grid.z == 1) return e;
   const size_t n = static_cast<size_t>(g.k) * g.nout;
   reduce_slices_kernel<<<static_cast<unsigned>(std::min<size_t>(
@@ -443,7 +1273,8 @@ static size_t block_workspace(int n, int h, int w, int c, int f, int co,
   take(rows(g3.m) * 2 * co);           // conv3
   take(static_cast<size_t>(finale_bwd_blocks(g3.m)) * 3 * co);
   take(rows(g3.m) * 2 * f);            // conv3 dgrad moments (rows of z)
-  take(rows(g1.m) * 2 * f);            // conv2 dgrad moments (rows of u)
+  const dim3 d2 = dgrad_grid(g2);      // conv2 dgrad moments (rows of u)
+  take(static_cast<size_t>(d2.x) * d2.z * 2 * f);
   take(rows(g1.m) * 3 * c);            // the backward link's moments
   for (const ConvGeo* g : {&g1, &g2, &g3, &gp}) {
     const size_t z = wgrad_splits(*g);
@@ -617,7 +1448,7 @@ static int finale_bwd(const void* dy, const void* y, const void* p,
   return static_cast<int>(reduce_rows(part, fb, 3 * co, mom3, st));
 }
 
-// Block N's conv1 with block N-1's finale on load (LinkA); vprev is block
+// Block N's conv1 with block N-1's finale on load (LinkPart); vprev is block
 // N-1's vec (sa3 sb3 [sap sbp] at its [4F', ...) offsets, Co' = c).
 static int link_fwd(const void* pp, const void* rp, const float* vprev,
                     const void* w1, void* x, void* u, float* mom1,
@@ -635,8 +1466,8 @@ static int link_fwd(const void* pp, const void* rp, const float* vprev,
   a.x_out = static_cast<bf16*>(x);
   a.t = t;
   a.fold = fold;
-  return static_cast<int>(conv_fwd<LinkA>(a, geo(n, h, w, c, 1, 1, 0, f),
-                                          w1, u, mom1, part, st));
+  return static_cast<int>(conv_fwd(a, geo(n, h, w, c, 1, 1, 0, f), w1, u,
+                                    mom1, part, st));
 }
 
 // Block N's conv1 data gradient (da1 through BN1's backward abc1 [3F])

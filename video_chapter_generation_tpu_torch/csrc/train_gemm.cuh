@@ -9,10 +9,10 @@
 //   dgrad    dX[Mi, C]  = G'[Mi, K'] x Wt[K', C] G' = output-grad patches
 //   wgrad    dW[K, N]   = A^T[K, M] x G[M, N]    reduced over all pixels
 //
-// The operand loaders apply on load what the TPU kernels apply in VMEM:
-// the temporal shift or the previous BN + ReLU (relu(sa * v + sb)) on an
-// activation, and the BN backward (ga * da + ge * v + gf) on a gradient,
-// so none of those intermediates is written to device memory. Epilogues
+// The operands carry what the TPU kernels apply in VMEM: the temporal
+// shift or the previous BN + ReLU (relu(sa * v + sb)) on an activation,
+// and the BN backward (ga * da + ge * v + gf) on a gradient, so none of
+// those intermediates is written to device memory. Epilogues
 // take the per-channel batch moments of what they store (forward: sum and
 // sum of squares of the bf16-rounded output; dgrad: sum of da and the
 // centred sum of da * (v - mu)) with a warp reduction into per-warp-row
@@ -21,6 +21,12 @@
 // statistics, and so every bf16 rounding downstream of them, are the
 // same on every run (batch-stat BN at initialization amplifies a last-bit
 // difference in a statistic into a visible difference 16 blocks later).
+//
+// K12 (conv_train.cu) runs its three GEMMs on hopper_gemm.cuh's wgmma
+// mainloop and takes from here the operand descriptions, the finale, the
+// moment slots and the reduction and BN-vector kernels. mainloop_w (WMMA,
+// two stages, A loaded through registers), epilogue, GradT and
+// wgrad_kernel remain only for the training stem K11 (stem_train.cu).
 #pragma once
 
 #include "conv_gemm.cuh"
@@ -69,31 +75,6 @@ struct ActXf {
   int t, fold;
 };
 
-__device__ __forceinline__ uint4 act8(const ActXf& a, const ConvGeo& g,
-                                      int nn, int ih, int iw, int ch,
-                                      bool ok) {
-  if (a.fold) {
-    const int tt = nn % a.t;
-    if (ch < a.fold) {
-      nn += 1;
-      ok = ok && tt < a.t - 1;
-    } else if (ch < 2 * a.fold) {
-      nn -= 1;
-      ok = ok && tt > 0;
-    }
-  }
-  if (!ok) return make_uint4(0, 0, 0, 0);
-  const uint4 raw =
-      ldg16(a.x + ((static_cast<size_t>(nn) * g.h + ih) * g.w + iw) * g.c + ch);
-  if (a.sa == nullptr) return raw;
-  float v[8];
-  unpack8(raw, v);
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    v[e] = fmaxf(fmaf(v[e], a.sa[ch + e], a.sb[ch + e]), 0.0f);
-  return pack8(v);
-}
-
 // A gradient operand through the BN backward: g = ga * da + ge * v + gf,
 // da and v row-major [m, c] (v is the BN's input), rounded to bf16.
 struct GradXf {
@@ -117,49 +98,14 @@ __device__ __forceinline__ uint4 grad8(const GradXf& g, size_t row, int ch,
   return pack8(d);
 }
 
-// Forward A tile: rows are output pixels, k = (kh, kw, c). Thread i owns
-// 16-byte chunk (i % 4) of rows i / 4 and i / 4 + 64 (as ConvA does).
-struct ActA {
-  ActXf a;
-  ConvGeo g;
-  int kc;
-  int rn[2], roh[2], row_[2];
-  bool rok[2];
-
-  __device__ void init(const ActXf& a_, const ConvGeo& g_, int m0) {
-    a = a_;
-    g = g_;
-    kc = threadIdx.x & 3;
-    const int plane = g.ho * g.wo;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m = m0 + (threadIdx.x >> 2) + i * 64;
-      rok[i] = m < g.m;
-      const int mm = rok[i] ? m : 0;
-      rn[i] = mm / plane;
-      const int rem = mm - rn[i] * plane;
-      roh[i] = rem / g.wo;
-      row_[i] = rem - roh[i] * g.wo;
-    }
-  }
-
-  __device__ void load(bf16* as, int k0) const {
-    const int k = k0 + kc * 8;
-    const int tap = k / g.c;
-    const int ch = k - tap * g.c;
-    const int kh = tap / g.ks;
-    const int kw = tap - kh * g.ks;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int ih = roh[i] * g.stride - g.pad + kh;
-      const int iw = row_[i] * g.stride - g.pad + kw;
-      const bool ok = rok[i] && ih >= 0 && ih < g.h && iw >= 0 && iw < g.w;
-      const int r = (threadIdx.x >> 2) + i * 64;
-      *reinterpret_cast<uint4*>(as + r * kALd + kc * 8) =
-          act8(a, g, rn[i], ih, iw, ch, ok);
-    }
-  }
-};
+// 8 floats of a per-channel vector from p (16-byte aligned: every vector
+// the entries pass starts a multiple of 64 floats into its buffer).
+__device__ __forceinline__ void vec8(const float* p, float (&o)[8]) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  o[0] = lo.x; o[1] = lo.y; o[2] = lo.z; o[3] = lo.w;
+  o[4] = hi.x; o[5] = hi.y; o[6] = hi.z; o[7] = hi.w;
+}
 
 // A bottleneck's finale on 8 channels from ch: relu(bf16(sa3 * p + sb3)
 // + r'), r' = r (identity residual) or bf16(sap * r + sbp) (projection,
@@ -169,18 +115,22 @@ __device__ __forceinline__ uint4 finale8(uint4 praw, uint4 rraw,
                                          const float* sa3, const float* sb3,
                                          const float* sap, const float* sbp,
                                          int ch) {
-  float pv[8], rv[8], out[8];
+  float pv[8], rv[8], out[8], a[8], b[8], ap[8], bp[8];
   unpack8(praw, pv);
   unpack8(rraw, rv);
+  vec8(sa3 + ch, a);
+  vec8(sb3 + ch, b);
+  if (sap != nullptr) {
+    vec8(sap + ch, ap);
+    vec8(sbp + ch, bp);
+  }
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
-    const float a3 = __bfloat162float(
-        __float2bfloat16_rn(fmaf(pv[e], sa3[ch + e], sb3[ch + e])));
-    const float rr =
-        sap == nullptr
-            ? rv[e]
-            : __bfloat162float(__float2bfloat16_rn(
-                  fmaf(rv[e], sap[ch + e], sbp[ch + e])));
+    const float a3 =
+        __bfloat162float(__float2bfloat16_rn(fmaf(pv[e], a[e], b[e])));
+    const float rr = sap == nullptr ? rv[e]
+                                    : __bfloat162float(__float2bfloat16_rn(
+                                          fmaf(rv[e], ap[e], bp[e])));
     out[e] = fmaxf(a3 + rr, 0.0f);
   }
   return pack8(out);
@@ -188,8 +138,8 @@ __device__ __forceinline__ uint4 finale8(uint4 praw, uint4 rraw,
 
 // The trunk's forward link (tsm_trunk_train_pallas.py: _fk1 with prev):
 // the A operand of block N's conv1 is shift(x) with x = block N-1's
-// finale of (p, r), computed as it loads; x itself is written to x_out
-// once, by the blocks of column tile 0.
+// finale of (p, r); x itself is written to x_out once (conv_train.cu's
+// LinkPart).
 struct LinkXf {
   const bf16* p;
   const bf16* r;
@@ -199,118 +149,6 @@ struct LinkXf {
   const float* sbp;
   bf16* x_out;
   int t, fold;
-};
-
-// Forward A tile of a 1x1 stride-1 conv whose input is LinkXf's x; thread
-// layout as ActA. The chunk of row m at channel ch reads frame src = the
-// frame the shift takes it from; at a clip edge, where the shift reads
-// zero, src wraps to the clip's other end and the value is written to
-// x_out but not used. The map (row, ch) -> (src, ch) is one to one, so
-// every element of x_out is written exactly once.
-struct LinkA {
-  LinkXf a;
-  int c, plane, kc;
-  int rn[2], rpix[2];
-  bool rok[2];
-
-  __device__ void init(const LinkXf& a_, const ConvGeo& g, int m0) {
-    a = a_;
-    c = g.c;
-    plane = g.h * g.w;
-    kc = threadIdx.x & 3;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m = m0 + (threadIdx.x >> 2) + i * 64;
-      rok[i] = m < g.m;
-      const int mm = rok[i] ? m : 0;
-      rn[i] = mm / plane;
-      rpix[i] = mm - rn[i] * plane;
-    }
-  }
-
-  __device__ void load(bf16* as, int k0) const {
-    const int ch = k0 + kc * 8;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (rok[i]) {
-        int nn = rn[i];
-        bool use = true;
-        if (a.fold) {
-          const int tt = nn % a.t;
-          if (ch < a.fold) {
-            use = tt < a.t - 1;
-            nn += use ? 1 : 1 - a.t;
-          } else if (ch < 2 * a.fold) {
-            use = tt > 0;
-            nn += use ? -1 : a.t - 1;
-          }
-        }
-        const size_t off =
-            (static_cast<size_t>(nn) * plane + rpix[i]) * c + ch;
-        const uint4 xv = finale8(ldg16(a.p + off), ldg16(a.r + off), a.sa3,
-                                 a.sb3, a.sap, a.sbp, ch);
-        if (blockIdx.y == 0) *reinterpret_cast<uint4*>(a.x_out + off) = xv;
-        if (use) v = xv;
-      }
-      const int r = (threadIdx.x >> 2) + i * 64;
-      *reinterpret_cast<uint4*>(as + r * kALd + kc * 8) = v;
-    }
-  }
-};
-
-// Dgrad A tile: rows are INPUT pixels of the forward conv g, k = (kh, kw,
-// f) over the output-gradient channels. Input pixel ih receives output
-// row oh = (ih + pad - kh) / stride where that divides and is in range.
-struct GradA {
-  GradXf gx;
-  ConvGeo g;
-  int kc;
-  int rn[2], rih[2], riw[2];
-  bool rok[2];
-
-  __device__ void init(const GradXf& gx_, const ConvGeo& g_, int m0) {
-    gx = gx_;
-    g = g_;
-    kc = threadIdx.x & 3;
-    const int plane = g.h * g.w;
-    const int mi = g.n * plane;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m = m0 + (threadIdx.x >> 2) + i * 64;
-      rok[i] = m < mi;
-      const int mm = rok[i] ? m : 0;
-      rn[i] = mm / plane;
-      const int rem = mm - rn[i] * plane;
-      rih[i] = rem / g.w;
-      riw[i] = rem - rih[i] * g.w;
-    }
-  }
-
-  __device__ void load(bf16* as, int k0) const {
-    const int k = k0 + kc * 8;
-    const int tap = k / g.nout;
-    const int ch = k - tap * g.nout;
-    const int kh = tap / g.ks;
-    const int kw = tap - kh * g.ks;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int oh = rih[i] + g.pad - kh;
-      int ow = riw[i] + g.pad - kw;
-      bool ok = rok[i] && oh >= 0 && ow >= 0;
-      if (g.stride == 2) {
-        ok = ok && (oh & 1) == 0 && (ow & 1) == 0;
-        oh >>= 1;
-        ow >>= 1;
-      }
-      ok = ok && oh < g.ho && ow < g.wo;
-      const size_t row =
-          ok ? (static_cast<size_t>(rn[i]) * g.ho + oh) * g.wo + ow : 0;
-      const int r = (threadIdx.x >> 2) + i * 64;
-      *reinterpret_cast<uint4*>(as + r * kALd + kc * 8) =
-          grad8(gx, row, ch, ok);
-    }
-  }
 };
 
 // Main loop of the forward and dgrad GEMMs: A through its loader, B = a
@@ -417,54 +255,36 @@ __device__ __forceinline__ void moments_add(float* s0, float* s1, int col,
   }
 }
 
-// moments_add for three sums at once (the trunk's backward link).
-__device__ __forceinline__ void moments_add3(float* s0, float* s1,
-                                             float* s2, int col,
-                                             float (&a)[3][8]) {
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-#pragma unroll
-      for (int off = 2; off < 32; off <<= 1)
-        a[k][e] += __shfl_xor_sync(0xffffffffu, a[k][e], off);
-  if ((threadIdx.x & 31) < 2) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      s0[col + e] += a[0][e];
-      s1[col + e] += a[1][e];
-      s2[col + e] += a[2][e];
-    }
-  }
-}
-
-// Per-block moment slots: R rows of BN columns per warp row.
-template <int BN, int R = 2>
+// Per-block moment slots: R rows of BN columns per warp row; WR warp rows
+// (the WMMA tiles' layout by default; 8 for hopper_gemm.cuh's tiles, where
+// every warp owns 16 rows of all BN columns).
+template <int BN, int R = 2, int WR = Tile<BN>::kWarpsM>
 struct MomSlots {
-  float v[Tile<BN>::kWarpsM][R][BN];
+  float v[WR][R][BN];
 
   __device__ void zero() {
     float* p = &v[0][0][0];
-    for (int i = threadIdx.x; i < Tile<BN>::kWarpsM * R * BN; i += kThreads)
-      p[i] = 0.0f;
+    for (int i = threadIdx.x; i < WR * R * BN; i += kThreads) p[i] = 0.0f;
   }
 
   __device__ float* slot(int r) {
-    return v[(threadIdx.x >> 5) / Tile<BN>::kWarpsN][r];
+    return v[(threadIdx.x >> 5) / (8 / WR)][r];
   }
   __device__ float* s0() { return slot(0); }
   __device__ float* s1() { return slot(1); }
 
   // After a __syncthreads: this block's partial moments, summed over the
-  // warp rows in order, into row blockIdx.x of part [rows][nrows][n]
-  // (the first nrows <= R slots).
-  __device__ void store(float* part, int n, int n0, int nrows = R) const {
-    float* row = part + static_cast<size_t>(blockIdx.x) * nrows * n;
+  // warp rows in order, into row `at` (default blockIdx.x) of part
+  // [rows][nrows][n] (the first nrows <= R slots).
+  __device__ void store(float* part, int n, int n0, int nrows = R,
+                        int at = -1) const {
+    float* row = part + static_cast<size_t>(at < 0 ? blockIdx.x : at) *
+                            nrows * n;
     for (int i = threadIdx.x; i < nrows * BN; i += kThreads) {
       const int k = i / BN;
       const int j = i - k * BN;
       float a = 0.0f;
-      for (int r = 0; r < Tile<BN>::kWarpsM; ++r) a += v[r][k][j];
+      for (int r = 0; r < WR; ++r) a += v[r][k][j];
       row[k * n + n0 + j] = a;
     }
   }
@@ -520,48 +340,6 @@ struct WSmem {
   alignas(128) bf16 a[2][kWStep * kTLd];
   alignas(128) bf16 g[2][kWStep * (BN + 8)];
   alignas(128) float epi[8][16 * 16];
-};
-
-// A tile of the weight gradient, stored [pixel][k]: 32 pixels x 128 k.
-// Thread i owns chunk (i % 16) of the k range (fixed for the block) for
-// pixels i / 16 and i / 16 + 16 of each stage.
-struct ActT {
-  ActXf a;
-  ConvGeo g;
-  int kc, rsub, ch, kh, kw;
-  bool kok;
-
-  __device__ void init(int k0) {
-    kc = threadIdx.x & 15;
-    rsub = threadIdx.x >> 4;
-    const int k = k0 + kc * 8;
-    kok = k < g.k;
-    const int kk = kok ? k : 0;
-    const int tap = kk / g.c;
-    ch = kk - tap * g.c;
-    kh = tap / g.ks;
-    kw = tap - kh * g.ks;
-  }
-
-  __device__ void load(bf16* as, int m0, int m_end) const {
-    const int plane = g.ho * g.wo;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = rsub + 16 * i;
-      const int mm = m0 + r;
-      bool ok = kok && mm < m_end;
-      const int q = ok ? mm : 0;
-      const int nn = q / plane;
-      const int rem = q - nn * plane;
-      const int oh = rem / g.wo;
-      const int ow = rem - oh * g.wo;
-      const int ih = oh * g.stride - g.pad + kh;
-      const int iw = ow * g.stride - g.pad + kw;
-      ok = ok && ih >= 0 && ih < g.h && iw >= 0 && iw < g.w;
-      *reinterpret_cast<uint4*>(as + r * kTLd + kc * 8) =
-          act8(a, g, nn, ih, iw, ch, ok);
-    }
-  }
 };
 
 // G tile of the weight gradient: 32 pixels x BN columns from n0.

@@ -79,14 +79,18 @@ def _launch(x, w, scale, bias, n_segment: int, n_div: int,
         if (v.dtype != torch.float32 or v.device != x.device
                 or v.numel() != f):
             raise ValueError("scale/bias must be float32 [F] on the device")
+    # the kernel reads scale and bias two floats at a time
+    scale, bias = [v if v.is_contiguous() and v.data_ptr() % 8 == 0
+                   else v.clone(memory_format=torch.contiguous_format)
+                   for v in (scale, bias)]
     out = torch.empty(nt, h, wd, f, dtype=torch.bfloat16, device=x.device)
     fn = _build.load("tsm_conv").vcg_tsm_conv1x1
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    rc = fn(x.data_ptr(), w.data_ptr(), scale.contiguous().data_ptr(),
-            bias.contiguous().data_ptr(), out.data_ptr(), nt, h, wd, c, f, t,
+    rc = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), nt, h, wd, c, f, t,
             fold, int(relu), torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tsm_conv1x1 kernel failed: CUDA error {rc}")
