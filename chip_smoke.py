@@ -13,9 +13,13 @@
 3. Holds every kernel against its plain PyTorch version at every shape of
    one vision call (16 clips x 16 frames = 256 frames at 224 px, real
    frames and weights, each block fed the kernel output of the last),
-   and times both with CUDA events; then holds the whole trunk (kernels,
-   bf16, on the card) against the plain float32 trunk on the CPU for one
-   clip.
+   and times both with CUDA events, each bottleneck beside its bound and
+   its library yardstick (cuDNN F.conv2d per conv in channels_last bf16
+   on a pre-shifted input, the affines as torch ops: timed, never a
+   route); prints K2/K3's and K4's device time by conv and layer from
+   one torch.profiler trace of the 16 blocks; then holds the whole trunk
+   (kernels, bf16, on the card) against the plain float32 trunk on the
+   CPU for one clip.
 4. Runs ChapterPipeline.run(pipelined=True) with frame_pack=True over
    synthetic 300-s videos, with the head bias shifted so clip scores
    straddle 0.5 (as bench_pipeline.py does), and checks the launch
@@ -112,10 +116,12 @@
    a 256-frame vision call (layer1 blocks 1-2 ... layer4 blocks 1-2) to
    its plain version (bf16 bands) and bit for bit to the per-block K2/K3
    launches, and `tsm_bottleneck_halo_chain` bit for bit to it, timing
-   the chain, the per-block sequence and the plain version; then runs
+   the chain, the per-block sequence, the plain version and the blocks'
+   library yardsticks; then runs
    the vision call with chain_blocks=True (per call: stem 1, K2/K3 1, K4
    3, K15 4) and checks its features equal chain_blocks=False.
-11. Prints one JSON line of the kernels, the wall time of each phase
+11. Prints one JSON line of the kernels (a bound over several shapes
+   is the sum of each shape's), the wall time of each phase
    and of the script and, last, the device line. The title decode of 4
    and each of 5-10 also print their wall time as they end ("serving",
    1-4 up to the title decode, prints only on that line).
@@ -249,6 +255,117 @@ def hold(entries, name, label, kernel, plain, flops, nbytes,
     if not ok:
         fail(f"{name} {label} disagrees with its plain version: {note}")
     return got
+
+
+def bound_sum(parts, peak: float = PEAK_BF16_FLOPS):
+    """The sum over parts [(flops, bytes)] of each part's bound, and what
+    bounds the sum: the kind that bounds the parts holding the larger
+    share of it (a per-block bound: one block bound by bytes and the next
+    by operations each count at their own limit)."""
+    total = by_ops = 0.0
+    for flops, nbytes in parts:
+        ms, by = bound(flops, nbytes, peak)
+        total += ms
+        by_ops += ms if by == "operations" else 0.0
+    return total, "operations" if by_ops >= total - by_ops else "bytes"
+
+
+def library_block(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, wp, sp, bp,
+                  stride, t):
+    """A serving bottleneck as a library sequence, a yardstick and never a
+    route: cuDNN F.conv2d per conv in channels_last bf16 on a pre-shifted
+    input, the folded-BN affines, residual and ReLUs as torch ops. Returns
+    a function of no arguments giving the block's output (NCHW,
+    channels_last)."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_chapter_generation_tpu_torch.ops.temporal_shift import (
+        temporal_shift_reference,
+    )
+
+    bf = torch.bfloat16
+
+    def oihw(w):
+        w = w.reshape(1, 1, *w.shape) if w.dim() == 2 else w
+        return w.permute(3, 2, 0, 1).to(bf).contiguous(
+            memory_format=torch.channels_last)
+
+    def vec(v):
+        return v.to(bf).view(1, -1, 1, 1)
+
+    xs = temporal_shift_reference(x, t, 8).permute(0, 3, 1, 2)
+    xr = x.permute(0, 3, 1, 2)
+    k1, k2, k3 = oihw(w1), oihw(w2), oihw(w3)
+    v1, c1, v2, c2, v3, c3 = map(vec, (s1, b1, s2, b2, s3, b3))
+    kp = None if wp is None else (oihw(wp), vec(sp), vec(bp))
+
+    def run():
+        y = torch.relu_(torch.addcmul(c1, F.conv2d(xs, k1), v1))
+        y = torch.relu_(torch.addcmul(
+            c2, F.conv2d(y, k2, stride=stride, padding=1), v2))
+        y = torch.addcmul(c3, F.conv2d(y, k3), v3)
+        res = xr if kp is None else torch.addcmul(
+            kp[2], F.conv2d(xr, kp[0], stride=stride), kp[1])
+        return torch.relu_(y.add_(res))
+
+    return run
+
+
+def serving_split(runs):
+    """Device ms of the bottleneck launches of a vision call by conv and
+    layer, from one torch.profiler trace over runs [(layer, proj, fn)],
+    one call of each block in call order; information only. A fill kernel
+    after each block marks where its launches end; within a block they are
+    conv1 (K5), [proj], conv2, conv3, or conv3+proj where conv3's tile
+    runs the projection too (a kernel named pair_kernel), and a first
+    launch that runs conv1 and the projection together (the earlier WMMA
+    design, for comparing trees) is labelled conv1+proj."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sep = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _, _, fn in runs:
+            fn()
+            sep.zero_()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    segs, cur = [], []
+    for e in kern:
+        if "FillFunctor" in e.name:
+            segs.append(cur)
+            cur = []
+        else:
+            cur.append(e)
+    if len(segs) != len(runs):
+        return (f"not measured: {len(segs)} runs of kernels traced for "
+                f"{len(runs)} blocks")
+    table, whole = {}, {}
+    for seg, (layer, proj, _) in zip(segs, runs):
+        if len(seg) == 4:
+            labels = ("conv1", "proj", "conv2", "conv3")
+        elif len(seg) == 3 and proj and "pair" in seg[2].name:
+            labels = ("conv1", "conv2", "conv3+proj")
+        elif len(seg) == 3:
+            labels = ("conv1+proj" if proj else "conv1", "conv2", "conv3")
+        else:
+            labels = tuple(f"launch{i}" for i in range(len(seg)))
+        row = table.setdefault(layer, {})
+        for e, lab in zip(seg, labels):
+            ms = e.time_range.elapsed_us() / 1e3
+            row[lab] = row.get(lab, 0.0) + ms
+            whole[lab] = whole.get(lab, 0.0) + ms
+    parts = [f"{layer} " + ", ".join(f"{k} {v:.3f}" for k, v in row.items())
+             + f" (sum {sum(row.values()):.3f})"
+             for layer, row in table.items()]
+    parts.append("all " + ", ".join(f"{k} {v:.3f}" for k, v in whole.items())
+                 + f" (sum {sum(whole.values()):.3f})")
+    return "; ".join(parts)
 
 
 def block_work(nt, h, w, c, f, co, stride, proj):
@@ -2175,8 +2292,8 @@ def chain_phases(dev, smi, frames, vision):
         tsm_bottleneck_s2,
     )
 
-    e = {"ms": 0.0, "plain_ms": 0.0, "seq_ms": 0.0, "flops": 0.0,
-         "bytes": 0.0, "max_abs": 0.0}
+    e = {"ms": 0.0, "plain_ms": 0.0, "seq_ms": 0.0, "library_ms": 0.0,
+         "work": [], "max_abs": 0.0}
     stem_p, block_ps = vision.folded_params()
     y = stem_s2d(frames, stem_p["w7"], stem_p["s"], stem_p["b"])
     start = 0
@@ -2187,8 +2304,10 @@ def chain_phases(dev, smi, frames, vision):
                   for k in range(1, n)]
         x = y
 
-        def sequence(x=x, blocks=blocks):
+        def sequence(x=x, blocks=blocks, inputs=None):
             for blk in blocks:
+                if inputs is not None:
+                    inputs.append(x)
                 x = tsm_bottleneck(x, *blk, CLIP_FRAMES)
             return x
 
@@ -2197,7 +2316,8 @@ def chain_phases(dev, smi, frames, vision):
         halo = tsm_bottleneck_halo_chain(x, blocks, CLIP_FRAMES,
                                          planar_out=x.shape[2] % 2 == 0)
         ref = tsm_bottleneck_chain_plain(x, blocks, CLIP_FRAMES)
-        seq = sequence()
+        inputs = []
+        seq = sequence(inputs=inputs)
         torch.cuda.synchronize()
         max_abs, mean_rel, cos = compare(got, ref)
         same_seq = torch.equal(got, seq)
@@ -2207,22 +2327,32 @@ def chain_phases(dev, smi, frames, vision):
         s_ms = cuda_ms(sequence)
         p_ms = cuda_ms(lambda x=x, blocks=blocks: tsm_bottleneck_chain_plain(
             x, blocks, CLIP_FRAMES))
+        # the library yardstick: each block's cuDNN sequence on its input
+        libs = [library_block(xi, *blk, None, None, None, 1, CLIP_FRAMES)
+                for xi, blk in zip(inputs, blocks)]
+        l_ms = cuda_ms(lambda libs=libs: [run() for run in libs])
+        del libs, inputs
         nt, h, w, c = x.shape
         f = blocks[0][0].shape[1]
         e["ms"] += k_ms
         e["seq_ms"] += s_ms
         e["plain_ms"] += p_ms
-        e["flops"] += len(blocks) * block_work(nt, h, w, c, f, c, 1,
-                                               False)[0]
-        e["bytes"] += 2 * x.numel() * 2 + len(blocks) * 2 * (
-            2 * c * f + 9 * f * f)
+        e["library_ms"] += l_ms
+        # per block: its products and weights; the chain's input read by
+        # the first, its output written by the last
+        flops = block_work(nt, h, w, c, f, c, 1, False)[0]
+        for k in range(len(blocks)):
+            e["work"].append((flops, 2 * (2 * c * f + 9 * f * f)
+                              + (x.numel() * 2 if k == 0 else 0)
+                              + (x.numel() * 2 if k == len(blocks) - 1
+                                 else 0)))
         e["max_abs"] = max(e["max_abs"], max_abs)
         print(f"# tsm_bottleneck_chain layer{stage + 1} blocks 1-{n - 1} "
               f"{tuple(x.shape)} F={f}: vs plain max_abs {max_abs:.4g} "
               f"mean_rel {mean_rel:.3g} cos {cos:.6f}; bit for bit the "
               f"per-block K2/K3 sequence {same_seq}, halo entry {same_halo} "
               f"| chain {k_ms:.3f} ms, K2/K3 sequence {s_ms:.3f} ms, plain "
-              f"{p_ms:.3f} ms", flush=True)
+              f"{p_ms:.3f} ms, library {l_ms:.3f} ms", flush=True)
         if not (same_seq and same_halo and cos >= KERNEL_MIN_COS
                 and mean_rel <= KERNEL_MAX_MEAN_REL):
             fail(f"tsm_bottleneck_chain at layer{stage + 1} disagrees")
@@ -2254,7 +2384,7 @@ def chain_phases(dev, smi, frames, vision):
         fail(f"chain_blocks vision call launches {launches} != {want}")
     if not same:
         fail("chain_blocks=True changes the features")
-    b_ms, b_by = bound(e["flops"], e["bytes"])
+    b_ms, b_by = bound_sum(e["work"])
     return {"name": "tsm_bottleneck_chain", "route": "cuda",
             "source": "video_chapter_generation_tpu_torch/csrc/tsm_chain.cu",
             "replaces": "video_chapter_generation_tpu/ops/"
@@ -2262,7 +2392,7 @@ def chain_phases(dev, smi, frames, vision):
             "launches": launches["tsm_bottleneck_chain"],
             "max_abs_err": e["max_abs"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "library_ms": e["library_ms"]}
 
 
 def main() -> int:
@@ -2395,11 +2525,11 @@ def main() -> int:
     _, _, batches, pack = pipe._prepare(corpus.vids[0])
     idx = torch.from_numpy(batches[0][1]["frame_idx"]).to(dev).long()
     frames = pack_to_device(pack, dev)[idx.reshape(-1)]  # [256, 56, 56, 48]
-    stats = {name: {"ms": [], "plain_ms": [], "max_abs": 0.0, "flops": 0,
-                    "bytes": 0}
+    stats = {name: {"ms": [], "plain_ms": [], "library_ms": None,
+                    "max_abs": 0.0, "work": []}
              for name in ("stem_s2d", "tsm_bottleneck", "tsm_bottleneck_s2")}
 
-    def check(name, label, kernel, plain, flops, nbytes):
+    def check(name, label, kernel, plain, flops, nbytes, library=None):
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
         max_abs, mean_rel, cos = compare(got, ref)
@@ -2408,11 +2538,17 @@ def main() -> int:
         st["ms"].append(k_ms)
         st["plain_ms"].append(p_ms)
         st["max_abs"] = max(st["max_abs"], max_abs)
-        st["flops"] += flops
-        st["bytes"] += nbytes
+        st["work"].append((flops, nbytes))
+        b_ms, b_by = bound(flops, nbytes)
+        lib = ""
+        if library is not None:  # a yardstick: timed, held loosely, printed
+            l_ms = cuda_ms(library)
+            l_cos = compare(library().permute(0, 2, 3, 1), got)[2]
+            st["library_ms"] = (st["library_ms"] or 0.0) + l_ms
+            lib = f" library {l_ms:.3f} ms (cos {l_cos:.4f})"
         print(f"# {name:18s} {label:44s} max_abs {max_abs:.4g} mean_rel "
               f"{mean_rel:.3g} cos {cos:.6f} | kernel {k_ms:.3f} ms plain "
-              f"{p_ms:.3f} ms", flush=True)
+              f"{p_ms:.3f} ms{lib} bound {b_ms:.3f} ms ({b_by})", flush=True)
         if not (cos >= KERNEL_MIN_COS and mean_rel <= KERNEL_MAX_MEAN_REL):
             fail(f"{name} {label} disagrees with its plain version")
         return got
@@ -2425,10 +2561,14 @@ def main() -> int:
                                          stem_p["b"]),
               2 * n_fr * 4 * hs * hs * 147 * 64,
               frames.numel() + 147 * 64 * 2 + n_fr * hs * hs * 64 * 2)
+    layers = [f"layer{k + 1}" for k, n in enumerate(sizes) for _ in range(n)]
+    split_runs = []  # (layer, proj, the block's kernel call)
     for i, (blk, p) in enumerate(zip(vision.blocks(), block_ps)):
         args = (p["w1"], p["w2"], p["w3"], p["s1"], p["b1"], p["s2"],
                 p["b2"], p["s3"], p["b3"])
         x = y
+        library = library_block(x, *args, p["wp"], p["sp"], p["bp"],
+                                blk.stride, CLIP_FRAMES)
         label = (f"block {i:2d} {tuple(x.shape)} F={p['w1'].shape[1]}"
                  + (" proj" if p["wp"] is not None else ""))
         plain = (lambda x=x, args=args, p=p, s=blk.stride:
@@ -2440,16 +2580,24 @@ def main() -> int:
                                          p["wp"] is not None)
         work = (flops, x.numel() * 2 + nw * 2 + m_out * co * 2)
         if blk.stride == 2:
-            y = check("tsm_bottleneck_s2", label,
-                      lambda x=x, args=args, p=p: tsm_bottleneck_s2(
-                          x, *args, p["wp"], p["sp"], p["bp"], CLIP_FRAMES),
-                      plain, *work)
+            name = "tsm_bottleneck_s2"
+            kernel = (lambda x=x, args=args, p=p: tsm_bottleneck_s2(
+                x, *args, p["wp"], p["sp"], p["bp"], CLIP_FRAMES))
         else:
-            y = check("tsm_bottleneck", label,
-                      lambda x=x, args=args, p=p: tsm_bottleneck(
-                          x, *args, CLIP_FRAMES, 8, p["wp"], p["sp"],
-                          p["bp"]),
-                      plain, *work)
+            name = "tsm_bottleneck"
+            kernel = (lambda x=x, args=args, p=p: tsm_bottleneck(
+                x, *args, CLIP_FRAMES, 8, p["wp"], p["sp"], p["bp"]))
+        y = check(name, label, kernel, plain, *work, library=library)
+        split_runs.append((layers[i], p["wp"] is not None, kernel))
+        del library
+    try:
+        split = serving_split(split_runs)
+    except Exception as exc:  # the split is information only
+        split = f"not measured ({type(exc).__name__}: {exc})"
+    print(f"# K2/K3 and K4 device ms a {n_fr}-frame vision call by conv and "
+          f"layer ({len(split_runs)} blocks, one traced call each): {split} "
+          f"on {smi}", flush=True)
+    del split_runs
 
     # --- the whole trunk on one clip vs the float32 plain trunk on CPU ---
     cpu_trunk = ResNet(50, n_segment=CLIP_FRAMES, stem_input="s2d").eval()
@@ -2553,15 +2701,17 @@ def main() -> int:
     kernels = []
     for name, st in stats.items():
         src, replaces = sources[name]
-        b_ms, b_by = bound(st["flops"], st["bytes"])
+        b_ms, b_by = bound_sum(st["work"])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"video_chapter_generation_tpu_torch/{src}",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": st["max_abs"],
-            # per vision call: the sum over the shapes one call runs
+            # per vision call: the sum over the shapes one call runs; the
+            # bound the sum of each shape's; library: the cuDNN sequence
             "ms": sum(st["ms"]), "plain_ms": sum(st["plain_ms"]),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": st["library_ms"]})
     # inference CLI entries: per 256-frame vision call; K10: per encoder
     # layer at the BigBird serving shape, launches from the CLI run;
     # training entries: per step, the sum over the shapes one step runs;

@@ -54,25 +54,73 @@ def test_stem_s2d_kernel(dev):
     _close(got, stem_s2d_reference(s4, w7, s, b))
 
 
-@pytest.mark.parametrize("stride,proj", [(1, False), (1, True), (2, True)])
-def test_tsm_bottleneck_kernel(dev, stride, proj):
-    g = torch.Generator().manual_seed(1)
-    t, c, f = 8, 256, 64
-    cout = 4 * f if proj else c
+def _bottleneck_args(dev, seed, stride, c, f, cout, hw, proj=None):
+    """Inputs of one bottleneck: (x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
+    and (wp, sp, bp), the projection where proj, by default where
+    cout != c or stride 2."""
+    g = torch.Generator().manual_seed(seed)
     bf = torch.bfloat16
-    x = torch.relu(torch.randn(2 * t, 14, 14, c, generator=g)).to(dev, bf)
+    x = torch.relu(torch.randn(16, hw, hw, c, generator=g)).to(dev, bf)
     mk = lambda *s: (torch.randn(*s, generator=g) * 0.05).to(dev, bf)  # noqa: E731
     one = lambda n: torch.rand(n, generator=g).to(dev) + 0.5  # noqa: E731
-    zero = lambda n: torch.zeros(n, device=dev)  # noqa: E731
+    zero = lambda n: (torch.randn(n, generator=g) * 0.1).to(dev)  # noqa: E731
     args = (x, mk(c, f), mk(3, 3, f, f), mk(f, cout), one(f), zero(f),
             one(f), zero(f), one(cout), zero(cout))
+    if proj is None:
+        proj = stride == 2 or cout != c
     wp = (mk(c, cout), one(cout), zero(cout)) if proj else (None,) * 3
+    return args, wp
+
+
+def _bottleneck(stride, args, wp, t=8):
     if stride == 2:
-        got = tsm_bottleneck_s2(*args, *wp, t)
-    else:
-        got = tsm_bottleneck(*args, t, 8, *wp)
+        return tsm_bottleneck_s2(*args, *wp, t)
+    return tsm_bottleneck(*args, t, 8, *wp)
+
+
+# every block class of ResNet-50 at small spatial sizes: layer 1's block0
+# (C 64, projection), the plain blocks of F 64-512 (7x7, 9x9, 5x5: odd
+# widths), the stride-2 block0s into layers 2-4 (14 -> 7, 13 -> 7, 7 ->
+# 4); and a stride-1 projection with Cout == C (four k-blocks of x in
+# conv3's tile)
+BLOCK_CLASSES = [(1, 64, 64, 256, 14, None), (1, 256, 64, 256, 14, None),
+                 (1, 256, 64, 256, 5, None), (1, 512, 128, 512, 9, None),
+                 (1, 1024, 256, 1024, 7, None),
+                 (1, 2048, 512, 2048, 7, None),
+                 (2, 256, 128, 512, 14, None), (2, 512, 256, 1024, 13, None),
+                 (2, 1024, 512, 2048, 7, None), (1, 256, 64, 256, 14, True)]
+
+
+@pytest.mark.parametrize("stride,c,f,cout,hw,proj", BLOCK_CLASSES)
+def test_tsm_bottleneck_kernel(dev, stride, c, f, cout, hw, proj):
+    args, wp = _bottleneck_args(dev, 1, stride, c, f, cout, hw, proj)
+    fn = tsm_bottleneck_s2 if stride == 2 else tsm_bottleneck
+    before = fn.launches
+    got = _bottleneck(stride, args, wp)
     torch.cuda.synchronize()
-    _close(got, tsm_bottleneck_reference(*args, t, 8, *wp, stride=stride))
+    assert fn.launches == before + 1
+    ho = (hw - 1) // stride + 1
+    assert got.shape == (16, ho, ho, cout)
+    _close(got, tsm_bottleneck_reference(*args, 8, 8, *wp, stride=stride))
+
+
+@pytest.mark.parametrize("stride,c,f,cout,hw", [(1, 64, 64, 256, 14),
+                                                (1, 1024, 256, 1024, 7),
+                                                (2, 512, 256, 1024, 13)])
+def test_tsm_bottleneck_runs_are_bitwise_equal(dev, stride, c, f, cout, hw):
+    """Two runs of K2/K3 or K4 on the same inputs agree bit for bit."""
+    args, wp = _bottleneck_args(dev, 2, stride, c, f, cout, hw)
+    first = _bottleneck(stride, args, wp)
+    second = _bottleneck(stride, args, wp)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_tsm_bottleneck_refuses_narrow_widths(dev):
+    """C % 64 != 0 raises on the card (no plain fallback)."""
+    args, wp = _bottleneck_args(dev, 3, 1, 96, 64, 256, 7)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        _bottleneck(1, args, wp)
 
 
 # --- training kernels (K11-K13): forward, batch stats and every gradient ---

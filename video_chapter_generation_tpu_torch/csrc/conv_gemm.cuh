@@ -1,15 +1,16 @@
-// Implicit-GEMM convolution core shared by the stem and bottleneck kernels.
+// Implicit-GEMM convolution core of the stems (K1, K8, K14b in
+// stem_s2d.cu; K11 through train_gemm.cuh), and the constants and cp.async
+// helpers that hopper_gemm.cuh builds on.
 //
 // A convolution over an NHWC bf16 activation is a matrix product
 // out[M, Nout] = A[M, K] x W[K, Nout] with M = output pixels and
 // K = kh * kw * Cin ordered (kh, kw, c): the row order of an HWIO weight
 // reshaped to [K, Nout]. A is never materialised. Each 128 x BK tile of A
-// is gathered straight from the activation into shared memory by a loader
-// (ConvA here, the stem's own in stem_s2d.cu), which also applies the
-// temporal shift and the zero padding. W tiles stream in with cp.async,
-// two stages deep, and bf16 WMMA fragments accumulate in fp32. The
-// epilogue applies the folded-BN affine, the optional residual and ReLU,
-// and stores bf16.
+// is gathered straight from the activation into shared memory by the
+// caller's loader (the stems' own), which also applies the zero padding.
+// W tiles stream in with cp.async, two stages deep, and bf16 WMMA
+// fragments accumulate in fp32. The epilogue applies the folded-BN
+// affine and the optional ReLU, and stores bf16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,22 +45,6 @@ struct Smem {
   alignas(128) float epi[8][16 * 16];
 };
 
-// One convolution, as the GEMM it is. Pointers are device pointers.
-struct ConvJob {
-  const bf16* x;      // input activation, NHWC [n, h, w, c]
-  const bf16* wt;     // weight [k, nout] row-major, rows ordered (kh, kw, c)
-  const float* scale; // folded BN scale [nout]
-  const float* bias;  // folded BN bias [nout]
-  const bf16* res;    // residual [m, nout] added before ReLU, or null
-  bf16* out;          // output [m, nout] = NHWC [n, ho, wo, nout]
-  int n, h, w, c;     // input shape
-  int ho, wo;         // output spatial shape
-  int ks, stride, pad;
-  int t, fold;        // temporal shift: clip length, channels per fold (0: none)
-  int nout, relu;
-  int m, k;           // m = n * ho * wo, k = ks * ks * c
-};
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -75,65 +60,6 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
-
-// A-tile loader for a convolution over a bf16 NHWC activation. Thread i
-// owns 16-byte chunk (i % 4) of rows i / 4 and i / 4 + 64 for the whole
-// K loop, so the pixel coordinates of its two rows are decoded once.
-// c % 8 == 0 and fold % 8 == 0 keep every chunk inside one tap and one
-// shift fold: fold 0 reads frame t + 1, fold 1 frame t - 1, both zero at
-// the clip edges (frames are time-major within each clip).
-struct ConvA {
-  const bf16* x;
-  int h, w, c, ks, stride, pad, t, fold, kc;
-  int rn[2], roh[2], row_[2];
-  bool rok[2];
-
-  __device__ void init(const ConvJob& j, int m0) {
-    x = j.x; h = j.h; w = j.w; c = j.c; ks = j.ks; stride = j.stride;
-    pad = j.pad; t = j.t; fold = j.fold;
-    kc = threadIdx.x & 3;
-    const int plane = j.ho * j.wo;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m = m0 + (threadIdx.x >> 2) + i * 64;
-      rok[i] = m < j.m;
-      const int mm = rok[i] ? m : 0;
-      rn[i] = mm / plane;
-      const int rem = mm - rn[i] * plane;
-      roh[i] = rem / j.wo;
-      row_[i] = rem - roh[i] * j.wo;
-    }
-  }
-
-  __device__ void load(bf16* as, int k0) const {
-    const int k = k0 + kc * 8;
-    const int tap = k / c;
-    const int ch = k - tap * c;
-    const int kh = tap / ks;
-    const int kw = tap - kh * ks;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int ih = roh[i] * stride - pad + kh;
-      const int iw = row_[i] * stride - pad + kw;
-      bool ok = rok[i] && ih >= 0 && ih < h && iw >= 0 && iw < w;
-      int nn = rn[i];
-      if (fold) {
-        const int tt = nn % t;
-        if (ch < fold) {
-          nn += 1;
-          ok = ok && tt < t - 1;
-        } else if (ch < 2 * fold) {
-          nn -= 1;
-          ok = ok && tt > 0;
-        }
-      }
-      const bf16* src =
-          ok ? x + ((static_cast<size_t>(nn) * h + ih) * w + iw) * c + ch : x;
-      const int r = (threadIdx.x >> 2) + i * 64;
-      cp_async16(as + r * kALd + kc * 8, src, ok);
-    }
-  }
-};
 
 template <int BN>
 __device__ __forceinline__ void load_w(bf16* bs, const bf16* w, int nout,
@@ -151,12 +77,12 @@ __device__ __forceinline__ void load_w(bf16* bs, const bf16* w, int nout,
 }
 
 // One kBM x BN output tile: K loop over k_total (a multiple of kBK), then
-// out = act(acc * scale + bias [+ res]) in bf16.
+// out = act(acc * scale + bias) in bf16.
 template <int BN, class ALoader>
 __device__ void conv_gemm_tile(Smem<BN>& sm, const ALoader& al, const bf16* w,
                                int k_total, int nout, int m0, int n0, int m,
                                const float* scale, const float* bias,
-                               const bf16* res, bf16* out, bool relu) {
+                               bf16* out, bool relu) {
   using namespace nvcuda;
   using TL = Tile<BN>;
   const int warp = threadIdx.x >> 5;
@@ -223,14 +149,6 @@ __device__ void conv_gemm_tile(Smem<BN>& sm, const ALoader& al, const bf16* w,
         float v[8];
         for (int e = 0; e < 8; ++e)
           v[e] = ep[r * 16 + c8 + e] * scale[gn + e] + bias[gn + e];
-        if (res != nullptr) {
-          alignas(16) bf16 rv[8];
-          // through L2 (ld.global.cg): a chained residual was written by
-          // other blocks of the same launch (tsm_chain.cu)
-          *reinterpret_cast<uint4*>(rv) = __ldcg(reinterpret_cast<const uint4*>(
-              res + static_cast<size_t>(gm) * nout + gn));
-          for (int e = 0; e < 8; ++e) v[e] += __bfloat162float(rv[e]);
-        }
         alignas(16) bf16 o[8];
         for (int e = 0; e < 8; ++e)
           o[e] = __float2bfloat16_rn(relu ? fmaxf(v[e], 0.0f) : v[e]);

@@ -208,6 +208,11 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar) {
                : "memory");
 }
 
+__device__ __forceinline__ void mbar_inval(uint64_t* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
 // The one arrival of a stage's barrier, expecting bytes from its copies.
 __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
@@ -398,10 +403,11 @@ struct Mainloop {
     cp_async_commit();  // empty groups keep the count uniform
   }
 
-  // The K loop of the next tile into acc (zeroed first).
-  __device__ void tile(float (&acc)[BN / 2]) {
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  // The K loop of the next tile: per stage, once it has arrived and been
+  // transformed, issue(stage, kt) issues its product, the next stage's
+  // copies go out while the product runs, then wait() waits for it.
+  template <class Issue, class Wait>
+  __device__ void k_loop(Issue issue, Wait wait) {
     for (int kt = 0; kt < ktiles; ++kt) {
       const int q = ct * ktiles + kt;
       uint8_t* st = ring + (q % S) * Src::kStageBytes;
@@ -410,23 +416,59 @@ struct Mainloop {
       src.xform(st, ct, kt);
       fence_async_smem();
       __syncthreads();
-      // the product runs while this thread issues the next stage's copies
-      mma_issue<BN, TA>(st, st + kATile, acc);
+      issue(st, kt);
       load_next();
-      if (kOverlap)
-        mma_wait<1>(acc);
-      else
-        mma_wait<0>(acc);
+      wait();
     }
-    mma_wait<0>(acc);
     ++ct;
   }
 
+  // The K loop of the next tile into acc (zeroed first).
+  __device__ void tile(float (&acc)[BN / 2]) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    k_loop(
+        [&](const uint8_t* st, int) {
+          mma_issue<BN, TA>(st, st + kATile, acc);
+        },
+        [&] {
+          if (kOverlap)
+            mma_wait<1>(acc);
+          else
+            mma_wait<0>(acc);
+        });
+    mma_wait<0>(acc);
+  }
+
+  // tile() with two accumulators: stages 0 .. split - 1 of the tile into
+  // acc, the rest into acc2 (both zeroed first); each product is waited
+  // before the next stage's copies.
+  __device__ void tile2(float (&acc)[BN / 2], float (&acc2)[BN / 2],
+                        int split) {
+    static_assert(!kOverlap, "tile2 waits for each product");
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = acc2[i] = 0.0f;
+    k_loop(
+        [&](const uint8_t* st, int kt) {
+          if (kt < split)
+            mma_issue<BN, TA>(st, st + kATile, acc);
+          else
+            mma_issue<BN, TA>(st, st + kATile, acc2);
+        },
+        [&] {
+          mma_wait<0>(acc);
+          fence_acc(acc2);
+        });
+  }
+
   // After the last tile: no copy in flight, and every thread past its
-  // last product, so the ring may be reused.
+  // last product, so the ring may be reused; the barriers are invalidated,
+  // so a later Mainloop over the same ones may initialize them again.
   __device__ void finish() {
     cp_async_wait<0>();
     __syncthreads();
+    if (Src::kTma && threadIdx.x == 0)
+      for (int s = 0; s < S; ++s) mbar_inval(&bars[s]);
   }
 };
 

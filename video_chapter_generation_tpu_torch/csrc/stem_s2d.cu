@@ -166,8 +166,8 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ Smem<64> sm;
   FramesA al;
   al.init(x, h, wd, m0, m);
-  conv_gemm_tile<64>(sm, al, w, kStemKPad, 64, m0, 0, m, one, zero, nullptr,
-                     conv, false);
+  conv_gemm_tile<64>(sm, al, w, kStemKPad, 64, m0, 0, m, one, zero, conv,
+                     false);
 }
 
 // relu(x * scale + bias) rounded to bf16, then the 3x3/2 max pool (pad 1)
@@ -225,8 +225,8 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ Smem<64> sm;
   StemA al;
   al.init(s4, norm, hs, ws, m0, m);
-  conv_gemm_tile<64>(sm, al, w, kStemKPad, 64, m0, 0, m, one, zero, nullptr,
-                     conv, false);
+  conv_gemm_tile<64>(sm, al, w, kStemKPad, 64, m0, 0, m, one, zero, conv,
+                     false);
 }
 
 // Launch 2 of both stems: bn_relu_maxpool_kernel over [n, h, w, c].

@@ -39,6 +39,7 @@ from .preprocess import (
     normalize_frames_reference,
 )
 from .tsm_block_int8 import _idot, quantize_weight
+from .tsm_conv import identity_affine
 
 
 def bn_relu_maxpool_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -80,14 +81,6 @@ def stem_frames_reference(frames: torch.Tensor, w7: torch.Tensor,
     """Plain version of `stem_frames`: the conv in frames.dtype, then
     bn_relu_maxpool_reference; [N, H, W, 3] -> [N, H/4, W/4, 64]."""
     return _conv_stem(frames, w7, scale.float(), bias.float())
-
-
-@functools.lru_cache(maxsize=None)
-def identity_affine(device: torch.device, n: int = 64):
-    """(ones [n], zeros [n]) float32 on device: a conv epilogue's scale
-    and bias that store the bare conv sum (exact in fp32); the stem convs
-    use n = 64."""
-    return (torch.ones(n, device=device), torch.zeros(n, device=device))
 
 
 _ARGS = {"vcg_stem_s2d": (9, 3), "vcg_stem_frames_conv": (5, 3),

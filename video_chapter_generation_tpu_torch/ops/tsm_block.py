@@ -5,11 +5,16 @@ ops/tsm_block_pallas.py:tsm_bottleneck_pallas (`_kernel` for layer 1 with
 its stride-1 projection block0, `_kernel_flat` for the plain blocks of
 layers 2-4); `tsm_bottleneck_s2` replaces tsm_bottleneck_s2_pallas and
 tsm_bottleneck_s2_planar_pallas (the planar input is a row-major view of
-NHWC, so one NHWC kernel serves both). Both run csrc/tsm_bottleneck.cu:
+NHWC, so one NHWC kernel serves both). Both launch K5's kernel
+(ops/tsm_conv.py, csrc/tsm_conv.cu) for conv1, then csrc/tsm_bottleneck.cu
+for the rest:
 
     y1  = relu(bn1(conv1x1(temporal_shift(x))))
     y2  = relu(bn2(conv3x3(y1, stride)))
     out = relu(bn3(conv1x1(y2)) + (x or bn_p(conv1x1(x, stride))))
+
+On the card C, F and Cout must be multiples of 64 (every ResNet-50 width
+is); other widths raise.
 
 `tsm_bottleneck_chain` (kernel K15) replaces tsm_bottleneck_chain_pallas
 and tsm_bottleneck_halo_chain_pallas: a run of consecutive stride-1
@@ -32,6 +37,8 @@ import torch.nn.functional as F
 
 from . import _build
 from .temporal_shift import temporal_shift_reference
+from .tsm_conv import _launch as _shift_conv1x1
+from .tsm_conv import pair_aligned
 
 
 def tsm_bottleneck_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3,
@@ -84,7 +91,7 @@ def _lib(stride: int):
     lib = _build.load("tsm_bottleneck")
     fn = getattr(lib, f"vcg_tsm_bottleneck_s{stride}")
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -114,24 +121,28 @@ def _launch(stride, x, w1, w2, w3, s1, b1, s2, b2, s3, b3, n_segment,
     if wp is None and (stride != 1 or cout != c):
         raise ValueError("an identity residual needs stride 1 and Cout == C")
     fold = c // n_div if n_segment > 0 else 0
-    if c % 32 or f % 64 or cout % 64 or fold % 8 or nt % max(n_segment, 1):
+    if c % 64 or f % 64 or cout % 64 or fold % 8 or nt % max(n_segment, 1):
         raise ValueError(f"unsupported widths C={c} F={f} Cout={cout} "
-                         f"fold={fold} N*T={nt} T={n_segment}")
+                         f"fold={fold} N*T={nt} T={n_segment}: the kernel "
+                         "takes C, F and Cout in multiples of 64")
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     dev = x.device
-    y1 = torch.empty(nt, h, w, f, dtype=bf, device=dev)
+    # conv1 is K5's launch (counted as part of this block, not as K5)
+    y1 = _shift_conv1x1(x, w1, s1, b1, n_segment, n_div, relu=True)
     y2 = torch.empty(nt, ho, wo, f, dtype=bf, device=dev)
+    # the stride-2 projection's own output (stride 1 folds it into conv3)
     r = (torch.empty(nt, ho, wo, cout, dtype=bf, device=dev)
-         if wp is not None else None)
+         if wp is not None and stride == 2 else None)
     out = torch.empty(nt, ho, wo, cout, dtype=bf, device=dev)
+    # held here until the launch: the epilogues read them in float pairs
+    s2, b2, s3, b3 = map(pair_aligned, (s2, b2, s3, b3))
+    sp, bp = (None, None) if wp is None else map(pair_aligned, (sp, bp))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = _lib(stride)(
-        x.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(), ptr(wp),
-        s1.data_ptr(), b1.data_ptr(), s2.data_ptr(), b2.data_ptr(),
-        s3.data_ptr(), b3.data_ptr(), ptr(sp), ptr(bp),
-        y1.data_ptr(), y2.data_ptr(), ptr(r), out.data_ptr(),
-        nt, h, w, c, f, cout, max(n_segment, 1), fold,
-        torch.cuda.current_stream(dev).cuda_stream)
+        y1.data_ptr(), x.data_ptr(), w2.data_ptr(), w3.data_ptr(), ptr(wp),
+        s2.data_ptr(), b2.data_ptr(), s3.data_ptr(), b3.data_ptr(), ptr(sp),
+        ptr(bp), y2.data_ptr(), ptr(r), out.data_ptr(),
+        nt, h, w, c, f, cout, torch.cuda.current_stream(dev).cuda_stream)
     return rc, out
 
 
@@ -252,6 +263,8 @@ def tsm_bottleneck_chain(x, blocks, n_segment: int, n_div: int = 8,
     bufs = [torch.empty_like(x) if n > k + 1 else None for k in range(2)]
     bar = torch.zeros(2, dtype=torch.int32, device=dev)
     out = torch.empty_like(x)
+    # the epilogues read the BN vectors in float pairs
+    blocks = [blk[:3] + tuple(map(pair_aligned, blk[3:])) for blk in blocks]
     ptrs = [(ctypes.c_void_p * n)(*(blk[i].data_ptr() for blk in blocks))
             for i in range(9)]
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731

@@ -31,11 +31,11 @@ shifts by K7 (ops/temporal_shift.py).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
-from .stem import identity_affine
 from .temporal_shift import shift_kernel, temporal_shift_reference
 
 
@@ -53,6 +53,22 @@ def tsm_conv1x1_reference(x, w, n_segment: int, n_div: int = 8, scale=None,
     if relu:
         y = torch.relu(y)
     return y.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def identity_affine(device: torch.device, n: int = 64):
+    """(ones [n], zeros [n]) float32 on device: a conv epilogue's scale
+    and bias that store the bare conv sum (exact in fp32); the stem convs
+    use n = 64."""
+    return (torch.ones(n, device=device), torch.zeros(n, device=device))
+
+
+def pair_aligned(v: torch.Tensor) -> torch.Tensor:
+    """v, or a contiguous copy where it is not: the kernels' epilogues
+    read scale and bias two floats (8 bytes) at a time."""
+    if v.is_contiguous() and v.data_ptr() % 8 == 0:
+        return v
+    return v.clone(memory_format=torch.contiguous_format)
 
 
 def _launch(x, w, scale, bias, n_segment: int, n_div: int,
@@ -79,10 +95,7 @@ def _launch(x, w, scale, bias, n_segment: int, n_div: int,
         if (v.dtype != torch.float32 or v.device != x.device
                 or v.numel() != f):
             raise ValueError("scale/bias must be float32 [F] on the device")
-    # the kernel reads scale and bias two floats at a time
-    scale, bias = [v if v.is_contiguous() and v.data_ptr() % 8 == 0
-                   else v.clone(memory_format=torch.contiguous_format)
-                   for v in (scale, bias)]
+    scale, bias = pair_aligned(scale), pair_aligned(bias)
     out = torch.empty(nt, h, wd, f, dtype=torch.bfloat16, device=x.device)
     fn = _build.load("tsm_conv").vcg_tsm_conv1x1
     if fn.argtypes is None:
