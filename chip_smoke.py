@@ -29,22 +29,25 @@
    bf16 and in --int8_titles' int8 form, same weights, batch and inputs,
    with one torch.profiler trace of each (information only).
 5. The inference CLI (K8, K9). Holds the frames stem (`stem_frames`,
-   bf16 frames [256, 224, 224, 3]: the decoded frames of one vision call)
-   and its BN + ReLU + pool launch (`bn_relu_maxpool`, at the conv output
-   [256, 112, 112, 64]) to their plain versions; calibrates the full-width
+   bf16 frames [256, 224, 224, 3]: the decoded frames of one vision call;
+   one launch, the pool fused) to its plain version beside its cuDNN
+   yardstick, and the pool kernel (`bn_relu_maxpool`, which K14b still
+   launches) at its former shape, the conv output [256, 112, 112, 64];
+   calibrates the full-width
    frames-stem trunk on the card and holds each of its 10 W8A8 blocks
    (`tsm_bottleneck_int8`) to its plain version, each fed the kernel
    output of the block before (int8 outputs equal, else at most one
    quantum on fewer than 1e-3 of the elements; bf16 outputs in the
-   bands); holds the int8 trunk to the bf16 kernel trunk on one clip
+   bands), timing beside them the bf16 K2/K3 launches of the same blocks
+   and printing K9's device time by conv and layer (one torch.profiler
+   trace); holds the int8 trunk to the bf16 kernel trunk on one clip
    (cosine >= 0.98 per frame) and checks that unit scales change it; then
    writes a checkpoint of the frames-stem model as train_segment does
    (the head bias shifted as in 4) and runs cli/infer_video.main with
    --int8_vision --int8_titles --pipelined over 2 synthetic videos,
    checking the launch counts (per vision call: normalize_frames 1,
-   stem_frames 1,
-   bn_relu_maxpool 1, tsm_bottleneck 3, tsm_bottleneck_s2 3,
-   tsm_bottleneck_int8 10, plus one bf16 calibration call), the restored
+   stem_frames 1, bn_relu_maxpool 0, tsm_bottleneck 3, tsm_bottleneck_s2
+   3, tsm_bottleneck_int8 10, plus one bf16 calibration call), the restored
    checkpoint, and at least one cut point and one title per chapter for
    each video.
 6. BigBird-Pegasus and BART titles (K10). Builds bigbird_pegasus_large
@@ -106,7 +109,8 @@
    bf16 output mode on the same inputs in the bf16 bands), each
    block fed the kernel output of the block before, and the int8 stem
    (`stem_s2d_int8`) to its plain version bit for bit at [256, 56, 56,
-   48]; then runs the vision call with the switch (per call: stem 1,
+   48], timing K4 on the same block0s beside K14a; then runs the vision
+   call with the switch (per call: stem 1,
    stride-1 bf16 bottleneck 3, K14a 3, K9 10, K4 0; per-frame cosine >=
    0.98 to the bf16 trunk) and cli/infer_video.main --int8_vision
    --pipelined with the switch on from the checkpoint of phase 5 (the
@@ -129,6 +133,14 @@
 Any failed phase raises, and the script exits non-zero without printing
 the final line; it also fails where CUDA is absent or the package is
 not beside it.
+
+    python3 chip_smoke.py --time-kernels [--root CHECKOUT]
+
+times K1, K8, K9 and K14a alone (and their yardsticks: cuDNN for the
+stems, the bf16 K2/K3 and K4 launches of the same blocks) at the shapes of
+one 256-frame vision call, on the package of CHECKOUT (default: beside
+this script), seeded random weights and frames; one JSON line. Two trees
+are compared within one call by running it on each in turns.
 """
 
 import contextlib
@@ -220,12 +232,13 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
 
 
 def hold(entries, name, label, kernel, plain, flops, nbytes,
-         exact_int=False, exact=False):
+         exact_int=False, exact=False, library=None):
     """Run kernel and plain on the same inputs, hold the kernel to the plain
     version (exact_int: int8 outputs equal, or one quantum apart on fewer
     than 1e-3 of them; exact: bit for bit; else the bf16 bands), time both
-    and add both times and the work to entries[name]. Returns the kernel's
-    output."""
+    and add both times and the work to entries[name]; library, a yardstick
+    giving the output NCHW, is timed too (into entries[name]["library_ms"])
+    and its cosine to the kernel printed. Returns the kernel's output."""
     import torch
 
     got, ref = kernel(), plain()
@@ -250,6 +263,11 @@ def hold(entries, name, label, kernel, plain, flops, nbytes,
     e["plain_ms"] += p_ms
     e["flops"] += flops
     e["bytes"] += nbytes
+    if library is not None:
+        l_ms = cuda_ms(library)
+        l_cos = compare(library().permute(0, 2, 3, 1), got)[2]
+        e["library_ms"] = e.get("library_ms", 0.0) + l_ms
+        note += f" | library {l_ms:.3f} ms (cos {l_cos:.4f})"
     print(f"# {name:19s} {label:44s} {note} | kernel {k_ms:.3f} ms plain "
           f"{p_ms:.3f} ms", flush=True)
     if not ok:
@@ -312,7 +330,76 @@ def library_block(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, wp, sp, bp,
     return run
 
 
-def serving_split(runs):
+def library_stem(frames, w7, scale, bias):
+    """The stem as a library sequence, a yardstick and never a route: cuDNN
+    F.conv2d (7x7/2, pad 3) in channels_last bf16 on normalized NHWC
+    frames, the folded-BN affine and the ReLU as torch ops, F.max_pool2d.
+    Returns a function of no arguments giving the output (NCHW,
+    channels_last)."""
+    import torch
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    x = frames.to(bf).permute(0, 3, 1, 2)  # NHWC memory: channels_last
+    k = w7.permute(3, 2, 0, 1).to(bf).contiguous(
+        memory_format=torch.channels_last)
+    s, b = scale.to(bf).view(1, -1, 1, 1), bias.to(bf).view(1, -1, 1, 1)
+
+    def run():
+        y = torch.relu_(torch.addcmul(b, F.conv2d(x, k, stride=2, padding=3),
+                                      s))
+        return F.max_pool2d(y, 3, stride=2, padding=1)
+
+    return run
+
+
+def stem_parts(frames, w7, scale, bias):
+    """K1's device time by part, from timing builds of csrc/stem_s2d.cu
+    that leave one part out (VCG_STEM_SKIP: 1 the products, 2 the A-panel
+    builds, 3 the epilogue with the pool), each timed on the same inputs
+    with CUDA events: a part costs the full build's time less the build
+    without it (the parts overlap, so the shares need not add up to the
+    whole). Information only; returns a printable string."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from video_chapter_generation_tpu_torch.ops import _build
+    from video_chapter_generation_tpu_torch.ops import stem as port_stem
+    from video_chapter_generation_tpu_torch.ops.preprocess import norm_consts
+
+    if not hasattr(port_stem, "stem_bands"):
+        return "not measured (this tree has no part builds)"
+    dev = frames.device
+    n, hs, ws, _ = frames.shape
+    wk = port_stem._phase_weight(w7, dev)
+    sc, bi = scale.float().contiguous(), bias.float().contiguous()
+    out = torch.empty(n, hs, ws, 64, dtype=torch.bfloat16, device=dev)
+    bands = port_stem.stem_bands(
+        n, hs, torch.cuda.get_device_properties(dev).multi_processor_count)
+    with ThreadPoolExecutor(4) as pool:
+        libs = list(pool.map(
+            lambda k: _build.build_all(["stem_s2d"], (f"VCG_STEM_SKIP={k}",))[
+                "stem_s2d"], range(4)))
+    ms = []
+    for path in libs:
+        fn = ctypes.CDLL(str(path)).vcg_stem_s2d
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ms.append(cuda_ms(lambda fn=fn: fn(
+            frames.data_ptr(), wk.data_ptr(), sc.data_ptr(), bi.data_ptr(),
+            norm_consts(dev).data_ptr(), out.data_ptr(), n, hs, ws, bands,
+            stream)))
+    return (f"kernel {ms[0]:.3f} ms: products {ms[0] - ms[1]:.3f}, A-panel "
+            f"builds {ms[0] - ms[2]:.3f}, epilogue and pool "
+            f"{ms[0] - ms[3]:.3f} (builds without each: {ms[1]:.3f}, "
+            f"{ms[2]:.3f}, {ms[3]:.3f})")
+
+
+def serving_split(runs, by_name=False):
     """Device ms of the bottleneck launches of a vision call by conv and
     layer, from one torch.profiler trace over runs [(layer, proj, fn)],
     one call of each block in call order; information only. A fill kernel
@@ -320,17 +407,22 @@ def serving_split(runs):
     conv1 (K5), [proj], conv2, conv3, or conv3+proj where conv3's tile
     runs the projection too (a kernel named pair_kernel), and a first
     launch that runs conv1 and the projection together (the earlier WMMA
-    design, for comparing trees) is labelled conv1+proj."""
+    design, for comparing trees) is labelled conv1+proj. by_name (the W8A8
+    blocks): each launch is labelled by its kernel's name (quantize,
+    conv1, conv2, conv3)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sep = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
+    # the runs twice, the second pass read: a trace can miss its first
+    # launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _, _, fn in runs:
-            fn()
-            sep.zero_()
+        for _ in range(2):
+            for _, _, fn in runs:
+                fn()
+                sep.zero_()
         torch.cuda.synchronize()
     kern = sorted((e for e in prof.events()
                    if e.device_type == DeviceType.CUDA),
@@ -342,12 +434,17 @@ def serving_split(runs):
             cur = []
         else:
             cur.append(e)
-    if len(segs) != len(runs):
+    if len(segs) < len(runs):
         return (f"not measured: {len(segs)} runs of kernels traced for "
                 f"{len(runs)} blocks")
+    segs = segs[-len(runs):]
     table, whole = {}, {}
     for seg, (layer, proj, _) in zip(segs, runs):
-        if len(seg) == 4:
+        if by_name:
+            labels = tuple(next((k for k in ("quantize", "conv1", "conv2",
+                                             "conv3") if k in e.name),
+                                "other") for e in seg)
+        elif len(seg) == 4:
             labels = ("conv1", "proj", "conv2", "conv3")
         elif len(seg) == 3 and proj and "pair" in seg[2].name:
             labels = ("conv1", "conv2", "conv3+proj")
@@ -1263,9 +1360,10 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
                for k in ("stem_frames", "bn_relu_maxpool",
                          "tsm_bottleneck_int8")}
 
-    def held(name, label, kernel, plain, flops, nbytes, exact_int=False):
+    def held(name, label, kernel, plain, flops, nbytes, exact_int=False,
+             library=None):
         return hold(entries, name, label, kernel, plain, flops, nbytes,
-                    exact_int)
+                    exact_int, library=library)
 
     # the frames-stem trunk on the serving trunk's weights (shared storage)
     with torch.device("meta"):
@@ -1276,14 +1374,16 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
     x_in = normalize_frames(depth_to_space4(frames), bf).contiguous()
     n, hh = x_in.shape[0], x_in.shape[1]
 
-    # --- K8: the frames stem and its BN + ReLU + pool launch ---
+    # --- K8: the frames stem (one launch, the pool fused), and the pool
+    # kernel that K14b still launches, at its former shape ---
     args = (stem_p["w7"], stem_p["s"], stem_p["b"])
     m_conv = n * (hh // 2) ** 2
     y = held("stem_frames", f"{tuple(x_in.shape)} bf16",
              lambda: stem_frames(x_in, *args),
              lambda: stem_frames_reference(x_in, *args),
              2 * m_conv * 147 * 64,
-             x_in.numel() * 2 + 147 * 64 * 2 + n * (hh // 4) ** 2 * 64 * 2)
+             x_in.numel() * 2 + 147 * 64 * 2 + n * (hh // 4) ** 2 * 64 * 2,
+             library=library_stem(x_in, *args))
     conv = _conv7(x_in, stem_p["w7"]).contiguous()
     held("bn_relu_maxpool", f"{tuple(conv.shape)} bf16",
          lambda: bn_relu_maxpool(conv, stem_p["s"], stem_p["b"]),
@@ -1299,11 +1399,20 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
           f"{time.time() - t0:.2f} s", flush=True)
     vq = vf.quantized(scales)
     plan, qps = vq._quant_plan(None), vq.quant_params()
+    layer_of = [k + 1 for k, nb in enumerate(vf.stage_sizes)
+                for _ in range(nb)]
+    yb, bf16_ms, split_runs = y, 0.0, []  # the bf16 chain beside
     for i, (blk, p) in enumerate(zip(vf.blocks(), block_ps)):
         mode = plan[i]
         if mode is None:
             y = blk.run(y, p, CLIP_FRAMES, 8)
+            yb = y
             continue
+        # the yardstick: the bf16 K2/K3 launch of the same block (its float
+        # weights before quantization) on the bf16 chain's input
+        bf16_ms += cuda_ms(lambda yb=yb, blk=blk, p=p: blk.run(
+            yb, p, CLIP_FRAMES, 8))
+        yb = blk.run(yb, p, CLIP_FRAMES, 8)
         q = qps[i]
         nt, h, w, c = y.shape
         f = q.f
@@ -1313,15 +1422,26 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
         xb, nbytes = y, (y.numel() * y.element_size()
                          + 2 * c * f + 9 * f * f + m * c * (1 if mode == "i8"
                                                             else 2))
-        y = held("tsm_bottleneck_int8", label,
-                 lambda xb=xb, q=q, mode=mode: int8_bottleneck(
-                     xb, q, CLIP_FRAMES, 8, mode, bf),
+        kernel = (lambda xb=xb, q=q, mode=mode: int8_bottleneck(
+            xb, q, CLIP_FRAMES, 8, mode, bf))
+        y = held("tsm_bottleneck_int8", label, kernel,
                  lambda xb=xb, q=q, mode=mode: int8_bottleneck_plain(
                      xb, q, CLIP_FRAMES, 8)[1 if mode == "i8" else 0].to(
                          torch.int8 if mode == "i8" else bf),
                  2 * m * (2 * c * f + 9 * f * f), nbytes,
                  exact_int=mode == "i8")
+        split_runs.append((f"layer{layer_of[i]}", False, kernel))
     n_int8 = sum(1 for mode in plan if mode)
+    try:
+        split = serving_split(split_runs, by_name=True)
+    except Exception as exc:  # the split is information only
+        split = f"not measured ({type(exc).__name__}: {exc})"
+    k9_ms = entries["tsm_bottleneck_int8"]["ms"]
+    print(f"# K9 on {n_int8} W8A8 blocks: {k9_ms:.3f} ms; the bf16 K2/K3 "
+          f"launches of the same blocks {bf16_ms:.3f} ms; "
+          f"K9 device ms by conv and layer (one traced call each): {split} "
+          f"on {smi}", flush=True)
+    del split_runs, yb
     if n_int8 != 10:
         fail(f"{n_int8} W8A8 blocks planned, not 10")
     clip = x_in[:CLIP_FRAMES]
@@ -1387,10 +1507,11 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
     launches = {fn.__name__: fn.launches for fn in counted}
     calls = sum(math.ceil(len(r.clip_scores) / SCORE_BATCH)
                 for r in results.values())
+    # the frames stem fuses its pool: no bn_relu_maxpool launch
     per_call = {"normalize_frames": 1, "stem_frames": 1,
-                "bn_relu_maxpool": 1, "tsm_bottleneck": 3,
+                "bn_relu_maxpool": 0, "tsm_bottleneck": 3,
                 "tsm_bottleneck_s2": 3, "tsm_bottleneck_int8": 10}
-    calib = {"normalize_frames": 1, "stem_frames": 1, "bn_relu_maxpool": 1,
+    calib = {"normalize_frames": 1, "stem_frames": 1, "bn_relu_maxpool": 0,
              "tsm_bottleneck": 13, "tsm_bottleneck_s2": 3,
              "tsm_bottleneck_int8": 0}
     want = {k: v * calls + calib[k] for k, v in per_call.items()}
@@ -1437,7 +1558,10 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
                     "replaces": f"video_chapter_generation_tpu/ops/{replaces}",
                     "launches": launches[name], "max_abs_err": e["max_abs"],
                     "ms": e["ms"], "plain_ms": e["plain_ms"],
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    # the stem's cuDNN sequence; no one PyTorch call
+                    # computes the pool with its affine or the W8A8 block
+                    "library_ms": e.get("library_ms")})
     return out, argv
 
 
@@ -1689,6 +1813,7 @@ def window_phases(dev, smi, frames, vision):
         TwoStreamWindow,
     )
     from video_chapter_generation_tpu_torch.ops.preprocess import (
+        affine_consts,
         depth_to_space4,
         normalize_frames,
         normalize_frames_reference,
@@ -1866,11 +1991,17 @@ def window_phases(dev, smi, frames, vision):
         k_ms = cuda_ms(lambda: normalize_frames(u8, out_dtype))
         p_ms = cuda_ms(lambda: normalize_frames_reference(u8, out_dtype))
         if out_dtype == bf:  # the main path's output type
+            # the yardstick: one torch.addcmul of the same affine (float32
+            # out: a bf16 output would take a second call)
+            a3, b3 = affine_consts(dev)
+            lib_ms = cuda_ms(lambda: torch.addcmul(b3, u8, a3))
             account("normalize_frames", got, ref, k_ms, p_ms, 2 * u8.numel(),
-                    u8.numel() * 3)
+                    u8.numel() * 3, lib_ms)
         print(f"# {'normalize_frames':18s} {str(tuple(u8.shape)):36s} -> "
               f"{str(out_dtype)[6:]} bitwise True | kernel {k_ms:.3f} ms "
-              f"plain {p_ms:.3f} ms", flush=True)
+              f"plain {p_ms:.3f} ms"
+              + (f" | torch.addcmul (float32 out) {lib_ms:.3f} ms"
+                 if out_dtype == bf else ""), flush=True)
     del u8, got, ref
     torch.cuda.empty_cache()
 
@@ -1907,8 +2038,7 @@ def window_phases(dev, smi, frames, vision):
         return out, {k: f.launches for k, f in counted.items() if f.launches}
 
     eval_call = {"normalize_frames": 1, "stem_frames": 1,
-                 "bn_relu_maxpool": 1, "tsm_bottleneck": 13,
-                 "tsm_bottleneck_s2": 3}
+                 "tsm_bottleneck": 13, "tsm_bottleneck_s2": 3}
     per_step = {
         "auto": {"normalize_frames": 1, "stem_train_fwd": 1,
                  "stem_train_bwd": 1, "block_train_fwd": 16,
@@ -2007,8 +2137,7 @@ def window_phases(dev, smi, frames, vision):
         seen[f"score {mode}"] = launches
         calls = math.ceil(len(ds) / WINDOW_BATCH)
         want = {k: v * calls for k, v in dict(
-            per_call[mode], normalize_frames=1, stem_frames=1,
-            bn_relu_maxpool=1).items()}
+            per_call[mode], normalize_frames=1, stem_frames=1).items()}
         probs = np.asarray([c.pred_score for c in infos], np.float64)
         print(f"# window scoring {mode}: {len(ds)} windows of 3 x "
               f"{CLIP_FRAMES} frames in {calls} vision calls of "
@@ -2059,8 +2188,8 @@ def window_phases(dev, smi, frames, vision):
                     "launches": n, "max_abs_err": e["max_abs"],
                     "ms": e["ms"], "plain_ms": e["plain_ms"],
                     "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": (e["library_ms"] if name.startswith(
-                        "tsm_conv") else None)})
+                    "library_ms": (e["library_ms"] if name != "temporal_shift"
+                                   else None)})
     return out
 
 
@@ -2142,8 +2271,13 @@ def int8_s2_phases(dev, smi, frames, vision, cli_argv):
             fail(f"INT8_S2_BLOCKS plan {plan}")
         qps = vq.quant_params(plan)
         y = stem_s2d(frames, stem_p["w7"], stem_p["s"], stem_p["b"])
+        yb, k4_ms = y, 0.0  # the bf16 chain beside, for K4's yardstick
         for i, (blk, p) in enumerate(zip(vision.blocks(), block_ps)):
             mode = plan[i]
+            if mode == "s2":  # K4 on the same block0 (its float weights)
+                k4_ms += cuda_ms(lambda yb=yb, blk=blk, p=p: blk.run(
+                    yb, p, CLIP_FRAMES, 8))
+            yb = blk.run(yb, p, CLIP_FRAMES, 8)
             if mode is None:
                 y = blk.run(y, p, CLIP_FRAMES, 8)
             elif mode != "s2":
@@ -2179,7 +2313,10 @@ def int8_s2_phases(dev, smi, frames, vision, cli_argv):
                     xb.numel() * xb.element_size()
                     + (c * f + 9 * f * f + f * co + c * co) + mo * co,
                     exact_int=True)
-        del y
+        print(f"# K14a on {plan.count('s2')} block0s: "
+              f"{entries['tsm_bottleneck_s2_planar_int8']['ms']:.3f} ms; K4 "
+              f"on the same blocks {k4_ms:.3f} ms on {smi}", flush=True)
+        del y, yb
 
         # --- the W8A8 vision call with the switch, counted ---
         counted = (stem_s2d, tsm_bottleneck, tsm_bottleneck_s2,
@@ -2233,11 +2370,11 @@ def int8_s2_phases(dev, smi, frames, vision, cli_argv):
     calls = sum(math.ceil(len(r.clip_scores) / SCORE_BATCH)
                 for r in results.values())
     per_call = {"normalize_frames": 1, "stem_frames": 1,
-                "bn_relu_maxpool": 1, "tsm_bottleneck": 3,
+                "bn_relu_maxpool": 0, "tsm_bottleneck": 3,
                 "tsm_bottleneck_s2": 0, "tsm_bottleneck_int8": 10,
                 "tsm_bottleneck_s2_planar_int8": 3}
-    calib = {"normalize_frames": 1, "stem_frames": 1, "bn_relu_maxpool": 1,
-             "tsm_bottleneck": 13, "tsm_bottleneck_s2": 3}
+    calib = {"normalize_frames": 1, "stem_frames": 1, "tsm_bottleneck": 13,
+             "tsm_bottleneck_s2": 3}
     want = {k: v * calls + calib.get(k, 0) for k, v in per_call.items()}
     print(f"# infer_video --int8_vision --pipelined, INT8_S2_BLOCKS on: "
           f"{len(results)} videos, {calls} vision calls (+1 calibration "
@@ -2428,6 +2565,10 @@ def main() -> int:
         generate,
     )
     from video_chapter_generation_tpu_torch.ops import _build
+    from video_chapter_generation_tpu_torch.ops.preprocess import (
+        depth_to_space4,
+        normalize_frames,
+    )
     from video_chapter_generation_tpu_torch.ops.stem import (
         stem_s2d,
         stem_s2d_reference,
@@ -2554,13 +2695,24 @@ def main() -> int:
         return got
 
     n_fr, hs = frames.shape[0], frames.shape[1]
+    # the yardstick runs on the frames normalized ahead (K6's work)
+    stem_lib = library_stem(normalize_frames(depth_to_space4(frames), bf),
+                            stem_p["w7"], stem_p["s"], stem_p["b"])
     y = check("stem_s2d", f"{tuple(frames.shape)} u8",
               lambda: stem_s2d(frames, stem_p["w7"], stem_p["s"],
                                stem_p["b"]),
               lambda: stem_s2d_reference(frames, stem_p["w7"], stem_p["s"],
                                          stem_p["b"]),
               2 * n_fr * 4 * hs * hs * 147 * 64,
-              frames.numel() + 147 * 64 * 2 + n_fr * hs * hs * 64 * 2)
+              frames.numel() + 147 * 64 * 2 + n_fr * hs * hs * 64 * 2,
+              library=stem_lib)
+    del stem_lib
+    try:
+        parts = stem_parts(frames, stem_p["w7"], stem_p["s"], stem_p["b"])
+    except Exception as exc:  # the split is information only
+        parts = f"not measured ({type(exc).__name__}: {exc})"
+    print(f"# K1 device ms a {n_fr}-frame vision call by part: {parts} on "
+          f"{smi}", flush=True)
     layers = [f"layer{k + 1}" for k, n in enumerate(sizes) for _ in range(n)]
     split_runs = []  # (layer, proj, the block's kernel call)
     for i, (blk, p) in enumerate(zip(vision.blocks(), block_ps)):
@@ -2730,5 +2882,133 @@ def main() -> int:
     return 0
 
 
+def time_kernels(root: Path) -> int:
+    """K1, K8, K9 and K14a at the shapes of one 256-frame vision call on the
+    package under root, CUDA events (median of TIMED_RUNS), beside their
+    yardsticks: the stems' cuDNN sequence, the bf16 K2/K3 (K9) and K4
+    (K14a) launches of the same blocks; K9's device time by conv and layer
+    from one torch.profiler trace. Seeded random ResNet-50 weights (the
+    JAX layout carried over) and frames. Prints one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root))
+    import video_chapter_generation_tpu_torch.models.resnet as port_resnet
+    from video_chapter_generation_tpu_torch.models import convert
+    from video_chapter_generation_tpu_torch.models.resnet import (
+        STAGE_SIZES,
+        ResNet,
+    )
+    from video_chapter_generation_tpu_torch.ops import _build
+    from video_chapter_generation_tpu_torch.ops.preprocess import (
+        depth_to_space4,
+        normalize_frames,
+    )
+    from video_chapter_generation_tpu_torch.ops.quantize import (
+        calibrate_resnet_quant,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem import (
+        stem_frames,
+        stem_s2d,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block_int8 import (
+        int8_bottleneck,
+        int8_s2_bottleneck,
+    )
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    t0 = time.time()
+    _build.build_all()
+    built = time.time() - t0
+    sizes = STAGE_SIZES[50]
+    with torch.device("meta"):
+        vision = ResNet(50, n_segment=CLIP_FRAMES, stem_input="s2d", dtype=bf)
+    tree = convert.random_jax_tree(vision, convert.resnet_entries(sizes),
+                                   seed=SEED)
+    vision.load_state_dict(convert.from_jax_resnet(tree, sizes), assign=True)
+    vision.to(dev).eval()
+    with torch.device("meta"):
+        vf = ResNet(50, n_segment=CLIP_FRAMES, stem_input="frames", dtype=bf)
+    vf.load_state_dict(vision.state_dict(), assign=True)
+    vf.eval()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    frames = torch.randint(0, 256, (16 * CLIP_FRAMES, 56, 56, 48),
+                           generator=gen, device=dev, dtype=torch.uint8)
+    x_in = normalize_frames(depth_to_space4(frames), bf).contiguous()
+    stem_p, block_ps = vision.folded_params()
+    sargs = (stem_p["w7"], stem_p["s"], stem_p["b"])
+    out = {"tree": str(root), "device": smi, "build_s": built,
+           "K1": cuda_ms(lambda: stem_s2d(frames, *sargs)),
+           "K8": cuda_ms(lambda: stem_frames(x_in, *sargs)),
+           "stem_cudnn": cuda_ms(library_stem(x_in, *sargs))}
+    try:
+        out["K1_parts"] = stem_parts(frames, *sargs)
+    except Exception as exc:  # information only
+        out["K1_parts"] = f"not measured ({type(exc).__name__}: {exc})"
+
+    # K9: the inference CLI's W8A8 trunk on the frames stem
+    vq = vf.quantized(calibrate_resnet_quant(vf, x_in))
+    plan, qps = vq._quant_plan(None), vq.quant_params()
+    layer_of = [k + 1 for k, nb in enumerate(sizes) for _ in range(nb)]
+    y = yb = stem_frames(x_in, *sargs)
+    k9 = bf16 = 0.0
+    runs = []
+    for i, (blk, p) in enumerate(zip(vf.blocks(), block_ps)):
+        if plan[i] is None:
+            y = yb = blk.run(y, p, CLIP_FRAMES, 8)
+            continue
+        kernel = (lambda y=y, q=qps[i], mode=plan[i]: int8_bottleneck(
+            y, q, CLIP_FRAMES, 8, mode, bf))
+        k9 += cuda_ms(kernel)
+        bf16 += cuda_ms(lambda yb=yb, blk=blk, p=p: blk.run(
+            yb, p, CLIP_FRAMES, 8))
+        runs.append((f"layer{layer_of[i]}", False, kernel))
+        y, yb = kernel(), blk.run(yb, p, CLIP_FRAMES, 8)
+    out.update({"K9": k9, "K9_blocks": len(runs),
+                "K2K3_same_blocks": bf16})
+    try:
+        out["K9_split"] = serving_split(runs, by_name=True)
+    except Exception as exc:  # information only
+        out["K9_split"] = f"not measured ({type(exc).__name__}: {exc})"
+    del runs, vq, qps
+
+    # K14a: the s2d serving trunk with INT8_S2_BLOCKS
+    old = port_resnet.INT8_S2_BLOCKS
+    port_resnet.INT8_S2_BLOCKS = True
+    try:
+        vq = vision.quantized(calibrate_resnet_quant(vision, frames))
+        plan = vq._quant_plan(None, (56, 56))
+        qps = vq.quant_params(plan)
+        y = yb = stem_s2d(frames, *sargs)
+        k14 = k4 = 0.0
+        for i, (blk, p) in enumerate(zip(vision.blocks(), block_ps)):
+            if plan[i] == "s2":
+                k14 += cuda_ms(lambda y=y, q=qps[i]: int8_s2_bottleneck(
+                    y, q, CLIP_FRAMES, 8, "i8"))
+                k4 += cuda_ms(lambda yb=yb, blk=blk, p=p: blk.run(
+                    yb, p, CLIP_FRAMES, 8))
+                y = int8_s2_bottleneck(y, qps[i], CLIP_FRAMES, 8, "i8")
+            elif plan[i] is None:
+                y = blk.run(y, p, CLIP_FRAMES, 8)
+            else:
+                y = int8_bottleneck(y, qps[i], CLIP_FRAMES, 8, plan[i], bf)
+            yb = blk.run(yb, p, CLIP_FRAMES, 8)
+    finally:
+        port_resnet.INT8_S2_BLOCKS = old
+    out.update({"K14a": k14, "K4_same_blocks": k4})
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if "--time-kernels" in sys.argv[1:]:
+        args = sys.argv[1:]
+        sys.exit(time_kernels(Path(args[args.index("--root") + 1]).resolve()
+                              if "--root" in args else ROOT))
     sys.exit(main())

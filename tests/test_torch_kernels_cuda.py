@@ -40,18 +40,31 @@ def _close(got, ref):
     assert cos >= 0.999 and mrel <= 1e-2, (cos, mrel)
 
 
-def test_stem_s2d_kernel(dev):
+# (frames, px): 224 px with many bands of one strip each (2 frames), bands
+# of several strips (16), a whole frame a band (133: a second wave with
+# one frame); 32 and 64 px; 36 px, whose last strip holds one cell row
+STEM_SHAPES = [(2, 224), (16, 224), (133, 224), (5, 32), (64, 64), (3, 36)]
+
+
+@pytest.mark.parametrize("n,px", STEM_SHAPES)
+def test_stem_s2d_kernel(dev, n, px):
+    from video_chapter_generation_tpu_torch.ops.stem import bn_relu_maxpool
+
     g = torch.Generator().manual_seed(0)
-    s4 = torch.randint(0, 256, (4, 56, 56, 48), generator=g,
+    s4 = torch.randint(0, 256, (n, px // 4, px // 4, 48), generator=g,
                        dtype=torch.uint8).to(dev)
     w7 = (torch.randn(7, 7, 3, 64, generator=g) * 0.05).to(dev)
-    s, b = torch.rand(64, generator=g).to(dev) + 0.5, torch.zeros(64,
-                                                                  device=dev)
-    before = stem_s2d.launches
+    s = torch.rand(64, generator=g).to(dev) + 0.5
+    s[::5] *= -1  # negative folded BN scales: the kernel pools them flipped
+    b = (torch.randn(64, generator=g) * 0.1).to(dev)
+    before = (stem_s2d.launches, bn_relu_maxpool.launches)
     got = stem_s2d(s4, w7, s, b)
     torch.cuda.synchronize()
-    assert stem_s2d.launches == before + 1
+    # one launch, the pool fused
+    assert (stem_s2d.launches, bn_relu_maxpool.launches) == (
+        before[0] + 1, before[1])
     _close(got, stem_s2d_reference(s4, w7, s, b))
+    assert torch.equal(got, stem_s2d(s4, w7, s, b))
 
 
 def _bottleneck_args(dev, seed, stride, c, f, cout, hw, proj=None):
@@ -465,7 +478,8 @@ def test_k5_k12_runs_are_bitwise_equal(dev, stride, proj, c, f):
 # they must agree bit for bit; the stem's conv sums in another order.
 
 
-def test_stem_frames_kernel(dev):
+@pytest.mark.parametrize("n,px", STEM_SHAPES)
+def test_stem_frames_kernel(dev, n, px):
     from video_chapter_generation_tpu_torch.ops.stem import (
         bn_relu_maxpool,
         stem_frames,
@@ -473,16 +487,18 @@ def test_stem_frames_kernel(dev):
     )
 
     g = torch.Generator().manual_seed(7)
-    x = torch.randn(4, 64, 64, 3, generator=g).to(dev, torch.bfloat16)
+    x = torch.randn(n, px, px, 3, generator=g).to(dev, torch.bfloat16)
     w7 = (torch.randn(7, 7, 3, 64, generator=g) * 0.05).to(dev)
     s = torch.rand(64, generator=g).to(dev) + 0.5
+    s[::5] *= -1
     b = (torch.randn(64, generator=g) * 0.1).to(dev)
     before = (stem_frames.launches, bn_relu_maxpool.launches)
     got = stem_frames(x, w7, s, b)
     torch.cuda.synchronize()
     assert (stem_frames.launches, bn_relu_maxpool.launches) == (
-        before[0] + 1, before[1] + 1)
-    assert got.shape == (4, 16, 16, 64) and got.dtype == torch.bfloat16
+        before[0] + 1, before[1])
+    assert got.shape == (n, px // 4, px // 4, 64)
+    assert got.dtype == torch.bfloat16
     _close(got, stem_frames_reference(x, w7, s, b))
 
 
@@ -512,17 +528,22 @@ def _int8_block(g, dev, c=512, f=128):
             scales)
 
 
-@pytest.mark.parametrize("x_kind,out_mode", [
-    ("i8", "i8"), ("i8", "bf16"), ("bf16", "i8"), ("bf16", "bf16")])
-def test_tsm_bottleneck_int8_kernel(dev, x_kind, out_mode):
+INT8_KINDS = [("i8", "i8"), ("i8", "bf16"), ("bf16", "i8"), ("bf16", "bf16")]
+
+
+@pytest.mark.parametrize("c,f", [(512, 128), (1024, 256), (2048, 512)])
+@pytest.mark.parametrize("x_kind,out_mode", INT8_KINDS)
+def test_tsm_bottleneck_int8_kernel(dev, x_kind, out_mode, c, f):
+    """The three layer widths (layer 2: fold 64 mixes two frame offsets
+    in a 128-deep stage), both input kinds, both output kinds."""
     from video_chapter_generation_tpu_torch.ops.tsm_block_int8 import (
         int8_bottleneck_reference,
         tsm_bottleneck_int8,
     )
 
     g = torch.Generator().manual_seed(9)
-    t, c = 4, 512
-    args = _int8_block(g, dev, c)
+    t = 4
+    args = _int8_block(g, dev, c, f)
     if x_kind == "i8":
         x = torch.randint(-127, 128, (2 * t, 8, 6, c), generator=g,
                           dtype=torch.int8).to(dev)
@@ -675,18 +696,18 @@ def test_shift_kernel_is_exact(dev, dtype, c):
 # --- K14a: the W8A8 stride-2 block0; K14b: the int8 stem ---
 
 
-@pytest.mark.parametrize("x_kind,out_mode", [
-    ("i8", "i8"), ("i8", "bf16"), ("bf16", "i8"), ("bf16", "bf16")])
-def test_tsm_bottleneck_s2_int8_kernel(dev, x_kind, out_mode):
+@pytest.mark.parametrize("c,f", [(256, 128), (512, 256), (1024, 512)])
+@pytest.mark.parametrize("x_kind,out_mode", INT8_KINDS)
+def test_tsm_bottleneck_s2_int8_kernel(dev, x_kind, out_mode, c, f):
     """Bit for bit the plain version: the same float operations, the int8
-    products exact."""
+    products exact; the three block0 widths."""
     from video_chapter_generation_tpu_torch.ops.tsm_block_int8 import (
         int8_s2_bottleneck_reference,
         tsm_bottleneck_s2_planar_int8,
     )
 
     g = torch.Generator().manual_seed(10)
-    t, c, f = 4, 256, 128
+    t = 4
     mk = lambda *s: (torch.randn(*s, generator=g) * 0.05).to(dev)  # noqa: E731
     aff = lambda n: ((torch.randn(n, generator=g) * 0.1 + 1).to(dev),  # noqa: E731
                      (torch.randn(n, generator=g) * 0.1).to(dev))

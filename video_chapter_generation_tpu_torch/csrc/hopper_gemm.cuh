@@ -252,13 +252,13 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// A tensor map over a row-major bf16 matrix [rows][cols] (16-byte aligned,
-// cols % 8 == 0) whose boxes are box_rows x 64 columns, stored as one
-// 128-byte-swizzled panel (the layout swz() writes); boxes past the
-// matrix are filled with zeros.
-inline cudaError_t tensor_map(CUtensorMap* map, const void* base,
-                              uint64_t rows, uint64_t cols,
-                              uint32_t box_rows) {
+// A tensor map over a row-major matrix [rows][cols] of bf16 (elem 2) or
+// int8 (elem 1) elements (16-byte aligned, cols * elem % 16 == 0) whose
+// boxes are box_rows x 128 bytes, stored as one 128-byte-swizzled panel
+// (the layout swz() writes); boxes past the matrix are filled with zeros.
+inline cudaError_t tensor_map_2d(CUtensorMap* map, const void* base,
+                                 uint64_t rows, uint64_t cols, int elem,
+                                 uint32_t box_rows) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -271,15 +271,24 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* base,
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
   const cuuint64_t dim[2] = {cols, rows};
-  const cuuint64_t stride[1] = {cols * 2};
-  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint64_t stride[1] = {cols * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem), box_rows};
   const cuuint32_t step[2] = {1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dim,
-      stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      2, const_cast<void*>(base), dim, stride, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 [rows][cols] matrix's map: boxes box_rows x 64 columns.
+inline cudaError_t tensor_map(CUtensorMap* map, const void* base,
+                              uint64_t rows, uint64_t cols,
+                              uint32_t box_rows) {
+  return tensor_map_2d(map, base, rows, cols, 2, box_rows);
 }
 
 // Issuing a TMA box costs its thread a few hundred cycles, so a stage's
@@ -345,6 +354,79 @@ __device__ __forceinline__ void mma_issue(const uint8_t* a, const uint8_t* b,
 // Wait until at most N committed products are in flight.
 template <int N, int R>
 __device__ __forceinline__ void mma_wait(float (&acc)[R]) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+  fence_acc(acc);
+}
+
+// ---------------------------------------------------------------------------
+// int8: wgmma m64nBNk32 s32.s8.s8. For 8-bit operands wgmma takes no
+// transpose bit, so both A and B are K-major: a panel row is 128 int8 k
+// (the same 128-byte rows and swizzle as a bf16 panel's 64 k), and a stage
+// of kIBK = 128 k is four k32 products. The s32 accumulators lie as the
+// f32 ones do (acc[4 j + e]: rows r, r + 8 at columns 8 j + 2 (lane % 4)).
+// ---------------------------------------------------------------------------
+
+constexpr int kIBK = 128;  // int8 reduction depth of a stage (one panel row)
+
+__device__ __forceinline__ void wgmma_s8_m64n128(int (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The product of one int8 stage: four k32 wgmmas per warpgroup into acc,
+// committed as one group; a: K-major [128 rows][128 k], b: K-major
+// [128 n][128 k].
+__device__ __forceinline__ void mma_issue_s8(const uint8_t* a,
+                                             const uint8_t* b,
+                                             int (&acc)[64]) {
+  const uint32_t a0 = smem_addr(a) + (threadIdx.x >> 7) * 64 * 128;
+  const uint32_t b0 = smem_addr(b);
+  fence_acc(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < kIBK / 32; ++kk)
+    wgmma_s8_m64n128(acc, desc(a0 + kk * 32, 16, 1024),
+                     desc(b0 + kk * 32, 16, 1024));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  fence_acc(acc);
+}
+
+template <int N, int R>
+__device__ __forceinline__ void mma_wait(int (&acc)[R]) {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
   fence_acc(acc);
 }
@@ -618,6 +700,38 @@ inline cudaError_t allow_smem(int bytes) {
                              bytes);
     if (e == cudaSuccess) done = dev;
   }
+  return e;
+}
+
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return e;
+}
+
+// The blocks of kernel K the card holds at once at smem bytes of dynamic
+// shared memory each, found on the first launch on a device (the
+// attribute and the occupancy query cost host time).
+template <auto K>
+inline cudaError_t resident(int smem, int* blocks) {
+  static int known_dev = -1, held = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev != known_dev) {
+    int sms = 0, per_sm = 0;
+    e = allow_smem<K>(smem);
+    if (e == cudaSuccess) e = sm_count(&sms);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K, kThreads,
+                                                        smem);
+    if (e == cudaSuccess) {
+      held = per_sm * sms;
+      known_dev = dev;
+    }
+  }
+  *blocks = held;
   return e;
 }
 

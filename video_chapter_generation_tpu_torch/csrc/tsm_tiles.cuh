@@ -378,38 +378,6 @@ inline int conv_bn(int m, int nout, int sms, bool res) {
   return 64;
 }
 
-inline cudaError_t sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return e;
-}
-
-// The blocks of kernel K the card holds at once at smem bytes of dynamic
-// shared memory each, found on the first launch on a device (the
-// attribute and the occupancy query cost host time).
-template <auto K>
-inline cudaError_t resident(int smem, int* blocks) {
-  static int known_dev = -1, held = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess && dev != known_dev) {
-    int sms = 0, per_sm = 0;
-    e = allow_smem<K>(smem);
-    if (e == cudaSuccess) e = sm_count(&sms);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K, kThreads,
-                                                        smem);
-    if (e == cudaSuccess) {
-      held = per_sm * sms;
-      known_dev = dev;
-    }
-  }
-  *blocks = held;
-  return e;
-}
-
 // A ShiftSrc over x [n*h*w][c] for out [.][f] (tensor maps set by the caller).
 template <int BN>
 __host__ __device__ ShiftSrc<BN> shift_src(const bf16* x, int m, int plane,

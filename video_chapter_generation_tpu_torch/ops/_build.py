@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
@@ -47,22 +47,24 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256()
     h.update((SRC_DIR / f"{name}.cu").read_bytes())
     for hdr in sorted(SRC_DIR.glob("*.cuh")):
         h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + [f"-D{d}" for d in defines]).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: List[str] = None) -> Dict[str, Path]:
+def build_all(names: List[str] = None,
+              defines: Tuple[str, ...] = ()) -> Dict[str, Path]:
     """Compile every source that has no up-to-date library yet, one nvcc
-    per source, all started together. Returns name -> library path;
+    per source, all started together (defines: extra -D macros, for the
+    timing builds of a kernel's parts). Returns name -> library path;
     raises with nvcc's output if any compile fails."""
     names = sources() if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = {n: _lib_path(n) for n in names}
+    out = {n: _lib_path(n, defines) for n in names}
     todo = [n for n in names if not out[n].exists()]
     if not todo:
         return out
@@ -70,7 +72,8 @@ def build_all(names: List[str] = None) -> Dict[str, Path]:
     procs = {}
     for n in todo:
         tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *[f"-D{d}" for d in defines], "-o",
+               str(tmp), str(SRC_DIR / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT))
     errors = []

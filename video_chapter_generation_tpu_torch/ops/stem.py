@@ -2,11 +2,13 @@
 
 - `stem_s2d` replaces the JAX package's ops/stem_pallas.py:stem_s2d_pallas
   (K1): uint8 4x4 space-to-depth frames -> normalize, 7x7/2 conv, folded
-  BN, ReLU, 3x3/2 max pool. Its conv launch rounds the conv output to
-  bf16, and the pool launch of `bn_relu_maxpool` applies BN and ReLU;
+  BN, ReLU, 3x3/2 max pool, one kernel launch: the phase-packed product of
+  the TPU kernel ([cells, 432] x [432, 256], `stem_weight_im2col`) on the
+  wgmma mainloop, the pool in its epilogue over strips of 2 cell rows
+  (tests/test_torch_stem_phase.py holds the same decomposition in plain
+  torch to the plain version);
 - `stem_frames` replaces stem_pallas.py:stem_conv_bn_pool_pallas (K8):
-  the same stem on normalized NHWC frames. Its conv launch rounds the
-  conv output to bf16 and hands it to `bn_relu_maxpool`;
+  the same kernel on normalized NHWC frames, read as their 4x4 cells;
 - `bn_relu_maxpool` replaces stem_pallas.py:bn_relu_maxpool_pallas (K8):
   folded BN + ReLU + 3x3/2 max pool (pad 1) on any NHWC activation;
 - `stem_s2d_int8` replaces stem_pallas.py:stem_s2d_int8_pallas (K14b):
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -83,8 +86,11 @@ def stem_frames_reference(frames: torch.Tensor, w7: torch.Tensor,
     return _conv_stem(frames, w7, scale.float(), bias.float())
 
 
-_ARGS = {"vcg_stem_s2d": (9, 3), "vcg_stem_frames_conv": (5, 3),
+_ARGS = {"vcg_stem_s2d": (6, 4), "vcg_stem_frames": (5, 4),
          "vcg_bn_relu_maxpool": (4, 4), "vcg_stem_s2d_int8": (8, 3)}
+
+# the kernel's strips hold 2 cell rows of a frame in a 128-row tile
+STEM_MAX_CELLS = 64
 
 
 def _lib(name: str):
@@ -98,14 +104,66 @@ def _lib(name: str):
     return fn
 
 
-def _stem_weight(w7: torch.Tensor, dev: torch.device) -> torch.Tensor:
-    """HWIO [7, 7, 3, 64] -> bf16 [160, 64], K rows ordered (kh, kw, c) and
-    zero-padded 147 -> 160."""
+def stem_bands(n: int, hs: int, sms: int) -> int:
+    """Bands a frame for the stem kernel's persistent walk over n frames of
+    hs cell rows on sms blocks (one an SM): a band is a run of strips (2
+    cell rows each), and one that starts below the frame's top recomputes
+    the strip above it. The count minimizes the most strips a block walks,
+    ceil(n * bands / sms) * (ceil(strips / bands) + [bands > 1])."""
+    strips = (hs + 1) // 2
+    best = None
+    for bands in range(1, strips + 1):
+        walk = -(-n * bands // sms) * (-(-strips // bands) + (bands > 1))
+        if best is None or walk < best[0]:
+            best = (walk, bands)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _phase_weight(w7: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """HWIO [7, 7, 3, 64] -> the kernel's bf16 [448, 256]: the phase-packed
+    im2col weight, K zero-padded 432 -> 448 (seven 64-deep stages). Kept
+    for the last w7 seen (the same tensor at the same version: a model's
+    folded weight), since making it costs a host copy and a few launches,
+    which a call would otherwise pay each time."""
     if tuple(w7.shape) != (7, 7, 3, 64):
         raise ValueError(f"w7 must be [7,7,3,64], got {tuple(w7.shape)}")
-    wk = torch.zeros(160, 64, dtype=torch.bfloat16, device=dev)
-    wk[:147] = w7.reshape(147, 64).to(device=dev, dtype=torch.bfloat16)
+    key = (w7._version, w7.dtype, dev)
+    last = _phase_weight.last
+    if last is not None and last[0]() is w7 and last[1] == key:
+        return last[2]
+    wk = torch.zeros(448, 256, dtype=torch.bfloat16, device=dev)
+    wk[:432] = stem_weight_im2col(w7.to(dev)).to(torch.bfloat16)
+    _phase_weight.last = (weakref.ref(w7), key, wk)
     return wk
+
+
+_phase_weight.last = None
+
+
+def _launch(entry: str, x: torch.Tensor, w7, scale, bias, hs: int,
+            ws: int, *extra) -> torch.Tensor:
+    """One launch of the stem kernel over n frames of hs x ws cells."""
+    n, dev = x.shape[0], x.device
+    if ws > STEM_MAX_CELLS:
+        raise ValueError(f"the stem kernel takes frames up to "
+                         f"{4 * STEM_MAX_CELLS} px wide, got {4 * ws}")
+    wk = _phase_weight(w7, dev)
+    scale = scale.to(device=dev, dtype=torch.float32).contiguous()
+    bias = bias.to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.empty(n, hs, ws, 64, dtype=torch.bfloat16, device=dev)
+    bands = stem_bands(n, hs, _sm_count(dev.index if dev.index is not None
+                                        else torch.cuda.current_device()))
+    rc = _lib(entry)(x.data_ptr(), wk.data_ptr(), scale.data_ptr(),
+                     bias.data_ptr(), *extra, out.data_ptr(), n, hs, ws,
+                     bands, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def stem_s2d(s4: torch.Tensor, w7: torch.Tensor, scale: torch.Tensor,
@@ -113,63 +171,45 @@ def stem_s2d(s4: torch.Tensor, w7: torch.Tensor, scale: torch.Tensor,
              out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Fused stem, s4 [N, h, w, 48] uint8 raw pixels -> [N, h, w, 64].
 
-    w7 [7, 7, 3, 64] (HWIO); scale/bias [64] the inference-folded BN."""
+    w7 [7, 7, 3, 64] (HWIO); scale/bias [64] the inference-folded BN.
+    On a CUDA tensor one launch (w <= 64 cells), counted in
+    stem_s2d.launches."""
     if s4.device.type == "cpu":
         return stem_s2d_reference(s4, w7, scale, bias, out_dtype)
     if s4.device.type != "cuda":
         raise NotImplementedError(f"stem_s2d on {s4.device}")
     n, h, w, c48 = s4.shape
-    if s4.dtype != torch.uint8 or c48 != 48 or not s4.is_contiguous():
-        raise ValueError(f"stem_s2d takes contiguous uint8 [N,h,w,48], got "
-                         f"{s4.dtype} {tuple(s4.shape)}")
+    if (s4.dtype != torch.uint8 or c48 != 48 or not s4.is_contiguous()
+            or s4.data_ptr() % 16):
+        raise ValueError(f"stem_s2d takes contiguous, 16-byte aligned uint8 "
+                         f"[N,h,w,48], got {s4.dtype} {tuple(s4.shape)}")
     if out_dtype != torch.bfloat16:
         raise ValueError("the stem kernel emits bfloat16")
-    dev = s4.device
-    wk = _stem_weight(w7, dev)
-    scale = scale.to(device=dev, dtype=torch.float32).contiguous()
-    bias = bias.to(device=dev, dtype=torch.float32).contiguous()
-    norm = norm_consts(dev)
-    one, zero = identity_affine(dev)
-    conv = torch.empty(n, 2 * h, 2 * w, 64, dtype=torch.bfloat16, device=dev)
-    out = torch.empty(n, h, w, 64, dtype=torch.bfloat16, device=dev)
-    fn = _lib("vcg_stem_s2d")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(s4.data_ptr(), wk.data_ptr(), one.data_ptr(), zero.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), norm.data_ptr(),
-            conv.data_ptr(), out.data_ptr(), n, h, w, stream)
+    out = _launch("vcg_stem_s2d", s4, w7, scale, bias, h, w,
+                  norm_consts(s4.device).data_ptr())
     stem_s2d.launches += 1
-    if rc != 0:
-        raise RuntimeError(f"stem_s2d kernel launch failed: CUDA error {rc}")
     return out
 
 
 def stem_frames(x: torch.Tensor, w7: torch.Tensor, scale: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
     """Fused stem on normalized NHWC frames x [N, H, W, 3] (H == W,
-    H % 4 == 0) -> [N, H/4, W/4, 64] in x's dtype (the kernel takes bf16).
-    w7 [7, 7, 3, 64] (HWIO); scale/bias [64] the inference-folded BN."""
+    H % 4 == 0) -> [N, H/4, W/4, 64] in x's dtype (the kernel takes bf16,
+    W <= 256). w7 [7, 7, 3, 64] (HWIO); scale/bias [64] the
+    inference-folded BN. On a CUDA tensor one launch, counted in
+    stem_frames.launches."""
     if x.device.type == "cpu":
         return stem_frames_reference(x, w7, scale, bias)
     if x.device.type != "cuda":
         raise NotImplementedError(f"stem_frames on {x.device}")
     n, h, w, c = x.shape
     if (x.dtype != torch.bfloat16 or c != 3 or h != w or h % 4
-            or not x.is_contiguous()):
+            or not x.is_contiguous() or x.data_ptr() % 8):
         raise ValueError(f"stem_frames takes contiguous bf16 [N,H,H,3] with "
                          f"H % 4 == 0, got {x.dtype} {tuple(x.shape)}")
-    dev = x.device
-    wk = _stem_weight(w7, dev)
-    one, zero = identity_affine(dev)
-    conv = torch.empty(n, h // 2, w // 2, 64, dtype=torch.bfloat16,
-                       device=dev)
-    rc = _lib("vcg_stem_frames_conv")(
-        x.data_ptr(), wk.data_ptr(), one.data_ptr(), zero.data_ptr(),
-        conv.data_ptr(), n, h, w, torch.cuda.current_stream(dev).cuda_stream)
+    out = _launch("vcg_stem_frames", x, w7, scale, bias, h // 4, w // 4)
     stem_frames.launches += 1
-    if rc != 0:
-        raise RuntimeError(f"stem_frames kernel launch failed: CUDA error "
-                           f"{rc}")
-    return bn_relu_maxpool(conv, scale, bias)
+    return out
 
 
 def bn_relu_maxpool(x: torch.Tensor, scale: torch.Tensor,

@@ -179,10 +179,22 @@ def int8_bottleneck_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3,
 def _lib():
     fn = _build.load("tsm_bottleneck_int8").vcg_tsm_bottleneck_int8
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_float] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_float] * 4
                        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _xq_scratch(x: torch.Tensor):
+    """The kernels' int8 copy of a bf16 input (quantized by their first
+    launch), or None for an int8 input, which they read as it is."""
+    if x.dtype == torch.int8:
+        return None
+    return torch.empty(x.shape, dtype=torch.int8, device=x.device)
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def tsm_bottleneck_int8(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, act_scales,
@@ -241,9 +253,11 @@ def int8_bottleneck(x, q: QuantBottleneck, n_segment: int, n_div: int = 8,
     y2q = torch.empty(m, f, dtype=torch.int8, device=dev)
     out = torch.empty(nt, h, w, c, device=dev,
                       dtype=torch.int8 if out_mode == "i8" else torch.bfloat16)
+    xq = _xq_scratch(x)
     sx, sz, sy2, sout = q.scalars
     rc = _lib()(
-        x.data_ptr(), q.w1t.data_ptr(), q.w2t.data_ptr(), q.w3t.data_ptr(),
+        x.data_ptr(), _ptr(xq), q.w1t.data_ptr(), q.w2t.data_ptr(),
+        q.w3t.data_ptr(),
         q.a1.data_ptr(), q.b1.data_ptr(), q.a2.data_ptr(), q.b2.data_ptr(),
         q.a3.data_ptr(), q.b3.data_ptr(), y1q.data_ptr(), y2q.data_ptr(),
         out.data_ptr(), sx, sz, sy2, sout, nt, h, w, c, f, n_segment, fold,
@@ -326,7 +340,7 @@ def int8_s2_bottleneck_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, wp,
 def _s2_lib():
     fn = _build.load("tsm_bottleneck_int8").vcg_tsm_bottleneck_s2_int8
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_float] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_float] * 4
                        + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -378,7 +392,7 @@ def int8_s2_bottleneck(x, q: QuantS2Bottleneck, n_segment: int,
     if out_mode == "bf16" and out_dtype != torch.bfloat16:
         raise ValueError("the int8 kernel emits int8 or bfloat16")
     fold = c // n_div
-    if (c % 64 or f % 128 or cout % 128 or q.w1q.shape[0] != c or fold % 16
+    if (c % 128 or f % 128 or cout % 128 or q.w1q.shape[0] != c or fold % 16
             or n_segment <= 0 or nt % n_segment):
         raise ValueError(f"unsupported widths C={c} F={f} Cout={cout} "
                          f"fold={fold} N*T={nt} T={n_segment}")
@@ -392,8 +406,10 @@ def int8_s2_bottleneck(x, q: QuantS2Bottleneck, n_segment: int,
     out = torch.empty(nt, ho, wo, cout, device=dev,
                       dtype=torch.int8 if out_mode == "i8" else torch.bfloat16)
     sx, sz, sy2, sout = q.scalars
+    xq = _xq_scratch(x)
     rc = _s2_lib()(
-        x.data_ptr(), q.w1t.data_ptr(), q.w2t.data_ptr(), q.w3t.data_ptr(),
+        x.data_ptr(), _ptr(xq), q.w1t.data_ptr(), q.w2t.data_ptr(),
+        q.w3t.data_ptr(),
         q.wpt.data_ptr(), q.a1.data_ptr(), q.b1.data_ptr(), q.a2.data_ptr(),
         q.b2.data_ptr(), q.a3.data_ptr(), q.b3.data_ptr(), q.ap.data_ptr(),
         q.bp.data_ptr(), y1q.data_ptr(), y2q.data_ptr(), out.data_ptr(), sx,
