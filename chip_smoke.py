@@ -56,10 +56,13 @@
    8, L 3072, H 16, hd 64, bs 64, 3 random blocks; q, k and v of encoder
    layer 0 on ids whose rows are valid for 300..3072 tokens), timing
    kernel, plain version, the library yardstick (SDPA with the
-   equivalent float mask) and the bound; holds the whole block-sparse
-   attention on the card to its float32 form on the CPU for two rows;
-   checks 16 K10 launches per encode and greedy-generates 30 tokens at
-   batch 8 from 3072-token inputs; runs cli/infer_video.main with
+   equivalent float mask) and the bound, and two runs bit for bit (the
+   serving shape takes the wgmma kernel); holds K10's mma.sync kernel,
+   which every other accepted shape takes, the same way on the same q, k
+   and v in bs-32 tables; holds the whole block-sparse attention on the
+   card to its float32 form on the CPU for two rows; checks 16 K10
+   launches per encode, none of them mma.sync, and greedy-generates 30
+   tokens at batch 8 from 3072-token inputs; runs cli/infer_video.main with
    --title_arch bigbird data.title_input_len=3072 --pipelined from the
    checkpoint of phase 5, checking 16 K10 launches per title batch and a
    title per chapter; then one greedy generate of BART-large.
@@ -68,7 +71,9 @@
    K13 trunk's links and recomputation of p) against its plain PyTorch
    version at every shape of one full-width step (8 clips x 16 frames =
    128 frames at 224 px, bf16), with the forward output, the batch
-   statistics and every gradient compared and both timed; holds each
+   statistics and every gradient compared and both timed (K11 also
+   beside its cuDNN sequence through autograd, and two of its runs bit
+   for bit); holds each
    link bit for bit to what the per-block chain computes there, and the
    trunk Function's forward bit for bit to the chain of per-block
    Functions, its gradients in the bands, two of its runs bit for bit,
@@ -138,8 +143,11 @@ not beside it.
 
 times K1, K8, K9 and K14a alone (and their yardsticks: cuDNN for the
 stems, the bf16 K2/K3 and K4 launches of the same blocks) at the shapes of
-one 256-frame vision call, on the package of CHECKOUT (default: beside
-this script), seeded random weights and frames; one JSON line. Two trees
+one 256-frame vision call, K11's two entries at one training step's
+shape (beside its cuDNN sequence through autograd, and split by pass)
+and K10 at the BigBird-Pegasus serving shape (beside SDPA with its float
+mask), on the package of CHECKOUT (default: beside this script), seeded
+random weights, frames and attention inputs; one JSON line. Two trees
 are compared within one call by running it on each in turns.
 """
 
@@ -353,6 +361,113 @@ def library_stem(frames, w7, scale, bias):
     return run
 
 
+def library_stem_train(frames, w7, gamma, beta, dy):
+    """K11's yardstick, a library sequence and never a route: cuDNN
+    F.conv2d (7x7/2, pad 3) in channels_last bf16, F.batch_norm in
+    training mode (batch statistics, float32 affine), ReLU and
+    F.max_pool2d, through torch autograd. Returns (forward, backward),
+    functions of no arguments: the forward builds the graph of a step,
+    the backward runs the gradient of dy [N, h, w, 64] through one graph
+    made ahead (weight, gamma, beta)."""
+    import torch
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    x = frames.to(bf).permute(0, 3, 1, 2)  # NHWC memory: channels_last
+    k = w7.permute(3, 2, 0, 1).to(bf).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    g = gamma.float().clone().requires_grad_()
+    b = beta.float().clone().requires_grad_()
+    grad = dy.to(bf).permute(0, 3, 1, 2)
+
+    def forward():
+        y = F.conv2d(x, k, stride=2, padding=3)
+        y = F.batch_norm(y, None, None, g, b, training=True, eps=1e-5)
+        return F.max_pool2d(torch.relu(y), 3, stride=2, padding=1)
+
+    made = forward()
+
+    def backward():
+        return torch.autograd.grad(made, [k, g, b], grad, retain_graph=True)
+
+    return forward, backward
+
+
+def sdpa_yardstick(q_mid, k, v, mask, tabs, bs):
+    """K10's library yardstick, never a route: SDPA with a float mask, -inf
+    outside each query block's attended key blocks and -10000 on attended
+    padded keys (the same function while no random block collides with
+    the window, which _random_block_map guarantees). Returns (a function
+    of no arguments giving [B, H, nbq * bs, hd], the mask)."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = k.device
+    ids_t, valid_t = tabs
+    nbq, nb = ids_t.shape[0], k.shape[1] // bs
+    blk = torch.zeros(nbq, nb, dtype=torch.bool, device=dev)
+    on = valid_t.bool()
+    blk[torch.arange(nbq, device=dev)[:, None].expand_as(ids_t)[on],
+        ids_t.long()[on]] = True
+    blk = blk.repeat_interleave(bs, 0).repeat_interleave(bs, 1)
+    pen = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
+    lib_mask = torch.where(blk[None, None], pen, float("-inf")).to(k.dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q_mid, k, v))
+    return (lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=lib_mask),
+            lib_mask)
+
+
+def traced_segments(fns):
+    """The device kernel events of each of fns, from one torch.profiler
+    trace of the fns run twice in order, the second pass read (a trace can
+    miss its first launches); a fill kernel after each fn marks where its
+    launches end. One list of events a fn, or fewer lists when the trace
+    lost a mark."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sep = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            for fn in fns:
+                fn()
+                sep.zero_()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    segs, cur = [], []
+    for e in kern:
+        if "FillFunctor" in e.name:
+            segs.append(cur)
+            cur = []
+        else:
+            cur.append(e)
+    return segs[-len(fns):] if len(segs) >= len(fns) else segs
+
+
+def pass_split(runs):
+    """Device ms of each kernel of each run [(label, fn)] (traced_segments).
+    Information only; returns a printable string."""
+    segs = traced_segments([fn for _, fn in runs])
+    if len(segs) < len(runs):
+        return f"not measured: {len(segs)} runs traced for {len(runs)}"
+
+    def short(name):
+        name = name.replace("(anonymous namespace)::", "")
+        return name.split("(")[0].split("<")[0].split("::")[-1]
+
+    parts = []
+    for seg, (label, _) in zip(segs, runs):
+        ms = [(short(e.name), e.time_range.elapsed_us() / 1e3) for e in seg]
+        parts.append(f"{label} " + ", ".join(f"{k} {v:.3f}" for k, v in ms)
+                     + f" (sum {sum(v for _, v in ms):.3f})")
+    return "; ".join(parts)
+
+
 def stem_parts(frames, w7, scale, bias):
     """K1's device time by part, from timing builds of csrc/stem_s2d.cu
     that leave one part out (VCG_STEM_SKIP: 1 the products, 2 the A-panel
@@ -401,43 +516,18 @@ def stem_parts(frames, w7, scale, bias):
 
 def serving_split(runs, by_name=False):
     """Device ms of the bottleneck launches of a vision call by conv and
-    layer, from one torch.profiler trace over runs [(layer, proj, fn)],
-    one call of each block in call order; information only. A fill kernel
-    after each block marks where its launches end; within a block they are
+    layer, from traced_segments over runs [(layer, proj, fn)], one call of
+    each block in call order; information only. Within a block they are
     conv1 (K5), [proj], conv2, conv3, or conv3+proj where conv3's tile
     runs the projection too (a kernel named pair_kernel), and a first
     launch that runs conv1 and the projection together (the earlier WMMA
     design, for comparing trees) is labelled conv1+proj. by_name (the W8A8
     blocks): each launch is labelled by its kernel's name (quantize,
     conv1, conv2, conv3)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    sep = torch.zeros(1, device="cuda")
-    torch.cuda.synchronize()
-    # the runs twice, the second pass read: a trace can miss its first
-    # launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            for _, _, fn in runs:
-                fn()
-                sep.zero_()
-        torch.cuda.synchronize()
-    kern = sorted((e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA),
-                  key=lambda e: e.time_range.start)
-    segs, cur = [], []
-    for e in kern:
-        if "FillFunctor" in e.name:
-            segs.append(cur)
-            cur = []
-        else:
-            cur.append(e)
+    segs = traced_segments([fn for _, _, fn in runs])
     if len(segs) < len(runs):
         return (f"not measured: {len(segs)} runs of kernels traced for "
                 f"{len(runs)} blocks")
-    segs = segs[-len(runs):]
     table, whole = {}, {}
     for seg, (layer, proj, _) in zip(segs, runs):
         if by_name:
@@ -875,8 +965,13 @@ def training_phases(dev, smi, frames, vision):
     # --- K11: the training stem ---
     stem_w = [vision.conv1.weight.permute(2, 3, 1, 0), vision.bn1.weight,
               vision.bn1.bias]
-    pk = leaves(stem_w)
-    y, mu, var = _StemTrain.apply(x0, *pk, 1e-5)
+
+    def stem_run():
+        pk = leaves(stem_w)
+        y, mu, var = _StemTrain.apply(x0, *pk, 1e-5)
+        return y, mu, var, pk
+
+    y, mu, var, pk = stem_run()
     dy = torch.randn(y.shape, generator=gen, device=dev).to(bf)
     gk = grad_of(y, pk, dy)
     frames_n = normalize_frames(depth_to_space4(x0), bf)
@@ -887,6 +982,15 @@ def training_phases(dev, smi, frames, vision):
     w_out = held("stem_s2d_train_fwd", "stem", [(y, yr), (mu, mur),
                                                (var, varr)])
     w_grad = held("stem_s2d_train_bwd", "stem", list(zip(gk, gr)), True)
+    # no float atomics: a second run agrees bit for bit
+    y2, mu2, var2, pk2 = stem_run()
+    gk2 = grad_of(y2, pk2, dy)
+    same = (torch.equal(y, y2) and torch.equal(mu, mu2)
+            and torch.equal(var, var2)
+            and all(torch.equal(a, b) for a, b in zip(gk, gk2)))
+    if not same:
+        fail("two runs of the training stem differ")
+    del y2, mu2, var2, pk2, gk2
     gb = torch.cat([vision.bn1.weight, vision.bn1.bias]).float().detach()
     wk = _stem_weight(pk[0].detach())
     kf = cuda_ms(lambda: stem_train_fwd(x0, wk, gb, 1e-5))
@@ -894,6 +998,11 @@ def training_phases(dev, smi, frames, vision):
     out, yc, st_, vec = stem_train_fwd(x0, wk, gb, 1e-5)
     kb = cuda_ms(lambda: stem_train_bwd(dy, out, yc, x0, gb, st_, vec, 1e-5))
     pb = cuda_ms(lambda: grad_of(yr, pp, dy))
+    lib_f, lib_b = library_stem_train(frames_n, *[p.detach() for p in pk],
+                                      dy)
+    lf, lb = cuda_ms(lib_f), cuda_ms(lib_b)
+    entries["stem_s2d_train_fwd"]["library_ms"] = lf
+    entries["stem_s2d_train_bwd"]["library_ms"] = lb
     n, hs = x0.shape[0], x0.shape[1]
     m_conv = n * 4 * hs * hs
     flops = 2 * m_conv * 147 * 64
@@ -904,9 +1013,11 @@ def training_phases(dev, smi, frames, vision):
             + 147 * 64 * 4 + 128 * 4)
     print(f"# {'stem_s2d_train':18s} {str(tuple(x0.shape)) + ' u8':44s} "
           f"out/stats cos {w_out[2]:.6f} mean_rel {w_out[1]:.3g} | grads "
-          f"cos {w_grad[2]:.6f} mean_rel {w_grad[1]:.3g} | fwd kernel "
-          f"{kf:.3f} ms plain {pf:.3f} | bwd kernel {kb:.3f} ms plain "
-          f"{pb:.3f}", flush=True)
+          f"cos {w_grad[2]:.6f} mean_rel {w_grad[1]:.3g} | two runs bit "
+          f"for bit | fwd kernel {kf:.3f} ms plain {pf:.3f} cuDNN sequence "
+          f"{lf:.3f} | bwd kernel {kb:.3f} ms plain {pb:.3f} cuDNN sequence "
+          f"{lb:.3f}", flush=True)
+    del out, yc
     x = y.detach()
 
     # --- K12: every bottleneck of the trunk, each fed the kernel output;
@@ -1219,7 +1330,7 @@ def training_phases(dev, smi, frames, vision):
                     "launches": launches[name],
                     "max_abs_err": e["max_abs"], "ms": e["ms"],
                     "plain_ms": e["plain_ms"], "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": None})
+                    "bound_by": b_by, "library_ms": e.get("library_ms")})
     return out
 
 
@@ -1569,12 +1680,12 @@ def bigbird_phases(dev, smi, cli_argv):
     """K10 against its plain version at the BigBird-Pegasus serving shape,
     greedy titles of the full-width BigBird model, cli/infer_video
     --title_arch bigbird at 3072 tokens, and one BART-large generate.
-    Returns K10's JSON entry."""
+    Returns K10's JSON entries: the wgmma kernel's and the mma.sync
+    kernel's."""
     import os
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from video_chapter_generation_tpu_torch.cli import infer_video
     from video_chapter_generation_tpu_torch.models import convert
@@ -1659,23 +1770,10 @@ def bigbird_phases(dev, smi, cli_argv):
     got, ref = run(), plain()
     torch.cuda.synchronize()
     max_abs, mean_rel, cos = compare(got, ref)
-    # the library yardstick: SDPA with a float mask, -inf outside each
-    # query block's attended key blocks and -10000 on attended padded keys
-    # (the same function while no random block collides with the window,
-    # which _random_block_map guarantees)
-    ids_t, valid_t = tabs
-    nbq = nb - 2
-    blk = torch.zeros(nbq, nb, dtype=torch.bool, device=dev)
-    on = valid_t.bool()
-    blk[torch.arange(nbq, device=dev)[:, None].expand_as(ids_t)[on],
-        ids_t.long()[on]] = True
-    blk = blk.repeat_interleave(bs, 0).repeat_interleave(bs, 1)
-    pen = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
-    lib_mask = torch.where(blk[None, None], pen, float("-inf")).to(bf)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q_mid, k, v))
-    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, attn_mask=lib_mask)
+    library, lib_mask = sdpa_yardstick(q_mid, k, v, mask, tabs, bs)
     lib_err = compare(library().transpose(1, 2), ref)
+    ids_t = tabs[0]
+    nbq = nb - 2
     k_ms, p_ms, lib_ms = cuda_ms(run), cuda_ms(plain), cuda_ms(library)
     n_parts = ids_t.shape[1]
     flops = 4 * b * h * nbq * bs * (n_parts * bs) * hd
@@ -1690,7 +1788,47 @@ def bigbird_phases(dev, smi, cli_argv):
           f"{smi}", flush=True)
     if not (cos >= KERNEL_MIN_COS and mean_rel <= KERNEL_MAX_MEAN_REL):
         fail("sparse_band_attention disagrees with its plain version")
-    del lib_mask, blk
+    # no float atomics: a second run agrees bit for bit
+    first = got.clone()
+    if not torch.equal(first, run()):
+        fail("two runs of sparse_band_attention differ")
+    print(f"# {'sparse_band_attn':18s} two runs bit for bit", flush=True)
+    del lib_mask, first, library
+
+    # --- K10's mma.sync kernel, which every other accepted shape runs (no
+    # model configuration sends one): the same q, k, v in bs-32 tables ---
+    bs2 = 32
+    tabs2 = _tables(l // bs2, cfg.num_rand_blocks, 0, None, dev)
+    q_mid2, out2 = q[:, bs2:l - bs2], torch.empty_like(q)
+    run2 = lambda: sparse_band_attention(  # noqa: E731
+        q_mid2, k, v, mask, *tabs2, bs2, out2)
+    plain2 = lambda: sparse_band_attention_reference(  # noqa: E731
+        q_mid2, k, v, mask, *tabs2, bs2)
+    mma0 = sparse_band_attention.mma_sync_launches
+    got2, ref2 = run2(), plain2()
+    torch.cuda.synchronize()
+    if sparse_band_attention.mma_sync_launches != mma0 + 1:
+        fail("sparse_band_attention at bs 32 did not run the mma.sync kernel")
+    m_abs, m_rel, m_cos = compare(got2, ref2)
+    library2, lib_mask2 = sdpa_yardstick(q_mid2, k, v, mask, tabs2, bs2)
+    m_ms, m_pms, m_lms = cuda_ms(run2), cuda_ms(plain2), cuda_ms(library2)
+    nbq2, p2 = tabs2[0].shape
+    m_bms, m_bby = bound(4 * b * h * nbq2 * bs2 * (p2 * bs2) * hd,
+                         2 * (2 * q_mid2.numel() + k.numel() + v.numel())
+                         + 4 * mask.numel())
+    print(f"# {'sparse_band_mma':18s} q_mid {tuple(q_mid2.shape)} bs {bs2} "
+          f"P {p2} bf16 (mma.sync kernel): max_abs {m_abs:.4g} mean_rel "
+          f"{m_rel:.3g} cos {m_cos:.6f} | kernel {m_ms:.3f} ms plain "
+          f"{m_pms:.3f} ms library (SDPA, float mask) {m_lms:.3f} ms bound "
+          f"{m_bms:.3f} ms ({m_bby}) on {smi}", flush=True)
+    if not (m_cos >= KERNEL_MIN_COS and m_rel <= KERNEL_MAX_MEAN_REL):
+        fail("sparse_band_attention's mma.sync kernel disagrees with its "
+             "plain version")
+    first = got2.clone()
+    if not torch.equal(first, run2()):
+        fail("two runs of sparse_band_attention's mma.sync kernel differ")
+    print(f"# {'sparse_band_mma':18s} two runs bit for bit", flush=True)
+    del lib_mask2, library2, first, got2, ref2, out2, q_mid2
 
     # the whole block-sparse attention (kernel, first/last blocks, padded
     # rows zeroed) on the card vs the plain float32 form on the CPU, for
@@ -1709,14 +1847,18 @@ def bigbird_phases(dev, smi, cli_argv):
         fail("block_sparse_attention on the card disagrees with the CPU")
     del q, k, v, x, q_mid, out, got, ref
 
-    # --- greedy titles from 3072-token inputs: 16 K10 launches an encode ---
+    # --- greedy titles from 3072-token inputs: 16 K10 launches an encode,
+    # all on the wgmma kernel ---
     sparse_band_attention.launches = 0
+    sparse_band_attention.mma_sync_launches = 0
     with torch.no_grad():
         enc = big.encode(ids, mask)
     torch.cuda.synchronize()
     if sparse_band_attention.launches != cfg.encoder_layers:
         fail(f"one encode launched K10 {sparse_band_attention.launches} "
              f"times, not {cfg.encoder_layers}")
+    if sparse_band_attention.mma_sync_launches:
+        fail("the serving shape ran K10's mma.sync kernel, not the wgmma one")
     if not torch.isfinite(enc.float()).all():
         fail("the BigBird encoder states are not finite")
     timed_generate(big, ids, mask, "BigBird-Pegasus-large bf16")
@@ -1726,6 +1868,7 @@ def bigbird_phases(dev, smi, cli_argv):
     # --- cli/infer_video --title_arch bigbird at 3072 tokens ---
     build_dir = ROOT / "video_chapter_generation_tpu_torch" / "_build"
     sparse_band_attention.launches = 0
+    sparse_band_attention.mma_sync_launches = 0
     cwd = os.getcwd()
     os.chdir(build_dir)
     said = io.StringIO()
@@ -1741,11 +1884,13 @@ def bigbird_phases(dev, smi, cli_argv):
             print(f"# cli: {line}", flush=True)
     torch.cuda.synchronize()
     launches = sparse_band_attention.launches
+    mma_launches = sparse_band_attention.mma_sync_launches
     wall = time.time() - t0
     batches = sum(1 for r in results.values() if r.spans)
     print(f"# infer_video --title_arch bigbird data.title_input_len={l} "
           f"--pipelined: {len(results)} videos, {batches} title batches, "
-          f"K10 launches {launches}, {wall:.1f} s (models and restore "
+          f"K10 launches {launches} ({mma_launches} of them mma.sync), "
+          f"{wall:.1f} s (models and restore "
           f"included) on {smi}", flush=True)
     if "restored checkpoint at epoch 0" not in said.getvalue():
         fail("infer_video did not restore the checkpoint")
@@ -1766,14 +1911,18 @@ def bigbird_phases(dev, smi, cli_argv):
     del bart
     torch.cuda.empty_cache()
 
-    return {"name": "sparse_band_attention", "route": "cuda",
-            "source": "video_chapter_generation_tpu_torch/csrc/"
-                      "sparse_attention.cu",
-            "replaces": "video_chapter_generation_tpu/ops/"
-                        "sparse_attention_pallas.py:108",
-            "launches": launches, "max_abs_err": max_abs, "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+    # launches from the CLI run, split by the kernel they ran
+    src = "video_chapter_generation_tpu_torch/csrc/sparse_attention.cu"
+    tpu = "video_chapter_generation_tpu/ops/sparse_attention_pallas.py:108"
+    return [{"name": "sparse_band_attention", "route": "cuda",
+             "source": src, "replaces": tpu,
+             "launches": launches - mma_launches, "max_abs_err": max_abs,
+             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": lib_ms},
+            {"name": "sparse_band_attention_mma_sync", "route": "cuda",
+             "source": src, "replaces": tpu, "launches": mma_launches,
+             "max_abs_err": m_abs, "ms": m_ms, "plain_ms": m_pms,
+             "bound_ms": m_bms, "bound_by": m_bby, "library_ms": m_lms}]
 
 
 def window_phases(dev, smi, frames, vision):
@@ -2834,7 +2983,7 @@ def main() -> int:
                                     vision, ts_sd, delta)
     del ts_sd, s2s
     torch.cuda.empty_cache()
-    bigbird_kernel = timed("bigbird", bigbird_phases, dev, smi, cli_argv)
+    bigbird_kernels = timed("bigbird", bigbird_phases, dev, smi, cli_argv)
     train_kernels = timed("training", training_phases, dev, smi, frames,
                           vision)
     window_kernels = timed("window", window_phases, dev, smi, frames, vision)
@@ -2865,13 +3014,14 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": st["library_ms"]})
     # inference CLI entries: per 256-frame vision call; K10: per encoder
-    # layer at the BigBird serving shape, launches from the CLI run;
+    # layer at the BigBird serving shape (its mma.sync kernel at bs 32),
+    # launches from the CLI run;
     # training entries: per step, the sum over the shapes one step runs;
     # K5 (both entries), K7: per 256-frame vision call; K6: one 16-clip
     # call's frames; their launches from the window phases' runs; K14a,
     # K14b and K15: per 256-frame vision call, launches from the
     # INT8_S2_BLOCKS and chain_blocks vision calls (K14b: no model path)
-    print(json.dumps({"kernels": kernels + infer_kernels + [bigbird_kernel]
+    print(json.dumps({"kernels": kernels + infer_kernels + bigbird_kernels
                       + train_kernels + window_kernels + int8_s2_kernels
                       + [chain_kernel]}))
     print(f"# phase seconds {json.dumps(laps)}; chip_smoke wall time "
@@ -2883,12 +3033,15 @@ def main() -> int:
 
 
 def time_kernels(root: Path) -> int:
-    """K1, K8, K9 and K14a at the shapes of one 256-frame vision call on the
-    package under root, CUDA events (median of TIMED_RUNS), beside their
-    yardsticks: the stems' cuDNN sequence, the bf16 K2/K3 (K9) and K4
-    (K14a) launches of the same blocks; K9's device time by conv and layer
-    from one torch.profiler trace. Seeded random ResNet-50 weights (the
-    JAX layout carried over) and frames. Prints one JSON line."""
+    """K1, K8, K9 and K14a at the shapes of one 256-frame vision call, K11
+    at one training step's (128 frames) and K10 at the BigBird-Pegasus
+    serving shape, on the package under root, CUDA events (median of
+    TIMED_RUNS), beside their yardsticks: the stems' cuDNN sequence, the
+    bf16 K2/K3 (K9) and K4 (K14a) launches of the same blocks, K11's cuDNN
+    sequence through autograd, SDPA with K10's float mask; K9's device time
+    by conv and layer and K11's by pass from torch.profiler traces. Seeded
+    random ResNet-50 weights (the JAX layout carried over), frames and
+    attention inputs. Prints one JSON line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3002,6 +3155,64 @@ def time_kernels(root: Path) -> int:
     finally:
         port_resnet.INT8_S2_BLOCKS = old
     out.update({"K14a": k14, "K4_same_blocks": k4})
+    del vq, qps
+
+    # K11: the training stem at one step's shape, through its two entries,
+    # beside its cuDNN sequence; its device time by pass
+    import numpy as np
+
+    from video_chapter_generation_tpu_torch.models.seq2seq import (
+        Seq2SeqConfig,
+    )
+    from video_chapter_generation_tpu_torch.models.sparse_attention import (
+        _tables,
+    )
+    from video_chapter_generation_tpu_torch.ops import stem_train as k11
+    from video_chapter_generation_tpu_torch.ops.sparse_attention import (
+        sparse_band_attention,
+    )
+
+    x0 = frames[:TRAIN_CLIPS * CLIP_FRAMES].contiguous()
+    w7 = vision.conv1.weight.permute(2, 3, 1, 0).detach()
+    gamma, beta = vision.bn1.weight.detach(), vision.bn1.bias.detach()
+    gb = torch.cat([gamma, beta]).float()
+    wk = k11._stem_weight(w7)
+    dy = torch.randn(*x0.shape[:3], 64, generator=gen, device=dev).to(bf)
+    saved = k11.stem_train_fwd(x0, wk, gb, 1e-5)
+    fwd = lambda: k11.stem_train_fwd(x0, wk, gb, 1e-5)  # noqa: E731
+    bwd = lambda: k11.stem_train_bwd(  # noqa: E731
+        dy, saved[0], saved[1], x0, gb, saved[2], saved[3], 1e-5)
+    lib_f, lib_b = library_stem_train(
+        normalize_frames(depth_to_space4(x0), bf), w7, gamma, beta, dy)
+    out.update({"K11_fwd": cuda_ms(fwd), "K11_bwd": cuda_ms(bwd),
+                "K11_cudnn_fwd": cuda_ms(lib_f),
+                "K11_cudnn_bwd": cuda_ms(lib_b)})
+    try:
+        out["K11_split"] = pass_split([("fwd", fwd), ("bwd", bwd)])
+    except Exception as exc:  # information only
+        out["K11_split"] = f"not measured ({type(exc).__name__}: {exc})"
+    del saved, lib_f, lib_b
+
+    # K10 at the BigBird-Pegasus serving shape (seeded random q, k, v;
+    # rows valid for 300..3072 tokens), beside SDPA with the float mask
+    cfg = Seq2SeqConfig.bigbird_pegasus_large()
+    b, l, bs = BIGBIRD_BATCH, BIGBIRD_IN, cfg.block_size
+    h, hd = cfg.num_heads, cfg.d_model // cfg.num_heads
+    q, k, v = [torch.randn(b, l, h, hd, generator=gen, device=dev).to(bf)
+               for _ in range(3)]
+    lens = torch.from_numpy(np.linspace(BIGBIRD_MIN_LEN, l, b).astype(int))
+    mask = (torch.arange(l, device=dev)[None]
+            < lens.to(dev)[:, None]).to(torch.int32)
+    tabs = _tables(l // bs, cfg.num_rand_blocks, 0, None, dev)
+    res = torch.empty_like(q)
+    library, _ = sdpa_yardstick(q[:, bs:l - bs], k, v, mask, tabs, bs)
+    k10 = lambda: sparse_band_attention(  # noqa: E731
+        q[:, bs:l - bs], k, v, mask, *tabs, bs, res)
+    out.update({"K10": cuda_ms(k10), "K10_sdpa": cuda_ms(library)})
+    try:  # the device time of its launches, without the host's
+        out["K10_split"] = pass_split([("K10", k10)])
+    except Exception as exc:  # information only
+        out["K10_split"] = f"not measured ({type(exc).__name__}: {exc})"
     print(json.dumps(out), flush=True)
     return 0
 

@@ -217,41 +217,87 @@ def test_block_train_kernel(dev, stride, proj, c, f):
         _grad_close(a, b)
 
 
-def test_stem_train_kernel(dev):
-    from video_chapter_generation_tpu_torch.ops.stem_train import (
-        stem_s2d_train,
-        stem_train_bwd,
-        stem_train_fwd,
-    )
+# (entry, frames, px): u8 s2d cells at 112 px (sps 2) and 224 px with few
+# frames (bands of one strip), 36 px (a one-row last strip, one stage a
+# strip); normalized frames (stem_frames_train) and float s2d cells
+STEM_TRAIN_CASES = [("u8", 8, 112), ("u8", 2, 224), ("u8", 5, 36),
+                    ("frames", 4, 64), ("float_s2d", 3, 96)]
+
+
+def _stem_train_inputs(g, dev, entry, n, px):
     from video_chapter_generation_tpu_torch.ops.preprocess import (
         depth_to_space4,
         normalize_frames,
     )
+
+    s4 = torch.randint(0, 256, (n, px // 4, px // 4, 48), generator=g,
+                       dtype=torch.uint8).to(dev)
+    frames = normalize_frames(depth_to_space4(s4), torch.bfloat16)
+    if entry == "frames":
+        x = frames
+    elif entry == "float_s2d":
+        x = frames.reshape(n, px // 4, 4, px // 4, 4, 3).permute(
+            0, 1, 3, 2, 4, 5).reshape(n, px // 4, px // 4, 48).float()
+    else:
+        x = s4
+    params = [(torch.randn(7, 7, 3, 64, generator=g) / 147 ** 0.5).to(dev),
+              (1 + 0.1 * torch.randn(64, generator=g)).to(dev),
+              (0.1 * torch.randn(64, generator=g)).to(dev)]
+    params[1][::7] *= -1  # a negative BN scale: that channel pools -yc
+    dy = torch.randn(n, px // 4, px // 4, 64, generator=g).to(
+        dev, torch.bfloat16)
+    return x, frames, params, dy
+
+
+def _stem_grad_run(fn, params, dy):
+    """(y, stats, grads wrt params) of a stem on data (no input grad)."""
+    ps = [p.detach().clone().requires_grad_() for p in params]
+    y, stats = fn(ps)
+    return y, stats, torch.autograd.grad(y, ps, dy)
+
+
+@pytest.mark.parametrize("entry,n,px", STEM_TRAIN_CASES)
+def test_stem_train_kernel(dev, entry, n, px):
     from video_chapter_generation_tpu_torch.ops.stem_train import (
+        stem_frames_train,
+        stem_s2d_train,
+        stem_train_bwd,
+        stem_train_fwd,
         stem_train_reference,
     )
 
     g = torch.Generator().manual_seed(4)
-    s4 = torch.randint(0, 256, (8, 28, 28, 48), generator=g,
-                       dtype=torch.uint8).to(dev)
-    params = [(torch.randn(7, 7, 3, 64, generator=g) / 147 ** 0.5).to(dev),
-              (1 + 0.1 * torch.randn(64, generator=g)).to(dev),
-              (0.1 * torch.randn(64, generator=g)).to(dev)]
-    dy = torch.randn(8, 28, 28, 64, generator=g).to(dev, torch.bfloat16)
+    x, frames, params, dy = _stem_train_inputs(g, dev, entry, n, px)
+    fn = stem_frames_train if entry == "frames" else stem_s2d_train
     f0, b0 = stem_train_fwd.launches, stem_train_bwd.launches
-    y, st, gk = _grad_run(lambda xs, ps: stem_s2d_train(xs, *ps), s4, params,
-                          dy)
+    y, st, gk = _stem_grad_run(lambda ps: fn(x, *ps), params, dy)
     torch.cuda.synchronize()
     assert (stem_train_fwd.launches, stem_train_bwd.launches) == (f0 + 1,
                                                                   b0 + 1)
-    frames = normalize_frames(depth_to_space4(s4), torch.bfloat16)
-    yr, str_, gr = _grad_run(
-        lambda xs, ps: stem_train_reference(frames, *ps), s4, params, dy)
+    yr, str_, gr = _stem_grad_run(
+        lambda ps: stem_train_reference(frames, *ps), params, dy)
     _close(y, yr)
     for a, b in zip(st, str_):
         _close(a, b)
     for a, b in zip(gk, gr):
         _grad_close(a, b)
+
+
+def test_stem_train_runs_are_bitwise_equal(dev):
+    """No float atomics: two runs of K11's forward and backward agree bit
+    for bit."""
+    from video_chapter_generation_tpu_torch.ops.stem_train import (
+        stem_s2d_train,
+    )
+
+    g = torch.Generator().manual_seed(5)
+    x, _, params, dy = _stem_train_inputs(g, dev, "u8", 16, 224)
+    runs = [_stem_grad_run(lambda ps: stem_s2d_train(x, *ps), params, dy)
+            for _ in range(2)]
+    (y0, s0, g0), (y1, s1, g1) = runs
+    assert torch.equal(y0, y1)
+    assert all(torch.equal(a, b) for a, b in zip(s0, s1))
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
 
 
 def test_trunk_train_kernel(dev):
@@ -566,44 +612,86 @@ def test_tsm_bottleneck_int8_kernel(dev, x_kind, out_mode, c, f):
 # --- K10: BigBird block-sparse attention of the middle query blocks ---
 
 
-@pytest.mark.parametrize("bs,hd", [(16, 16), (16, 64), (64, 16), (64, 64)])
-def test_sparse_band_attention_kernel(dev, bs, hd):
-    """Padded keys (a whole block of them in row 1), random ids that may
-    collide with the window (counted twice, as in the plain version); the
-    kernel writes rows bs..L-bs of `out` and nothing else."""
+# (bs, hd, b, h, nb, r): the mma.sync kernel's shapes (bs 16, hd 16, and
+# bs 64 / hd 64 with P 5 and 6), and the wgmma kernel's (bs 64, hd 64,
+# P 8): one row, rows whose walks cross (b, h) boundaries (2 x 3 rows of
+# 46 query blocks over the card's blocks)
+K10_CASES = [(16, 16, 2, 3, 12, 3), (16, 64, 2, 3, 12, 3),
+             (64, 16, 2, 3, 12, 3), (64, 64, 2, 3, 12, 3),
+             (64, 64, 2, 3, 48, 3), (64, 64, 1, 2, 9, 0),
+             (64, 64, 3, 1, 20, 1)]
+
+
+def _k10_inputs(bs, hd, b, h, nb, r, seed):
     import numpy as np
 
     from video_chapter_generation_tpu_torch.ops.sparse_attention import (
-        sparse_band_attention,
-        sparse_band_attention_reference,
         structured_ids,
     )
 
-    g = torch.Generator().manual_seed(10)
-    b, h, nb, r = 2, 3, 12, 3
+    g = torch.Generator().manual_seed(seed)
     l = nb * bs
     bf = torch.bfloat16
-    q, k, v = [torch.randn(b, l, h, hd, generator=g).to(dev, bf)
+    q, k, v = [torch.randn(b, l, h, hd, generator=g).to("cuda", bf)
                for _ in range(3)]
     mask = torch.ones(b, l, dtype=torch.int32)
-    mask[1, l - 3 * bs - 5:] = 0
-    mask = mask.to(dev)
-    rand_map = np.random.default_rng(bs + hd).integers(
-        0, nb, (nb, r)).astype(np.int32)
-    ids, valid = [torch.from_numpy(a).to(dev)
+    mask[-1, l - 3 * bs - 5:] = 0
+    mask = mask.to("cuda")
+    rand_map = (np.random.default_rng(bs + hd + nb).integers(
+        0, nb, (nb, r)).astype(np.int32) if r else None)
+    ids, valid = [torch.from_numpy(a).to("cuda")
                   for a in structured_ids(nb, rand_map)]
+    return q, k, v, mask, ids, valid
+
+
+@pytest.mark.parametrize("bs,hd,b,h,nb,r", K10_CASES)
+def test_sparse_band_attention_kernel(dev, bs, hd, b, h, nb, r):
+    """Padded keys (a whole block of them in the last row), random ids that
+    may collide with the window (counted twice, as in the plain version);
+    the kernel writes rows bs..L-bs of `out` and nothing else. Only the
+    mma.sync shapes count in mma_sync_launches; at the wgmma shape a table
+    that is not structured_ids' raises before a launch."""
+    from video_chapter_generation_tpu_torch.ops.sparse_attention import (
+        sparse_band_attention,
+        sparse_band_attention_reference,
+    )
+
+    q, k, v, mask, ids, valid = _k10_inputs(bs, hd, b, h, nb, r, 10)
+    wgmma = (bs, hd, r) == (64, 64, 3)
     before = sparse_band_attention.launches
+    mma_before = sparse_band_attention.mma_sync_launches
     out = torch.zeros_like(q)
     got = sparse_band_attention(q[:, bs:-bs], k, v, mask, ids, valid, bs,
                                 out)
     torch.cuda.synchronize()
     assert sparse_band_attention.launches == before + 1
+    assert sparse_band_attention.mma_sync_launches == mma_before + (not wgmma)
+    if wgmma:
+        bad = ids.clone()
+        bad[0, 1] = 1
+        with pytest.raises(ValueError, match="structured_ids"):
+            sparse_band_attention(q[:, bs:-bs], k, v, mask, bad, valid, bs,
+                                  torch.zeros_like(q))
+        assert sparse_band_attention.launches == before + 1
     _close(got, sparse_band_attention_reference(q[:, bs:-bs], k, v, mask,
                                                 ids, valid, bs))
     assert not out[:, :bs].any() and not out[:, -bs:].any()
     with pytest.raises(ValueError, match="bf16"):
         sparse_band_attention(q[:, bs:-bs].float(), k, v, mask, ids, valid,
                               bs, out)
+
+
+@pytest.mark.parametrize("bs,hd", [(64, 64), (32, 64)])
+def test_sparse_band_attention_runs_are_bitwise_equal(dev, bs, hd):
+    from video_chapter_generation_tpu_torch.ops.sparse_attention import (
+        sparse_band_attention,
+    )
+
+    q, k, v, mask, ids, valid = _k10_inputs(bs, hd, 2, 4, 24, 3, 11)
+    outs = [torch.zeros_like(q) for _ in range(2)]
+    for o in outs:
+        sparse_band_attention(q[:, bs:-bs], k, v, mask, ids, valid, bs, o)
+    assert torch.equal(outs[0], outs[1])
 
 
 # --- K5 (shift + 1x1 conv), K6 (frame normalize), K7 (temporal shift) ---

@@ -31,6 +31,7 @@ from video_chapter_generation_tpu_torch.models.sparse_attention import (
     block_sparse_attention,
 )
 from video_chapter_generation_tpu_torch.ops.sparse_attention import (
+    require_structured,
     sparse_band_attention,
     sparse_band_attention_reference,
     structured_ids,
@@ -168,3 +169,86 @@ def test_wrapper_on_cpu_takes_the_plain_version():
         sparse_band_attention(q.to("meta")[:, BS:-BS], k.to("meta"),
                               v.to("meta"), mask, ids, valid, BS,
                               out.to("meta"))
+
+
+def _online_softmax_halves(q_mid, k, v, mask, ids, valid, bs):
+    """The serving-shape kernel's order in plain torch (float32): per
+    query block, one online softmax over parts [0, h) and one over [h, P),
+    h = ceil(P / 2), each in the table's order with the running max and
+    sum of csrc/sparse_attention.cu's wgmma kernel, then the merge: both
+    contexts and sums rescaled to the larger max, the context divided by
+    the merged sum."""
+    b, lq, h, hd = q_mid.shape
+    nbq, p = ids.shape
+    scale = 1.0 / np.sqrt(hd)
+    qs = q_mid.reshape(b, nbq, bs, h, hd).float()
+    out = torch.empty(b, nbq, bs, h, hd)
+    half = (p + 1) // 2
+    for qb in range(nbq):
+        states = []
+        for parts in (range(half), range(half, p)):
+            m = torch.full((b, h, bs), -1e30)
+            l = torch.zeros(b, h, bs)
+            o = torch.zeros(b, h, bs, hd)
+            for j in parts:
+                blk = int(ids[qb, j])
+                keys = slice(blk * bs, (blk + 1) * bs)
+                pen = (1.0 - mask[:, keys].float()
+                       * float(valid[qb, j])) * -10000.0
+                s = torch.einsum("bqhd,bkhd->bhqk", qs[:, qb],
+                                 k[:, keys].float()) * scale
+                s = s + pen[:, None, None, :]
+                m_new = torch.maximum(m, s.amax(-1))
+                a = torch.exp(m - m_new)
+                e = torch.exp(s - m_new[..., None])
+                l = l * a + e.sum(-1)
+                o = o * a[..., None] + torch.einsum("bhqk,bkhd->bhqd", e,
+                                                    v[:, keys].float())
+                m = m_new
+            states.append((m, l, o))
+        (ma, la, oa), (mb, lb, ob) = states
+        mm = torch.maximum(ma, mb)
+        fa, fb = torch.exp(ma - mm), torch.exp(mb - mm)
+        ctx = (oa * fa[..., None] + ob * fb[..., None]) / (
+            la * fa + lb * fb)[..., None]
+        out[:, qb] = ctx.permute(0, 2, 1, 3)
+    return out.reshape(b, lq, h, hd)
+
+
+@pytest.mark.parametrize("r", [0, 1, 3])
+def test_two_half_online_softmax_matches_the_reference(r):
+    """The wgmma kernel's part order (two online softmaxes over the halves
+    of the parts, merged) computes the plain version's function: equal to
+    sparse_band_attention_reference at the file's tolerance, padded keys
+    and a colliding random map included."""
+    q, k, v = [torch.from_numpy(a) for a in _qkv(60 + r)]
+    mask = torch.from_numpy(_mask(2, L, True))
+    nb = L // BS
+    rand_map = None
+    if r:
+        rand_map = np.random.default_rng(r).integers(0, nb, (nb, r)).astype(
+            np.int32)
+    ids, valid = [torch.from_numpy(a) for a in structured_ids(nb, rand_map)]
+    got = _online_softmax_halves(q[:, BS:-BS], k, v, mask, ids, valid, BS)
+    want = sparse_band_attention_reference(q[:, BS:-BS], k, v, mask, ids,
+                                           valid, BS)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("r", [0, 3])
+def test_require_structured_refuses_other_tables(r):
+    """The wgmma kernel derives parts 0-4 from the structure: a table whose
+    first five columns are structured_ids' passes (and is remembered until
+    it is written to), any other raises ValueError before a launch."""
+    nb = 12
+    rand_map = (np.random.default_rng(r).integers(0, nb, (nb, r)).astype(
+        np.int32) if r else None)
+    ids = torch.from_numpy(structured_ids(nb, rand_map)[0])
+    require_structured(ids, nb)
+    require_structured(ids, nb)
+    ids[3, 1] += 1
+    with pytest.raises(ValueError, match="structured_ids"):
+        require_structured(ids, nb)
+    with pytest.raises(ValueError, match="structured_ids"):
+        require_structured(torch.from_numpy(structured_ids(nb + 1, None)[0]),
+                           nb)

@@ -1,6 +1,8 @@
-// The Hopper (sm_90a) GEMM mainloop of K5 (tsm_conv.cu) and K12
-// (conv_train.cu): wgmma from 128-byte-swizzled shared memory, fed by a
-// ring of stages that TMA and cp.async fill.
+// The Hopper (sm_90a) GEMM mainloop of K5 (tsm_conv.cu), K12
+// (conv_train.cu) and the stems (stem_tiles.cuh, stem_train.cu): wgmma
+// from 128-byte-swizzled shared memory, fed by a ring of stages that TMA
+// and cp.async fill. K10 (sparse_attention.cu) takes its descriptors,
+// its TMA loads and the register-A product.
 //
 // A block of 256 threads (two warpgroups) computes tiles of kBM = 128
 // output rows x BN (64, 128 or 256) columns; warpgroup g owns rows
@@ -197,6 +199,44 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da,
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// m64n64k16 with A from registers (the attention's probabilities): a lane's
+// four registers hold bf16 pairs of rows r = 16 warp + lane / 4 and r + 8
+// at columns 2 (lane % 4), + 1 and 8 + 2 (lane % 4), + 1: a[0] = (r, lo),
+// a[1] = (r + 8, lo), a[2] = (r, hi), a[3] = (r + 8, hi), the layout of a
+// m64n16 accumulator. The product reads them after issue: keep them
+// unchanged until the wait (fence_regs).
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64_ra(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+// Keep the compiler from moving or reusing registers an asynchronous
+// product reads (its A fragments) across its issue and wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -1,163 +1,72 @@
-// Training-mode ResNet stem on 4x4 space-to-depth frames, for Hopper.
+// Training-mode ResNet stem on 4x4 space-to-depth frames, for Hopper
+// (sm_90a).
 //
 // Replaces video_chapter_generation_tpu/ops/stem_train_pallas.py
 // (stem_s2d_train / stem_frames_train: the SFK-A, SFK-B, SBK-A and SBK-B
-// kernels). Input [N, H/4, W/4, 48] as raw uint8 pixels (normalized here)
-// or as bf16 values already normalized (the frames entry); channel order
-// (dy, dx, c) as in stem_s2d.cu.
+// kernels). Input: u8 cells [N, H/4, W/4, 48] (raw pixels, normalized
+// here; channel order (dy, dx, c)) or normalized bf16 frames [N, H, W, 3],
+// read as their 4x4 cells in place. yc, the conv output, is kept in the
+// TPU kernel's phase-packed form [cells, 256]: row = s2d cell (n, I, J),
+// column (pr * 2 + pc) * 64 + f = conv pixel (2I + pr, 2J + pc), filter f.
 //
-// Forward (one C entry):
-//   yc  = conv7x7/2(x) (pad 3), bf16, + (sum, sum^2) of yc per channel
-//   BN statistics over all 2n x 2n conv pixels, on the device
-//   out = maxpool3x3/2(relu(sa * yc + sb)) (pad 1)
-// Backward (one C entry; the stem's input is data, so no dx):
-//   da  = sum of dpool over the windows whose max equals the recomputed
-//         activation (ties inside a window each receive the window's
-//         gradient, as the TPU kernel does), times relu', + the BN
-//         backward moments (sum da, sum da * (yc - mu))
-//   dw  = patches^T (A * da + E * yc + F) over all conv pixels, split
-//         over pixels with float32 partial sums
+// Forward (vcg_stem_train_fwd, 3 launches):
+//   SFK-A  stem_kernel<kU8, true> (stem_tiles.cuh): per strip of 2 cell
+//          rows the phase-packed product A[cells, 448] x W[448, 256] on
+//          hopper_gemm.cuh's wgmma mainloop, A copied from the strip's
+//          normalized neighbourhood in shared memory; the epilogue rounds
+//          each sum to bf16, stores yc and adds the column (sum, sum^2) of
+//          the stored values to per-warp slots: one row [2][256] of partial
+//          moments a block;
+//   stats  one block sums the rows in order, folds the 4 phases (in order)
+//          and computes mu, var and the affine sa, sb;
+//   SFK-B  out = 3x3/2 max pool (pad 1) of relu(sa * yc + sb), rounded to
+//          bf16, from the cell-phase form: output (I, J) pools the 4 phases
+//          of cell (I, J), column phase 1 of cell (I, J - 1), row phase 1
+//          of cell (I - 1, J) and phase (1, 1) of (I - 1, J - 1). It pools
+//          the raw yc and applies the affine once an output: stem_act is
+//          monotone in v (non-increasing where sa < 0: those channels pool
+//          -yc), so the result is exactly stem_act of the window's largest
+//          activation.
+// Backward (vcg_stem_train_bwd, 4 launches; the input is data: no dx):
+//   SBK-A  route: per cell, the window gradient reaches each phase by
+//          parity (phase (0, 0) lies in window (I, J) only, (0, 1) also in
+//          (I, J + 1), (1, 0) also in (I + 1, J), (1, 1) in all four), to
+//          every position equal to the window max (ties each receive it),
+//          times relu'; da is stored phase-packed (a warp a cell, a lane 8
+//          of its 256 columns), and the BN backward moments (sum da, sum
+//          da (yc - mu)) per column go to one row of partial sums a block,
+//          summed in a fixed order;
+//   bwd    one block folds the moments' phases and computes the BN
+//          backward vectors A, E, F and dgamma, dbeta;
+//   SBK-B  dw2[448, 256] = z^T du, du = A da + E yc + F applied to each
+//          arrived stage, on hopper_gemm.cuh's weight-gradient path (both
+//          operands MN-major, the transpose bits set, as conv_train.cu's
+//          conv_wgrad_kernel): grid (4 phases, 1, splits), each block
+//          walking a range of strips, 64 cells a stage, and owning the
+//          columns of one phase for all 448 rows, computed transposed
+//          (du^T z: 64 channels x 256 patch columns a warpgroup, m64n256
+//          products), so da and yc are read once in all; z, the 448 patch
+//          columns of a cell, is copied from the strip's normalized
+//          neighbourhood in shared memory (the forward's copy), da and yc
+//          come by TMA through a ring of 6 stages. Each split writes its
+//          float32 partial dw2;
+//   fold   dw7[7, 7, 3, 64] = the splits summed in order, then the
+//          transpose of the phase selection (stem_train_pallas.py:314-319):
+//          tap (dr, dc, c) of phase (pr, pc) is dw2 row (tr, tc, di, dj, c)
+//          with 4 tr + di = dr + 2 pr + 1 (likewise columns), four terms
+//          summed in phase order.
+// No float atomics anywhere: two runs agree bit for bit.
 //
-// What bounds it on the H100: the gather. K = 147 (padded to 160) is
-// shallow; every A element is a scattered byte read and a normalize. The
-// conv output yc round-trips device memory once for the pool and once for
-// the backward, as on the TPU.
-#include <math.h>
+// What bounds it on the H100: 128 frames at 224 px are 401 k cells; each
+// product is 2 x 448 x 256 flops a cell (92 GFLOP, 0.09 ms at 989
+// TFLOP/s); yc and da are 205 MB each, written once and read once or
+// twice (0.06 ms a pass at 3.35 TB/s). The weight gradient builds z four
+// times (once a phase block) from shared memory, not from device memory.
+#include "stem_tiles.cuh"
 
-#include <algorithm>
-
-#include "train_gemm.cuh"
 
 namespace vcg {
-
-constexpr int kStemK = 147;     // 7 * 7 * 3
-constexpr int kStemKPad = 160;  // multiple of kBK; weight rows 147.. are zero
-
-struct StemSrc {
-  const void* s4;
-  int u8;            // 1: raw uint8 pixels, normalized here; 0: bf16 values
-  const float* norm; // [a0 a1 a2 b0 b1 b2]: x = u8 * a + b
-  int n, hs, ws;     // input [n, hs, ws, 48]; conv output [n, 2hs, 2ws, 64]
-};
-
-// Element k = (kh, kw, c) of the 7x7/2 patch of conv pixel (n, oh, ow).
-__device__ __forceinline__ float stem_val(const StemSrc& s, int n, int oh,
-                                          int ow, int k) {
-  if (k >= kStemK) return 0.0f;
-  const int tap = k / 3;
-  const int c = k - 3 * tap;
-  const int kh = tap / 7;
-  const int kw = tap - 7 * kh;
-  const int ih = 2 * oh - 3 + kh;
-  const int iw = 2 * ow - 3 + kw;
-  if (ih < 0 || ih >= 4 * s.hs || iw < 0 || iw >= 4 * s.ws) return 0.0f;
-  const size_t idx =
-      ((static_cast<size_t>(n) * s.hs + (ih >> 2)) * s.ws + (iw >> 2)) * 48 +
-      (ih & 3) * 12 + (iw & 3) * 3 + c;
-  if (s.u8) {
-    const float u = static_cast<float>(static_cast<const uint8_t*>(s.s4)[idx]);
-    // two roundings, no FMA: the same float ops as the plain version
-    return __fadd_rn(__fmul_rn(u, s.norm[c]), s.norm[3 + c]);
-  }
-  return __bfloat162float(static_cast<const bf16*>(s.s4)[idx]);
-}
-
-// Forward A tile: thread i fills 16 consecutive k of row i / 2.
-struct StemA {
-  StemSrc s;
-  int n, oh, ow, row, kh16;
-  bool ok;
-
-  __device__ void init(const StemSrc& s_, int m0) {
-    s = s_;
-    const int hc = 2 * s.hs, wc = 2 * s.ws;
-    row = threadIdx.x >> 1;
-    kh16 = (threadIdx.x & 1) * 16;
-    const int mm = m0 + row;
-    ok = mm < s.n * hc * wc;
-    const int q = ok ? mm : 0;
-    n = q / (hc * wc);
-    const int rem = q - n * hc * wc;
-    oh = rem / wc;
-    ow = rem - oh * wc;
-  }
-
-  __device__ void load(bf16* as, int k0) const {
-    alignas(16) bf16 v[16];
-    for (int e = 0; e < 16; ++e)
-      v[e] = __float2bfloat16_rn(ok ? stem_val(s, n, oh, ow, k0 + kh16 + e)
-                                    : 0.0f);
-    uint4* dst = reinterpret_cast<uint4*>(as + row * kALd + kh16);
-    dst[0] = reinterpret_cast<const uint4*>(v)[0];
-    dst[1] = reinterpret_cast<const uint4*>(v)[1];
-  }
-};
-
-// Weight-gradient A tile [32 pixels][128 k], as ActT.
-struct StemT {
-  StemSrc s;
-  int kc, rsub, k0;
-
-  __device__ void init(int k0_) {
-    k0 = k0_;
-    kc = threadIdx.x & 15;
-    rsub = threadIdx.x >> 4;
-  }
-
-  __device__ void load(bf16* as, int m0, int m_end) const {
-    const int hc = 2 * s.hs, wc = 2 * s.ws;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = rsub + 16 * i;
-      const int mm = m0 + r;
-      const bool ok = mm < m_end;
-      const int q = ok ? mm : 0;
-      const int n = q / (hc * wc);
-      const int rem = q - n * hc * wc;
-      const int oh = rem / wc;
-      const int ow = rem - oh * wc;
-      alignas(16) bf16 v[8];
-      for (int e = 0; e < 8; ++e)
-        v[e] = __float2bfloat16_rn(
-            ok ? stem_val(s, n, oh, ow, k0 + kc * 8 + e) : 0.0f);
-      *reinterpret_cast<uint4*>(as + r * kTLd + kc * 8) =
-          *reinterpret_cast<const uint4*>(v);
-    }
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
-    stem_conv_kernel(StemSrc s, const bf16* w, bf16* yc, float* part) {
-  __shared__ Smem<64> sm;
-  __shared__ MomSlots<64> ms;
-  const int m = s.n * 4 * s.hs * s.ws;
-  const int m0 = blockIdx.x * kBM;
-  ms.zero();
-  StemA al;
-  al.init(s, m0);
-  Acc<64> acc;
-  mainloop_w<64>(sm, al, w, kStemKPad, 64, 0, acc);
-  epilogue<64>(sm.epi[threadIdx.x >> 5], acc, [&](int r, int c,
-                                                 float(&v)[8]) {
-    const int gm = m0 + r;
-    const bool valid = gm < m;
-    alignas(16) bf16 o[8];
-    float a[8], b[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      o[e] = __float2bfloat16_rn(v[e]);
-      const float f = valid ? __bfloat162float(o[e]) : 0.0f;
-      a[e] = f;
-      b[e] = f * f;
-    }
-    if (valid)
-      *reinterpret_cast<uint4*>(yc + static_cast<size_t>(gm) * 64 + c) =
-          *reinterpret_cast<const uint4*>(o);
-    moments_add(ms.s0(), ms.s1(), c, a, b);
-  });
-  __syncthreads();
-  ms.store(part, 64, 0);
-}
+namespace {
 
 // relu(sa * yc + sb) rounded to bf16, the same ops in the pool and in the
 // backward's recompute, so the tie test is exact.
@@ -165,112 +74,460 @@ __device__ __forceinline__ float stem_act(float v, float sa, float sb) {
   return __bfloat162float(__float2bfloat16_rn(fmaxf(fmaf(v, sa, sb), 0.0f)));
 }
 
-// out [n, hp, wp, 64] = 3x3/2 max pool (pad 1) of the activation of yc
-// [n, hc, wc, 64]; one thread per 8-channel chunk of one output pixel.
-__global__ void stem_pool_kernel(const bf16* yc, const float* sa,
-                                 const float* sb, bf16* out, int n, int hc,
-                                 int wc, int hp, int wp) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<size_t>(n) * hp * wp * 8) return;
-  const int cc = idx & 7;
-  const size_t pix = idx >> 3;
-  const int q = pix % wp;
-  const int p = (pix / wp) % hp;
-  const int nn = pix / (static_cast<size_t>(wp) * hp);
-  float best[8];
-  for (int e = 0; e < 8; ++e) best[e] = -INFINITY;
-  for (int dr = 0; dr < 3; ++dr) {
-    const int r = 2 * p - 1 + dr;
-    if (r < 0 || r >= hc) continue;
-    for (int dc = 0; dc < 3; ++dc) {
-      const int c = 2 * q - 1 + dc;
-      if (c < 0 || c >= wc) continue;
-      float v[8];
-      unpack8(ldg16(yc + ((static_cast<size_t>(nn) * hc + r) * wc + c) * 64 +
-                    cc * 8),
-              v);
-      for (int e = 0; e < 8; ++e)
-        best[e] = fmaxf(best[e], stem_act(v[e], sa[cc * 8 + e],
-                                          sb[cc * 8 + e]));
-    }
+constexpr int kFoldThreads = 2 * kStemN;
+
+// Sum rows [rows][2][256] of partial moments in a fixed order, then fold
+// the 4 phases in order: red[64 k + f] = moment k of channel f after the call.
+// Block of kFoldThreads threads; red: 2 * 256 floats of shared memory.
+__device__ void fold_moments(const float* part, int rows, float* red) {
+  const int j = threadIdx.x;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // rows r % 4, then in order
+  for (int r = 0; r < rows; ++r)
+    acc[r & 3] += part[static_cast<size_t>(r) * 512 + j];
+  red[j] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  __syncthreads();
+  float m = 0.0f;
+  if (j < 128) {
+    const float* row = red + (j >> 6) * kStemN + (j & 63);
+    m = ((row[0] + row[64]) + row[128]) + row[192];
   }
-  *reinterpret_cast<uint4*>(out + pix * 64 + cc * 8) = pack8(best);
+  __syncthreads();
+  if (j < 128) red[j] = m;
+  __syncthreads();
 }
 
-// da at every conv pixel: the pooled gradient routed to each window
-// position equal to the window max, times relu'; plus the BN backward
-// moments, one row [2][64] of partial sums per block in part. Thread: one
-// 8-channel chunk of pixels strided over the grid; the block's rows are
-// summed in a fixed order.
+// The forward's statistics: mu, var [64] and the affine sa, sb [64].
+__global__ void __launch_bounds__(kFoldThreads)
+    stem_stats_kernel(const float* part, int rows, float count,
+                      const float* gb, float eps, float* stats, float* vec) {
+  __shared__ float red[2 * kStemN];
+  fold_moments(part, rows, red);
+  const int i = threadIdx.x;
+  if (i < 64)
+    bn_stats_at(i, red[i], red[64 + i], count, gb, gb + 64, eps, stats,
+                stats + 64, vec, vec + 64);
+}
+
+// The backward's BN vectors abc = A, E, F [3][64] and dgb = dgamma,
+// dbeta [2][64] from the route's moments.
+__global__ void __launch_bounds__(kFoldThreads)
+    stem_bwd_stats_kernel(const float* part, int rows, float count,
+                          const float* gb, const float* stats, float eps,
+                          float* abc, float* dgb) {
+  __shared__ float red[2 * kStemN];
+  fold_moments(part, rows, red);
+  const int i = threadIdx.x;
+  if (i < 64)
+    bn_bwd_at(i, red[i], red[64 + i], count, gb, stats, stats + 64, eps, abc,
+              abc + 64, abc + 128, dgb, dgb + 64);
+}
+
+// out [n, hs, ws, 64] from yc [n hs ws][256]: one thread per 8-channel
+// chunk of one output pixel (= one cell).
+__global__ void stem_pool_kernel(const bf16* yc, const float* sa,
+                                 const float* sb, bf16* out, int n, int hs,
+                                 int ws) {
+  const size_t idx =
+      static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<size_t>(n) * hs * ws * 8) return;
+  const int ch = static_cast<int>(idx & 7) * 8;
+  const size_t cell = idx >> 3;
+  const int j = static_cast<int>(cell % ws);
+  const int i = static_cast<int>((cell / ws) % hs);
+  float s[8], b[8], t[8];
+  vec8(sa + ch, s);
+  vec8(sb + ch, b);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) t[e] = -INFINITY;
+  // (cell offset, phase) of the window's nine conv pixels
+  auto take = [&](size_t c, int ph) {
+    float v[8];
+    unpack8(ldg16(yc + c * kStemN + ph * 64 + ch), v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) t[e] = fmaxf(t[e], s[e] < 0.0f ? -v[e] : v[e]);
+  };
+#pragma unroll
+  for (int ph = 0; ph < 4; ++ph) take(cell, ph);
+  if (j > 0) {
+    take(cell - 1, 1);
+    take(cell - 1, 3);
+  }
+  if (i > 0) {
+    take(cell - ws, 2);
+    take(cell - ws, 3);
+    if (j > 0) take(cell - ws - 1, 3);
+  }
+  float y[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    y[e] = stem_act(s[e] < 0.0f ? -t[e] : t[e], s[e], b[e]);
+  *reinterpret_cast<uint4*>(out + cell * 64 + ch) = pack8(y);
+}
+
+constexpr int kRouteCells = kThreads / 32;  // cells a block takes a pass
+
+// SBK-A: da [n hs ws][256] from dpool and the pooled out [n, hs, ws, 64],
+// and the BN backward moments, one row [2][256] of partial sums a block.
+// A warp takes one cell a pass, lane l its 8 columns 8 l .. (phase l / 8,
+// channels 8 (l % 8) ..): the cell's 512 bytes of yc and of da in one
+// access each; the lanes of a phase read only the windows it lies in.
+// Each lane sums its columns' moments over its cells, the block's warps
+// are summed in order.
 __global__ void __launch_bounds__(kThreads)
     stem_route_kernel(const bf16* dpool, const bf16* pooled, const bf16* yc,
                       const float* sa, const float* sb, const float* mu,
-                      bf16* da, float* part, int n, int hc, int wc, int hp,
-                      int wp) {
-  __shared__ float red[kThreads / 8][2][64];
-  const int cc = threadIdx.x & 7;
-  const int ch = cc * 8;
-  const int total = n * hc * wc;
-  float s0[8] = {0}, s1[8] = {0};
-  for (int pix = blockIdx.x * (kThreads / 8) + (threadIdx.x >> 3); pix < total;
-       pix += gridDim.x * (kThreads / 8)) {
-    const int c = pix % wc;
-    const int r = (pix / wc) % hc;
-    const int nn = pix / (wc * hc);
-    float v[8], y[8], acc[8];
-    unpack8(ldg16(yc + static_cast<size_t>(pix) * 64 + ch), v);
-    for (int e = 0; e < 8; ++e) {
-      y[e] = stem_act(v[e], sa[ch + e], sb[ch + e]);
-      acc[e] = 0.0f;
-    }
-    // windows p with 2p - 1 <= r <= 2p + 1, likewise for columns
-    const int p_lo = r / 2, p_hi = min((r + 1) / 2, hp - 1);
-    const int q_lo = c / 2, q_hi = min((c + 1) / 2, wp - 1);
-    for (int p = p_lo; p <= p_hi; ++p) {
-      for (int q = q_lo; q <= q_hi; ++q) {
-        const size_t off = ((static_cast<size_t>(nn) * hp + p) * wp + q) * 64 + ch;
-        float pm[8], dp[8];
-        unpack8(ldg16(pooled + off), pm);
-        unpack8(ldg16(dpool + off), dp);
-        for (int e = 0; e < 8; ++e)
-          if (y[e] == pm[e]) acc[e] += dp[e];
-      }
-    }
-    for (int e = 0; e < 8; ++e) {
-      const float d = y[e] > 0.0f ? acc[e] : 0.0f;
-      acc[e] = d;
-      s0[e] += d;
-      s1[e] += d * (v[e] - mu[ch + e]);
-    }
-    *reinterpret_cast<uint4*>(da + static_cast<size_t>(pix) * 64 + ch) =
-        pack8(acc);
-  }
-  for (int e = 0; e < 8; ++e) {
-    red[threadIdx.x >> 3][0][ch + e] = s0[e];
-    red[threadIdx.x >> 3][1][ch + e] = s1[e];
+                      bf16* da, float* part, int n, int hs, int ws) {
+  __shared__ float red[kThreads / 32][2][kStemN];
+  __shared__ alignas(16) float vecs[3][64];  // sa, sb, mu
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ph = lane >> 3, ch = (lane & 7) * 8;
+  const int total = n * hs * ws;
+  if (threadIdx.x < 64) {
+    vecs[0][threadIdx.x] = sa[threadIdx.x];
+    vecs[1][threadIdx.x] = sb[threadIdx.x];
+    vecs[2][threadIdx.x] = mu[threadIdx.x];
   }
   __syncthreads();
-  if (threadIdx.x < 128) {
-    const int k = threadIdx.x >> 6, j = threadIdx.x & 63;
-    float acc = 0.0f;
-    for (int r = 0; r < kThreads / 8; ++r) acc += red[r][k][j];
-    part[static_cast<size_t>(blockIdx.x) * 128 + threadIdx.x] = acc;
+  float s0[8] = {}, s1[8] = {};
+  for (int cell = blockIdx.x * kRouteCells + warp; cell < total;
+       cell += gridDim.x * kRouteCells) {
+    const int j = cell % ws;
+    const int i = (cell / ws) % hs;
+    const bool right = (ph & 1) && j + 1 < ws, down = (ph & 2) && i + 1 < hs;
+    const size_t off = static_cast<size_t>(cell) * kStemN + 8 * lane;
+    float v[8], pm[8], dp[8], acc[8];
+    unpack8(ldg16(yc + off), v);
+    // the windows of this phase, in the TPU kernel's order: (I, J),
+    // (I + 1, J), (I, J + 1), (I + 1, J + 1)
+    const int win[4] = {cell, cell + ws, cell + 1, cell + ws + 1};
+    const bool has[4] = {true, down, right, down && right};
+    float y[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      y[e] = stem_act(v[e], vecs[0][ch + e], vecs[1][ch + e]);
+      acc[e] = 0.0f;
+    }
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      if (!has[w]) continue;
+      const size_t wo = static_cast<size_t>(win[w]) * 64 + ch;
+      unpack8(ldg16(pooled + wo), pm);
+      unpack8(ldg16(dpool + wo), dp);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (y[e] == pm[e]) acc[e] = w == 0 ? dp[e] : acc[e] + dp[e];
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      acc[e] = y[e] > 0.0f ? acc[e] : 0.0f;
+      s0[e] += acc[e];
+      s1[e] += acc[e] * (v[e] - vecs[2][ch + e]);
+    }
+    *reinterpret_cast<uint4*>(da + off) = pack8(acc);
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    red[warp][0][8 * lane + e] = s0[e];
+    red[warp][1][8 * lane + e] = s1[e];
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < 2 * kStemN; q += kThreads) {
+    float sum = 0.0f;
+    for (int w = 0; w < kThreads / 32; ++w)
+      sum += red[w][q / kStemN][q % kStemN];
+    part[static_cast<size_t>(blockIdx.x) * 2 * kStemN + q] = sum;
   }
 }
 
-static int route_blocks(int m) {
-  return std::max(1, std::min(4 * 132, m / (kThreads / 8)));
+// One wave at the three blocks an SM its registers allow.
+static int route_blocks(int cells) {
+  return std::max(1,
+                  std::min(3 * 132, (cells + kRouteCells - 1) / kRouteCells));
 }
 
-// Floats of the `part` scratch of the stem's forward and backward.
-static size_t stem_workspace(int n, int hs, int ws) {
-  const int m = n * 4 * hs * ws;
-  int chunk = 0;
-  const size_t z = wgrad_grid(kStemKPad, 64, 64, m, &chunk).z;
-  size_t need = static_cast<size_t>((m + kBM - 1) / kBM) * 128;
-  need = std::max(need, static_cast<size_t>(route_blocks(m)) * 128);
-  if (z > 1) need = std::max(need, z * kStemKPad * 64);
-  return need;
+// ---------------------------------------------------------------------------
+// SBK-B: the weight gradient dw2 = z^T du on the wgmma mainloop
+// ---------------------------------------------------------------------------
+
+// z^T panels of 64 patch columns: 448 and a zero one, so both warpgroups
+// issue the same products (a branch around a product would serialize them)
+constexpr int kWgPanels = 8;
+constexpr int kWgStages = 6;    // the ring of da / yc stages
+constexpr int kWgSplitsMax = 132 / 4;  // 4 phase blocks a split
+
+// The ring's stage: da of the block's phase ph for 64 cells of a strip
+// (its rows 64 h .. 64 h + 63), which becomes G = du, and yc's beside it,
+// both by TMA, [64 cells][64] each. z^T, 7 MN-major panels [64 cells][64
+// patch columns] (all 448), is one buffer outside the ring, built in the
+// transform of each stage: warpgroup w builds the panels its own products
+// read (0-3, 4-7; 7 is zero), after its wait for its last product. A strip's
+// neighbourhood comes by cp.async, issued in the first stage of the strip
+// before (u8: raw cells into raw[strip % 2], normalized into nb[0] at the
+// strip's first stage; bf16 frames: straight into nb[strip % 2]).
+struct WgradSrc {
+  static constexpr int kStageBytes = 2 * kPanel;
+  static constexpr bool kTma = true;
+  StemArgs a;
+  const CUtensorMap* dmap;  // da and yc as [cells][256], boxes 64 x 64
+  const CUtensorMap* vmap;
+  uint8_t* zt;        // the z^T panels
+  uint8_t* nbr;       // 2 kNbBytes: the neighbourhoods and raw cells
+  const float* vecs;  // shared: A, E, F [3][64]
+  float na[3], nbias[3];
+  bool u8;
+  int ph, g_lo, g_hi, sps, sp;
+
+  __device__ void strip(int j, int& fr, int& s, int& rows) const {
+    const int gs = g_lo + j;
+    fr = gs / sp;
+    s = gs - fr * sp;
+    rows = min(2, a.hs - 2 * s) * a.ws;
+  }
+
+  // the bf16 neighbourhood strip j reads, and the raw cells of its copy
+  __device__ uint8_t* nb_of(int j) const {
+    return u8 ? nbr : nbr + (j & 1) * kNbBytes;
+  }
+  __device__ uint8_t* raw_of(int j) const {
+    return nbr + kNbBytes + (j & 1) * kRawBytes;
+  }
+
+  // Every thread's copies of strip j's neighbourhood (then committed).
+  __device__ void fetch_strip(int j) const {
+    if (g_lo + j < g_hi) {
+      int fr, s, rows;
+      strip(j, fr, s, rows);
+      if (u8)
+        fetch<true>(a, raw_of(j), nullptr, fr, s);
+      else
+        fetch<false>(a, nullptr, nb_of(j), fr, s);
+    }
+    cp_async_commit();
+  }
+
+  __device__ void load(uint8_t* st, uint64_t* bar, int, int q) {
+    const int j = q / sps, h = q - j * sps;
+    int fr, s, rows;
+    strip(j, fr, s, rows);
+    const int row = static_cast<int>((static_cast<size_t>(fr) * a.hs + 2 * s) *
+                                         a.ws) + 64 * h;
+    if (threadIdx.x == 0) mbar_expect(bar, 2 * kPanel);
+    if (tma_lane(0, 0)) tma_load(st, dmap, 64 * ph, row, bar);
+    if (tma_lane(1, 0)) tma_load(st + kPanel, vmap, 64 * ph, row, bar);
+  }
+
+  __device__ void xform(uint8_t* st, int, int q) {
+    const int j = q / sps, h = q - j * sps;
+    int fr, s, rows;
+    strip(j, fr, s, rows);
+    if (h == 0) {
+      // this strip's neighbourhood is in (every thread's copies); the
+      // next strip's copies go out, into the buffers strip j - 1 used
+      cp_async_wait<0>();
+      __syncthreads();
+      if (u8) {
+        normalize(a, na, nbias, raw_of(j), nb_of(j), s);
+        __syncthreads();
+      }
+      fetch_strip(j + 1);
+    }
+    const uint8_t* nbh = nb_of(j);
+    // z^T: warpgroup w's thread t fills cell rr = t / 2 of its panels p
+    // with patch-column groups g = 4 p + 2 (t % 2) + e (16 channels each,
+    // chunks 2 (g % 4), + 1 of the panel row): group g is channels
+    // 16 (g % 3) .. of tap g / 3 (zero from 27 on)
+    const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+    const int rr = t >> 1, r = 64 * h + rr;
+    const int lr = r / a.ws, jc = r - lr * a.ws;
+    const bool live = r < rows;
+#pragma unroll
+    for (int pp = 0; pp < 4; ++pp) {
+      const int p = 4 * wg + pp;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int u = 2 * (t & 1) + e, g = 4 * p + u;
+        uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+        if (live && g < 27) {
+          const int tap = g / 3, cc = g - 3 * tap;
+          const int tr = tap / 3, tc = tap - 3 * tr;
+          const uint4* src = reinterpret_cast<const uint4*>(
+              nbh + ((lr + tr) * (a.ws + 2) + jc + tc) * 96 + cc * 32);
+          lo = src[0];
+          hi = src[1];
+        }
+        uint8_t* panel = zt + p * kPanel;
+        *reinterpret_cast<uint4*>(panel + swz(rr, 2 * u)) = lo;
+        *reinterpret_cast<uint4*>(panel + swz(rr, 2 * u + 1)) = hi;
+      }
+    }
+    // du = A da + E yc + F on the cells of the strip: thread i takes
+    // channels 8 (i % 8) .. of cells i / 8 and i / 8 + 32
+    const int c8 = threadIdx.x & 7, f = 8 * c8;
+    float ga[8], ge[8], gf[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      ga[e] = vecs[f + e];
+      ge[e] = vecs[64 + f + e];
+      gf[e] = vecs[128 + f + e];
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int cr = (threadIdx.x >> 3) + 32 * k;
+      if (64 * h + cr >= rows) continue;
+      uint4& dch = *reinterpret_cast<uint4*>(st + swz(cr, c8));
+      const uint4 vch =
+          *reinterpret_cast<const uint4*>(st + kPanel + swz(cr, c8));
+      float d[8], v[8];
+      unpack8(dch, d);
+      unpack8(vch, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        d[e] = fmaf(ga[e], d[e], fmaf(ge[e], v[e], gf[e]));
+      dch = pack8(d);
+    }
+  }
+};
+
+constexpr int kWgSmem = kWgStages * WgradSrc::kStageBytes +
+                        kWgPanels * kPanel + 2 * kNbBytes + kAlignSlack;
+
+// Columns 64 ph .. of dw2 (phase ph = blockIdx.x, all 448 rows) over the
+// strips [g_lo, g_hi) of split blockIdx.z, into slice blockIdx.z of part
+// [splits][448][256], computed transposed (64 channels x 256 patch
+// columns, m64n256 products): warpgroup 0 owns patch columns 0-255 (z^T
+// panels 0-3), warpgroup 1 256-511 (panels 4-7, 448.. zero and not
+// stored). Each block reads da and yc of its phase once, so a split reads
+// them once in all.
+template <bool kU8>
+__global__ void __launch_bounds__(kThreads, 1)
+    stem_wgrad_kernel(StemArgs a, const float* abc, int strips, int splits,
+                      float* part, const __grid_constant__ CUtensorMap dmap,
+                      const __grid_constant__ CUtensorMap vmap) {
+  __shared__ alignas(8) uint64_t bars[kWgStages];
+  __shared__ alignas(16) float vecs[3 * 64];
+  uint8_t* sm = aligned_smem();
+  const int z = blockIdx.z;
+  const int g_lo =
+      static_cast<int>(static_cast<long long>(z) * strips / splits);
+  const int g_hi =
+      static_cast<int>(static_cast<long long>(z + 1) * strips / splits);
+  if (g_lo >= g_hi) return;
+  for (int i = threadIdx.x; i < 3 * 64; i += kThreads) vecs[i] = abc[i];
+  WgradSrc src;
+  src.a = a;
+  src.dmap = &dmap;
+  src.vmap = &vmap;
+  src.zt = sm + kWgStages * WgradSrc::kStageBytes;
+  src.nbr = src.zt + kWgPanels * kPanel;
+  src.vecs = vecs;
+  norm_consts(a, kU8, src.na, src.nbias);
+  src.u8 = kU8;
+  src.ph = blockIdx.x;
+  src.g_lo = g_lo;
+  src.g_hi = g_hi;
+  src.sps = (2 * a.ws + 63) / 64;
+  src.sp = (a.hs + 1) / 2;
+  if (threadIdx.x == 0) {
+    tma_prefetch(&dmap);
+    tma_prefetch(&vmap);
+  }
+  src.fetch_strip(0);
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  float acc[kStemN / 2];
+#pragma unroll
+  for (int i = 0; i < kStemN / 2; ++i) acc[i] = 0.0f;
+  {
+    Mainloop<kStemN, kWgStages, 1, WgradSrc> ml(sm, bars, src, 1,
+                                                (g_hi - g_lo) * src.sps);
+    // dw2^T of the phase: du^T [64 channels][64 cells] (MN-major A) times
+    // z [64 cells][256 patch columns] (MN-major B, the warpgroup's panels)
+    ml.k_loop(
+        [&](const uint8_t* st, int) {
+          const uint32_t g0 = smem_addr(st);
+          const uint32_t z0 = smem_addr(src.zt) + 4 * wg * kPanel;
+          fence_acc(acc);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int kk = 0; kk < kHBK / 16; ++kk)
+            wgmma<kStemN, 1, 1>(acc, desc(g0 + kk * 2048, kPanel, 1024),
+                                desc(z0 + kk * 2048, kPanel, 1024));
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          fence_acc(acc);
+        },
+        [&] { mma_wait<0>(acc); });
+    ml.finish();
+  }
+  // straight from the accumulators: a lane holds patch columns 256 wg +
+  // 8 j + 2 (lane % 4), + 1 of channels 16 (warp % 4) + lane / 4 and + 8
+  const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+  const int f = 16 * wq + (lane >> 2);
+  float* slice = part + static_cast<size_t>(z) * kStemK * kStemN +
+                 64 * blockIdx.x + f;
+#pragma unroll
+  for (int j = 0; j < kStemN / 8; ++j) {
+    const int k = 256 * wg + 8 * j + 2 * (lane & 3);
+    if (k >= kStemK) break;
+    float* dst = slice + static_cast<size_t>(k) * kStemN;
+    dst[0] = acc[4 * j];
+    dst[kStemN] = acc[4 * j + 1];
+    dst[8] = acc[4 * j + 2];
+    dst[kStemN + 8] = acc[4 * j + 3];
+  }
+}
+
+// dw7 [147][64]: the splits of part summed in order, folded through the
+// transpose of the phase selection (four terms, in phase order).
+__global__ void stem_fold_kernel(const float* part, int splits, float* dw) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= 147 * 64) return;
+  const int f = idx & 63, dd = idx >> 6;
+  const int c = dd % 3, tap = dd / 3;
+  const int dr = tap / 7, dc = tap - 7 * (tap / 7);
+  float out = 0.0f;
+#pragma unroll
+  for (int ph = 0; ph < 4; ++ph) {
+    const int ur = dr + 2 * (ph >> 1) + 1, uc = dc + 2 * (ph & 1) + 1;
+    const int rk = (ur >> 2) * 144 + (uc >> 2) * 48 + (ur & 3) * 12 +
+                   (uc & 3) * 3 + c;
+    float acc = 0.0f;
+    for (int z = 0; z < splits; ++z)
+      acc += part[(static_cast<size_t>(z) * kStemK + rk) * kStemN + ph * 64 +
+                  f];
+    out += acc;
+  }
+  dw[idx] = out;
+}
+
+static int wgrad_splits(int strips) {
+  return std::max(1, std::min(kWgSplitsMax, strips));
+}
+
+template <bool kU8>
+int launch_wgrad(const StemArgs& a, const float* abc, const void* da,
+                 const void* yc, float* part, cudaStream_t st) {
+  const int cells = a.n * a.hs * a.ws;
+  const int strips = a.n * ((a.hs + 1) / 2);
+  CUtensorMap dmap, vmap;
+  cudaError_t e = allow_smem<stem_wgrad_kernel<kU8>>(kWgSmem);
+  if (e == cudaSuccess) e = tensor_map(&dmap, da, cells, kStemN, 64);
+  if (e == cudaSuccess) e = tensor_map(&vmap, yc, cells, kStemN, 64);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int splits = wgrad_splits(strips);
+  stem_wgrad_kernel<kU8><<<dim3(4, 1, splits), kThreads, kWgSmem, st>>>(
+      a, abc, strips, splits, part, dmap, vmap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Floats of the `part` scratch of the forward and backward: the moment
+// rows of at most one block a band (the forward), of the route's blocks,
+// and the weight gradient's splits.
+size_t stem_workspace(int n, int hs, int ws, int bands) {
+  const size_t rows = std::max<size_t>(static_cast<size_t>(n) * bands,
+                                       route_blocks(n * hs * ws));
+  return std::max(rows * 2 * kStemN,
+                  static_cast<size_t>(wgrad_splits(n * ((hs + 1) / 2))) *
+                      kStemK * kStemN);
 }
 
 #define VCG_TRY(expr)                      \
@@ -279,100 +536,82 @@ static size_t stem_workspace(int n, int hs, int ws) {
     if (e_ != cudaSuccess) return int(e_); \
   } while (0)
 
+}  // namespace
 }  // namespace vcg
 
-// s4 [n, hs, ws, 48] (u8 != 0: uint8, else bf16); w [160, 64] bf16 (HWIO
-// [7,7,3,64] rows, zero padded); gb = gamma [64], beta [64] f32; norm [6]
-// f32. Outputs: yc [n, 2hs, 2ws, 64] bf16, out [n, hs, ws, 64] bf16, stats
-// = mu [64], var [64] f32, vec = sa [64], sb [64] f32; scratch: mom 128
-// f32, part vcg_stem_train_workspace f32.
-extern "C" long long vcg_stem_train_workspace(int n, int hs, int ws) {
-  return static_cast<long long>(vcg::stem_workspace(n, hs, ws));
+// Floats of the `part` scratch of vcg_stem_train_fwd and _bwd.
+extern "C" long long vcg_stem_train_workspace(int n, int hs, int ws,
+                                              int bands) {
+  return static_cast<long long>(vcg::stem_workspace(n, hs, ws, bands));
 }
 
-extern "C" int vcg_stem_train_fwd(const void* s4, int u8, const void* w,
+// x: u8 cells [n, hs, ws, 48] (u8 != 0; 16-byte aligned) or bf16 frames
+// [n, 4 hs, 4 ws, 3] (8-byte aligned); w [448, 256] bf16 the phase-packed
+// weight (ops/stem.py:stem_weight_im2col, rows 432.. zero); gb = gamma
+// [64], beta [64] f32; norm [6] f32 (u8 only). Outputs: yc [n hs ws, 256]
+// bf16 phase-packed, out [n, hs, ws, 64] bf16, stats = mu [64], var [64]
+// f32, vec = sa [64], sb [64] f32; scratch part (vcg_stem_train_workspace).
+// ws <= 64; bands a frame in 1 .. (hs + 1) / 2.
+extern "C" int vcg_stem_train_fwd(const void* x, int u8, const void* w,
                                   const void* gb, const void* norm, void* yc,
                                   void* out, void* stats, void* vec,
-                                  void* mom, void* part, int n, int hs,
-                                  int ws, float eps, void* stream) {
+                                  void* part, int n, int hs, int ws,
+                                  int bands, float eps, void* stream) {
   using namespace vcg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const StemSrc s{s4, u8, static_cast<const float*>(norm), n, hs, ws};
-  const int hc = 2 * hs, wc = 2 * ws;
-  const int m = n * hc * wc;
-  float* mo = static_cast<float*>(mom);
-  float* sv = static_cast<float*>(stats);
-  float* vv = static_cast<float*>(vec);
-  const float* g = static_cast<const float*>(gb);
   float* pa = static_cast<float*>(part);
-  const int mt = (m + kBM - 1) / kBM;
-  stem_conv_kernel<<<mt, kThreads, 0, st>>>(
-      s, static_cast<const bf16*>(w), static_cast<bf16*>(yc), pa);
+  float* vv = static_cast<float*>(vec);
+  const StemArgs a{x, nullptr, nullptr, static_cast<const float*>(norm),
+                   static_cast<bf16*>(yc), pa, n, hs, ws, bands};
+  int grid = 0;
+  VCG_TRY(static_cast<cudaError_t>(
+      u8 ? launch_stem<true, true>(a, w, st, &grid)
+         : launch_stem<false, true>(a, w, st, &grid)));
+  stem_stats_kernel<<<1, kFoldThreads, 0, st>>>(
+      pa, grid, static_cast<float>(n) * 4 * hs * ws,
+      static_cast<const float*>(gb), eps, static_cast<float*>(stats), vv);
   VCG_TRY(cudaGetLastError());
-  VCG_TRY(reduce_rows(pa, mt, 128, mo, st));
-  bn_stats_kernel<<<1, 64, 0, st>>>(mo, 64, static_cast<float>(m), g, g + 64,
-                                    eps, sv, sv + 64, vv, vv + 64);
-  VCG_TRY(cudaGetLastError());
-  const int hp = (hc - 1) / 2 + 1, wp = (wc - 1) / 2 + 1;
-  const size_t total = static_cast<size_t>(n) * hp * wp * 8;
+  const size_t total = static_cast<size_t>(n) * hs * ws * 8;
   stem_pool_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
       static_cast<const bf16*>(yc), vv, vv + 64, static_cast<bf16*>(out), n,
-      hc, wc, hp, wp);
+      hs, ws);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dpool, out [n, hs, ws, 64] bf16; yc as the forward wrote it; stats/vec
-// from the forward. Outputs: dw [160, 64] f32 (rows 147.. stay zero),
-// dgb = dgamma [64], dbeta [64] f32. Scratch: da [n, 2hs, 2ws, 64] bf16,
-// work 128 + 192 f32, part vcg_stem_train_workspace f32.
+// dpool, out [n, hs, ws, 64] bf16; x, yc, stats, vec as the forward had or
+// wrote them. Outputs: dw [147, 64] f32 (HWIO rows (kh, kw, c)), dgb =
+// dgamma [64], dbeta [64] f32. Scratch: da [n hs ws, 256] bf16, abc 192 f32,
+// part (vcg_stem_train_workspace).
 extern "C" int vcg_stem_train_bwd(const void* dpool, const void* out,
-                                  const void* yc, const void* s4, int u8,
+                                  const void* yc, const void* x, int u8,
                                   const void* norm, const void* gb,
                                   const void* stats, const void* vec,
-                                  void* da, void* dw, void* dgb, void* work,
+                                  void* da, void* dw, void* dgb, void* abc,
                                   void* part, int n, int hs, int ws,
                                   float eps, void* stream) {
   using namespace vcg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hc = 2 * hs, wc = 2 * ws;
-  const int hp = (hc - 1) / 2 + 1, wp = (wc - 1) / 2 + 1;
-  const int m = n * hc * wc;
-  float* mo = static_cast<float*>(work);
-  float* abc = mo + 128;
-  const float* sv = static_cast<const float*>(stats);
   const float* vv = static_cast<const float*>(vec);
-  const float* g = static_cast<const float*>(gb);
-  float* dg = static_cast<float*>(dgb);
-  float* dwf = static_cast<float*>(dw);
+  const float* sv = static_cast<const float*>(stats);
   float* pa = static_cast<float*>(part);
-  const int blocks = route_blocks(m);
+  float* ab = static_cast<float*>(abc);
+  const int cells = n * hs * ws;
+  const int blocks = route_blocks(cells);
   stem_route_kernel<<<blocks, kThreads, 0, st>>>(
       static_cast<const bf16*>(dpool), static_cast<const bf16*>(out),
-      static_cast<const bf16*>(yc), vv, vv + 64, sv,
-      static_cast<bf16*>(da), pa, n, hc, wc, hp, wp);
+      static_cast<const bf16*>(yc), vv, vv + 64, sv, static_cast<bf16*>(da),
+      pa, n, hs, ws);
   VCG_TRY(cudaGetLastError());
-  VCG_TRY(reduce_rows(pa, blocks, 128, mo, st));
-  bn_bwd_kernel<<<1, 64, 0, st>>>(mo, mo + 64, 64, static_cast<float>(m), g,
-                                  sv, sv + 64, eps, abc, abc + 64, abc + 128,
-                                  dg, dg + 64);
+  stem_bwd_stats_kernel<<<1, kFoldThreads, 0, st>>>(
+      pa, blocks, static_cast<float>(n) * 4 * hs * ws,
+      static_cast<const float*>(gb), sv, eps, ab, static_cast<float*>(dgb));
   VCG_TRY(cudaGetLastError());
-  StemT al;
-  al.s = StemSrc{s4, u8, static_cast<const float*>(norm), n, hs, ws};
-  GradT<64> gl;
-  gl.gx.da = static_cast<const bf16*>(da);
-  gl.gx.v = static_cast<const bf16*>(yc);
-  gl.gx.ga = abc;
-  gl.gx.ge = abc + 64;
-  gl.gx.gf = abc + 128;
-  gl.gx.c = 64;
-  int chunk = 0;
-  const dim3 grid = wgrad_grid(kStemKPad, 64, 64, m, &chunk);
-  wgrad_kernel<64, StemT, GradT<64>><<<grid, kThreads, 0, st>>>(
-      al, gl, chunk, m, kStemKPad, 64, grid.z > 1 ? pa : dwf);
-  VCG_TRY(cudaGetLastError());
-  if (grid.z > 1) {
-    reduce_slices_kernel<<<(kStemKPad * 64 + 255) / 256, 256, 0, st>>>(
-        pa, grid.z, kStemKPad * 64, dwf);
-  }
+  const StemArgs a{x, nullptr, nullptr, static_cast<const float*>(norm),
+                   nullptr, nullptr, n, hs, ws, 1};
+  VCG_TRY(static_cast<cudaError_t>(
+      u8 ? launch_wgrad<true>(a, ab, da, yc, pa, st)
+         : launch_wgrad<false>(a, ab, da, yc, pa, st)));
+  stem_fold_kernel<<<(147 * 64 + 255) / 256, 256, 0, st>>>(
+      pa, wgrad_splits(n * ((hs + 1) / 2)), static_cast<float*>(dw));
   return static_cast<int>(cudaGetLastError());
 }

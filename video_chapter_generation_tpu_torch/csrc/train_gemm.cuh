@@ -22,22 +22,15 @@
 // same on every run (batch-stat BN at initialization amplifies a last-bit
 // difference in a statistic into a visible difference 16 blocks later).
 //
-// K12 (conv_train.cu) runs its three GEMMs on hopper_gemm.cuh's wgmma
-// mainloop and takes from here the operand descriptions, the finale, the
-// moment slots and the reduction and BN-vector kernels. mainloop_w (WMMA,
-// two stages, A loaded through registers), epilogue, GradT and
-// wgrad_kernel remain only for the training stem K11 (stem_train.cu).
+// K12 (conv_train.cu) and K11 (stem_train.cu) run their GEMMs on
+// hopper_gemm.cuh's wgmma mainloop and take from here the operand
+// descriptions, the finale, the moment slots and the reduction and
+// BN-vector kernels.
 #pragma once
 
 #include "conv_gemm.cuh"
 
 namespace vcg {
-
-template <int BN>
-struct Acc {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
-      f[Tile<BN>::kFM][Tile<BN>::kFN];
-};
 
 __device__ __forceinline__ void unpack8(uint4 raw, float (&v)[8]) {
   const bf16* b = reinterpret_cast<const bf16*>(&raw);
@@ -85,18 +78,6 @@ struct GradXf {
   const float* gf;
   int c;
 };
-
-__device__ __forceinline__ uint4 grad8(const GradXf& g, size_t row, int ch,
-                                       bool ok) {
-  if (!ok) return make_uint4(0, 0, 0, 0);
-  float d[8], v[8];
-  unpack8(ldg16(g.da + row * g.c + ch), d);
-  unpack8(ldg16(g.v + row * g.c + ch), v);
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    d[e] = fmaf(g.ga[ch + e], d[e], fmaf(g.ge[ch + e], v[e], g.gf[ch + e]));
-  return pack8(d);
-}
 
 // 8 floats of a per-channel vector from p (16-byte aligned: every vector
 // the entries pass starts a multiple of 64 floats into its buffer).
@@ -151,114 +132,10 @@ struct LinkXf {
   int t, fold;
 };
 
-// Main loop of the forward and dgrad GEMMs: A through its loader, B = a
-// weight [k_total, nout] row-major through cp.async, two stages.
-template <int BN, class ALoader>
-__device__ void mainloop_w(Smem<BN>& sm, const ALoader& al, const bf16* w,
-                           int k_total, int nout, int n0, Acc<BN>& acc) {
-  using namespace nvcuda;
-  using TL = Tile<BN>;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp / TL::kWarpsN;
-  const int wn = warp - wm * TL::kWarpsN;
-#pragma unroll
-  for (int i = 0; i < TL::kFM; ++i)
-#pragma unroll
-    for (int j = 0; j < TL::kFN; ++j) wmma::fill_fragment(acc.f[i][j], 0.0f);
-
-  const int ktiles = k_total / kBK;
-  al.load(sm.a[0], 0);
-  load_w<BN>(sm.b[0], w, nout, 0, n0, k_total);
-  cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < ktiles) {
-      al.load(sm.a[s ^ 1], (kt + 1) * kBK);
-      load_w<BN>(sm.b[s ^ 1], w, nout, (kt + 1) * kBK, n0, k_total);
-    }
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          af[TL::kFM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-          bfr[TL::kFN];
-#pragma unroll
-      for (int i = 0; i < TL::kFM; ++i)
-        wmma::load_matrix_sync(
-            af[i], sm.a[s] + (wm * TL::kWM + i * 16) * kALd + kk, kALd);
-#pragma unroll
-      for (int j = 0; j < TL::kFN; ++j)
-        wmma::load_matrix_sync(
-            bfr[j], sm.b[s] + kk * TL::kBLd + wn * TL::kWN + j * 16, TL::kBLd);
-#pragma unroll
-      for (int i = 0; i < TL::kFM; ++i)
-#pragma unroll
-        for (int j = 0; j < TL::kFN; ++j)
-          wmma::mma_sync(acc.f[i][j], af[i], bfr[j], acc.f[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// Hand every lane 8 consecutive accumulator columns of one tile row:
-// fn(tile_row, tile_col, v[8]). All 32 lanes of each warp call fn
-// together, so fn may use warp shuffles.
-template <int BN, class Fn>
-__device__ void epilogue(float* epi_warp, Acc<BN>& acc, Fn&& fn) {
-  using TL = Tile<BN>;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = warp / TL::kWarpsN;
-  const int wn = warp - wm * TL::kWarpsN;
-  const int r = lane >> 1;
-  const int c8 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < TL::kFM; ++i) {
-#pragma unroll
-    for (int j = 0; j < TL::kFN; ++j) {
-      nvcuda::wmma::store_matrix_sync(epi_warp, acc.f[i][j], 16,
-                                      nvcuda::wmma::mem_row_major);
-      __syncwarp();
-      float v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = epi_warp[r * 16 + c8 + e];
-      fn(wm * TL::kWM + i * 16 + r, wn * TL::kWN + j * 16 + c8, v);
-      __syncwarp();
-    }
-  }
-}
-
-// Sum a and b over the 16 lanes that hold the same 8 columns (same lane
-// parity), then lanes 0 and 1 add the column sums to this warp row's
-// shared slots s0/s1. A (warp row, column) slot belongs to one warp and
-// its fragments are visited in a fixed order, so no atomics are needed
-// and the sums are the same on every run.
-__device__ __forceinline__ void moments_add(float* s0, float* s1, int col,
-                                            float (&a)[8], float (&b)[8]) {
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-#pragma unroll
-    for (int off = 2; off < 32; off <<= 1) {
-      a[e] += __shfl_xor_sync(0xffffffffu, a[e], off);
-      b[e] += __shfl_xor_sync(0xffffffffu, b[e], off);
-    }
-  }
-  if ((threadIdx.x & 31) < 2) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      s0[col + e] += a[e];
-      s1[col + e] += b[e];
-    }
-  }
-}
-
 // Per-block moment slots: R rows of BN columns per warp row; WR warp rows
-// (the WMMA tiles' layout by default; 8 for hopper_gemm.cuh's tiles, where
-// every warp owns 16 rows of all BN columns).
-template <int BN, int R = 2, int WR = Tile<BN>::kWarpsM>
+// (8 for hopper_gemm.cuh's tiles, where every warp owns 16 rows of all BN
+// columns).
+template <int BN, int R, int WR>
 struct MomSlots {
   float v[WR][R][BN];
 
@@ -329,140 +206,19 @@ __global__ void reduce_slices_kernel(const float* part, int slices,
 }
 
 // ---------------------------------------------------------------------------
-// weight gradient: dW[K, N] += A^T G over a range of pixels
-// ---------------------------------------------------------------------------
-
-constexpr int kWStep = 32;       // pixels per stage
-constexpr int kTLd = kBM + 8;    // smem pitch of the transposed A tile
-
-template <int BN>
-struct WSmem {
-  alignas(128) bf16 a[2][kWStep * kTLd];
-  alignas(128) bf16 g[2][kWStep * (BN + 8)];
-  alignas(128) float epi[8][16 * 16];
-};
-
-// G tile of the weight gradient: 32 pixels x BN columns from n0.
-template <int BN>
-struct GradT {
-  GradXf gx;
-  int n0;
-
-  __device__ void init(int n0_) { n0 = n0_; }
-
-  __device__ void load(bf16* gs, int m0, int m_end) const {
-    constexpr int kCpr = BN / 8;
-    for (int q = threadIdx.x; q < kWStep * kCpr; q += kThreads) {
-      const int r = q / kCpr;
-      const int cc = q - r * kCpr;
-      const int mm = m0 + r;
-      const bool ok = mm < m_end;
-      *reinterpret_cast<uint4*>(gs + r * (BN + 8) + cc * 8) =
-          grad8(gx, ok ? static_cast<size_t>(mm) : 0, n0 + cc * 8, ok);
-    }
-  }
-};
-
-// One 128 x BN tile of dW over pixels [m_begin, m_end); grid (k tiles,
-// n tiles, pixel splits); split z stores its float32 partial sums into
-// slice z of dw [splits][k_total][nout] (no atomics: the caller sums the
-// slices in order).
-template <int BN, class AL, class GL>
-__global__ void __launch_bounds__(kThreads)
-    wgrad_kernel(AL al, GL gl, int chunk, int m_total, int k_total, int nout,
-                 float* dw) {
-  using namespace nvcuda;
-  using TL = Tile<BN>;
-  __shared__ WSmem<BN> sm;
-  const int k0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * BN;
-  const int m_begin = blockIdx.z * chunk;
-  const int m_end = min(m_total, m_begin + chunk);
-  if (m_begin >= m_end) return;
-  al.init(k0);
-  gl.init(n0);
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp / TL::kWarpsN;
-  const int wn = warp - wm * TL::kWarpsN;
-  Acc<BN> acc;
-#pragma unroll
-  for (int i = 0; i < TL::kFM; ++i)
-#pragma unroll
-    for (int j = 0; j < TL::kFN; ++j) wmma::fill_fragment(acc.f[i][j], 0.0f);
-
-  const int steps = (m_end - m_begin + kWStep - 1) / kWStep;
-  al.load(sm.a[0], m_begin, m_end);
-  gl.load(sm.g[0], m_begin, m_end);
-  __syncthreads();
-  for (int s = 0; s < steps; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < steps) {
-      al.load(sm.a[buf ^ 1], m_begin + (s + 1) * kWStep, m_end);
-      gl.load(sm.g[buf ^ 1], m_begin + (s + 1) * kWStep, m_end);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kWStep; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
-          af[TL::kFM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-          bfr[TL::kFN];
-#pragma unroll
-      for (int i = 0; i < TL::kFM; ++i)
-        wmma::load_matrix_sync(
-            af[i], sm.a[buf] + kk * kTLd + wm * TL::kWM + i * 16, kTLd);
-#pragma unroll
-      for (int j = 0; j < TL::kFN; ++j)
-        wmma::load_matrix_sync(
-            bfr[j], sm.g[buf] + kk * (BN + 8) + wn * TL::kWN + j * 16, BN + 8);
-#pragma unroll
-      for (int i = 0; i < TL::kFM; ++i)
-#pragma unroll
-        for (int j = 0; j < TL::kFN; ++j)
-          wmma::mma_sync(acc.f[i][j], af[i], bfr[j], acc.f[i][j]);
-    }
-    __syncthreads();
-  }
-  epilogue<BN>(sm.epi[warp], acc, [&](int r, int c, float(&v)[8]) {
-    const int k = k0 + r;
-    if (k < k_total) {
-      float* dst = dw + static_cast<size_t>(blockIdx.z) * k_total * nout +
-                   static_cast<size_t>(k) * nout + n0 + c;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) dst[e] = v[e];
-    }
-  });
-}
-
-// Grid of the weight gradient: enough pixel splits to give the card a few
-// waves of blocks, each split at least 256 pixels.
-inline dim3 wgrad_grid(int k_total, int nout, int bn, int m_total,
-                       int* chunk) {
-  const int kt = (k_total + kBM - 1) / kBM;
-  const int nt = nout / bn;
-  int z = (4 * 132) / (kt * nt);
-  z = z < 1 ? 1 : z;
-  const int most = (m_total + 255) / 256;
-  z = z > most ? most : z;
-  int c = (m_total + z - 1) / z;
-  c = (c + kWStep - 1) / kWStep * kWStep;
-  *chunk = c;
-  return dim3(kt, nt, (m_total + c - 1) / c);
-}
-
-// ---------------------------------------------------------------------------
 // BatchNorm vectors between the GEMMs (tiny, one thread per channel)
 // ---------------------------------------------------------------------------
 
-// mom [2, n] = (sum, sum of squares) over count pixels -> mu, biased var,
-// and the affine sa * v + sb that the next loader applies.
-__global__ void bn_stats_kernel(const float* mom, int n, float count,
-                                const float* gamma, const float* beta,
-                                float eps, float* mu, float* var, float* sa,
-                                float* sb) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float m = mom[i] / count;
-  const float v = mom[n + i] / count - m * m;
+// The BatchNorm statistics of channel i from its moments (sum m0, sum
+// of squares m1) over count pixels -> mu, biased var, and the affine
+// sa * v + sb that the next loader applies.
+__device__ __forceinline__ void bn_stats_at(int i, float m0, float m1,
+                                            float count, const float* gamma,
+                                            const float* beta, float eps,
+                                            float* mu, float* var, float* sa,
+                                            float* sb) {
+  const float m = m0 / count;
+  const float v = m1 / count - m * m;
   const float a = gamma[i] * rsqrtf(v + eps);
   mu[i] = m;
   var[i] = v;
@@ -470,8 +226,37 @@ __global__ void bn_stats_kernel(const float* mom, int n, float count,
   sb[i] = beta[i] - m * a;
 }
 
-// BN backward from s0 = sum(da), s1 = sum(da * (v - mu)) (centred):
-// dv = A * da + E * v + F, dgamma = r * s1, dbeta = s0.
+// mom [2, n] = (sum, sum of squares) over count pixels -> bn_stats_at.
+__global__ void bn_stats_kernel(const float* mom, int n, float count,
+                                const float* gamma, const float* beta,
+                                float eps, float* mu, float* var, float* sa,
+                                float* sb) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  bn_stats_at(i, mom[i], mom[n + i], count, gamma, beta, eps, mu, var, sa,
+              sb);
+}
+
+// BN backward of channel i from s0 = sum(da), s1 = sum(da * (v - mu))
+// (centred) over count pixels: dv = A * da + E * v + F, dgamma = r * s1,
+// dbeta = s0.
+__device__ __forceinline__ void bn_bwd_at(int i, float s0, float s1,
+                                          float count, const float* gamma,
+                                          const float* mu, const float* var,
+                                          float eps, float* va, float* ve,
+                                          float* vf, float* dgamma,
+                                          float* dbeta) {
+  const float r = rsqrtf(var[i] + eps);
+  const float a = gamma[i] * r;
+  const float t0 = s0 / count;
+  const float t1 = r * s1 / count;
+  va[i] = a;
+  ve[i] = -a * t1 * r;
+  vf[i] = -a * t0 + a * t1 * r * mu[i];
+  dgamma[i] = r * s1;
+  dbeta[i] = s0;
+}
+
 __global__ void bn_bwd_kernel(const float* s0, const float* s1, int n,
                               float count, const float* gamma,
                               const float* mu, const float* var, float eps,
@@ -479,15 +264,8 @@ __global__ void bn_bwd_kernel(const float* s0, const float* s1, int n,
                               float* dbeta) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float r = rsqrtf(var[i] + eps);
-  const float a = gamma[i] * r;
-  const float t0 = s0[i] / count;
-  const float t1 = r * s1[i] / count;
-  va[i] = a;
-  ve[i] = -a * t1 * r;
-  vf[i] = -a * t0 + a * t1 * r * mu[i];
-  dgamma[i] = r * s1[i];
-  dbeta[i] = s0[i];
+  bn_bwd_at(i, s0[i], s1[i], count, gamma, mu, var, eps, va, ve, vf, dgamma,
+            dbeta);
 }
 
 }  // namespace vcg

@@ -8,8 +8,12 @@ qi+1, glast, rand...]) read straight from the full k and v, with key
 padding and the table's valid flags entering as an additive
 (1 - mask * valid) * -10000 on the scaled float32 scores, a float32
 softmax and the value product. It runs csrc/sparse_attention.cu on a
-CUDA tensor; `sparse_band_attention_reference` is the plain version, and
-a CPU tensor takes it.
+CUDA tensor (a wgmma kernel at the serving shape, bs 64, hd 64 and 8
+parts, that walks consecutive query blocks of a (batch, head) and keeps
+their shared key/value blocks resident; mma.sync for every other shape,
+which no model configuration sends);
+`sparse_band_attention_reference` is the plain version, and a CPU tensor
+takes it.
 
 The TPU kernel's penalty table replicated over 8 sublanes
 (sparse_attention_pallas.py:67-78) exists only for Mosaic's (8, 128)
@@ -20,6 +24,7 @@ valid tables itself.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -91,6 +96,43 @@ def _lib():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _takes_wgmma(bs: int, hd: int, np_: int, nbq: int) -> bool:
+    """Whether a call at this shape runs the wgmma kernel (else mma.sync);
+    the C side decides, so the two never disagree."""
+    fn = _build.load("sparse_attention").vcg_sparse_band_wgmma
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_int
+    return bool(fn(bs, hd, np_, nbq))
+
+
+# tables found structured: id(ids) -> (ids, its version); the tensor is
+# held so that its id is not reused while the entry lives
+_structured_seen: dict = {}
+
+
+def require_structured(ids: torch.Tensor, nb: int) -> None:
+    """Raise ValueError unless ids[:, :5] are structured_ids(nb)'s
+    [0, qi-1, qi, qi+1, nb-1] rows, which the wgmma kernel derives from
+    the structure instead of reading. A table is compared once (one sync)
+    and remembered while it is not written to."""
+    seen = _structured_seen.get(id(ids))
+    if seen is not None and seen[0] is ids and seen[1] == ids._version:
+        return
+    nbq = nb - 2
+    qi = torch.arange(1, nbq + 1, dtype=torch.int32, device=ids.device)
+    want = torch.stack([torch.zeros_like(qi), qi - 1, qi, qi + 1,
+                        torch.full_like(qi, nb - 1)], 1)
+    if tuple(ids.shape[:1]) != (nbq,) or ids.shape[1] < 5 \
+            or not torch.equal(ids[:, :5], want):
+        raise ValueError("ids[:, :5] must be structured_ids' [0, qi-1, qi, "
+                         "qi+1, nb-1] rows at this shape")
+    if len(_structured_seen) >= 8:
+        _structured_seen.pop(next(iter(_structured_seen)))
+    _structured_seen[id(ids)] = (ids, ids._version)
+
+
 def _check(q_mid, k, v, mask, ids, valid, bs, out):
     b, lq, h, hd = q_mid.shape
     l = k.shape[1]
@@ -135,7 +177,11 @@ def sparse_band_attention(q_mid, k, v, mask, ids, valid, block_size: int,
     bs..L-bs of `out` ([B, L, H, hd], q's dtype); returns that slice. The
     caller fills the first and last blocks beside it, so no concatenation
     follows. On a CUDA tensor: bf16 only, bs and hd multiples of 16 up to
-    64 and 128."""
+    64 and 128, a 0/1 mask. bs 64, hd 64 and 8 parts (the BigBird-Pegasus
+    serving shape) run the wgmma kernel, which derives parts 0-4 from the
+    structure (a table whose ids[:, :5] are not structured_ids' raises
+    ValueError); every other shape runs the mma.sync kernel, and counts
+    in `mma_sync_launches` as well as in `launches`."""
     bs = block_size
     l = k.shape[1]
     if q_mid.device.type == "cpu":
@@ -146,14 +192,19 @@ def sparse_band_attention(q_mid, k, v, mask, ids, valid, block_size: int,
         raise NotImplementedError(f"sparse_band_attention on {q_mid.device}")
     _check(q_mid, k, v, mask, ids, valid, bs, out)
     h, hd = q_mid.shape[2:]
-    mask_f = mask.to(torch.float32).contiguous()
+    wgmma = _takes_wgmma(bs, hd, ids.shape[1], l // bs - 2)
+    if wgmma:
+        require_structured(ids, l // bs)
+    mask_i = mask.to(torch.int32).contiguous()  # a 0/1 mask: exact
     rc = _lib()(
-        q_mid.data_ptr(), k.data_ptr(), v.data_ptr(), mask_f.data_ptr(),
+        q_mid.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i.data_ptr(),
         ids.data_ptr(), valid.data_ptr(),
         out.data_ptr() + bs * h * hd * out.element_size(),
         k.shape[0], l, h, hd, bs, ids.shape[1], q_mid.stride(0),
         l * h * hd, torch.cuda.current_stream(q_mid.device).cuda_stream)
     sparse_band_attention.launches += 1
+    if not wgmma:
+        sparse_band_attention.mma_sync_launches += 1
     if rc != 0:
         raise RuntimeError(f"sparse_band_attention kernel failed: CUDA error "
                            f"{rc}")
@@ -161,3 +212,4 @@ def sparse_band_attention(q_mid, k, v, mask, ids, valid, block_size: int,
 
 
 sparse_band_attention.launches = 0
+sparse_band_attention.mma_sync_launches = 0

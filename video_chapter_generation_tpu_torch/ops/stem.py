@@ -104,16 +104,18 @@ def _lib(name: str):
     return fn
 
 
-def stem_bands(n: int, hs: int, sms: int) -> int:
+def stem_bands(n: int, hs: int, sms: int, halo: bool = True) -> int:
     """Bands a frame for the stem kernel's persistent walk over n frames of
     hs cell rows on sms blocks (one an SM): a band is a run of strips (2
-    cell rows each), and one that starts below the frame's top recomputes
-    the strip above it. The count minimizes the most strips a block walks,
-    ceil(n * bands / sms) * (ceil(strips / bands) + [bands > 1])."""
+    cell rows each), and, with halo (the pool's carry), one that starts
+    below the frame's top recomputes the strip above it. The count
+    minimizes the most strips a block walks, ceil(n * bands / sms) *
+    (ceil(strips / bands) + [halo and bands > 1])."""
     strips = (hs + 1) // 2
     best = None
     for bands in range(1, strips + 1):
-        walk = -(-n * bands // sms) * (-(-strips // bands) + (bands > 1))
+        walk = -(-n * bands // sms) * (-(-strips // bands)
+                                       + (halo and bands > 1))
         if best is None or walk < best[0]:
             best = (walk, bands)
     return best[1]
@@ -262,11 +264,18 @@ def _phase_selection() -> np.ndarray:
     return sel
 
 
+@functools.lru_cache(maxsize=None)
+def _selection_on(device: torch.device) -> torch.Tensor:
+    """_phase_selection on device, copied there once (the training stem
+    makes its weight every step)."""
+    return torch.from_numpy(_phase_selection()).to(device)
+
+
 def stem_weight_im2col(w7: torch.Tensor) -> torch.Tensor:
     """stem_pallas.py:111 _stem_weight_im2col in float32: the [7, 7, 3, 64]
     kernel as the phase-packed im2col weight [432, 256], column
     ph * 64 + f (each entry one weight or 0, so exact)."""
-    sel = torch.from_numpy(_phase_selection()).to(w7.device)
+    sel = _selection_on(w7.device)
     w = w7.reshape(147, 64).float()
     return torch.einsum("prd,df->rpf", sel, w).reshape(432, 256)
 

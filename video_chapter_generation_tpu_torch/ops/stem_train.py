@@ -17,12 +17,21 @@ routes the same way.
 
 A CPU tensor takes the plain version (`stem_train_reference`); a CUDA
 tensor runs csrc/stem_train.cu through `_StemTrain` (forward and
-backward one C call each: `stem_train_fwd`, `stem_train_bwd`).
+backward one C call each: `stem_train_fwd`, `stem_train_bwd`), on the
+uint8 cells or, for float input, on bf16 frames read as their cells in
+place (frames up to 256 px wide). The kernel keeps the conv output in
+the TPU kernel's phase-packed form [cells, 256]: its forward product is
+the phase-packed stem of K1 (csrc/stem_tiles.cuh) with a store-and-
+moments epilogue, its weight gradient the phase-packed dw2 = z^T du on
+the wgmma mainloop, folded back to [7, 7, 3, 64] on the device
+(tests/test_torch_stem_train_phase.py holds this decomposition in plain
+torch to the plain version and to the JAX kernel).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +42,7 @@ from .preprocess import (
     norm_consts,
     normalize_frames_reference,
 )
+from .stem import STEM_MAX_CELLS, _phase_weight, _sm_count, stem_bands
 from .tsm_block_train import bn_train
 
 
@@ -61,51 +71,85 @@ def stem_train_reference(frames: torch.Tensor, w7: torch.Tensor, gamma,
     return out.permute(0, 2, 3, 1).contiguous(), (mu, var)
 
 
-def _fn(name: str, n_ptr_head: int, n_ptr_tail: int):
+def _fn(name: str, n_ptr_head: int, n_ptr_tail: int, n_int: int):
     fn = getattr(_build.load("stem_train"), name)
     if fn.argtypes is None:
-        # (pointers..., int u8, pointers..., int n, hs, ws, float eps, stream)
+        # (pointers..., int u8, pointers..., ints..., float eps, stream)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr_head + [ctypes.c_int]
                        + [ctypes.c_void_p] * n_ptr_tail
-                       + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                               ctypes.c_void_p])
+                       + [ctypes.c_int] * n_int + [ctypes.c_float,
+                                                   ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _workspace(device, n: int, h: int, w: int) -> torch.Tensor:
-    """The float32 scratch of partial sums (vcg_stem_train_workspace)."""
+@functools.lru_cache(maxsize=None)
+def _workspace_floats(n: int, hs: int, ws: int, bands: int) -> int:
+    """Floats of the scratch of partial sums (vcg_stem_train_workspace)."""
     fn = _build.load("stem_train").vcg_stem_train_workspace
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 3
+        fn.argtypes = [ctypes.c_int] * 4
         fn.restype = ctypes.c_longlong
-    return torch.empty(max(int(fn(n, h, w)), 1), dtype=torch.float32,
-                       device=device)
+    return max(int(fn(n, hs, ws, bands)), 1)
+
+
+def _workspace(device, n: int, hs: int, ws: int,
+               bands: int) -> torch.Tensor:
+    return torch.empty(_workspace_floats(n, hs, ws, bands),
+                       dtype=torch.float32, device=device)
 
 
 def _stem_weight(w7: torch.Tensor) -> torch.Tensor:
-    """[7, 7, 3, 64] HWIO -> [160, 64] bf16, rows (kh, kw, c), zero padded."""
-    wk = torch.zeros(160, 64, dtype=torch.bfloat16, device=w7.device)
-    wk[:147] = w7.reshape(147, 64).to(torch.bfloat16)
-    return wk
+    """[7, 7, 3, 64] HWIO -> the kernel's bf16 [448, 256]: the phase-packed
+    im2col weight (ops/stem.py), K zero-padded 432 -> 448."""
+    return _phase_weight(w7, w7.device)
+
+
+def _kernel_input(s4: torch.Tensor) -> torch.Tensor:
+    """What the kernel reads: uint8 cells [N, hs, ws, 48] as they are;
+    float cells (depth_to_space4'd) and frames [N, H, W, 3] as contiguous
+    bf16 frames, whose 4x4 cells the kernel reads in place. An input that
+    does not start on 16 bytes is copied (the kernel loads 16 bytes at a
+    time); frames wider than 256 px raise ValueError (a strip holds 2 cell
+    rows of at most 64 cells, as K1's)."""
+    if s4.dtype == torch.uint8:
+        x, ws = s4.contiguous(), s4.shape[2]
+    else:
+        x = depth_to_space4(s4) if s4.shape[-1] == 48 else s4
+        x = x.to(torch.bfloat16).contiguous()
+        ws = x.shape[2] // 4
+    if ws > STEM_MAX_CELLS:
+        raise ValueError(f"the training stem kernel takes frames up to "
+                         f"{4 * STEM_MAX_CELLS} px wide, got {4 * ws}")
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def _cells(x: torch.Tensor):
+    """(n, hs, ws) of a kernel input."""
+    n, h, w = x.shape[:3]
+    return (n, h, w) if x.dtype == torch.uint8 else (n, h // 4, w // 4)
 
 
 def stem_train_fwd(s4, wk, gb, eps: float):
-    """One launch of vcg_stem_train_fwd -> (out, yc, stats [2, 64], vec)."""
-    n, h, w, _ = s4.shape
-    dev, bf = s4.device, torch.bfloat16
-    yc = torch.empty(n, 2 * h, 2 * w, 64, dtype=bf, device=dev)
-    out = torch.empty(n, h, w, 64, dtype=bf, device=dev)
+    """One call of vcg_stem_train_fwd (the product with its moments, the
+    statistics, the pool) -> (out, yc [cells, 256] phase-packed, stats
+    [2, 64], vec [2, 64])."""
+    x = _kernel_input(s4)
+    n, hs, ws = _cells(x)
+    dev, bf = x.device, torch.bfloat16
+    bands = stem_bands(n, hs, _sm_count(dev.index if dev.index is not None
+                                        else torch.cuda.current_device()),
+                       halo=False)
+    yc = torch.empty(n * hs * ws, 256, dtype=bf, device=dev)
+    out = torch.empty(n, hs, ws, 64, dtype=bf, device=dev)
     stats, vec = torch.empty(2, 2, 64, dtype=torch.float32,
                              device=dev).unbind(0)
-    mom = torch.empty(128, dtype=torch.float32, device=dev)
-    part = _workspace(dev, n, h, w)
-    rc = _fn("vcg_stem_train_fwd", 1, 9)(
-        s4.data_ptr(), int(s4.dtype == torch.uint8), wk.data_ptr(),
+    part = _workspace(dev, n, hs, ws, bands)
+    rc = _fn("vcg_stem_train_fwd", 1, 8, 4)(
+        x.data_ptr(), int(x.dtype == torch.uint8), wk.data_ptr(),
         gb.data_ptr(), norm_consts(dev).data_ptr(), yc.data_ptr(),
-        out.data_ptr(), stats.data_ptr(), vec.data_ptr(), mom.data_ptr(),
-        part.data_ptr(), n, h, w, eps,
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), stats.data_ptr(), vec.data_ptr(), part.data_ptr(), n,
+        hs, ws, bands, eps, torch.cuda.current_stream(dev).cuda_stream)
     stem_train_fwd.launches += 1
     if rc != 0:
         raise RuntimeError(f"stem_train_fwd kernel failed: CUDA error {rc}")
@@ -113,22 +157,27 @@ def stem_train_fwd(s4, wk, gb, eps: float):
 
 
 def stem_train_bwd(dpool, out, yc, s4, gb, stats, vec, eps: float):
-    """One launch of vcg_stem_train_bwd -> (dw [160, 64], dgb [2, 64]),
-    float32."""
-    n, h, w, _ = s4.shape
-    dev = s4.device
+    """One call of vcg_stem_train_bwd (the route with its moments, the BN
+    backward vectors, the weight gradient, its fold) -> (dw [147, 64],
+    dgb [2, 64]), float32."""
+    x = _kernel_input(s4)
+    n, hs, ws = _cells(x)
+    dev = x.device
     dpool = dpool.to(torch.bfloat16).contiguous()
     da = torch.empty_like(yc)
-    dw = torch.empty(160, 64, dtype=torch.float32, device=dev)
-    dgb = torch.empty(2, 64, dtype=torch.float32, device=dev)
-    work = torch.empty(128 + 192, dtype=torch.float32, device=dev)
-    part = _workspace(dev, n, h, w)
-    rc = _fn("vcg_stem_train_bwd", 4, 9)(
-        dpool.data_ptr(), out.data_ptr(), yc.data_ptr(), s4.data_ptr(),
-        int(s4.dtype == torch.uint8), norm_consts(dev).data_ptr(),
+    # dw [147, 64], dgb [2, 64] and the BN vectors abc [192], one buffer
+    small = torch.empty(147 * 64 + 128 + 192, dtype=torch.float32,
+                        device=dev)
+    dw = small[:147 * 64].view(147, 64)
+    dgb = small[147 * 64:147 * 64 + 128].view(2, 64)
+    abc = small[147 * 64 + 128:]
+    part = _workspace(dev, n, hs, ws, 1)
+    rc = _fn("vcg_stem_train_bwd", 4, 9, 3)(
+        dpool.data_ptr(), out.data_ptr(), yc.data_ptr(), x.data_ptr(),
+        int(x.dtype == torch.uint8), norm_consts(dev).data_ptr(),
         gb.data_ptr(), stats.data_ptr(), vec.data_ptr(), da.data_ptr(),
-        dw.data_ptr(), dgb.data_ptr(), work.data_ptr(), part.data_ptr(), n, h,
-        w, eps, torch.cuda.current_stream(dev).cuda_stream)
+        dw.data_ptr(), dgb.data_ptr(), abc.data_ptr(), part.data_ptr(), n, hs,
+        ws, eps, torch.cuda.current_stream(dev).cuda_stream)
     stem_train_bwd.launches += 1
     if rc != 0:
         raise RuntimeError(f"stem_train_bwd kernel failed: CUDA error {rc}")
@@ -140,12 +189,14 @@ stem_train_bwd.launches = 0
 
 
 class _StemTrain(torch.autograd.Function):
+    """x: the kernel's input (`_kernel_input`)."""
+
     @staticmethod
-    def forward(ctx, s4, w7, gamma, beta, eps):
+    def forward(ctx, x, w7, gamma, beta, eps):
         gb = torch.cat([gamma.reshape(-1).float(),
                         beta.reshape(-1).float()]).contiguous()
-        out, yc, stats, vec = stem_train_fwd(s4, _stem_weight(w7), gb, eps)
-        ctx.save_for_backward(s4, out, yc, gb, stats, vec)
+        out, yc, stats, vec = stem_train_fwd(x, _stem_weight(w7), gb, eps)
+        ctx.save_for_backward(x, out, yc, gb, stats, vec)
         ctx.eps = eps
         ctx.dtypes = (w7.dtype, gamma.dtype, beta.dtype)
         mu, var = stats.unbind(0)
@@ -154,11 +205,23 @@ class _StemTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, _dmu, _dvar):
-        s4, out, yc, gb, stats, vec = ctx.saved_tensors
-        dw, dgb = stem_train_bwd(dout, out, yc, s4, gb, stats, vec, ctx.eps)
+        x, out, yc, gb, stats, vec = ctx.saved_tensors
+        dw, dgb = stem_train_bwd(dout, out, yc, x, gb, stats, vec, ctx.eps)
         wdt, gdt, bdt = ctx.dtypes
-        dw7 = dw[:147].reshape(7, 7, 3, 64).to(wdt)
+        dw7 = dw.reshape(7, 7, 3, 64).to(wdt)
         return None, dw7, dgb[0].to(gdt), dgb[1].to(bdt), None
+
+
+def _kernel_stem(x: torch.Tensor, w7, gamma, beta, eps: float,
+                 out_dtype: torch.dtype, entry: str):
+    """The training stem kernel on a CUDA tensor (uint8 cells, float cells
+    or frames) -> (out, (mu, var))."""
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"{entry} on {x.device}")
+    if out_dtype != torch.bfloat16:
+        raise ValueError("the training stem kernel emits bfloat16")
+    out, mu, var = _StemTrain.apply(_kernel_input(x), w7, gamma, beta, eps)
+    return out, (mu, var)
 
 
 def stem_s2d_train(s4: torch.Tensor, w7: torch.Tensor, gamma, beta,
@@ -173,24 +236,21 @@ def stem_s2d_train(s4: torch.Tensor, w7: torch.Tensor, gamma, beta,
         frames = (normalize_frames_reference(frames, out_dtype)
                   if s4.dtype == torch.uint8 else frames.to(out_dtype))
         return stem_train_reference(frames, w7, gamma, beta, eps)
-    if s4.device.type != "cuda":
-        raise NotImplementedError(f"stem_s2d_train on {s4.device}")
-    if out_dtype != torch.bfloat16:
-        raise ValueError("the training stem kernel emits bfloat16")
-    if s4.dtype != torch.uint8:
-        s4 = s4.to(torch.bfloat16)
-    out, mu, var = _StemTrain.apply(s4.contiguous(), w7, gamma, beta, eps)
-    return out, (mu, var)
+    return _kernel_stem(s4, w7, gamma, beta, eps, out_dtype, "stem_s2d_train")
 
 
 def stem_frames_train(x: torch.Tensor, w7: torch.Tensor, gamma, beta,
                       eps: float = 1e-5,
                       out_dtype: torch.dtype = torch.bfloat16):
     """Training stem on normalized frames [N, H, W, 3] (H, W multiples of
-    4): the s2d view (a reshape), then stem_s2d_train."""
+    4): on the CPU the s2d view (a reshape), then stem_s2d_train; on the
+    card the kernel reads the frames' cells in place."""
     nt, h, w, c = x.shape
     if c != 3 or h % 4 or w % 4:
         raise ValueError(f"frames must be [N, 4h, 4w, 3], got {tuple(x.shape)}")
+    if x.device.type != "cpu":
+        return _kernel_stem(x, w7, gamma, beta, eps, out_dtype,
+                            "stem_frames_train")
     s4 = x.reshape(nt, h // 4, 4, w // 4, 4, 3).permute(0, 1, 3, 2, 4, 5)
     return stem_s2d_train(s4.reshape(nt, h // 4, w // 4, 48).to(out_dtype),
                           w7, gamma, beta, eps, out_dtype)
