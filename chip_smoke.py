@@ -31,8 +31,8 @@
 5. The inference CLI (K8, K9). Holds the frames stem (`stem_frames`,
    bf16 frames [256, 224, 224, 3]: the decoded frames of one vision call;
    one launch, the pool fused) to its plain version beside its cuDNN
-   yardstick, and the pool kernel (`bn_relu_maxpool`, which K14b still
-   launches) at its former shape, the conv output [256, 112, 112, 64];
+   yardstick, and the pool kernel (`bn_relu_maxpool`, on no model path)
+   at its former shape, the conv output [256, 112, 112, 64];
    calibrates the full-width
    frames-stem trunk on the card and holds each of its 10 W8A8 blocks
    (`tsm_bottleneck_int8`) to its plain version, each fed the kernel
@@ -114,8 +114,10 @@
    bf16 output mode on the same inputs in the bf16 bands), each
    block fed the kernel output of the block before, and the int8 stem
    (`stem_s2d_int8`) to its plain version bit for bit at [256, 56, 56,
-   48], timing K4 on the same block0s beside K14a; then runs the vision
-   call with the switch (per call: stem 1,
+   48] (one launch a call, no pool launch, two runs bit for bit, K1's
+   time on the same frames beside it), timing K4 on the same block0s
+   beside K14a; then runs the vision call with the switch (per call:
+   stem 1,
    stride-1 bf16 bottleneck 3, K14a 3, K9 10, K4 0; per-frame cosine >=
    0.98 to the bf16 trunk) and cli/infer_video.main --int8_vision
    --pipelined with the switch on from the checkpoint of phase 5 (the
@@ -129,10 +131,18 @@
    library yardsticks; then runs
    the vision call with chain_blocks=True (per call: stem 1, K2/K3 1, K4
    3, K15 4) and checks its features equal chain_blocks=False.
-11. Prints one JSON line of the kernels (a bound over several shapes
+11. wide (frames wider than 256 px: the stems' walk in column chunks).
+   At 320 and 260 px (80 and 65 cells a row; 65 is odd, with a chunk
+   seam), 8 seeded random frames each and the serving model's stem
+   weights, holds K1 (`stem_s2d`) and K8 (`stem_frames`) to their plain
+   versions in the bf16 bands, K11 through `stem_s2d_train` and
+   `stem_frames_train` (output and statistics in the bf16 bands,
+   gradients in the gradient bands) and K14b bit for bit (one launch,
+   two runs bit for bit).
+12. Prints one JSON line of the kernels (a bound over several shapes
    is the sum of each shape's), the wall time of each phase
    and of the script and, last, the device line. The title decode of 4
-   and each of 5-10 also print their wall time as they end ("serving",
+   and each of 5-11 also print their wall time as they end ("serving",
    1-4 up to the title decode, prints only on that line).
 
 Any failed phase raises, and the script exits non-zero without printing
@@ -141,14 +151,16 @@ not beside it.
 
     python3 chip_smoke.py --time-kernels [--root CHECKOUT]
 
-times K1, K8, K9 and K14a alone (and their yardsticks: cuDNN for the
-stems, the bf16 K2/K3 and K4 launches of the same blocks) at the shapes of
-one 256-frame vision call, K11's two entries at one training step's
-shape (beside its cuDNN sequence through autograd, and split by pass)
-and K10 at the BigBird-Pegasus serving shape (beside SDPA with its float
-mask), on the package of CHECKOUT (default: beside this script), seeded
-random weights, frames and attention inputs; one JSON line. Two trees
-are compared within one call by running it on each in turns.
+times K1, K8, K9, K14a and K14b alone (and their yardsticks: cuDNN for
+the stems, the bf16 K2/K3 and K4 launches of the same blocks) at the
+shapes of one 256-frame vision call, K6 on the frames of one 16-clip call
+(beside torch.addcmul), K11's two entries at one training step's shape
+(beside its cuDNN sequence through autograd, and split by pass) and K10
+at the BigBird-Pegasus serving shape (beside SDPA with its float mask),
+with K6's, K14b's and K10's device time by kernel, on the package of
+CHECKOUT (default: beside this script), seeded random weights, frames
+and attention inputs; one JSON line. Two trees are compared within one
+call by running it on each in turns.
 """
 
 import contextlib
@@ -197,6 +209,8 @@ WINDOW_STEPS, WINDOW_BATCH = 3, 4
 # each non-auto vision trunk vs the auto kernel trunk on one clip, per
 # frame: the same function, rounded to bf16 at other places
 WINDOW_TRUNK_MIN_COS = 0.99
+# frames a width of the wide-frame phase, and its widths in px
+WIDE_FRAMES, WIDE_PX = 8, (320, 260)
 
 
 def fail(msg: str):
@@ -2366,6 +2380,7 @@ def int8_s2_phases(dev, smi, frames, vision, cli_argv):
         stem_int8,
         stem_int8_weights,
         stem_s2d,
+        stem_s2d_int8,
         stem_s2d_int8_plain,
     )
     from video_chapter_generation_tpu_torch.ops.tsm_block import (
@@ -2387,9 +2402,17 @@ def int8_s2_phases(dev, smi, frames, vision, cli_argv):
     stem_p, block_ps = vision.folded_params()
     n, hs = frames.shape[0], frames.shape[1]
 
-    # --- K14b: the weight-only int8 stem at the serving stem shape ---
+    # --- K14b: the weight-only int8 stem at the serving stem shape: one
+    # launch a call, no pool launch, two runs bit for bit ---
     sw = stem_int8_weights(_hwio(vision.conv1, torch.float32), stem_p["s"],
                            stem_p["b"])
+    pools, before = bn_relu_maxpool.launches, stem_s2d_int8.launches
+    y8 = stem_int8(frames, sw)
+    torch.cuda.synchronize()
+    if stem_s2d_int8.launches != before + 1:
+        fail(f"stem_int8 made {stem_s2d_int8.launches - before} launches")
+    if not torch.equal(y8, stem_int8(frames, sw)):
+        fail("two runs of the int8 stem differ")
     y8 = hold(entries, "stem_s2d_int8", f"{tuple(frames.shape)} u8",
               lambda: stem_int8(frames, sw),
               lambda: stem_s2d_int8_plain(frames, *sw),
@@ -2400,9 +2423,15 @@ def int8_s2_phases(dev, smi, frames, vision, cli_argv):
               + n * hs * hs * 64 * 2, exact=True)
     y16 = stem_s2d(frames, stem_p["w7"], stem_p["s"], stem_p["b"])
     _, mean_rel, cos = compare(y8, y16)
+    k1_ms = cuda_ms(lambda: stem_s2d(frames, stem_p["w7"], stem_p["s"],
+                                     stem_p["b"]))
+    if bn_relu_maxpool.launches != pools:
+        fail("the int8 stem launched the pool kernel")
     print(f"# int8 stem vs the bf16 stem (K1) on the same frames: cosine "
-          f"{cos:.6f} mean_rel {mean_rel:.3g} (the weight rounding)",
-          flush=True)
+          f"{cos:.6f} mean_rel {mean_rel:.3g} (the weight rounding); one "
+          f"launch a call, two runs bit for bit, no pool launch; K14b "
+          f"{entries['stem_s2d_int8']['ms']:.3f} ms, K1 {k1_ms:.3f} ms on "
+          f"{smi}", flush=True)
     del y8, y16
 
     old = port_resnet.INT8_S2_BLOCKS
@@ -2560,6 +2589,105 @@ def int8_s2_phases(dev, smi, frames, vision, cli_argv):
                     "ms": e["ms"], "plain_ms": e["plain_ms"],
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     return out
+
+
+def wide_phases(dev, smi, vision):
+    """The stems on frames wider than 256 px, which their walk takes in
+    column chunks: K1, K8, K11 (both entries, forward and backward) and
+    K14b against their plain versions at each of WIDE_PX, WIDE_FRAMES
+    seeded random frames, the serving model's stem weights."""
+    import torch
+
+    from video_chapter_generation_tpu_torch.models.resnet import _hwio
+    from video_chapter_generation_tpu_torch.ops.preprocess import (
+        depth_to_space4,
+        normalize_frames,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem import (
+        stem_chunks,
+        stem_frames,
+        stem_frames_reference,
+        stem_int8,
+        stem_int8_weights,
+        stem_s2d,
+        stem_s2d_int8,
+        stem_s2d_int8_plain,
+        stem_s2d_reference,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem_train import (
+        stem_frames_train,
+        stem_s2d_train,
+        stem_train_reference,
+    )
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    stem_p, _ = vision.folded_params()
+    sargs = (stem_p["w7"], stem_p["s"], stem_p["b"])
+    sw = stem_int8_weights(_hwio(vision.conv1, torch.float32), stem_p["s"],
+                           stem_p["b"])
+    train_w = [vision.conv1.weight.permute(2, 3, 1, 0).float(),
+               vision.bn1.weight.float(), vision.bn1.bias.float()]
+
+    def held(label, pairs, grads=False):
+        min_cos, max_rel = ((GRAD_MIN_COS, GRAD_MAX_MEAN_REL) if grads else
+                            (KERNEL_MIN_COS, KERNEL_MAX_MEAN_REL))
+        worst = (0.0, 0.0, 1.0)
+        for got, ref in pairs:
+            max_abs, mean_rel, cos = compare(got, ref)
+            if not (cos >= min_cos and mean_rel <= max_rel):
+                fail(f"{label} disagrees with its plain version: max_abs "
+                     f"{max_abs:.4g} mean_rel {mean_rel:.3g} cos {cos:.6f}")
+            worst = (max(worst[0], max_abs), max(worst[1], mean_rel),
+                     min(worst[2], cos))
+        return (f"max_abs {worst[0]:.4g} mean_rel {worst[1]:.3g} cos "
+                f"{worst[2]:.6f}")
+
+    def grads(fn, x, dy):
+        ps = [p.detach().clone().requires_grad_() for p in train_w]
+        y, stats = fn(x, *ps)
+        return y, stats, torch.autograd.grad(y, ps, dy)
+
+    for px in WIDE_PX:
+        hs = px // 4
+        s4 = torch.randint(0, 256, (WIDE_FRAMES, hs, hs, 48), generator=gen,
+                           device=dev, dtype=torch.uint8)
+        frames = normalize_frames(depth_to_space4(s4), bf)
+        label = f"{tuple(s4.shape)} ({px} px, {stem_chunks(hs)} chunks)"
+        note = held(f"stem_s2d {label}", [(stem_s2d(s4, *sargs),
+                                           stem_s2d_reference(s4, *sargs))])
+        print(f"# {'stem_s2d':18s} {label:44s} {note}", flush=True)
+        note = held(f"stem_frames {label}",
+                    [(stem_frames(frames, *sargs),
+                      stem_frames_reference(frames, *sargs))])
+        print(f"# {'stem_frames':18s} {label:44s} {note}", flush=True)
+        dy = torch.randn(WIDE_FRAMES, hs, hs, 64, generator=gen,
+                         device=dev).to(bf)
+        ref = grads(lambda x, *ps: stem_train_reference(x, *ps), frames, dy)
+        for name, fn, x in (("stem_s2d_train", stem_s2d_train, s4),
+                            ("stem_frames_train", stem_frames_train,
+                             frames)):
+            y, (mu, var), g = grads(fn, x, dy)
+            out = held(f"{name} {label}", [(y, ref[0]), (mu, ref[1][0]),
+                                           (var, ref[1][1])])
+            grad = held(f"{name} {label} gradients", list(zip(g, ref[2])),
+                        True)
+            print(f"# {name:18s} {label:44s} out/stats {out} | grads "
+                  f"{grad}", flush=True)
+        before = stem_s2d_int8.launches
+        y8 = stem_int8(s4, sw)
+        torch.cuda.synchronize()
+        if stem_s2d_int8.launches != before + 1:
+            fail(f"stem_int8 at {px} px made "
+                 f"{stem_s2d_int8.launches - before} launches")
+        if not torch.equal(y8, stem_s2d_int8_plain(s4, *sw)):
+            fail(f"stem_s2d_int8 at {px} px is not its plain version bit "
+                 f"for bit")
+        if not torch.equal(y8, stem_int8(s4, sw)):
+            fail(f"two runs of the int8 stem at {px} px differ")
+        print(f"# {'stem_s2d_int8':18s} {label:44s} bitwise True, one "
+              f"launch, two runs bit for bit on {smi}", flush=True)
+    torch.cuda.empty_cache()
 
 
 def chain_phases(dev, smi, frames, vision):
@@ -2990,6 +3118,7 @@ def main() -> int:
     int8_s2_kernels = timed("int8_s2", int8_s2_phases, dev, smi, frames,
                             vision, cli_argv)
     chain_kernel = timed("chain", chain_phases, dev, smi, frames, vision)
+    timed("wide", wide_phases, dev, smi, vision)
 
     sources = {"stem_s2d": ("csrc/stem_s2d.cu",
                             "video_chapter_generation_tpu/ops/stem_pallas.py:275"),
@@ -3033,13 +3162,14 @@ def main() -> int:
 
 
 def time_kernels(root: Path) -> int:
-    """K1, K8, K9 and K14a at the shapes of one 256-frame vision call, K11
-    at one training step's (128 frames) and K10 at the BigBird-Pegasus
-    serving shape, on the package under root, CUDA events (median of
+    """K1, K8, K9, K14a and K14b at the shapes of one 256-frame vision
+    call, K6 on its frames, K11 at one training step's (128 frames) and K10
+    at the BigBird-Pegasus serving shape, on the package under root, CUDA events (median of
     TIMED_RUNS), beside their yardsticks: the stems' cuDNN sequence, the
     bf16 K2/K3 (K9) and K4 (K14a) launches of the same blocks, K11's cuDNN
-    sequence through autograd, SDPA with K10's float mask; K9's device time
-    by conv and layer and K11's by pass from torch.profiler traces. Seeded
+    sequence through autograd, SDPA with K10's float mask, torch.addcmul
+    for K6; K9's device time by conv and layer, K11's by pass, K6's, K14b's
+    and K10's from torch.profiler traces. Seeded
     random ResNet-50 weights (the JAX layout carried over), frames and
     attention inputs. Prints one JSON line."""
     import torch
@@ -3156,6 +3286,34 @@ def time_kernels(root: Path) -> int:
         port_resnet.INT8_S2_BLOCKS = old
     out.update({"K14a": k14, "K4_same_blocks": k4})
     del vq, qps
+
+    # K14b on the same frames as K1 above; K6 on the frames of one 16-clip
+    # call to bf16 (the main path's) and float32, beside torch.addcmul
+    from video_chapter_generation_tpu_torch.models.resnet import _hwio
+    from video_chapter_generation_tpu_torch.ops.preprocess import (
+        affine_consts,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem import (
+        stem_int8,
+        stem_int8_weights,
+    )
+
+    sw = stem_int8_weights(_hwio(vision.conv1, torch.float32), stem_p["s"],
+                           stem_p["b"])
+    k14b = lambda: stem_int8(frames, sw)  # noqa: E731
+    u8 = depth_to_space4(frames).reshape(16, CLIP_FRAMES, 224, 224, 3)
+    u8 = u8.contiguous()
+    a3, b3 = affine_consts(dev)
+    k6 = lambda: normalize_frames(u8, bf)  # noqa: E731
+    out.update({"K14b": cuda_ms(k14b), "K6": cuda_ms(k6),
+                "K6_f32": cuda_ms(lambda: normalize_frames(u8,
+                                                           torch.float32)),
+                "K6_addcmul": cuda_ms(lambda: torch.addcmul(b3, u8, a3))})
+    try:  # the device time of their launches, without the host's
+        out["K14b_K6_split"] = pass_split([("K14b", k14b), ("K6", k6)])
+    except Exception as exc:  # information only
+        out["K14b_K6_split"] = f"not measured ({type(exc).__name__}: {exc})"
+    del u8
 
     # K11: the training stem at one step's shape, through its two entries,
     # beside its cuDNN sequence; its device time by pass

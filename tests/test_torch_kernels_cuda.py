@@ -42,8 +42,11 @@ def _close(got, ref):
 
 # (frames, px): 224 px with many bands of one strip each (2 frames), bands
 # of several strips (16), a whole frame a band (133: a second wave with
-# one frame); 32 and 64 px; 36 px, whose last strip holds one cell row
-STEM_SHAPES = [(2, 224), (16, 224), (133, 224), (5, 32), (64, 64), (3, 36)]
+# one frame); 32 and 64 px; 36 px, whose last strip holds one cell row;
+# frames wider than 64 cells, in column chunks: 260 px (65 cells, an odd
+# count, one seam) and 320 px (80 cells)
+STEM_SHAPES = [(2, 224), (16, 224), (133, 224), (5, 32), (64, 64), (3, 36),
+               (8, 260), (8, 320)]
 
 
 @pytest.mark.parametrize("n,px", STEM_SHAPES)
@@ -221,7 +224,8 @@ def test_block_train_kernel(dev, stride, proj, c, f):
 # frames (bands of one strip), 36 px (a one-row last strip, one stage a
 # strip); normalized frames (stem_frames_train) and float s2d cells
 STEM_TRAIN_CASES = [("u8", 8, 112), ("u8", 2, 224), ("u8", 5, 36),
-                    ("frames", 4, 64), ("float_s2d", 3, 96)]
+                    ("frames", 4, 64), ("float_s2d", 3, 96),
+                    ("u8", 8, 260), ("frames", 8, 320), ("u8", 3, 320)]
 
 
 def _stem_train_inputs(g, dev, entry, n, px):
@@ -744,16 +748,30 @@ def test_tsm_conv_kernel(dev, c, f, t, hw):
     assert wk.grad.dtype == torch.float32
 
 
+# (frames shape, offset of the input in its buffer): element counts that
+# are not multiples of 48 (or 16), fewer than one group, and inputs that
+# start 1-15 bytes past a 16-byte boundary
+NORMALIZE_CASES = [((3, 5, 37, 41, 3), 0), ((1, 1, 1, 5, 3), 0),
+                   ((2, 7, 13, 3), 5), ((16, 4, 9, 3), 7),
+                   ((1, 31, 29, 3), 12), ((4, 16, 16, 3), 1)]
+
+
+@pytest.mark.parametrize("shape,offset", NORMALIZE_CASES)
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-def test_normalize_kernel_is_exact(dev, out_dtype):
+def test_normalize_kernel_is_exact(dev, out_dtype, shape, offset):
     from video_chapter_generation_tpu_torch.ops.preprocess import (
         normalize_frames,
         normalize_frames_reference,
     )
 
     g = torch.Generator().manual_seed(8)
-    u8 = torch.randint(0, 256, (3, 5, 37, 41, 3), generator=g,
-                       dtype=torch.uint8).to(dev)
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.randint(0, 256, (n + 16,), generator=g,
+                        dtype=torch.uint8).to(dev)
+    u8 = buf[offset:offset + n].view(shape)
+    assert u8.data_ptr() % 16 == offset
     before = normalize_frames.launches
     got = normalize_frames(u8, out_dtype)
     torch.cuda.synchronize()
@@ -822,10 +840,21 @@ def test_tsm_bottleneck_s2_int8_kernel(dev, x_kind, out_mode, c, f):
         assert torch.equal(got, ref_f.to(torch.bfloat16))
 
 
-def test_stem_s2d_int8_kernel(dev):
+# (frames, px): 56 px; 36 px (a one-row last strip); 133 frames at 224
+# px (28 strips a frame over 132 blocks: a second wave of one frame); a
+# frame of 1 and of 2 cells a side (a cell of several validity classes);
+# 260 and 320 px (column chunks)
+INT8_STEM_SHAPES = [(4, 56), (3, 36), (133, 224), (2, 4), (3, 8), (8, 260),
+                    (8, 320)]
+
+
+@pytest.mark.parametrize("n,px", INT8_STEM_SHAPES)
+def test_stem_s2d_int8_kernel(dev, n, px):
     """Bit for bit the plain version (the same float operations, the bias
-    rows summed in the same order)."""
+    rows summed in the same order), one launch, no pool launch, two runs
+    bit for bit."""
     from video_chapter_generation_tpu_torch.ops.stem import (
+        bn_relu_maxpool,
         stem_int8_weights,
         stem_s2d_int8,
         stem_s2d_int8_plain,
@@ -833,17 +862,20 @@ def test_stem_s2d_int8_kernel(dev):
     )
 
     g = torch.Generator().manual_seed(11)
-    s4 = torch.randint(0, 256, (4, 14, 14, 48), generator=g,
+    s4 = torch.randint(0, 256, (n, px // 4, px // 4, 48), generator=g,
                        dtype=torch.uint8).to(dev)
     w7 = (torch.randn(7, 7, 3, 64, generator=g) * 0.05).to(dev)
     s = torch.rand(64, generator=g).to(dev) + 0.5
+    s[::5] *= -1  # a negative BN scale: its sv column is negative
     b = (torch.randn(64, generator=g) * 0.1).to(dev)
-    before = stem_s2d_int8.launches
+    before = (stem_s2d_int8.launches, bn_relu_maxpool.launches)
     got = stem_s2d_int8(s4, w7, s, b)
     torch.cuda.synchronize()
-    assert stem_s2d_int8.launches == before + 1
-    assert torch.equal(got, stem_s2d_int8_plain(s4, *stem_int8_weights(
-        w7, s, b)))
+    assert (stem_s2d_int8.launches, bn_relu_maxpool.launches) == (
+        before[0] + 1, before[1])
+    want = stem_s2d_int8_plain(s4, *stem_int8_weights(w7, s, b))
+    assert torch.equal(got, want), (got != want).sum().item()
+    assert torch.equal(got, stem_s2d_int8(s4, w7, s, b))
     _close(got, stem_s2d_reference(s4, w7, s, b))  # the bf16 stem, near
 
 

@@ -10,8 +10,13 @@ in all four; every position equal to the window max receives its
 gradient), and the weight gradient is the phase-packed dw2 = z^T du,
 summed over pixel splits of strips and stages, folded back to
 [7, 7, 3, 64] through the transpose of the phase selection (the kernel
-gathers the four terms of each tap). `stem_train_phase_plain` below is
-that decomposition in plain torch; here it is held to the port's plain
+gathers the four terms of each tap). A frame row wider than a tile's 64
+cells is walked in column chunks (no extra cell: the training epilogue
+pools nothing): each tile's product reads its neighbourhood across the
+chunk seams, and the weight gradient's stages take a chunk's two cell
+rows as two runs of cells. `stem_train_phase_plain` below is that
+decomposition in plain torch, with the tile width as a parameter (tiles
+of 3-4 cells put chunk seams into 32-44 px frames); here it is held to the port's plain
 version (`stem_train_reference`, differentiated by autograd) in float64,
 where inputs on a small integer grid make ties in the pool windows common,
 and to the JAX Pallas kernel (interpret mode, as
@@ -36,6 +41,7 @@ from video_chapter_generation_tpu_torch.ops.preprocess import (
     normalize_frames_reference,
 )
 from video_chapter_generation_tpu_torch.ops.stem import (
+    STEM_TILE_CELLS,
     _phase_selection,
     stem_weight_im2col,
 )
@@ -45,6 +51,7 @@ from video_chapter_generation_tpu_torch.ops.stem_train import (
     stem_train_reference,
 )
 from video_chapter_generation_tpu_torch.ops.tsm_block_train import bn_train
+from test_torch_stem_phase import chunk_spans
 
 EPS = 1e-5
 FWD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -113,40 +120,76 @@ def phase_route(y, pooled, dpool):
     return torch.stack(out, -2).reshape(y.shape)
 
 
-def wgrad_walk(cells: torch.Tensor, du: torch.Tensor) -> torch.Tensor:
-    """dw2 [448, 256] as the kernel's weight gradient walks it: pixel
-    splits of consecutive strips (2 cell rows each) over all frames, 64
-    cells a stage, z rows copied from the strip's neighbourhood (cell rows
-    2s - 1 .. 2s + 2, one cell of padding each side) by channel group g <
-    27 of tap g // 3, rows past the strip zero; the splits summed in
-    order. du [N hs ws, 256]."""
+def unit_tiles(n, hs, ws, tile=STEM_TILE_CELLS):
+    """The walk's units in order, (frame, strip, c0, c1): each strip of 2
+    cell rows of each column chunk (chunk_spans without the extra cell)."""
+    sp = (hs + 1) // 2
+    return [(fr, s, c0, c1) for fr in range(n) for s in range(sp)
+            for c0, _, c1 in chunk_spans(ws, tile, overlap=False)]
+
+
+def tile_product(cells: torch.Tensor, w2: torch.Tensor,
+                 tile=STEM_TILE_CELLS) -> torch.Tensor:
+    """yc [N, hs, ws, 256] as the forward's tiles compute it: each unit's
+    cells from the unit's neighbourhood (cell rows 2s - 1 .. 2s + 2,
+    columns c0 - 1 .. c1: the real cells across a chunk seam, zero outside
+    the frame), stored at their cells."""
     n, hs, ws, _ = cells.shape
-    sp, sps = (hs + 1) // 2, (2 * ws + 63) // 64
-    strips = n * sp
-    splits = max(1, min(SPLITS_MAX, strips))
+    padded = F.pad(cells, (0, 0, 1, 1, 1, 1))
+    yc = torch.full((n, hs, ws, 256), float("nan"), dtype=cells.dtype)
+    for fr, s, c0, c1 in unit_tiles(n, hs, ws, tile):
+        rows, wt = min(2, hs - 2 * s), c1 - c0
+        nbh = padded[fr, 2 * s:2 * s + rows + 2, c0:c1 + 2]
+        a = torch.cat([nbh[tr:tr + rows, tc:tc + wt]
+                       for tr in range(3) for tc in range(3)], -1)
+        yc[fr, 2 * s:2 * s + rows, c0:c1] = a @ w2
+    return yc
+
+
+def wgrad_walk(cells: torch.Tensor, du: torch.Tensor,
+               tile=STEM_TILE_CELLS) -> torch.Tensor:
+    """dw2 [448, 256] as the kernel's weight gradient walks it: pixel
+    splits of consecutive units (unit_tiles) over all frames, z rows
+    copied from the unit's neighbourhood (cell rows 2s - 1 .. 2s + 2, one
+    cell beyond the chunk each side) by channel group g < 27 of tap
+    g // 3, rows past the unit zero; with one chunk a row a unit's cells
+    are one run, 64 a stage, else each of its two cell rows is a stage;
+    the splits summed in order. du [N hs ws, 256]."""
+    n, hs, ws, _ = cells.shape
+    units = unit_tiles(n, hs, ws, tile)
+    one = len(chunk_spans(ws, tile)) == 1
+    sps = (2 * ws + 63) // 64 if one else 2
+    splits = max(1, min(SPLITS_MAX, len(units)))
     padded = F.pad(cells, (0, 0, 1, 1, 1, 1, 0, 0))
     padded = F.pad(padded, (0, 0, 0, 0, 0, 1))  # a row below a last odd one
     total = torch.zeros(448, 256, dtype=cells.dtype)
     for z in range(splits):
         part = torch.zeros(448, 256, dtype=cells.dtype)
-        for gs in range(z * strips // splits, (z + 1) * strips // splits):
-            fr, s = divmod(gs, sp)
-            rows = min(2, hs - 2 * s) * ws
-            nbh = padded[fr, 2 * s:2 * s + 4]  # [4, ws + 2, 48]
-            cell0 = (fr * hs + 2 * s) * ws
+        for u in range(z * len(units) // splits,
+                       (z + 1) * len(units) // splits):
+            fr, s, c0, c1 = units[u]
+            nrows, wt = min(2, hs - 2 * s), c1 - c0
+            nbh = padded[fr, 2 * s:2 * s + 4, c0:c1 + 2]  # [4, wt + 2, 48]
             for h in range(sps):
-                r = torch.arange(64 * h, 64 * h + 64)
-                ok = r < rows
-                lr, jc = r // ws, r % ws
+                cr = torch.arange(64)
+                if one:
+                    r = 64 * h + cr
+                    ok = r < nrows * wt
+                    first = (fr * hs + 2 * s) * ws + 64 * h
+                else:
+                    r = h * wt + cr
+                    ok = (cr < wt) & (h < nrows)
+                    first = (fr * hs + 2 * s + h) * ws + c0
+                lr, jc = r // wt, r % wt
                 a = torch.zeros(64, 448, dtype=cells.dtype)
                 for g in range(27):
                     tap, cc = divmod(g, 3)
                     tr, tc = divmod(tap, 3)
                     src = nbh[(lr + tr).clamp(max=3), (jc + tc).clamp(
-                        max=ws + 1), 16 * cc:16 * cc + 16]
+                        max=wt + 1), 16 * cc:16 * cc + 16]
                     a[:, 16 * g:16 * g + 16] = torch.where(ok[:, None], src,
                                                            0.0)
-                g_rows = du[(cell0 + r).clamp(max=du.shape[0] - 1)]
+                g_rows = du[(first + cr).clamp(max=du.shape[0] - 1)]
                 part += a.t() @ torch.where(ok[:, None], g_rows, 0.0)
         total += part
     return total
@@ -169,15 +212,16 @@ def fold_dw(dw2: torch.Tensor) -> torch.Tensor:
     return out.reshape(7, 7, 3, 64)
 
 
-def stem_train_phase_plain(cells, w7, gamma, beta, dpool, eps=EPS):
+def stem_train_phase_plain(cells, w7, gamma, beta, dpool, eps=EPS,
+                           tile=STEM_TILE_CELLS):
     """The kernel's decomposition: cells [N, hs, ws, 48] normalized s2d
     cells -> (out [N, hs, ws, 64], (mu, var), (dw7, dgamma, dbeta), da
-    [N, hs, ws, 256], dw2 [448, 256]) for the pool gradient dpool."""
+    [N, hs, ws, 256], dw2 [448, 256]) for the pool gradient dpool, on
+    tiles of at most `tile` cells a row."""
     n, hs, ws, _ = cells.shape
     dt = cells.dtype
     w2 = stem_weight_im2col(w7).to(dt)
-    z = _patches(cells)
-    yc = z @ w2  # [N, hs, ws, 256], column (pr * 2 + pc) * 64 + f
+    yc = tile_product(cells, w2, tile)  # column (pr * 2 + pc) * 64 + f
     count = n * 4 * hs * ws
     m0 = _fold4(yc.reshape(-1, 256).sum(0))
     m1 = _fold4((yc * yc).reshape(-1, 256).sum(0))
@@ -196,7 +240,7 @@ def stem_train_phase_plain(cells, w7, gamma, beta, dpool, eps=EPS):
     t0, t1 = s0 / count, r * s1 / count
     e, f = -a * t1 * r, -a * t0 + a * t1 * r * mu
     du = da * _tile4(a) + yc * _tile4(e) + _tile4(f)
-    dw2 = wgrad_walk(cells, du.reshape(-1, 256))
+    dw2 = wgrad_walk(cells, du.reshape(-1, 256), tile)
     return (pooled, (mu, var), (fold_dw(dw2), r * s1, s0), da, dw2)
 
 
@@ -246,13 +290,26 @@ def _grid_inputs(seed, n, px):
 # ragged second (136 px: 68 rows), an odd cell-row count (36 px: a last
 # strip of one row), and more strips than pixel splits (n 9 at 32 px)
 CASES = [(2, 32), (1, 136), (3, 36), (9, 32)]
+# (frames, px, tile cells): column chunks of 3 and 4 cells (chunk seams;
+# 11 cells at 44 px, a one-row last strip at 36 px, more units than
+# pixel splits at n 6)
+CHUNK_CASES = [(2, 44, 4), (1, 36, 3), (6, 32, 4)]
 
 
 @pytest.mark.parametrize("n,px", CASES)
 def test_phase_stem_train_matches_reference(n, px):
+    _hold_to_reference(n, px, STEM_TILE_CELLS)
+
+
+@pytest.mark.parametrize("n,px,tile", CHUNK_CASES)
+def test_phase_stem_train_in_column_chunks(n, px, tile):
+    _hold_to_reference(n, px, tile)
+
+
+def _hold_to_reference(n, px, tile):
     frames, w7, gamma, beta, dpool = _grid_inputs(n * 100 + px, n, px)
     out, (mu, var), grads, da, _ = stem_train_phase_plain(
-        _cells(frames), w7, gamma, beta, dpool)
+        _cells(frames), w7, gamma, beta, dpool, tile=tile)
     r_out, (r_mu, r_var), r_grads, r_da = _reference(frames, w7, gamma,
                                                      beta, dpool)
     tol = dict(rtol=1e-9, atol=1e-9)
@@ -348,14 +405,25 @@ def test_kernel_input_copies_a_misaligned_input(dtype):
 
 @pytest.mark.parametrize("px", [256, 260])
 def test_kernel_input_takes_frames_up_to_256_px(px):
-    """The kernel's strips hold at most 64 cells a row: frames 256 px wide
-    pass, wider ones raise ValueError (the JAX kernel takes any width)."""
+    """Frames up to 256 px wide are one column chunk; wider ones (260 px:
+    65 cells, an odd count) are taken too, in two chunks: the kernel's
+    input is the frames or cells as they are, and the decomposition of
+    the walk at that width (tiles of at most 64 cells) equals the plain
+    version, routing and gradients included (float64)."""
     cells = torch.zeros(1, 2, px // 4, 48, dtype=torch.uint8)
     frames = torch.zeros(1, 8, px, 3, dtype=torch.bfloat16)
-    if px <= 256:
-        assert _kernel_input(cells).shape == cells.shape
-        assert _kernel_input(frames).shape == frames.shape
-        return
-    for x in (cells, frames):
-        with pytest.raises(ValueError, match="256 px"):
-            _kernel_input(x)
+    assert _kernel_input(cells).shape == cells.shape
+    assert _kernel_input(frames).shape == frames.shape
+    assert len(chunk_spans(px // 4)) == (1 if px <= 256 else 2)
+    frames, w7, gamma, beta, dpool = _grid_inputs(px, 1, px)
+    frames, dpool = frames[:, :8], dpool[:, :2]
+    out, (mu, var), grads, da, _ = stem_train_phase_plain(
+        _cells(frames), w7, gamma, beta, dpool)
+    r_out, (r_mu, r_var), r_grads, r_da = _reference(frames, w7, gamma,
+                                                     beta, dpool)
+    tol = dict(rtol=1e-9, atol=1e-9)
+    torch.testing.assert_close(out, r_out, **tol)
+    torch.testing.assert_close(_conv_grid(da), r_da, **tol)
+    for g, rg in zip(grads, r_grads):
+        torch.testing.assert_close(g, rg, rtol=1e-9,
+                                   atol=1e-9 * float(rg.abs().max()))

@@ -10,8 +10,9 @@
 // column (pr * 2 + pc) * 64 + f = conv pixel (2I + pr, 2J + pc), filter f.
 //
 // Forward (vcg_stem_train_fwd, 3 launches):
-//   SFK-A  stem_kernel<kU8, true> (stem_tiles.cuh): per strip of 2 cell
-//          rows the phase-packed product A[cells, 448] x W[448, 256] on
+//   SFK-A  stem_kernel<kU8, true, kWide> (stem_tiles.cuh): per strip of 2
+//          cell rows (of one column chunk where the frame is wider than 64
+//          cells) the phase-packed product A[cells, 448] x W[448, 256] on
 //          hopper_gemm.cuh's wgmma mainloop, A copied from the strip's
 //          normalized neighbourhood in shared memory; the epilogue rounds
 //          each sum to bf16, stores yc and adds the column (sum, sum^2) of
@@ -42,14 +43,15 @@
 //          arrived stage, on hopper_gemm.cuh's weight-gradient path (both
 //          operands MN-major, the transpose bits set, as conv_train.cu's
 //          conv_wgrad_kernel): grid (4 phases, 1, splits), each block
-//          walking a range of strips, 64 cells a stage, and owning the
-//          columns of one phase for all 448 rows, computed transposed
-//          (du^T z: 64 channels x 256 patch columns a warpgroup, m64n256
-//          products), so da and yc are read once in all; z, the 448 patch
-//          columns of a cell, is copied from the strip's normalized
-//          neighbourhood in shared memory (the forward's copy), da and yc
-//          come by TMA through a ring of 6 stages. Each split writes its
-//          float32 partial dw2;
+//          walking a range of the forward's tiles (strips, or strips of a
+//          column chunk: two runs of cells), up to 64 cells a stage, and
+//          owning the columns of one phase for all 448 rows, computed
+//          transposed (du^T z: 64 channels x 256 patch columns a
+//          warpgroup, m64n256 products), so da and yc are read once in
+//          all; z, the 448 patch columns of a cell, is copied from the
+//          tile's normalized neighbourhood in shared memory (the forward's
+//          copy), da and yc come by TMA through a ring of 6 stages. Each
+//          split writes its float32 partial dw2;
 //   fold   dw7[7, 7, 3, 64] = the splits summed in order, then the
 //          transpose of the phase selection (stem_train_pallas.py:314-319):
 //          tap (dr, dc, c) of phase (pr, pc) is dw2 row (tr, tc, di, dj, c)
@@ -255,15 +257,21 @@ constexpr int kWgPanels = 8;
 constexpr int kWgStages = 6;    // the ring of da / yc stages
 constexpr int kWgSplitsMax = 132 / 4;  // 4 phase blocks a split
 
-// The ring's stage: da of the block's phase ph for 64 cells of a strip
-// (its rows 64 h .. 64 h + 63), which becomes G = du, and yc's beside it,
-// both by TMA, [64 cells][64] each. z^T, 7 MN-major panels [64 cells][64
-// patch columns] (all 448), is one buffer outside the ring, built in the
-// transform of each stage: warpgroup w builds the panels its own products
-// read (0-3, 4-7; 7 is zero), after its wait for its last product. A strip's
-// neighbourhood comes by cp.async, issued in the first stage of the strip
-// before (u8: raw cells into raw[strip % 2], normalized into nb[0] at the
-// strip's first stage; bf16 frames: straight into nb[strip % 2]).
+// The walk's units are the tiles of the forward's walk (stem_tiles.cuh:
+// a strip of 2 cell rows of one column chunk, no overlap), unit u = (frame
+// fr, strip s, chunk ck) in that order. The ring's stage: da of the block's
+// phase ph for up to 64 cells of a unit, which becomes G = du, and yc's
+// beside it, both by TMA, [64 cells][64] each: with one chunk a frame row
+// the unit's rows are one run of cells, stage h its rows 64 h ..; with
+// several, its two cell rows are two runs, stage h cell row h (h < 2). z^T,
+// 7 MN-major panels [64 cells][64 patch columns] (all 448), is one buffer
+// outside the ring, built in the transform of each stage: warpgroup w
+// builds the panels its own products read (0-3, 4-7; 7 is zero), after its
+// wait for its last product. A unit's neighbourhood comes by cp.async,
+// issued in the first stage of the unit before (u8: raw cells into
+// raw[unit % 2], normalized into nb[0] at the unit's first stage; bf16
+// frames: straight into nb[unit % 2]).
+template <bool kWide>
 struct WgradSrc {
   static constexpr int kStageBytes = 2 * kPanel;
   static constexpr bool kTma = true;
@@ -277,11 +285,30 @@ struct WgradSrc {
   bool u8;
   int ph, g_lo, g_hi, sps, sp;
 
-  __device__ void strip(int j, int& fr, int& s, int& rows) const {
+  // unit j of this split: its tile and cell rows
+  __device__ StemTile unit(int j, int& nrows) const {
     const int gs = g_lo + j;
-    fr = gs / sp;
-    s = gs - fr * sp;
-    rows = min(2, a.hs - 2 * s) * a.ws;
+    const int fs = kWide ? gs / a.chunks : gs;  // frame fr strip s: fr sp + s
+    const int fr = fs / sp, s = fs - fr * sp;
+    nrows = min(2, a.hs - 2 * s);
+    return stem_tile<false, kWide>(
+        a, kWide ? fr * a.chunks + gs - fs * a.chunks : fr, s);
+  }
+
+  // stage h of unit t: its first cell's row of da and yc, and for stage
+  // row cr the unit's row r = (r / wt, r % wt) and whether it is a cell
+  __device__ int stage_row(const StemTile& t, int h) const {
+    const size_t row0 = (static_cast<size_t>(t.fr) * a.hs + 2 * t.s) * a.ws;
+    return static_cast<int>(kWide ? row0 + h * a.ws + t.cb : row0 + 64 * h);
+  }
+  __device__ bool cell_of(const StemTile& t, int nrows, int h, int cr,
+                          int& r) const {
+    if (!kWide) {
+      r = 64 * h + cr;
+      return r < nrows * t.wt;
+    }
+    r = h * t.wt + cr;
+    return cr < t.wt && h < nrows;
   }
 
   // the bf16 neighbourhood strip j reads, and the raw cells of its copy
@@ -292,25 +319,23 @@ struct WgradSrc {
     return nbr + kNbBytes + (j & 1) * kRawBytes;
   }
 
-  // Every thread's copies of strip j's neighbourhood (then committed).
+  // Every thread's copies of unit j's neighbourhood (then committed).
   __device__ void fetch_strip(int j) const {
     if (g_lo + j < g_hi) {
-      int fr, s, rows;
-      strip(j, fr, s, rows);
+      int nrows;
+      const StemTile t = unit(j, nrows);
       if (u8)
-        fetch<true>(a, raw_of(j), nullptr, fr, s);
+        fetch<true>(a, raw_of(j), nullptr, t);
       else
-        fetch<false>(a, nullptr, nb_of(j), fr, s);
+        fetch<false>(a, nullptr, nb_of(j), t);
     }
     cp_async_commit();
   }
 
   __device__ void load(uint8_t* st, uint64_t* bar, int, int q) {
     const int j = q / sps, h = q - j * sps;
-    int fr, s, rows;
-    strip(j, fr, s, rows);
-    const int row = static_cast<int>((static_cast<size_t>(fr) * a.hs + 2 * s) *
-                                         a.ws) + 64 * h;
+    int nrows;
+    const int row = stage_row(unit(j, nrows), h);
     if (threadIdx.x == 0) mbar_expect(bar, 2 * kPanel);
     if (tma_lane(0, 0)) tma_load(st, dmap, 64 * ph, row, bar);
     if (tma_lane(1, 0)) tma_load(st + kPanel, vmap, 64 * ph, row, bar);
@@ -318,15 +343,15 @@ struct WgradSrc {
 
   __device__ void xform(uint8_t* st, int, int q) {
     const int j = q / sps, h = q - j * sps;
-    int fr, s, rows;
-    strip(j, fr, s, rows);
+    int nrows;
+    const StemTile ut = unit(j, nrows);
     if (h == 0) {
-      // this strip's neighbourhood is in (every thread's copies); the
-      // next strip's copies go out, into the buffers strip j - 1 used
+      // this unit's neighbourhood is in (every thread's copies); the
+      // next unit's copies go out, into the buffers unit j - 1 used
       cp_async_wait<0>();
       __syncthreads();
       if (u8) {
-        normalize(a, na, nbias, raw_of(j), nb_of(j), s);
+        normalize(a, na, nbias, raw_of(j), nb_of(j), ut);
         __syncthreads();
       }
       fetch_strip(j + 1);
@@ -337,9 +362,10 @@ struct WgradSrc {
     // chunks 2 (g % 4), + 1 of the panel row): group g is channels
     // 16 (g % 3) .. of tap g / 3 (zero from 27 on)
     const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
-    const int rr = t >> 1, r = 64 * h + rr;
-    const int lr = r / a.ws, jc = r - lr * a.ws;
-    const bool live = r < rows;
+    const int rr = t >> 1;
+    int r;
+    const bool live = cell_of(ut, nrows, h, rr, r);
+    const int lr = r / ut.wt, jc = r - lr * ut.wt;
 #pragma unroll
     for (int pp = 0; pp < 4; ++pp) {
       const int p = 4 * wg + pp;
@@ -351,7 +377,7 @@ struct WgradSrc {
           const int tap = g / 3, cc = g - 3 * tap;
           const int tr = tap / 3, tc = tap - 3 * tr;
           const uint4* src = reinterpret_cast<const uint4*>(
-              nbh + ((lr + tr) * (a.ws + 2) + jc + tc) * 96 + cc * 32);
+              nbh + ((lr + tr) * (ut.wt + 2) + jc + tc) * 96 + cc * 32);
           lo = src[0];
           hi = src[1];
         }
@@ -373,7 +399,8 @@ struct WgradSrc {
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
       const int cr = (threadIdx.x >> 3) + 32 * k;
-      if (64 * h + cr >= rows) continue;
+      int rk;
+      if (!cell_of(ut, nrows, h, cr, rk)) continue;
       uint4& dch = *reinterpret_cast<uint4*>(st + swz(cr, c8));
       const uint4 vch =
           *reinterpret_cast<const uint4*>(st + kPanel + swz(cr, c8));
@@ -388,17 +415,17 @@ struct WgradSrc {
   }
 };
 
-constexpr int kWgSmem = kWgStages * WgradSrc::kStageBytes +
+constexpr int kWgSmem = kWgStages * 2 * kPanel +
                         kWgPanels * kPanel + 2 * kNbBytes + kAlignSlack;
 
 // Columns 64 ph .. of dw2 (phase ph = blockIdx.x, all 448 rows) over the
-// strips [g_lo, g_hi) of split blockIdx.z, into slice blockIdx.z of part
+// units [g_lo, g_hi) of split blockIdx.z, into slice blockIdx.z of part
 // [splits][448][256], computed transposed (64 channels x 256 patch
 // columns, m64n256 products): warpgroup 0 owns patch columns 0-255 (z^T
 // panels 0-3), warpgroup 1 256-511 (panels 4-7, 448.. zero and not
 // stored). Each block reads da and yc of its phase once, so a split reads
 // them once in all.
-template <bool kU8>
+template <bool kU8, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
     stem_wgrad_kernel(StemArgs a, const float* abc, int strips, int splits,
                       float* part, const __grid_constant__ CUtensorMap dmap,
@@ -413,11 +440,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       static_cast<int>(static_cast<long long>(z + 1) * strips / splits);
   if (g_lo >= g_hi) return;
   for (int i = threadIdx.x; i < 3 * 64; i += kThreads) vecs[i] = abc[i];
-  WgradSrc src;
+  WgradSrc<kWide> src;
   src.a = a;
   src.dmap = &dmap;
   src.vmap = &vmap;
-  src.zt = sm + kWgStages * WgradSrc::kStageBytes;
+  src.zt = sm + kWgStages * WgradSrc<kWide>::kStageBytes;
   src.nbr = src.zt + kWgPanels * kPanel;
   src.vecs = vecs;
   norm_consts(a, kU8, src.na, src.nbias);
@@ -425,7 +452,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   src.ph = blockIdx.x;
   src.g_lo = g_lo;
   src.g_hi = g_hi;
-  src.sps = (2 * a.ws + 63) / 64;
+  src.sps = kWide ? 2 : (2 * a.ws + 63) / 64;
   src.sp = (a.hs + 1) / 2;
   if (threadIdx.x == 0) {
     tma_prefetch(&dmap);
@@ -438,7 +465,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int i = 0; i < kStemN / 2; ++i) acc[i] = 0.0f;
   {
-    Mainloop<kStemN, kWgStages, 1, WgradSrc> ml(sm, bars, src, 1,
+    Mainloop<kStemN, kWgStages, 1, WgradSrc<kWide>> ml(sm, bars, src, 1,
                                                 (g_hi - g_lo) * src.sps);
     // dw2^T of the phase: du^T [64 channels][64 cells] (MN-major A) times
     // z [64 cells][256 patch columns] (MN-major B, the warpgroup's panels)
@@ -503,19 +530,20 @@ static int wgrad_splits(int strips) {
   return std::max(1, std::min(kWgSplitsMax, strips));
 }
 
-template <bool kU8>
+template <bool kU8, bool kWide>
 int launch_wgrad(const StemArgs& a, const float* abc, const void* da,
                  const void* yc, float* part, cudaStream_t st) {
   const int cells = a.n * a.hs * a.ws;
-  const int strips = a.n * ((a.hs + 1) / 2);
+  const int strips = a.n * ((a.hs + 1) / 2) * a.chunks;
   CUtensorMap dmap, vmap;
-  cudaError_t e = allow_smem<stem_wgrad_kernel<kU8>>(kWgSmem);
+  cudaError_t e = allow_smem<stem_wgrad_kernel<kU8, kWide>>(kWgSmem);
   if (e == cudaSuccess) e = tensor_map(&dmap, da, cells, kStemN, 64);
   if (e == cudaSuccess) e = tensor_map(&vmap, yc, cells, kStemN, 64);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int splits = wgrad_splits(strips);
-  stem_wgrad_kernel<kU8><<<dim3(4, 1, splits), kThreads, kWgSmem, st>>>(
-      a, abc, strips, splits, part, dmap, vmap);
+  stem_wgrad_kernel<kU8, kWide>
+      <<<dim3(4, 1, splits), kThreads, kWgSmem, st>>>(a, abc, strips, splits,
+                                                      part, dmap, vmap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -523,10 +551,12 @@ int launch_wgrad(const StemArgs& a, const float* abc, const void* da,
 // rows of at most one block a band (the forward), of the route's blocks,
 // and the weight gradient's splits.
 size_t stem_workspace(int n, int hs, int ws, int bands) {
-  const size_t rows = std::max<size_t>(static_cast<size_t>(n) * bands,
-                                       route_blocks(n * hs * ws));
+  const int chunks = stem_chunks(ws);
+  const size_t rows = std::max<size_t>(
+      static_cast<size_t>(n) * chunks * bands, route_blocks(n * hs * ws));
   return std::max(rows * 2 * kStemN,
-                  static_cast<size_t>(wgrad_splits(n * ((hs + 1) / 2))) *
+                  static_cast<size_t>(
+                      wgrad_splits(n * ((hs + 1) / 2) * chunks)) *
                       kStemK * kStemN);
 }
 
@@ -551,7 +581,8 @@ extern "C" long long vcg_stem_train_workspace(int n, int hs, int ws,
 // [64], beta [64] f32; norm [6] f32 (u8 only). Outputs: yc [n hs ws, 256]
 // bf16 phase-packed, out [n, hs, ws, 64] bf16, stats = mu [64], var [64]
 // f32, vec = sa [64], sb [64] f32; scratch part (vcg_stem_train_workspace).
-// ws <= 64; bands a frame in 1 .. (hs + 1) / 2.
+// bands a column chunk (stem_chunks(ws) chunks a frame row) in
+// 1 .. (hs + 1) / 2.
 extern "C" int vcg_stem_train_fwd(const void* x, int u8, const void* w,
                                   const void* gb, const void* norm, void* yc,
                                   void* out, void* stats, void* vec,
@@ -562,7 +593,8 @@ extern "C" int vcg_stem_train_fwd(const void* x, int u8, const void* w,
   float* pa = static_cast<float*>(part);
   float* vv = static_cast<float*>(vec);
   const StemArgs a{x, nullptr, nullptr, static_cast<const float*>(norm),
-                   static_cast<bf16*>(yc), pa, n, hs, ws, bands};
+                   static_cast<bf16*>(yc), pa, n, hs, ws, stem_chunks(ws),
+                   bands};
   int grid = 0;
   VCG_TRY(static_cast<cudaError_t>(
       u8 ? launch_stem<true, true>(a, w, st, &grid)
@@ -607,11 +639,15 @@ extern "C" int vcg_stem_train_bwd(const void* dpool, const void* out,
       static_cast<const float*>(gb), sv, eps, ab, static_cast<float*>(dgb));
   VCG_TRY(cudaGetLastError());
   const StemArgs a{x, nullptr, nullptr, static_cast<const float*>(norm),
-                   nullptr, nullptr, n, hs, ws, 1};
+                   nullptr, nullptr, n, hs, ws, stem_chunks(ws), 1};
+  const bool wide = a.chunks > 1;
   VCG_TRY(static_cast<cudaError_t>(
-      u8 ? launch_wgrad<true>(a, ab, da, yc, pa, st)
-         : launch_wgrad<false>(a, ab, da, yc, pa, st)));
+      u8 ? (wide ? launch_wgrad<true, true>(a, ab, da, yc, pa, st)
+                 : launch_wgrad<true, false>(a, ab, da, yc, pa, st))
+         : (wide ? launch_wgrad<false, true>(a, ab, da, yc, pa, st)
+                 : launch_wgrad<false, false>(a, ab, da, yc, pa, st))));
   stem_fold_kernel<<<(147 * 64 + 255) / 256, 256, 0, st>>>(
-      pa, wgrad_splits(n * ((hs + 1) / 2)), static_cast<float*>(dw));
+      pa, wgrad_splits(n * ((hs + 1) / 2) * a.chunks),
+      static_cast<float*>(dw));
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,8 +5,9 @@ frames with data/native_loader.py:space_to_depth4).
 
 `normalize_frames` replaces ops/preprocess.py:normalize_frames_pallas: a
 CPU tensor takes `normalize_frames_reference`, a CUDA tensor runs
-csrc/frame_ops.cu (one element per thread, any element count; the same
-multiply and add roundings, so bit for bit the plain version)."""
+csrc/frame_ops.cu (vectors of 8 elements a thread for bf16 out, 4 for
+float32; any element count and input alignment; the same multiply and
+add roundings, so bit for bit the plain version)."""
 
 from __future__ import annotations
 
@@ -48,6 +49,20 @@ def normalize_frames_reference(frames_u8: torch.Tensor,
     return (frames_u8.to(torch.float32) * scale + bias).to(out_dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _normalize_fn():
+    """The C entry vcg_normalize_frames, its signature set once."""
+    fn = _build.load("frame_ops").vcg_normalize_frames
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_int] + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# the six constants as the kernel's float arguments (exact float32 values)
+_NORM_ARGS = tuple(float(v) for t in affine_consts() for v in t.tolist())
+
+
 def normalize_frames(frames_u8: torch.Tensor,
                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """normalize_frames_reference on a CPU tensor; on a CUDA tensor one
@@ -66,14 +81,9 @@ def normalize_frames(frames_u8: torch.Tensor,
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     if x.numel() == 0:
         return out
-    fn = _build.load("frame_ops").vcg_normalize_frames
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    rc = fn(x.data_ptr(), out.data_ptr(), x.numel(),
-            int(out_dtype == torch.bfloat16), norm_consts(x.device).data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _normalize_fn()(x.data_ptr(), out.data_ptr(), x.numel(),
+                         out_dtype == torch.bfloat16, *_NORM_ARGS,
+                         torch.cuda.current_stream(x.device).cuda_stream)
     normalize_frames.launches += 1
     if rc != 0:
         raise RuntimeError(f"normalize_frames kernel failed: CUDA error {rc}")

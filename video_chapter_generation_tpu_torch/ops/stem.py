@@ -1,11 +1,12 @@
-"""ResNet stems (kernels K1 and K8), all in csrc/stem_s2d.cu.
+"""ResNet stems (kernels K1, K8 and K14b), all in csrc/stem_s2d.cu.
 
 - `stem_s2d` replaces the JAX package's ops/stem_pallas.py:stem_s2d_pallas
   (K1): uint8 4x4 space-to-depth frames -> normalize, 7x7/2 conv, folded
   BN, ReLU, 3x3/2 max pool, one kernel launch: the phase-packed product of
   the TPU kernel ([cells, 432] x [432, 256], `stem_weight_im2col`) on the
-  wgmma mainloop, the pool in its epilogue over strips of 2 cell rows
-  (tests/test_torch_stem_phase.py holds the same decomposition in plain
+  wgmma mainloop, the pool in its epilogue over strips of 2 cell rows, a
+  frame wider than 64 cells in column chunks (`stem_chunks`;
+  tests/test_torch_stem_phase.py holds the same decomposition in plain
   torch to the plain version);
 - `stem_frames` replaces stem_pallas.py:stem_conv_bn_pool_pallas (K8):
   the same kernel on normalized NHWC frames, read as their 4x4 cells;
@@ -17,8 +18,11 @@
   gives the 4 conv-output phases, with the normalize scale folded into the
   per-output-channel int8 weight; the normalize bias and the +128 come
   back through one bias row per tap that lies inside the frame, then BN,
-  ReLU and the 3x3/2 max pool. Like the JAX package, no model path calls
-  it (its models/resnet.py:687-693 keeps the bf16 stem with quantize=True).
+  ReLU and the 3x3/2 max pool: one launch on K1's strip walk, the int8
+  weight resident in shared memory, the pool in the epilogue after each
+  phase's affine (tests/test_torch_stem_int8_walk.py holds that epilogue
+  in plain torch). Like the JAX package, no model path calls it (its
+  models/resnet.py:687-693 keeps the bf16 stem with quantize=True).
 
 Each has a plain version (`*_reference`). A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel, and any other device raises.
@@ -42,7 +46,6 @@ from .preprocess import (
     normalize_frames_reference,
 )
 from .tsm_block_int8 import _idot, quantize_weight
-from .tsm_conv import identity_affine
 
 
 def bn_relu_maxpool_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -87,10 +90,19 @@ def stem_frames_reference(frames: torch.Tensor, w7: torch.Tensor,
 
 
 _ARGS = {"vcg_stem_s2d": (6, 4), "vcg_stem_frames": (5, 4),
-         "vcg_bn_relu_maxpool": (4, 4), "vcg_stem_s2d_int8": (8, 3)}
+         "vcg_bn_relu_maxpool": (4, 4), "vcg_stem_s2d_int8": (5, 4)}
 
-# the kernel's strips hold 2 cell rows of a frame in a 128-row tile
-STEM_MAX_CELLS = 64
+# a tile of the stem kernels holds 2 cell rows of at most 64 cells
+STEM_TILE_CELLS = 64
+
+
+def stem_chunks(ws: int) -> int:
+    """Column chunks of a frame row of ws cells in the stem kernels' walk
+    (csrc/stem_tiles.cuh:stem_chunks): one up to 64 cells, else chunks of
+    at most 63 output cells, so that a pooling tile also holds the cell
+    left of its first."""
+    cap = STEM_TILE_CELLS
+    return 1 if ws <= cap else -(-ws // (cap - 1))
 
 
 def _lib(name: str):
@@ -105,12 +117,12 @@ def _lib(name: str):
 
 
 def stem_bands(n: int, hs: int, sms: int, halo: bool = True) -> int:
-    """Bands a frame for the stem kernel's persistent walk over n frames of
-    hs cell rows on sms blocks (one an SM): a band is a run of strips (2
-    cell rows each), and, with halo (the pool's carry), one that starts
-    below the frame's top recomputes the strip above it. The count
-    minimizes the most strips a block walks, ceil(n * bands / sms) *
-    (ceil(strips / bands) + [halo and bands > 1])."""
+    """Bands a column chunk for the stem kernel's persistent walk over n
+    column chunks (frames x stem_chunks) of hs cell rows on sms blocks (one
+    an SM): a band is a run of strips (2 cell rows each), and, with halo
+    (the pool's carry), one that starts below the frame's top recomputes
+    the strip above it. The count minimizes the most strips a block walks,
+    ceil(n * bands / sms) * (ceil(strips / bands) + [halo and bands > 1])."""
     strips = (hs + 1) // 2
     best = None
     for bands in range(1, strips + 1):
@@ -147,19 +159,23 @@ def _phase_weight(w7: torch.Tensor, dev: torch.device) -> torch.Tensor:
 _phase_weight.last = None
 
 
+def walk_bands(dev: torch.device, n: int, hs: int, ws: int,
+               halo: bool = True) -> int:
+    """stem_bands for n frames of hs x ws cells on dev's SMs."""
+    sms = _sm_count(dev.index if dev.index is not None
+                    else torch.cuda.current_device())
+    return stem_bands(n * stem_chunks(ws), hs, sms, halo)
+
+
 def _launch(entry: str, x: torch.Tensor, w7, scale, bias, hs: int,
             ws: int, *extra) -> torch.Tensor:
     """One launch of the stem kernel over n frames of hs x ws cells."""
     n, dev = x.shape[0], x.device
-    if ws > STEM_MAX_CELLS:
-        raise ValueError(f"the stem kernel takes frames up to "
-                         f"{4 * STEM_MAX_CELLS} px wide, got {4 * ws}")
     wk = _phase_weight(w7, dev)
     scale = scale.to(device=dev, dtype=torch.float32).contiguous()
     bias = bias.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty(n, hs, ws, 64, dtype=torch.bfloat16, device=dev)
-    bands = stem_bands(n, hs, _sm_count(dev.index if dev.index is not None
-                                        else torch.cuda.current_device()))
+    bands = walk_bands(dev, n, hs, ws)
     rc = _lib(entry)(x.data_ptr(), wk.data_ptr(), scale.data_ptr(),
                      bias.data_ptr(), *extra, out.data_ptr(), n, hs, ws,
                      bands, torch.cuda.current_stream(dev).cuda_stream)
@@ -174,8 +190,7 @@ def stem_s2d(s4: torch.Tensor, w7: torch.Tensor, scale: torch.Tensor,
     """Fused stem, s4 [N, h, w, 48] uint8 raw pixels -> [N, h, w, 64].
 
     w7 [7, 7, 3, 64] (HWIO); scale/bias [64] the inference-folded BN.
-    On a CUDA tensor one launch (w <= 64 cells), counted in
-    stem_s2d.launches."""
+    On a CUDA tensor one launch, counted in stem_s2d.launches."""
     if s4.device.type == "cpu":
         return stem_s2d_reference(s4, w7, scale, bias, out_dtype)
     if s4.device.type != "cuda":
@@ -196,8 +211,8 @@ def stem_s2d(s4: torch.Tensor, w7: torch.Tensor, scale: torch.Tensor,
 def stem_frames(x: torch.Tensor, w7: torch.Tensor, scale: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
     """Fused stem on normalized NHWC frames x [N, H, W, 3] (H == W,
-    H % 4 == 0) -> [N, H/4, W/4, 64] in x's dtype (the kernel takes bf16,
-    W <= 256). w7 [7, 7, 3, 64] (HWIO); scale/bias [64] the
+    H % 4 == 0) -> [N, H/4, W/4, 64] in x's dtype (the kernel takes
+    bf16). w7 [7, 7, 3, 64] (HWIO); scale/bias [64] the
     inference-folded BN. On a CUDA tensor one launch, counted in
     stem_frames.launches."""
     if x.device.type == "cpu":
@@ -341,11 +356,33 @@ def stem_s2d_int8(s4: torch.Tensor, w7: torch.Tensor, scale: torch.Tensor,
                      out_dtype)
 
 
+def _int8_weight(wq: torch.Tensor, sv: torch.Tensor, wb: torch.Tensor):
+    """K14b's weights from stem_int8_weights: (wt int8 [256, 512] = wq^T,
+    K zero-padded 432 -> 512 (four 128-byte rows a filter column), sv, wb
+    as contiguous float32). Kept for the last (wq, sv, wb) seen (the same
+    tensors at the same versions), as _phase_weight keeps its weight."""
+    key = tuple((t._version, t.dtype, t.device) for t in (wq, sv, wb))
+    last = _int8_weight.last
+    if (last is not None and all(r() is t for r, t in zip(last[0],
+                                                         (wq, sv, wb)))
+            and last[1] == key):
+        return last[2]
+    wt = torch.zeros(256, 512, dtype=torch.int8, device=wq.device)
+    wt[:, :432] = wq.t()
+    made = (wt, sv.float().contiguous(), wb.float().contiguous())
+    _int8_weight.last = (tuple(weakref.ref(t) for t in (wq, sv, wb)), key,
+                         made)
+    return made
+
+
+_int8_weight.last = None
+
+
 def stem_int8(s4: torch.Tensor, weights, out_dtype=torch.bfloat16
               ) -> torch.Tensor:
     """stem_s2d_int8 on weights made ahead, (wq, sv, wb) of
     stem_int8_weights. On a CUDA tensor one launch of vcg_stem_s2d_int8
-    (bfloat16 out), counted in stem_s2d_int8.launches."""
+    (bfloat16 out, no scratch), counted in stem_s2d_int8.launches."""
     if s4.dtype != torch.uint8 or s4.dim() != 4 or s4.shape[-1] != 48:
         raise ValueError(f"stem_s2d_int8 takes uint8 [N,h,w,48], got "
                          f"{s4.dtype} {tuple(s4.shape)}")
@@ -364,16 +401,12 @@ def stem_int8(s4: torch.Tensor, weights, out_dtype=torch.bfloat16
         raise ValueError("stem_int8 takes stem_int8_weights on s4's device")
     n, h, w, _ = s4.shape
     dev = s4.device
-    wt = torch.zeros(256, 448, dtype=torch.int8, device=dev)
-    wt[:, :432] = wq.t()
-    sv, wb = sv.float().contiguous(), wb.float().contiguous()
-    one, zero = identity_affine(dev)
-    conv = torch.empty(n, 2 * h, 2 * w, 64, dtype=torch.bfloat16, device=dev)
+    wt, sv, wb = _int8_weight(wq, sv, wb)
     out = torch.empty(n, h, w, 64, dtype=torch.bfloat16, device=dev)
     rc = _lib("vcg_stem_s2d_int8")(
         s4.data_ptr(), wt.data_ptr(), sv.data_ptr(), wb.data_ptr(),
-        one.data_ptr(), zero.data_ptr(), conv.data_ptr(), out.data_ptr(), n,
-        h, w, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), n, h, w, walk_bands(dev, n, h, w),
+        torch.cuda.current_stream(dev).cuda_stream)
     stem_s2d_int8.launches += 1
     if rc != 0:
         raise RuntimeError(f"stem_s2d_int8 kernel launch failed: CUDA error "

@@ -19,7 +19,9 @@ A CPU tensor takes the plain version (`stem_train_reference`); a CUDA
 tensor runs csrc/stem_train.cu through `_StemTrain` (forward and
 backward one C call each: `stem_train_fwd`, `stem_train_bwd`), on the
 uint8 cells or, for float input, on bf16 frames read as their cells in
-place (frames up to 256 px wide). The kernel keeps the conv output in
+place (a frame wider than 64 cells in column chunks of K1's walk, whose
+neighbourhoods read the real cells across a chunk seam). The kernel
+keeps the conv output in
 the TPU kernel's phase-packed form [cells, 256]: its forward product is
 the phase-packed stem of K1 (csrc/stem_tiles.cuh) with a store-and-
 moments epilogue, its weight gradient the phase-packed dw2 = z^T du on
@@ -42,7 +44,7 @@ from .preprocess import (
     norm_consts,
     normalize_frames_reference,
 )
-from .stem import STEM_MAX_CELLS, _phase_weight, _sm_count, stem_bands
+from .stem import _phase_weight, walk_bands
 from .tsm_block_train import bn_train
 
 
@@ -110,17 +112,12 @@ def _kernel_input(s4: torch.Tensor) -> torch.Tensor:
     float cells (depth_to_space4'd) and frames [N, H, W, 3] as contiguous
     bf16 frames, whose 4x4 cells the kernel reads in place. An input that
     does not start on 16 bytes is copied (the kernel loads 16 bytes at a
-    time); frames wider than 256 px raise ValueError (a strip holds 2 cell
-    rows of at most 64 cells, as K1's)."""
+    time)."""
     if s4.dtype == torch.uint8:
-        x, ws = s4.contiguous(), s4.shape[2]
+        x = s4.contiguous()
     else:
         x = depth_to_space4(s4) if s4.shape[-1] == 48 else s4
         x = x.to(torch.bfloat16).contiguous()
-        ws = x.shape[2] // 4
-    if ws > STEM_MAX_CELLS:
-        raise ValueError(f"the training stem kernel takes frames up to "
-                         f"{4 * STEM_MAX_CELLS} px wide, got {4 * ws}")
     return x.clone() if x.data_ptr() % 16 else x
 
 
@@ -137,9 +134,7 @@ def stem_train_fwd(s4, wk, gb, eps: float):
     x = _kernel_input(s4)
     n, hs, ws = _cells(x)
     dev, bf = x.device, torch.bfloat16
-    bands = stem_bands(n, hs, _sm_count(dev.index if dev.index is not None
-                                        else torch.cuda.current_device()),
-                       halo=False)
+    bands = walk_bands(dev, n, hs, ws, halo=False)
     yc = torch.empty(n * hs * ws, 256, dtype=bf, device=dev)
     out = torch.empty(n, hs, ws, 64, dtype=bf, device=dev)
     stats, vec = torch.empty(2, 2, 64, dtype=torch.float32,
