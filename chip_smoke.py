@@ -139,10 +139,29 @@
    `stem_frames_train` (output and statistics in the bf16 bands,
    gradients in the gradient bands) and K14b bit for bit (one launch,
    two runs bit for bit).
-12. Prints one JSON line of the kernels (a bound over several shapes
+12. vision_titles (the extraction entry point, vision-conditioned beam
+   titles). Runs cli/extract_vision_emb at 224 px over the 16-frame clips
+   of phase 5's corpus, 16 clips a call: in bf16 (the s2d stem; per call
+   K1 1, K2/K3 13, K4 3) and with --int8 (per call K1 1, K2/K3 3, K4 3,
+   K9 10, plus one bf16 calibration call), each launch count exact and
+   frames/s printed; holds the first clip's bf16 embeddings to the float32
+   plain trunk on the CPU (per-frame cosine >= 0.99) and every int8 one to
+   the bf16 one (>= 0.98). Then runs cli/infer_video.main --vision_emb_dir
+   (the bf16 embeddings) --fusion_type cross_attn --num_beams 4
+   --pipelined from phase 5's checkpoint (Pegasus-large titles, seeded
+   random weights; the boundary model's launches counted), a title per
+   chapter; on the title inputs of its first call, one beam equals greedy
+   bit for bit, each beam-4 score equals the teacher-forced,
+   length-normalised log-prob of its ids within 1e-2 (teacher-forced in
+   the search's batch layout and at the title batch alone), and greedy and
+   beam-4 decode are timed (ms a step). Adds the extraction paths' K1,
+   K2/K3, K4 and K9 entries to the kernels line ("path" names the entry
+   point), with the serving and inference entries' times at the same
+   shapes and this phase's launches.
+13. Prints one JSON line of the kernels (a bound over several shapes
    is the sum of each shape's), the wall time of each phase
    and of the script and, last, the device line. The title decode of 4
-   and each of 5-11 also print their wall time as they end ("serving",
+   and each of 5-12 also print their wall time as they end ("serving",
    1-4 up to the title decode, prints only on that line).
 
 Any failed phase raises, and the script exits non-zero without printing
@@ -211,6 +230,12 @@ WINDOW_STEPS, WINDOW_BATCH = 3, 4
 WINDOW_TRUNK_MIN_COS = 0.99
 # frames a width of the wide-frame phase, and its widths in px
 WIDE_FRAMES, WIDE_PX = 8, (320, 260)
+# vision-conditioned titles: beams (the JAX CLI's documented setting), and
+# how far a returned beam score may lie from the teacher-forced,
+# length-normalised log-prob of its ids, taken in the search's batch
+# layout (the same bf16 products) and at the title batch alone (other
+# GEMM shapes: bf16 rounds at other places)
+BEAMS, BEAM_SCORE_TOL = 4, 1e-2
 
 
 def fail(msg: str):
@@ -2809,6 +2834,293 @@ def chain_phases(dev, smi, frames, vision):
             "library_ms": e["library_ms"]}
 
 
+def vision_titles_phase(dev, smi, cli_argv, serving, int8_entry):
+    """The extraction entry point and vision-conditioned beam titles:
+    cli/extract_vision_emb at 224 px over the inference corpus's 16-frame
+    clips in bf16 (s2d stem: K1, K2/K3, K4 launches counted exactly) and
+    with --int8 (K9 too, plus the calibration call), the embeddings held
+    to the float32 plain trunk on the CPU (one clip) and the int8 ones to
+    the bf16 ones; then cli/infer_video --vision_emb_dir --fusion_type
+    cross_attn --num_beams 4 --pipelined (Pegasus-large) from the
+    checkpoint of the inference phase, a title per chapter; on the title
+    inputs of its first call, one beam equal to greedy bit for bit and
+    each beam-4 score equal to the teacher-forced, length-normalised
+    log-prob of its ids, and beam-4 against greedy ms a step. Returns the
+    extraction paths' kernel entries: the serving and inference entries'
+    times (the same shapes: 256-frame calls at 224 px), this phase's
+    launches."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from video_chapter_generation_tpu_torch.cli import (
+        extract_vision_emb,
+        infer_video,
+    )
+    from video_chapter_generation_tpu_torch.cli.common import (
+        load_corpus,
+        parse_config,
+    )
+    from video_chapter_generation_tpu_torch.core.metrics import StepTimer
+    from video_chapter_generation_tpu_torch.data.clip_grid import (
+        flatten_video_to_clips,
+    )
+    from video_chapter_generation_tpu_torch.data.frames import (
+        load_clip_frames,
+    )
+    from video_chapter_generation_tpu_torch.models.resnet import Resnet50TSM
+    from video_chapter_generation_tpu_torch.models.seq2seq import (
+        beam_search,
+        generate,
+    )
+    from video_chapter_generation_tpu_torch.ops.preprocess import (
+        normalize_frames,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem import (
+        stem_frames,
+        stem_s2d,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block import (
+        tsm_bottleneck,
+        tsm_bottleneck_s2,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block_int8 import (
+        tsm_bottleneck_int8,
+    )
+
+    build = ROOT / "video_chapter_generation_tpu_torch" / "_build"
+    cfg, _ = parse_config(cli_argv)
+    corpus = load_corpus(cfg, "test")
+    clips = [c.to_json() for vid in corpus.vids
+             for c in flatten_video_to_clips(
+                 vid, corpus.img_dir, corpus.image_num(vid),
+                 corpus.raw_cut_secs(vid), corpus.subtitles(vid),
+                 CLIP_FRAMES)]
+    clips_json = build / "vision_clips.json"
+    clips_json.write_text(json.dumps(clips))
+    counted = (normalize_frames, stem_frames, stem_s2d, tsm_bottleneck,
+               tsm_bottleneck_s2, tsm_bottleneck_int8)
+    calls = math.ceil(len(clips) / SCORE_BATCH)
+
+    def run(name, fn, want_of):
+        """fn() with every count at 0 just before and read just after,
+        its stdout kept; the counts must equal want_of(fn's result)
+        (absent names: 0). Returns (fn's result, its stdout)."""
+        for k in counted:
+            k.launches = 0
+        said = io.StringIO()
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(said):
+                out = fn()
+        finally:
+            for line in said.getvalue().splitlines():
+                print(f"# {name}: {line}", flush=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k.__name__: k.launches for k in counted}
+        want = {k.__name__: want_of(out).get(k.__name__, 0) for k in counted}
+        print(f"# {name}: launches {launches} in {wall:.1f} s on {smi}",
+              flush=True)
+        if launches != want:
+            fail(f"{name} launch counts {launches} != {want}")
+        return out, said.getvalue(), launches
+
+    # --- extraction, bf16 then W8A8 (a bf16 calibration call first) ---
+    ext_argv = [f"data.test_clips_json={clips_json}",
+                f"data.clip_frame_num={CLIP_FRAMES}",
+                f"data.batch_size={SCORE_BATCH}"]
+    wants = {"bf16": {"stem_s2d": calls, "tsm_bottleneck": 13 * calls,
+                      "tsm_bottleneck_s2": 3 * calls},
+             "int8": {"stem_s2d": calls + 1,
+                      "tsm_bottleneck": 3 * calls + 13,
+                      "tsm_bottleneck_s2": 3 * calls + 3,
+                      "tsm_bottleneck_int8": 10 * calls}}
+    ext_launches, dirs = {}, {}
+    for mode, flags in (("bf16", []), ("int8", ["--int8"])):
+        out_dir = dirs[mode] = build / f"vision_embs_{mode}"
+        for old in out_dir.glob("*/*.npy"):
+            old.unlink()
+        timer = StepTimer()
+        n, _, ext_launches[mode] = run(
+            f"extract_vision_emb {mode}",
+            lambda flags=flags, out_dir=out_dir, timer=timer:
+                extract_vision_emb.main(
+                    ext_argv + ["--out_dir", str(out_dir)] + flags,
+                    timer=timer),
+            lambda _, mode=mode: wants[mode])
+        if n != len(clips):
+            fail(f"extract_vision_emb {mode} wrote {n} of {len(clips)}")
+        emb = timer.summary()["embed"]
+        print(f"# extract_vision_emb {mode} at 224 px: {n} clips x "
+              f"{CLIP_FRAMES} frames in {calls} calls of up to {SCORE_BATCH} "
+              f"clips: {emb['items_per_sec']:.1f} frames/s over all calls "
+              f"(the embed stage: the device call and the copy back, "
+              f"{emb['seconds']:.3f} s) on {smi}; information only, not a "
+              f"benchmark", flush=True)
+
+    def load(mode, clip):
+        s, t = clip["clip_start_end"]
+        return np.load(dirs[mode] / clip["vid"] / f"vision_emb_{s}_{t}.npy")
+
+    embs = {mode: np.stack([load(mode, c) for c in clips]) for mode in dirs}
+    for mode, e in embs.items():
+        if e.shape != (len(clips), CLIP_FRAMES, 2048) or e.dtype != \
+                np.float32 or not np.isfinite(e).all():
+            fail(f"{mode} embeddings {e.shape} {e.dtype}, or not finite")
+    # the first clip against the float32 plain trunk on the CPU
+    ref = Resnet50TSM(CLIP_FRAMES, stem_input="s2d").eval()
+    ref.base_model.load_state_dict(extract_vision_emb.init_weights(ref))
+    want = ref(torch.from_numpy(load_clip_frames(
+        clips[0]["image_paths"], 224, s2d=True))[None])[0]
+
+    def cos_min(a, b):
+        return torch.nn.functional.cosine_similarity(
+            torch.as_tensor(a).double().reshape(-1, 2048),
+            torch.as_tensor(b).double().reshape(-1, 2048), dim=1).min().item()
+
+    c_ref = cos_min(embs["bf16"][0], want)
+    c_int8 = cos_min(embs["int8"], embs["bf16"])
+    print(f"# extraction embeddings: bf16 kernels vs the float32 plain "
+          f"trunk on the CPU, first clip, per-frame cosine min {c_ref:.6f}; "
+          f"int8 vs bf16, all {len(clips)} clips, per-frame cosine min "
+          f"{c_int8:.6f}", flush=True)
+    if c_ref < TRUNK_MIN_COS:
+        fail("the extraction trunk disagrees with its float32 plain version")
+    if c_int8 < INT8_TRUNK_MIN_COS:
+        fail("the W8A8 extraction trunk disagrees with the bf16 one")
+    del ref, embs
+
+    # --- infer_video with vision-conditioned beam-4 titles ---
+    captured = []
+    plain_beam = infer_video.beam_search
+
+    def beam_spy(model, ids, mask, **kw):  # keeps its first call's inputs
+        if not captured:
+            captured.append((model, ids, mask, kw))
+        return plain_beam(model, ids, mask, **kw)
+
+    def vision_calls(results):  # the boundary model's frames-stem trunk
+        n = sum(math.ceil(len(r.clip_scores) / SCORE_BATCH)
+                for r in results.values())
+        return {"normalize_frames": n, "stem_frames": n,
+                "tsm_bottleneck": 13 * n, "tsm_bottleneck_s2": 3 * n}
+
+    cwd = os.getcwd()
+    os.chdir(build)  # the CLI writes test_results/ where it runs
+    infer_video.beam_search = beam_spy
+    try:
+        results, said, _ = run(
+            "infer_video vision titles",
+            lambda: infer_video.main(cli_argv + [
+                "--vision_emb_dir", str(dirs["bf16"]), "--fusion_type",
+                "cross_attn", "--num_beams", str(BEAMS), "--pipelined"]),
+            vision_calls)
+    finally:
+        infer_video.beam_search = plain_beam
+        os.chdir(cwd)
+    if "restored checkpoint at epoch 0" not in said:
+        fail("infer_video did not restore the boundary checkpoint")
+    for vid, r in results.items():
+        print(f"# {vid}: cut points {r.cut_points}, {len(r.titles)} beam-"
+              f"{BEAMS} vision titles for {len(r.spans)} chapters", flush=True)
+        if not r.cut_points or len(r.titles) != len(r.spans):
+            fail(f"{vid}: {len(r.titles)} titles for {len(r.spans)} "
+                 f"chapters")
+    if len(results) != INFER_VIDEOS or not captured:
+        fail(f"infer_video chaptered {len(results)} videos")
+    stages = json.loads(said.split("stage seconds: ")[1].splitlines()[0])
+    steps = sum(1 for r in results.values() if r.spans) * TITLE_OUT
+    print(f"# beam-{BEAMS} vision title decode in the CLI (Pegasus-large, "
+          f"bf16, fused encode included, batch = one video's chapters): "
+          f"{1e3 * stages['title_generate']['seconds'] / steps:.2f} ms per "
+          f"step over {steps} steps on {smi}", flush=True)
+
+    # --- the title path on the CLI's first title inputs, on the card ---
+    s2s, ids, mask, kw = captured[0]
+    enc, max_len, lp = kw["enc_hidden"], kw["max_len"], 1.0
+    greedy = generate(s2s, ids, mask, max_len=max_len, enc_hidden=enc)
+    one = beam_search(s2s, ids, mask, num_beams=1, max_len=max_len,
+                      enc_hidden=enc)[0]
+    if not torch.equal(one, greedy):
+        fail("num_beams=1 ids differ from greedy ids on the card")
+    beam_ids, scores = beam_search(s2s, ids, mask, num_beams=BEAMS,
+                                   max_len=max_len, enc_hidden=enc)
+    eos = s2s.cfg.eos_token_id
+
+    def forced(rep):
+        """Teacher-forced, length-normalised log-prob of beam_ids, each row
+        fed `rep` times (rep = BEAMS: the batch layout of the search)."""
+        b = ids.shape[0]
+        tgt = beam_ids.repeat_interleave(rep, 0)
+        e, m = enc.repeat_interleave(rep, 0), mask.repeat_interleave(rep, 0)
+        cache = s2s.init_cache(b * rep, max_len, e)
+        tok = torch.full((b * rep, 1), s2s.cfg.decoder_start_token_id,
+                         dtype=torch.long, device=dev)
+        total = torch.zeros(b * rep, dtype=torch.float32, device=dev)
+        length = torch.full((b * rep,), float(max_len), device=dev)
+        live = torch.ones(b * rep, dtype=torch.bool, device=dev)
+        for pos in range(max_len):
+            logits, cache = s2s.decode_step(tok, pos, cache, m, max_len)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            total += torch.where(live, logp.gather(1, tgt[:, pos:pos + 1])[
+                :, 0], 0.0)
+            ended = live & (tgt[:, pos] == eos)
+            length = torch.where(ended, float(pos + 1), length)
+            live = live & ~ended
+            tok = tgt[:, pos:pos + 1]
+        return (total / length ** lp)[::rep]
+
+    gap = (forced(BEAMS) - scores).abs().max().item()
+    gap_b = (forced(1) - scores).abs().max().item()
+    print(f"# beam-{BEAMS} scores vs the teacher-forced, length-normalised "
+          f"log-prob of their ids ({ids.shape[0]} rows, scores "
+          f"{[round(x, 4) for x in scores.tolist()]}): max gap {gap:.3g} in "
+          f"the search's batch layout, {gap_b:.3g} at batch "
+          f"{ids.shape[0]}; num_beams=1 equals greedy bit for bit",
+          flush=True)
+    if not max(gap, gap_b) <= BEAM_SCORE_TOL:
+        fail(f"beam scores differ from their teacher-forced log-probs by "
+             f"{max(gap, gap_b):.3g}")
+
+    def step_ms(fn, runs=3):
+        fn()
+        times = []
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[runs // 2] / max_len
+
+    g_ms = step_ms(lambda: generate(s2s, ids, mask, max_len=max_len,
+                                    enc_hidden=enc))
+    b_ms = step_ms(lambda: beam_search(s2s, ids, mask, num_beams=BEAMS,
+                                       max_len=max_len, enc_hidden=enc))
+    print(f"# vision title decode, Pegasus-large bf16, batch "
+          f"{ids.shape[0]}, encoder {ids.shape[1]}, {max_len} steps from the "
+          f"fused states: greedy {g_ms:.3f} ms per step, beam-{BEAMS} "
+          f"{b_ms:.3f} ms per step ({b_ms / g_ms:.2f}x; median of 3) on "
+          f"{smi}", flush=True)
+    del captured, s2s, enc
+    torch.cuda.empty_cache()
+
+    out = []
+    for mode, launches in ext_launches.items():
+        path = "extract_vision_emb" + (" --int8" if mode == "int8" else "")
+        names = list(serving) + (["tsm_bottleneck_int8"] if mode == "int8"
+                                 else [])
+        for name in names:
+            base = int8_entry if name == "tsm_bottleneck_int8" else \
+                serving[name]
+            out.append(dict(base, launches=launches[name], path=path))
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3150,9 +3462,15 @@ def main() -> int:
     # call's frames; their launches from the window phases' runs; K14a,
     # K14b and K15: per 256-frame vision call, launches from the
     # INT8_S2_BLOCKS and chain_blocks vision calls (K14b: no model path)
+    # the extraction paths: K1, K2/K3 and K4 (and K9 with --int8) at the
+    # shapes of the serving and inference entries, launches of this phase
+    vision_kernels = timed(
+        "vision_titles", vision_titles_phase, dev, smi, cli_argv,
+        {k["name"]: k for k in kernels},
+        next(k for k in infer_kernels if k["name"] == "tsm_bottleneck_int8"))
     print(json.dumps({"kernels": kernels + infer_kernels + bigbird_kernels
                       + train_kernels + window_kernels + int8_s2_kernels
-                      + [chain_kernel]}))
+                      + [chain_kernel] + vision_kernels}))
     print(f"# phase seconds {json.dumps(laps)}; chip_smoke wall time "
           f"{time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

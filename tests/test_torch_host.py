@@ -1,8 +1,12 @@
 """The port's own copies of the JAX package's host-side modules against
 the originals, on the same inputs (a synthetic corpus on disk): clip
 grids, corpus records, training and inference dataset items, tokenizers,
-collate and the loader, cut points, config overrides and the checkpoint
-contract. All must be equal, not close: the copies are the same code."""
+collate and the loader, cut points, config overrides, the checkpoint
+contract and the vision-embedding block selection, provider and
+attachment. All must be equal, not close: the copies are the same
+code."""
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -222,3 +226,40 @@ def test_ranking_metrics_match():
             jax_metrics.average_precision_score(y, s)
     with pytest.raises(ValueError):
         metrics.roc_auc_score([1, 1], [0.2, 0.3])
+
+
+def test_vision_emb_block_range_matches():
+    for start, end in [(0, 40), (3, 17), (16, 30), (0, 10), (50, 52),
+                       (7, 200), (33, 70)]:
+        for block in (16, 8):
+            assert datasets.vision_emb_block_range(start, end, block) == \
+                jax_datasets.vision_emb_block_range(start, end, block)
+
+
+def test_vision_emb_provider_and_attachment_match(tmp_path):
+    """The npy provider reads the same blocks (a missing one skipped), and
+    chapter_vision_embs is the attachment of the JAX _VisionEmbMixin, with
+    [T, D] blocks, [D] ones, more blocks than max_vision_emb and none."""
+    rng = np.random.default_rng(2)
+    vid = "vid0"
+    (tmp_path / vid).mkdir()
+    for st in (0, 16, 48, 64):  # no 32
+        np.save(tmp_path / vid / f"vision_emb_{st}_{st + 16}.npy",
+                rng.standard_normal((16, 6)).astype(np.float32))
+    pa = datasets.npy_vision_emb_provider(str(tmp_path))
+    pb = jax_datasets.npy_vision_emb_provider(str(tmp_path))
+    for span in [(0, 80), (0, 40), (20, 90), (70, 72)]:
+        _same(pa(vid, *span), pb(vid, *span))
+
+    def jax_attach(embs, n, dim):
+        host = SimpleNamespace(emb_provider=lambda *a: embs,
+                               max_vision_emb=n, emb_dim=dim)
+        out = jax_datasets._VisionEmbMixin._attach_vision(
+            host, {"chapter_start": 0, "chapter_end": 80}, vid)
+        return out["vision_embs"], out["vision_attention_mask"]
+
+    blocks = pa(vid, 0, 80)
+    for embs, n in [(blocks, 10), (blocks, 2), ([], 3),
+                    ([b.mean(0) for b in blocks], 5)]:
+        _same(datasets.chapter_vision_embs(embs, n, 6),
+              jax_attach(embs, n, 6))

@@ -34,7 +34,9 @@ def test_port_module_list_is_complete():
                  "core.checkpoint", "data.datasets", "evalkit.boundary",
                  "ops.sparse_attention", "models.sparse_attention",
                  "ops.tsm_conv", "ops.temporal_shift", "ops.preprocess",
-                 "evalkit.metrics", "models.fusion", "pipeline.boundary"):
+                 "evalkit.metrics", "models.fusion", "pipeline.boundary",
+                 "pipeline.vision_emb", "cli.extract_vision_emb",
+                 "cli.infer_video"):
         assert f"{PORT}.{name}" in MODULES, name
 
 

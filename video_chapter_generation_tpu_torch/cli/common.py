@@ -14,6 +14,19 @@ from ..data.corpus import VideoCorpus
 from ..data.tokenization import UnigramTokenizer, WordPieceTokenizer
 from ..models.seq2seq import Seq2SeqConfig
 
+
+def pop_flag(argv: List[str], flag: str, value: bool = True
+             ) -> Optional[str]:
+    """Remove `flag` (and its value) from argv: its value, "" for a bare
+    flag, None when absent (the JAX CLIs' hand-parsed flags)."""
+    if flag not in argv:
+        return None
+    i = argv.index(flag)
+    out = argv[i + 1] if value else ""
+    del argv[i:i + (2 if value else 1)]
+    return out
+
+
 def parse_config(argv: Optional[List[str]] = None,
                  description: str = "") -> Tuple[Config, argparse.Namespace]:
     """Flags: --config <json file>, --bert_vocab, --spm_tsv, --tiny,

@@ -16,14 +16,16 @@ from ..core.contract import assert_contract
 
 def _restore(cfg, task) -> Dict[str, torch.Tensor]:
     """The title model's float32 state dict, for any title family (the
-    task's config says which): the best title checkpoint in
-    cfg.train.ckpt_dir, else the newest, else the task's seeded random
-    weights, with a line saying which. A checkpoint of another model kind
-    (the boundary model shares the directory in cli/infer_video) is no
-    title checkpoint; the JAX package's restore fails on it and falls back
-    to random weights the same way. A title checkpoint whose contract does
-    not match raises ContractMismatch: it never degrades to random
-    weights."""
+    task's config says which) and for the plain (TitleGenTask, model kind
+    "title") and vision-conditioned (TitleGenVisionTask, "title_vision")
+    models: the best checkpoint in cfg.train.ckpt_dir, else the newest,
+    else the task's seeded random weights, with a line saying which. A
+    checkpoint of another model kind (the boundary model shares the
+    directory in cli/infer_video; a plain title model is no vision one) is
+    not restored; the JAX package's restore fails on its tree and falls
+    back to random weights the same way. A checkpoint of the task's kind
+    whose contract does not match raises ContractMismatch: it never
+    degrades to random weights."""
     ckpt = CheckpointManager(cfg.train.ckpt_dir)
     step = ckpt.best_step()
     if step is None:
@@ -32,7 +34,7 @@ def _restore(cfg, task) -> Dict[str, torch.Tensor]:
         return task.init_state()
     contract = ckpt.metrics_for(step).get("contract") or {}
     kind = contract.get("model_kind", "title")
-    if kind != "title":
+    if kind != task.contract["model_kind"]:
         print(f"no checkpoint restored (epoch {step} in "
               f"{cfg.train.ckpt_dir} is a {kind} checkpoint): random title "
               f"weights")

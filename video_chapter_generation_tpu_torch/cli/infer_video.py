@@ -5,22 +5,30 @@ points -> titles (counterpart of the JAX package's cli/infer_video.py).
         model.kind=two_stream data.img_dir=... data.data_file=... \
         data.subtitle_dir=... data.test_vid_file=... train.ckpt_dir=... \
         [--vids vid1,vid2] [--bert_vocab v.txt] [--spm_tsv spm.tsv] \
-        [--title_arch pegasus|bigbird|bart] [--int8_vision] \
-        [--int8_titles] [--pipelined] [--tiny] [--device cpu]
+        [--title_arch pegasus|bigbird|bart] [--num_beams N] \
+        [--vision_emb_dir DIR [--fusion_type cross_attn|mlp]] \
+        [--int8_vision] [--int8_titles] [--pipelined] [--tiny] \
+        [--device cpu]
 
 Runs on the card unless --device says otherwise. The boundary model is
 the best checkpoint in train.ckpt_dir (else the newest; its contract
 must match this config), scoring per-clip frames (uint8 -> normalized on
 the device -> the frames stem, model.stem_input=frames). The title model
-(--title_arch: Pegasus-large, BigBird-Pegasus-large or BART-large) is
-greedy for data.title_decode_len tokens, from a title checkpoint in the
-same directory, else seeded random weights (a line says which). BigBird
+(--title_arch: Pegasus-large, BigBird-Pegasus-large or BART-large)
+decodes data.title_decode_len tokens, greedy or, with --num_beams N > 1,
+by beam search, from a title checkpoint in the same directory, else
+seeded random weights (a line says which). --vision_emb_dir DIR (the
+output of cli/extract_vision_emb) conditions the titles on each
+chapter's vision embeddings: the title model becomes Seq2SeqVisionEmb
+with the --fusion_type head (cross_attn, the default, or mlp), its fused
+encoder states feed the decoder (the JAX package's best-ROUGE
+configuration: --vision_emb_dir vision_embs --num_beams 4). BigBird
 wants long title inputs: give it data.title_input_len=3072 (its encoder
 then runs the block-sparse kernel K10 in every layer; at the default 512
 it falls back to full attention). --int8_vision serves the W8A8 vision
 trunk, its activation scales calibrated on the first video's frames;
 --int8_titles serves the title model in weight-only int8 with an int8
-cross-attention cache. Writes
+cross-attention cache (the fusion head stays float). Writes
 test_results/whole_pipeline_result.txt and prints one JSON line per
 video. Flags the port does not serve yet exit naming their ROADMAP item.
 """
@@ -31,34 +39,39 @@ import dataclasses
 import json
 import os
 import sys
-from typing import Dict, List, Optional
+from typing import Dict
 
 import numpy as np
 import torch
 
 from ..core.contract import vocab_hash
+from ..data.datasets import npy_vision_emb_provider
 from ..data.frames import load_clip_frames
 from ..device import resolve_device
-from ..models.seq2seq import Seq2Seq, generate, trim_at_eos
+from ..models.seq2seq import (
+    FUSION_TYPES,
+    Seq2Seq,
+    Seq2SeqVisionEmb,
+    beam_search,
+    generate,
+    trim_at_eos,
+)
 from ..ops.quantize import quantize_seq2seq
 from ..pipeline import ChapterPipeline, VideoChapters
-from ..train.tasks import TitleGenTask, compute_dtype
+from ..train.tasks import TitleGenTask, TitleGenVisionTask, compute_dtype
 from .common import (
     load_bert_tokenizer,
     load_corpus,
     load_title_tokenizer,
     parse_config,
+    pop_flag,
     title_s2s_config,
 )
 from .eval_segment import build_score_fn
 from .eval_title import _restore
 
-NOT_PORTED = {
-    "--vision_emb_dir": "vision-conditioned titles are ROADMAP queue 1 "
-                        "item 3",
-    "--fusion_type": "vision-conditioned titles are ROADMAP queue 1 item 3",
-    "--sharded": "sharded serving is ROADMAP queue 1 item 10",
-}
+VISION_EMB_DIM = 2048  # the ResNet50-TSM embedding width (JAX :135)
+NOT_PORTED = {"--sharded": "sharded serving is ROADMAP queue 1 item 10"}
 KIND_NOT_PORTED = {
     # the JAX CLI cannot serve it either: its ChapterPipeline builds
     # per-clip batches ("img_clip", pipeline/whole_video.py:82,177) and
@@ -71,17 +84,6 @@ KIND_NOT_PORTED = {
                          "cli/eval_segment.build_score_fn",
     "text": "the text-only scorer is ROADMAP queue 1 item 6",
 }
-
-
-def _pop(argv: List[str], flag: str, value: bool = True) -> Optional[str]:
-    """Remove `flag` (and its value) from argv; its value, "" for a bare
-    flag, None when absent."""
-    if flag not in argv:
-        return None
-    i = argv.index(flag)
-    out = argv[i + 1] if value else ""
-    del argv[i:i + (2 if value else 1)]
-    return out
 
 
 def calibration_clips(cfg, corpus, vid: str, hw: int) -> np.ndarray:
@@ -98,19 +100,21 @@ def calibration_clips(cfg, corpus, vid: str, hw: int) -> np.ndarray:
 
 def main(argv=None) -> Dict[str, VideoChapters]:
     argv = list(argv if argv is not None else sys.argv[1:])
-    vids = _pop(argv, "--vids")
+    vids = pop_flag(argv, "--vids")
     vids = vids.split(",") if vids else None
     for flag, why in NOT_PORTED.items():
-        if (_pop(argv, flag, value=flag != "--sharded")) is not None:
+        if pop_flag(argv, flag, value=False) is not None:
             raise SystemExit(f"{flag} is not ported to the PyTorch port yet: "
                              f"{why}")
-    beams = _pop(argv, "--num_beams")
-    if beams is not None and int(beams) > 1:
-        raise SystemExit("--num_beams > 1 is not ported to the PyTorch port "
-                         "yet: beam search is ROADMAP queue 1 item 2")
-    pipelined = _pop(argv, "--pipelined", value=False) is not None
-    int8_titles = _pop(argv, "--int8_titles", value=False) is not None
-    int8_vision = _pop(argv, "--int8_vision", value=False) is not None
+    vision_emb_dir = pop_flag(argv, "--vision_emb_dir")
+    fusion_type = pop_flag(argv, "--fusion_type") or "cross_attn"
+    if fusion_type not in FUSION_TYPES:
+        raise SystemExit(f"--fusion_type {fusion_type}: one of "
+                         f"{', '.join(FUSION_TYPES)}")
+    num_beams = int(pop_flag(argv, "--num_beams") or 1)
+    pipelined = pop_flag(argv, "--pipelined", value=False) is not None
+    int8_titles = pop_flag(argv, "--int8_titles", value=False) is not None
+    int8_vision = pop_flag(argv, "--int8_vision", value=False) is not None
 
     cfg, args = parse_config(argv, "whole-pipeline per-video inference")
     kind = cfg.model.kind
@@ -136,7 +140,9 @@ def main(argv=None) -> Dict[str, VideoChapters]:
     score_fn = build_score_fn(cfg, args, tokenizer, calib_clips=calib,
                               device=dev)
 
-    task = TitleGenTask(cfg, s2s_cfg)
+    vision = vision_emb_dir is not None
+    task = (TitleGenVisionTask(cfg, s2s_cfg, fusion_type, VISION_EMB_DIM)
+            if vision else TitleGenTask(cfg, s2s_cfg))
     task.contract = dict(task.contract, vocab_hash=vocab_hash(title_tokenizer))
     weights = _restore(cfg, task)
     model = task.model
@@ -145,15 +151,31 @@ def main(argv=None) -> Dict[str, VideoChapters]:
         s2s_cfg = dataclasses.replace(s2s_cfg, weight_quant=True,
                                       kv_quant=True)
         with torch.device("meta"):
-            model = Seq2Seq(s2s_cfg)
+            model = (Seq2SeqVisionEmb(s2s_cfg, fusion_type, VISION_EMB_DIM)
+                     if vision else Seq2Seq(s2s_cfg))
     model.load_state_dict(weights, assign=True)
     model.to(dev, compute_dtype(cfg)).eval()
+    max_len = cfg.data.title_decode_len
 
-    def title_fn(text_ids, attention_mask):
-        ids = generate(model, torch.from_numpy(text_ids).to(dev).long(),
-                       torch.from_numpy(attention_mask).to(dev),
-                       max_len=cfg.data.title_decode_len)
-        return trim_at_eos(ids.cpu().numpy(), s2s_cfg.eos_token_id)
+    def decode(s2s, ids, mask, enc_hidden=None):
+        if num_beams > 1:
+            return beam_search(s2s, ids, mask, num_beams=num_beams,
+                               max_len=max_len, enc_hidden=enc_hidden)[0]
+        return generate(s2s, ids, mask, max_len=max_len,
+                        enc_hidden=enc_hidden)
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(dev)
+
+    def title_fn(text_ids, attention_mask, *vision_inputs):
+        ids, mask = put(text_ids).long(), put(attention_mask)
+        if vision:  # fused encode, then the inner Seq2Seq decodes (JAX :171)
+            vis, vis_mask = map(put, vision_inputs)
+            out = decode(model.seq2seq, ids, mask,
+                         model.encode_fused(vis, vis_mask, ids, mask))
+        else:
+            out = decode(model, ids, mask)
+        return trim_at_eos(out.cpu().numpy(), s2s_cfg.eos_token_id)
 
     pipe = ChapterPipeline(
         corpus, tokenizer, score_fn, title_fn,
@@ -162,7 +184,10 @@ def main(argv=None) -> Dict[str, VideoChapters]:
         max_text_len=cfg.data.max_text_len,
         title_input_len=cfg.data.title_input_len,
         batch_size=cfg.data.batch_size, score_mode=cfg.model.data_mode,
-        hw=hw, title_tokenizer=title_tokenizer, device=dev)
+        hw=hw, title_tokenizer=title_tokenizer, device=dev,
+        vision_emb_provider=(npy_vision_emb_provider(vision_emb_dir)
+                             if vision else None),
+        vision_emb_dim=VISION_EMB_DIM)
     results = pipe.run(vids, pipelined=pipelined)
 
     os.makedirs("test_results", exist_ok=True)

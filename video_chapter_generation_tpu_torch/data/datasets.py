@@ -7,8 +7,9 @@ the JAX package.
 
 from __future__ import annotations
 import json
+import os
 from dataclasses import dataclass
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 import numpy as np
 from ..core.seeding import host_rng
 from .clip_grid import (
@@ -322,3 +323,65 @@ def _chapter_text(subtitles, start_t, end_t, fps: int = 1) -> str:
         subtitles, start_t, end_t, 1 * fps, fps=fps, early_stop=True
     )
     return " ".join(text.split()).lower()
+
+
+def chapter_vision_embs(embs, max_vision_emb: int = 10, emb_dim: int = 2048
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """One chapter's vision embeddings as the title model takes them: each
+    per-block [T, D] array mean-pooled over T (a [D] one as it is), the
+    first max_vision_emb of them in float32 [max_vision_emb, emb_dim],
+    zero rows after, and the int32 validity mask [max_vision_emb].
+
+    The attachment of video_chapter_generation_tpu/data/datasets.py:446-465
+    (_VisionEmbMixin._attach_vision), which its
+    pipeline/whole_video.py:101-110 repeats inline.
+    """
+    vis = np.zeros((max_vision_emb, emb_dim), np.float32)
+    mask = np.zeros((max_vision_emb,), np.int32)
+    for k, e in enumerate(embs[:max_vision_emb]):
+        e = np.asarray(e)
+        vis[k] = e.mean(axis=0) if e.ndim == 2 else e
+        mask[k] = 1
+    return vis, mask
+
+
+def vision_emb_block_range(chapter_start: int, chapter_end: int,
+                           block_sec: int = 16) -> range:
+    """The reference's chapter -> 16s-block selection
+    (youtube_chapter_title_dataset.py:224-233): quantize the chapter span
+    to the 4s clip grid, last block must END inside the span, and a
+    too-short chapter degenerates to one block at the (clamped) start.
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:501.
+    """
+    start = (int(chapter_start) // 4) * 4
+    end = (int(chapter_end) // 4) * 4 - block_sec
+    if end < 0:
+        end = start
+    if start > end:
+        start = end
+    return range(start, end + 1, block_sec)
+
+
+def npy_vision_emb_provider(emb_dir: str, block_sec: int = 16) -> Callable:
+    """Serve the convert2vision_emb.py on-disk layout
+    (<emb_dir>/<vid>/vision_emb_<start>_<end>.npy per clip) with the
+    reference's chapter->block selection. Missing block files are skipped
+    (the clip grid `range(0, image_num - N, 4)` can lack the final block
+    for some durations; the reference would crash there).
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:516.
+    """
+
+    def provider(vid: str, chapter_start: int, chapter_end: int):
+        out = []
+        for st in vision_emb_block_range(chapter_start, chapter_end,
+                                         block_sec):
+            path = os.path.join(
+                emb_dir, vid, f"vision_emb_{st}_{st + block_sec}.npy"
+            )
+            if os.path.exists(path):
+                out.append(np.load(path))
+        return out
+
+    return provider

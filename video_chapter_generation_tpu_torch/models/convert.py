@@ -331,6 +331,33 @@ def seq2seq_entries(cfg) -> List[Entry]:
     return out
 
 
+def vision_title_entries(cfg, fusion_type: str = "cross_attn"
+                         ) -> List[Entry]:
+    """Seq2SeqVisionEmb params {"seq2seq": ..., "fusion_head": ...} <->
+    the port's keys: seq2seq_entries under `seq2seq` (so the state dict
+    without its `seq2seq.` prefix is the title layout convert_hf_seq2seq
+    reads; int8 with cfg.weight_quant) and the fusion head's bias-free
+    projections, then its Linear ("mlp") or its cross attention's query,
+    key, value and proj ("cross_attn"), which stay float under
+    weight_quant (JAX ops/quantize.py:quantize_seq2seq transforms only
+    the Seq2Seq core)."""
+    out = [(("seq2seq", *path), f"seq2seq.{key}", kind)
+           for path, key, kind in seq2seq_entries(cfg)]
+    head = ("fusion_head",)
+    out += _dense((*head, "lang_proj_head"), "fusion_head.lang_proj_head",
+                  bias=False)
+    out += _dense((*head, "vision_proj_head"),
+                  "fusion_head.vision_proj_head", bias=False)
+    if fusion_type == "mlp":
+        out += _dense((*head, "fusion_head"), "fusion_head.fusion_head",
+                      bias=False)
+    else:
+        for name in ("query", "key", "value", "proj"):
+            out += _dense((*head, "fusion_head", name),
+                          f"fusion_head.fusion_head.{name}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # per-model converters
 # ---------------------------------------------------------------------------

@@ -634,7 +634,8 @@ class ResNet(nn.Module):
 
 
 class Resnet50TSM(nn.Module):
-    """Vision embedder: [B, T, ...] frames -> features [B, T, 2048]."""
+    """Vision embedder: [B, T, ...] frames (or the s2d pack) -> features
+    [B, T, 2048] (JAX models/resnet.py:919-959, without the head)."""
 
     def __init__(self, segments_size: int = 16, shift_div: int = 8,
                  stem_input: str = "frames",
@@ -646,6 +647,17 @@ class Resnet50TSM(nn.Module):
                                  n_div=shift_div, stem_input=stem_input,
                                  stage_sizes=stage_sizes, dtype=dtype,
                                  tsm_impl=tsm_impl, fuse_tsm=fuse_tsm)
+
+    def quantized(self, quant: Dict[str, Dict[str, torch.Tensor]]
+                  ) -> "Resnet50TSM":
+        """The W8A8 twin (JAX clone(quantize=True) with the "quant"
+        collection of ops/quantize.py:calibrate_tsm_quant): a shallow copy
+        whose trunk is base_model.quantized(quant["base_model"])."""
+        twin = copy.copy(self)
+        twin._modules = copy.copy(self._modules)
+        twin._modules["base_model"] = self.base_model.quantized(
+            quant["base_model"])
+        return twin
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         b, t = x.shape[0], x.shape[1]

@@ -1,5 +1,6 @@
-"""Encoder-decoder title models with KV-cached greedy decoding
-(counterpart of the JAX package's models/seq2seq.py:35-662).
+"""Encoder-decoder title models with KV-cached decoding: greedy, top-k
+and sampling, beam search, and the vision-conditioned variant
+(counterpart of the JAX package's models/seq2seq.py:35-1033).
 
 Three families from one config (JAX :35-120): Pegasus-large (pre-norm
 with a final LayerNorm on each side, fairseq sinusoidal positions,
@@ -11,8 +12,9 @@ embedding LayerNorm, exact gelu). The LM head is tied to the shared table
 plus final_logits_bias. Module names follow HuggingFace's Pegasus/BART
 (`model.{encoder,decoder}.embed_positions` for learned tables,
 `.layernorm_embedding` for BART's embedding LayerNorm), so the JAX
-package's `convert_hf_seq2seq` reads this state dict as it is. Beam
-search and sampling are not ported. Serving in int8 (JAX :68-84):
+package's `convert_hf_seq2seq` reads this state dict as it is (under
+Seq2SeqVisionEmb, after the `seq2seq.` prefix). Serving in int8 (JAX
+:68-84):
 weight_quant swaps every layer Linear for Int8Linear and the shared table
 for Int8Embed (models/quant_layers.py; load a state dict made by
 ops/quantize.py:quantize_seq2seq), and kv_quant keeps the cross-attention
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,6 +37,7 @@ from .quant_layers import Int8Embed, Int8Linear
 from .sparse_attention import block_sparse_attention
 
 NEG_INF = -1e9
+FUSION_TYPES = ("cross_attn", "mlp")  # Seq2SeqVisionEmb's fusion heads
 
 
 @dataclass(frozen=True)
@@ -392,14 +395,32 @@ class Seq2Seq(nn.Module):
         return self._head(x)[:, 0], cache
 
 
+def top_k_filter(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Keep the top-k logits of each row, set the rest to -inf (JAX
+    seq2seq.py:573-578; ties at the k-th value are all kept)."""
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < kth, float("-inf"), logits)
+
+
 @torch.no_grad()
 def generate(model: Seq2Seq, input_ids: torch.Tensor,
-             attention_mask: torch.Tensor, max_len: int = 30) -> torch.Tensor:
-    """Greedy KV-cached decoding from decoder_start_token_id for exactly
-    max_len steps; after a row's first EOS every later token is EOS.
+             attention_mask: torch.Tensor, max_len: int = 30,
+             temperature: float = 1.0, sample: bool = False,
+             top_k: Optional[int] = None,
+             generator: Optional[torch.Generator] = None,
+             enc_hidden: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """KV-cached decoding from decoder_start_token_id for exactly max_len
+    steps (JAX seq2seq.py:581-650): each step divides the logits by
+    `temperature`, keeps the top_k of them when given, and takes the
+    argmax (greedy, the default) or, with sample=True, draws from their
+    softmax with `generator` (a torch.Generator on the model's device, in
+    place of the JAX rng). After a row's first EOS every later token is
+    EOS. enc_hidden replaces the encoder output (the JAX
+    enc_hidden_override: Seq2SeqVisionEmb.encode_fused's states).
     Returns ids [B, max_len] int64."""
     cfg = model.cfg
-    enc = model.encode(input_ids, attention_mask)
+    enc = (model.encode(input_ids, attention_mask) if enc_hidden is None
+           else enc_hidden)
     b = input_ids.shape[0]
     cache = model.init_cache(b, max_len, enc)
     token = torch.full((b, 1), cfg.decoder_start_token_id, dtype=torch.long,
@@ -409,12 +430,137 @@ def generate(model: Seq2Seq, input_ids: torch.Tensor,
     for pos in range(max_len):
         logits, cache = model.decode_step(token, pos, cache, attention_mask,
                                           max_len)
-        nxt = logits.argmax(dim=-1)
+        scaled = logits / temperature
+        if top_k is not None:
+            scaled = top_k_filter(scaled, top_k)
+        if sample:
+            nxt = torch.multinomial(torch.softmax(scaled, dim=-1), 1,
+                                    generator=generator)[:, 0]
+        else:
+            nxt = scaled.argmax(dim=-1)
         nxt = torch.where(done, cfg.eos_token_id, nxt)
         done = done | (nxt == cfg.eos_token_id)
         ids.append(nxt)
         token = nxt[:, None]
     return torch.stack(ids, dim=1)
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """jax.lax.top_k over the last axis: the k largest values in
+    descending order, the lower index first among equal values (a stable
+    sort; torch.topk promises no tie order, and the -1e9 masks of the
+    beam search make ties common: float32 spacing there is 64)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+@torch.no_grad()
+def beam_search(model: Seq2Seq, input_ids: torch.Tensor,
+                attention_mask: torch.Tensor, num_beams: int = 4,
+                max_len: int = 30, length_penalty: float = 1.0,
+                enc_hidden: Optional[torch.Tensor] = None,
+                early_stopping: Union[bool, str] = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HuggingFace's static beam search (JAX seq2seq.py:870-1033), step
+    for step: the n running beams expand to the top 2n candidates by
+    accumulated log-prob; candidates that finish (EOS, or the last step)
+    and rank in the top n bank into a finished pool of n, scored
+    sum_logp / n_generated ** length_penalty frozen at bank time; the
+    next running beams are the best candidates with finished ones pushed
+    down by an additive -1e9. HF's stopping rules are latched gates on
+    banking: early_stopping=True blocks it once the pool is full,
+    False and "never" once the best running beam can no longer beat the
+    worst finished one (with "never", at the longest length). Like the
+    JAX scan, the loop runs all max_len steps. Scores, sentinels and the
+    length normalisation are float32 whatever the model's dtype.
+    Returns (ids [B, max_len] int64, EOS-padded past the end, scores [B]
+    float32) of the best finished beam."""
+    cfg = model.cfg
+    eos = cfg.eos_token_id
+    b, n = input_ids.shape[0], num_beams
+    n2 = 2 * n  # HF beams_to_keep = max(2, 1 + n_eos) * num_beams
+    enc = (model.encode(input_ids, attention_mask) if enc_hidden is None
+           else enc_hidden)
+    dev = enc.device
+    f32 = torch.float32
+    enc = enc.repeat_interleave(n, dim=0)  # [B*n, L, D]
+    mask = attention_mask.repeat_interleave(n, dim=0)
+    cache = model.init_cache(b * n, max_len, enc)
+
+    # running pool: beam 0 active, the rest at -1e9, so step 0 fans out
+    # from it; slot 0 of the token buffers is the start token, slot p+1 is
+    # written at step p, EOS past the end
+    run_scores = torch.tensor([0.0] + [NEG_INF] * (n - 1), dtype=f32,
+                              device=dev).repeat(b, 1)
+    run_tokens = torch.full((b, n, max_len + 1), eos, dtype=torch.long,
+                            device=dev)
+    run_tokens[:, :, 0] = cfg.decoder_start_token_id
+    fin_tokens = run_tokens.clone()  # kept sorted by the merge's top-k
+    fin_scores = torch.full((b, n), NEG_INF, dtype=f32, device=dev)
+    fin_done = torch.zeros((b, n), dtype=torch.bool, device=dev)
+    improving = torch.ones((b, 1), dtype=torch.bool, device=dev)
+    top_mask = torch.arange(n2, device=dev) < n  # HF top_num_beam_mask
+    rows = torch.arange(b, device=dev)[:, None] * n
+    neg = torch.tensor(NEG_INF, dtype=f32, device=dev)
+
+    def take(x, idx):  # x [b, m, ...] gathered along m by idx [b, k]
+        return x[torch.arange(b, device=dev)[:, None], idx]
+
+    for pos in range(max_len):
+        last = run_tokens[:, :, pos].reshape(b * n, 1)
+        logits, cache = model.decode_step(last, pos, cache, mask, max_len)
+        logp = torch.log_softmax(logits.float(), dim=-1).reshape(b, n, -1)
+        v = logp.shape[-1]
+        acc = (run_scores[:, :, None] + logp).reshape(b, n * v)
+        top_lp, flat_idx = _top_k(acc, n2)
+        beam_idx = flat_idx // v
+        tok = flat_idx % v
+        top_seqs = take(run_tokens, beam_idx)
+        top_seqs[:, :, pos + 1] = tok
+        hits = (tok == eos) | (pos == max_len - 1)
+
+        # next running beams: finished candidates get an additive -1e9
+        run_lp = top_lp + hits.to(f32) * NEG_INF
+        _, next_idx = _top_k(run_lp, n)
+        run_tokens = take(top_seqs, next_idx)
+        run_scores = take(run_lp, next_idx)
+        flat = (rows + take(beam_idx, next_idx)).reshape(-1)
+        # decode_step writes the self caches in place: each layer's (k, v)
+        # becomes a gathered copy. The cross caches hold the same rows for
+        # every beam of a video (enc was repeated per beam), so a gather
+        # would change nothing: they stay as they are
+        cache["self"] = [(k.index_select(0, flat), v_.index_select(0, flat))
+                         for k, v_ in cache["self"]]
+
+        # the finished pool (HF _update_finished_beams, in its order)
+        pos_f = torch.tensor(pos + 1, dtype=f32, device=dev)
+        norm_lp = top_lp / pos_f ** length_penalty
+        if early_stopping is True:
+            full = fin_done.all(dim=-1, keepdim=True)
+            norm_lp = norm_lp + full.to(f32) * NEG_INF
+        norm_lp = norm_lp + (~improving).to(f32) * NEG_INF
+        just_fin = hits & top_mask[None, :]
+        norm_lp = norm_lp + (~just_fin).to(f32) * NEG_INF
+        m_scores = torch.cat([fin_scores, norm_lp], dim=1)
+        m_tokens = torch.cat([fin_tokens, top_seqs], dim=1)
+        m_done = torch.cat([fin_done, just_fin], dim=1)
+        fin_scores, m_idx = _top_k(m_scores, n)
+        fin_tokens = take(m_tokens, m_idx)
+        fin_done = take(m_done, m_idx)
+
+        # HF _check_early_stop_heuristic, after the length increment
+        if early_stopping == "never" and length_penalty > 0.0:
+            best_len = torch.tensor(float(max_len), dtype=f32, device=dev)
+        else:
+            best_len = pos_f
+        best_possible = run_scores[:, :1] / best_len ** length_penalty
+        worst_fin = torch.where(
+            fin_done, fin_scores.min(dim=1, keepdim=True).values, neg)
+        improving = improving & (best_possible > worst_fin).any(
+            dim=-1, keepdim=True)
+
+    # the finished pool is sorted descending: slot 0 is HF's result
+    return fin_tokens[:, 0, 1:], fin_scores[:, 0]
 
 
 def trim_at_eos(ids, eos_token_id: int):
@@ -426,3 +572,108 @@ def trim_at_eos(ids, eos_token_id: int):
             row = row[: row.index(eos_token_id) + 1]
         out.append(row)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the vision-conditioned variant (JAX seq2seq.py:670-772)
+# ---------------------------------------------------------------------------
+
+
+class VisualLangCrossAttention(nn.Module):
+    """Language queries attend over vision tokens (JAX :670-693). The key
+    mask MULTIPLIES the scores (a masked key scores 0, it still takes
+    softmax weight), as the reference does (pegasus_vision_emb.py:55)."""
+
+    def __init__(self, n_embd: int, n_head: int, output_size: int):
+        super().__init__()
+        self.n_head = n_head
+        self.query = nn.Linear(n_embd, n_embd)
+        self.key = nn.Linear(n_embd, n_embd)
+        self.value = nn.Linear(n_embd, n_embd)
+        self.proj = nn.Linear(n_embd, output_size)
+
+    def forward(self, query_states: torch.Tensor, key_value_states,
+                kv_attention_mask: Optional[torch.Tensor] = None):
+        b, t1, c = query_states.shape
+        t2 = key_value_states.shape[1]
+        hd = c // self.n_head
+        q = self.query(query_states).reshape(b, t1, self.n_head, hd)
+        k = self.key(key_value_states).reshape(b, t2, self.n_head, hd)
+        v = self.value(key_value_states).reshape(b, t2, self.n_head, hd)
+        att = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+        if kv_attention_mask is not None:
+            att = att * kv_attention_mask[:, None, None, :].to(att.dtype)
+        att = torch.softmax(att.float(), dim=-1).to(v.dtype)
+        y = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(b, t1, c)
+        return self.proj(y)
+
+
+class VisionFusionHead(nn.Module):
+    """Project the language states and the chapter's vision embeddings to
+    hidden_size, fuse them, map back to the language width (JAX
+    :696-732). "cross_attn": VisualLangCrossAttention with 8 heads;
+    "mlp": the masked mean of the vision tokens, broadcast over the
+    language positions and concatenated before them, through a bias-free
+    Linear (the JAX package's form of the reference's dead branch)."""
+
+    def __init__(self, lang_emb_size: int, vision_emb_size: int = 2048,
+                 hidden_size: int = 128, fusion_type: str = "cross_attn"):
+        super().__init__()
+        if fusion_type not in FUSION_TYPES:
+            raise ValueError(f"fusion_type {fusion_type!r}: one of "
+                             f"{FUSION_TYPES}")
+        self.fusion_type, self.hidden_size = fusion_type, hidden_size
+        self.lang_proj_head = nn.Linear(lang_emb_size, hidden_size,
+                                        bias=False)
+        self.vision_proj_head = nn.Linear(vision_emb_size, hidden_size,
+                                          bias=False)
+        if fusion_type == "mlp":
+            self.fusion_head = nn.Linear(2 * hidden_size, lang_emb_size,
+                                         bias=False)
+        else:
+            self.fusion_head = VisualLangCrossAttention(hidden_size, 8,
+                                                        lang_emb_size)
+
+    def forward(self, lang_emb: torch.Tensor, vision_emb: torch.Tensor,
+                vision_attention_mask: Optional[torch.Tensor] = None):
+        lang = torch.relu(self.lang_proj_head(lang_emb))
+        vision = torch.relu(self.vision_proj_head(vision_emb))
+        if self.fusion_type == "cross_attn":
+            return self.fusion_head(lang, vision, vision_attention_mask)
+        if vision_attention_mask is None:
+            pooled = vision.mean(dim=1)
+        else:
+            m = vision_attention_mask[..., None].to(vision.dtype)
+            pooled = (vision * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+        pooled = pooled[:, None].expand(*lang.shape[:-1], self.hidden_size)
+        return self.fusion_head(torch.cat([pooled, lang], dim=-1))
+
+
+
+class Seq2SeqVisionEmb(nn.Module):
+    """PegasusVisionEmb (JAX :735-772): the encoder output plus the fusion
+    head's output over the chapter's vision embeddings, then the inner
+    Seq2Seq's decoder. The fusion width is 128 for "mlp" and d_model for
+    "cross_attn", as in the reference."""
+
+    def __init__(self, cfg: Seq2SeqConfig, fusion_type: str = "cross_attn",
+                 vision_emb_size: int = 2048):
+        super().__init__()
+        self.cfg = cfg
+        self.seq2seq = Seq2Seq(cfg)
+        self.fusion_head = VisionFusionHead(
+            cfg.d_model, vision_emb_size,
+            128 if fusion_type == "mlp" else cfg.d_model, fusion_type)
+
+    @torch.no_grad()
+    def encode_fused(self, vision_emb: torch.Tensor,
+                     vision_attention_mask: torch.Tensor,
+                     input_ids: torch.Tensor,
+                     attention_mask: torch.Tensor) -> torch.Tensor:
+        """vision_emb [B, V, D_v] (cast to the encoder's dtype),
+        vision_attention_mask [B, V] -> fused encoder states [B, L, D],
+        for generate / beam_search on self.seq2seq as enc_hidden."""
+        enc = self.seq2seq.encode(input_ids, attention_mask)
+        fused = self.fusion_head(enc, vision_emb.to(enc.dtype),
+                                 vision_attention_mask)
+        return fused + enc

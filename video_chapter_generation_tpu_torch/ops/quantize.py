@@ -12,6 +12,8 @@ block's activation abs-max and returns per block (sx, sz, sy2, sout):
   sout block output
 
 keyed by the block's module name ("layer2.1"), for ResNet.quantized.
+`calibrate_tsm_quant` and `calibrate_two_stream_quant` calibrate the
+trunk inside the vision embedder and the boundary scorer.
 `quantize_seq2seq` maps a float title-model state dict to the int8 one that
 a Seq2Seq built with weight_quant=True loads (models/quant_layers.py).
 """
@@ -98,23 +100,45 @@ def calibrate_resnet_quant(model, frames: torch.Tensor
     return out
 
 
-def calibrate_two_stream_quant(model, clips: torch.Tensor
-                               ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Calibration for a TwoStream boundary scorer (quantize.py:166):
-    clips [B, T, ...] on the model's device (the uint8 s2d pack for an s2d
-    stem, else frames; uint8 frames are normalized here, to the vision
-    model's dtype) -> {"vision_model": act_scales}."""
-    vision = model.vision_model
+def _calibrate_clips(vision, clips: torch.Tensor
+                     ) -> Dict[str, torch.Tensor]:
+    """calibrate_resnet_quant over clips [B, T, ...] on the trunk's
+    device: the uint8 s2d pack for an s2d stem, else frames (uint8 frames
+    are normalized here, to the trunk's dtype)."""
     flat = clips.reshape(-1, *clips.shape[2:])
     if vision.stem_input != "s2d" and flat.dtype == torch.uint8:
         flat = normalize_frames(flat, vision.dtype)
-    return {"vision_model": calibrate_resnet_quant(vision, flat)}
+    return calibrate_resnet_quant(vision, flat)
+
+
+def calibrate_tsm_quant(model50, clips: torch.Tensor
+                        ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Calibration for the Resnet50TSM embedder (quantize.py:143-163):
+    clips [B, T, ...] as for _calibrate_clips -> {"base_model":
+    act_scales}, for Resnet50TSM.quantized."""
+    return {"base_model": _calibrate_clips(model50.base_model, clips)}
+
+
+def calibrate_two_stream_quant(model, clips: torch.Tensor
+                               ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Calibration for a TwoStream boundary scorer (quantize.py:166):
+    clips [B, T, ...] as for _calibrate_clips -> {"vision_model":
+    act_scales}."""
+    return {"vision_model": _calibrate_clips(model.vision_model, clips)}
+
+
+def _core_key(key: str) -> str:
+    """The key inside the Seq2Seq core: without the `seq2seq.` prefix of a
+    Seq2SeqVisionEmb state dict (quantize.py:219-223 transforms the core
+    at any nesting depth)."""
+    return key[len("seq2seq."):] if key.startswith("seq2seq.") else key
 
 
 def _in_core(key: str) -> bool:
     """Linear weights of the encoder and decoder layers (quantize.py:215:
     enc_layer*/dec_layer*; the port's tied head has no lm_head)."""
-    return key.startswith(("model.encoder.layers.", "model.decoder.layers."))
+    return _core_key(key).startswith(("model.encoder.layers.",
+                                      "model.decoder.layers."))
 
 
 def quantize_seq2seq(state_dict: Dict[str, torch.Tensor]
@@ -128,17 +152,19 @@ def quantize_seq2seq(state_dict: Dict[str, torch.Tensor]
     biases (where the layers have them), LayerNorms, learned position
     tables (`model.*.embed_positions`, outside the layers) and
     final_logits_bias. Load the result into a Seq2Seq built from
-    dataclasses.replace(cfg, weight_quant=True)."""
+    dataclasses.replace(cfg, weight_quant=True). A Seq2SeqVisionEmb state
+    dict quantizes the same way under its `seq2seq.` prefix; its fusion
+    head stays float, as in the JAX package."""
     out: Dict[str, torch.Tensor] = {}
     for key, v in state_dict.items():
         if key.endswith(".weight") and v.dim() == 2 and _in_core(key):
             q, s = quantize_weight(v.t(), axis=0)
             out[key[:-len("weight")] + "weight_q"] = q.t().contiguous()
             out[key[:-len("weight")] + "scale"] = s
-        elif key == "model.shared.weight":
+        elif _core_key(key) == "model.shared.weight":
             q, s = quantize_weight(v, axis=1)
-            out["model.shared.embedding_q"] = q
-            out["model.shared.scale"] = s
+            out[key[:-len("weight")] + "embedding_q"] = q
+            out[key[:-len("weight")] + "scale"] = s
         else:
             out[key] = v
     return out

@@ -7,6 +7,7 @@ from .boundary import (
     pack_to_device,
     score_clips,
 )
+from .vision_emb import extract_vision_embs, make_vision_embed_fn
 from .whole_video import ChapterPipeline, VideoChapters, bucket_title_fn
 
 __all__ = [
@@ -18,4 +19,6 @@ __all__ = [
     "ChapterPipeline",
     "VideoChapters",
     "bucket_title_fn",
+    "extract_vision_embs",
+    "make_vision_embed_fn",
 ]

@@ -16,7 +16,11 @@ import torch
 from ..core.metrics import StepTimer
 from ..data.clip_grid import chapter_spans, flatten_video_to_clips
 from ..data.corpus import VideoCorpus
-from ..data.datasets import InferClipDataset, _chapter_text
+from ..data.datasets import (
+    InferClipDataset,
+    _chapter_text,
+    chapter_vision_embs,
+)
 from ..data.frames import load_clip_frames
 from ..data.loader import collate
 from ..data.text_encode import encode_clip_text, encode_encoder_text
@@ -39,6 +43,13 @@ class ChapterPipeline:
     (batch, device pack) -> prob [B]); title_fn: (text_ids [B, L],
     attention_mask [B, L]) -> generated id rows; decode_fn: id row -> text.
 
+    vision_emb_provider(vid, start, end) -> the chapter's per-block
+    embeddings (data/datasets.py:npy_vision_emb_provider) turns on
+    vision-conditioned titles: title_fn then also takes vision_embs
+    float32 [B, max_vision_emb, vision_emb_dim] and vision_mask int32
+    [B, max_vision_emb] (data/datasets.py:chapter_vision_embs), on every
+    route (sequential, pipelined, packed).
+
     frame_pack=True: each video's unique frames are decoded once into a
     uint8 s2d pack that moves to `device` once, and clip batches carry
     [B, T] frame indices that gather on the device (clips at stride 4
@@ -50,13 +61,18 @@ class ChapterPipeline:
                  title_input_len: int = 512, batch_size: int = 16,
                  score_mode: str = "text", fps: int = 1, hw: int = 224,
                  title_tokenizer=None, frame_pack: bool = False,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 vision_emb_provider: Optional[Callable] = None,
+                 max_vision_emb: int = 10, vision_emb_dim: int = 2048):
         self.corpus = corpus
         self.tokenizer = tokenizer
         self.title_tokenizer = title_tokenizer or tokenizer
         self.score_fn = score_fn
         self.title_fn = title_fn
         self.decode_fn = decode_fn
+        self.vision_emb_provider = vision_emb_provider
+        self.max_vision_emb = max_vision_emb
+        self.vision_emb_dim = vision_emb_dim
         self.clip_frame_num = clip_frame_num
         self.max_text_len = max_text_len
         self.title_input_len = title_input_len
@@ -94,15 +110,18 @@ class ChapterPipeline:
         if not spans:
             return []
         subs = self.corpus.subtitles(vid)
-        ids_rows, mask_rows = [], []
+        rows = []
         for start_t, end_t in spans:
             text = _chapter_text(subs, start_t, end_t, self.fps)
-            ids, mask = encode_encoder_text(text, self.title_tokenizer,
-                                            self.title_input_len)
-            ids_rows.append(ids)
-            mask_rows.append(mask)
+            row = encode_encoder_text(text, self.title_tokenizer,
+                                      self.title_input_len)
+            if self.vision_emb_provider is not None:
+                row += chapter_vision_embs(
+                    self.vision_emb_provider(vid, int(start_t), int(end_t)),
+                    self.max_vision_emb, self.vision_emb_dim)
+            rows.append(row)
         self.timer.start("title_generate")
-        gen_rows = self.title_fn(np.stack(ids_rows), np.stack(mask_rows))
+        gen_rows = self.title_fn(*(np.stack(col) for col in zip(*rows)))
         self.timer.stop("title_generate", len(spans))
         return [self.decode_fn(row) for row in gen_rows]
 

@@ -1,8 +1,9 @@
 """Training tasks (counterpart of the JAX package's train/tasks.py):
 SegmentWindowTask, the flagship window model of :87-166 with its AUC/mAP
 eval; SegmentTask, the base two-stream clip classifier of :169-213; and
-of TitleGenTask (:365-383) the model, its weights and its contract, which
-serving needs (its loss and eval are ROADMAP queue 1 item 6).
+of TitleGenTask (:365-383) and TitleGenVisionTask (:422-447) the model,
+its weights and its contract, which serving needs (their losses and
+evals are ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from ..models import convert
 from ..models.bert import BertConfig, BertModel
 from ..models.fusion import WINDOW_HEAD_TYPES, TwoStream, TwoStreamWindow
 from ..models.resnet import STAGE_SIZES, ResNet
-from ..models.seq2seq import Seq2Seq, Seq2SeqConfig
+from ..models.seq2seq import Seq2Seq, Seq2SeqConfig, Seq2SeqVisionEmb
 from ..ops.preprocess import normalize_frames
 from .objectives import clip_classification_loss
 
@@ -194,3 +195,37 @@ class TitleGenTask:
         tree = convert.random_jax_tree(self.model, self.entries,
                                        seed=self.cfg.train.seed)
         return convert.from_jax_seq2seq(tree, self.s2s_cfg)
+
+
+class TitleGenVisionTask(TitleGenTask):
+    """Vision-conditioned titles (JAX :422-447, the PegasusVisionEmb
+    recipe): Seq2SeqVisionEmb over the configured title family, its seeded
+    random weights (train.seed) and the contract of model_kind
+    "title_vision", which also records the fusion type and the vision
+    embedding width."""
+
+    def __init__(self, cfg: Config, seq2seq_cfg: Seq2SeqConfig,
+                 fusion_type: str = "cross_attn",
+                 vision_emb_size: int = 2048):
+        self.cfg = cfg
+        self.s2s_cfg = seq2seq_cfg
+        self.dtype = compute_dtype(cfg)
+        self.fusion_type = fusion_type
+        self.vision_emb_size = vision_emb_size
+        with torch.device("meta"):
+            self.model = Seq2SeqVisionEmb(seq2seq_cfg, fusion_type,
+                                          vision_emb_size)
+        self.entries = convert.vision_title_entries(seq2seq_cfg, fusion_type)
+        self.contract = build_contract(
+            model_kind="title_vision", fusion_type=fusion_type,
+            vision_emb_size=vision_emb_size,
+            title_input_len=cfg.data.title_input_len,
+            title_decode_len=cfg.data.title_decode_len,
+            vocab_size=seq2seq_cfg.vocab_size,
+            encoder_attention=seq2seq_cfg.encoder_attention,
+            d_model=seq2seq_cfg.d_model)
+
+    def init_state(self) -> Dict[str, torch.Tensor]:
+        tree = convert.random_jax_tree(self.model, self.entries,
+                                       seed=self.cfg.train.seed)
+        return convert.from_jax(tree, self.entries)
