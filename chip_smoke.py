@@ -158,11 +158,40 @@
    K2/K3, K4 and K9 entries to the kernels line ("path" names the entry
    point), with the serving and inference entries' times at the same
    shapes and this phase's launches.
-13. Prints one JSON line of the kernels (a bound over several shapes
+13. title_training (cli/train_title). Pegasus-large at the JAX CLI's
+   defaults (bf16, data.batch_size=16, 512 -> 30 tokens) on a synthetic
+   corpus whose piece table is padded to Pegasus-large's 96,103 entries:
+   4 optimizer steps and the eval, finite losses, moved parameters, a
+   checkpoint with an eval score; gradient_accumulation_steps=2 over two
+   batches of 8 rows of equal decoder length (float32, dropout off)
+   against one update over the 16 (the gradient each update clips within
+   1e-3 relative norm, cosine of the parameters' change >= 0.999); one
+   bf16 step with remat and one without on the same batch and dropout
+   seed (equal losses, gradients' cosine >= 0.9999, peak memory of each);
+   cli/infer_video restoring that checkpoint beside phase 5's boundary
+   checkpoint in one directory and titling every chapter from it; then 2
+   steps each of the vision-conditioned model (phase 12's embeddings,
+   cross_attn), BigBird-Pegasus-large at 3072 tokens (batch 2; K10: no
+   launch in its training steps, 16 in its eval batch) and BART-large
+   (batch 2), whose saves are recorded (an eval score each) but not
+   written. K10 is held to its plain version, and timed, on the inputs of
+   its first launch in the BigBird eval (encoder layer 0 of the eval
+   batch, its real mask): that entry of the kernels line. Each run prints
+   ms a step, tokens/s, peak memory and its set-up time.
+14. Prints one JSON line of the kernels (a bound over several shapes
    is the sum of each shape's), the wall time of each phase
    and of the script and, last, the device line. The title decode of 4
-   and each of 5-12 also print their wall time as they end ("serving",
+   and each of 5-13 also print their wall time as they end ("serving",
    1-4 up to the title decode, prints only on that line).
+
+After the serving path (4), the native_decode phase: where the machine
+has g++ and jpeglib.h (checked before any build; where it lacks them a
+line says so and nothing runs), builds native/vcg_host.cc into the
+package's build directory, holds its s2d decode of one video's frames
+bit for bit to PIL plus the numpy s2d pack (frames/s of both printed),
+and runs ChapterPipeline on that video with the native decoder
+installed: clip scores and cut points bit for bit the PIL run's, K1-K4
+launches exact (their kernels-line entries carry "path").
 
 Any failed phase raises, and the script exits non-zero without printing
 the final line; it also fails where CUDA is absent or the package is
@@ -236,6 +265,19 @@ WIDE_FRAMES, WIDE_PX = 8, (320, 260)
 # layout (the same bf16 products) and at the title batch alone (other
 # GEMM shapes: bf16 rounds at other places)
 BEAMS, BEAM_SCORE_TOL = 4, 1e-2
+# title training at the JAX CLI's defaults (Pegasus-large, bf16, 512 -> 30
+# tokens, batch 16), TITLE_STEPS optimizer steps, the synthetic corpus's
+# piece table padded to Pegasus-large's vocabulary; the smaller runs
+# (vision-conditioned, BigBird at BIGBIRD_IN tokens, BART) at batch 2
+TITLE_BATCH, TITLE_STEPS, PEGASUS_VOCAB, SMALL_BATCH = 16, 4, 96103, 2
+# accumulation over batches A and B (float32, dropout off) against one
+# update over both: the gradient the update takes (before the clip),
+# relative norm of the difference (a sum of the two gradients, or a mean
+# over the wrong count, is 0.5 or more away), and cosine of the
+# parameters' change; remat against none (bf16, dropout on, one generator
+# seed): equal losses, cosine of the gradients
+ACCUM_MAX_GRAD_REL, ACCUM_MIN_COS, REMAT_MIN_COS, ACCUM_ROWS = \
+    1e-3, 0.999, 0.9999, 8
 
 
 def fail(msg: str):
@@ -1715,6 +1757,51 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
     return out, argv
 
 
+def hold_k10(q_mid, k, v, mask, tabs, bs, name, label, smi):
+    """K10 (sparse_band_attention) on these inputs against its plain
+    version, in the bf16 bands, then a second run bit for bit (no float
+    atomics); times the kernel, the plain version and the SDPA yardstick.
+    Returns the kernels-line numbers of these inputs (max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, library_ms)."""
+    import torch
+
+    from video_chapter_generation_tpu_torch.ops.sparse_attention import (
+        sparse_band_attention,
+        sparse_band_attention_reference,
+    )
+
+    b, l, h, hd = k.shape
+    out = torch.empty_like(k)
+    run = lambda: sparse_band_attention(  # noqa: E731
+        q_mid, k, v, mask, *tabs, bs, out)
+    plain = lambda: sparse_band_attention_reference(  # noqa: E731
+        q_mid, k, v, mask, *tabs, bs)
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    max_abs, mean_rel, cos = compare(got, ref)
+    library, _ = sdpa_yardstick(q_mid, k, v, mask, tabs, bs)
+    lib_cos = compare(library().transpose(1, 2), ref)[2]
+    k_ms, p_ms, lib_ms = cuda_ms(run), cuda_ms(plain), cuda_ms(library)
+    nbq, n_parts = tabs[0].shape
+    b_ms, b_by = bound(4 * b * h * nbq * bs * (n_parts * bs) * hd,
+                       2 * (2 * q_mid.numel() + k.numel() + v.numel())
+                       + 4 * mask.numel())
+    print(f"# {name:18s} q_mid {tuple(q_mid.shape)} k/v {tuple(k.shape)} "
+          f"bs {bs} P {n_parts} bf16, {label}: max_abs {max_abs:.4g} "
+          f"mean_rel {mean_rel:.3g} cos {cos:.6f} | kernel {k_ms:.3f} ms "
+          f"plain {p_ms:.3f} ms library (SDPA, float mask) {lib_ms:.3f} ms "
+          f"(its cos vs plain {lib_cos:.6f}) bound {b_ms:.3f} ms ({b_by}) "
+          f"on {smi}", flush=True)
+    if not (cos >= KERNEL_MIN_COS and mean_rel <= KERNEL_MAX_MEAN_REL):
+        fail(f"{name} ({label}) disagrees with its plain version")
+    first = got.clone()
+    if not torch.equal(first, run()):
+        fail(f"two runs of {name} ({label}) differ")
+    print(f"# {name:18s} two runs bit for bit", flush=True)
+    return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
 def bigbird_phases(dev, smi, cli_argv):
     """K10 against its plain version at the BigBird-Pegasus serving shape,
     greedy titles of the full-width BigBird model, cli/infer_video
@@ -1739,7 +1826,6 @@ def bigbird_phases(dev, smi, cli_argv):
     )
     from video_chapter_generation_tpu_torch.ops.sparse_attention import (
         sparse_band_attention,
-        sparse_band_attention_reference,
     )
 
     bf = torch.bfloat16
@@ -1801,73 +1887,23 @@ def bigbird_phases(dev, smi, cli_argv):
             layer.self_attn.v_proj)]
     tabs = _tables(nb, cfg.num_rand_blocks, 0, None, dev)
     q_mid = q[:, bs:l - bs]
-    out = torch.empty_like(q)
-    run = lambda: sparse_band_attention(  # noqa: E731
-        q_mid, k, v, mask, *tabs, bs, out)
-    plain = lambda: sparse_band_attention_reference(  # noqa: E731
-        q_mid, k, v, mask, *tabs, bs)
-    got, ref = run(), plain()
-    torch.cuda.synchronize()
-    max_abs, mean_rel, cos = compare(got, ref)
-    library, lib_mask = sdpa_yardstick(q_mid, k, v, mask, tabs, bs)
-    lib_err = compare(library().transpose(1, 2), ref)
-    ids_t = tabs[0]
-    nbq = nb - 2
-    k_ms, p_ms, lib_ms = cuda_ms(run), cuda_ms(plain), cuda_ms(library)
-    n_parts = ids_t.shape[1]
-    flops = 4 * b * h * nbq * bs * (n_parts * bs) * hd
-    nbytes = 2 * (2 * q_mid.numel() + k.numel() + v.numel()) + 4 * mask.numel()
-    b_ms, b_by = bound(flops, nbytes)
-    print(f"# {'sparse_band_attn':18s} q_mid {tuple(q_mid.shape)} k/v "
-          f"{tuple(k.shape)} bs {bs} P {n_parts} bf16, rows valid for "
-          f"{lens.tolist()} tokens: max_abs {max_abs:.4g} mean_rel "
-          f"{mean_rel:.3g} cos {cos:.6f} | kernel {k_ms:.3f} ms plain "
-          f"{p_ms:.3f} ms library (SDPA, float mask) {lib_ms:.3f} ms (its "
-          f"cos vs plain {lib_err[2]:.6f}) bound {b_ms:.3f} ms ({b_by}) on "
-          f"{smi}", flush=True)
-    if not (cos >= KERNEL_MIN_COS and mean_rel <= KERNEL_MAX_MEAN_REL):
-        fail("sparse_band_attention disagrees with its plain version")
-    # no float atomics: a second run agrees bit for bit
-    first = got.clone()
-    if not torch.equal(first, run()):
-        fail("two runs of sparse_band_attention differ")
-    print(f"# {'sparse_band_attn':18s} two runs bit for bit", flush=True)
-    del lib_mask, first, library
+    mma0 = sparse_band_attention.mma_sync_launches
+    row = hold_k10(q_mid, k, v, mask, tabs, bs, "sparse_band_attn",
+                   f"rows valid for {lens.tolist()} tokens", smi)
+    if sparse_band_attention.mma_sync_launches != mma0:
+        fail("the serving shape ran K10's mma.sync kernel, not the wgmma one")
 
     # --- K10's mma.sync kernel, which every other accepted shape runs (no
     # model configuration sends one): the same q, k, v in bs-32 tables ---
     bs2 = 32
     tabs2 = _tables(l // bs2, cfg.num_rand_blocks, 0, None, dev)
-    q_mid2, out2 = q[:, bs2:l - bs2], torch.empty_like(q)
-    run2 = lambda: sparse_band_attention(  # noqa: E731
-        q_mid2, k, v, mask, *tabs2, bs2, out2)
-    plain2 = lambda: sparse_band_attention_reference(  # noqa: E731
-        q_mid2, k, v, mask, *tabs2, bs2)
-    mma0 = sparse_band_attention.mma_sync_launches
-    got2, ref2 = run2(), plain2()
-    torch.cuda.synchronize()
-    if sparse_band_attention.mma_sync_launches != mma0 + 1:
+    n0, mma0 = (sparse_band_attention.launches,
+                sparse_band_attention.mma_sync_launches)
+    mma_row = hold_k10(q[:, bs2:l - bs2], k, v, mask, tabs2, bs2,
+                       "sparse_band_mma", "mma.sync kernel", smi)
+    n_mma = sparse_band_attention.mma_sync_launches - mma0
+    if not n_mma or n_mma != sparse_band_attention.launches - n0:
         fail("sparse_band_attention at bs 32 did not run the mma.sync kernel")
-    m_abs, m_rel, m_cos = compare(got2, ref2)
-    library2, lib_mask2 = sdpa_yardstick(q_mid2, k, v, mask, tabs2, bs2)
-    m_ms, m_pms, m_lms = cuda_ms(run2), cuda_ms(plain2), cuda_ms(library2)
-    nbq2, p2 = tabs2[0].shape
-    m_bms, m_bby = bound(4 * b * h * nbq2 * bs2 * (p2 * bs2) * hd,
-                         2 * (2 * q_mid2.numel() + k.numel() + v.numel())
-                         + 4 * mask.numel())
-    print(f"# {'sparse_band_mma':18s} q_mid {tuple(q_mid2.shape)} bs {bs2} "
-          f"P {p2} bf16 (mma.sync kernel): max_abs {m_abs:.4g} mean_rel "
-          f"{m_rel:.3g} cos {m_cos:.6f} | kernel {m_ms:.3f} ms plain "
-          f"{m_pms:.3f} ms library (SDPA, float mask) {m_lms:.3f} ms bound "
-          f"{m_bms:.3f} ms ({m_bby}) on {smi}", flush=True)
-    if not (m_cos >= KERNEL_MIN_COS and m_rel <= KERNEL_MAX_MEAN_REL):
-        fail("sparse_band_attention's mma.sync kernel disagrees with its "
-             "plain version")
-    first = got2.clone()
-    if not torch.equal(first, run2()):
-        fail("two runs of sparse_band_attention's mma.sync kernel differ")
-    print(f"# {'sparse_band_mma':18s} two runs bit for bit", flush=True)
-    del lib_mask2, library2, first, got2, ref2, out2, q_mid2
 
     # the whole block-sparse attention (kernel, first/last blocks, padded
     # rows zeroed) on the card vs the plain float32 form on the CPU, for
@@ -1884,7 +1920,7 @@ def bigbird_phases(dev, smi, cli_argv):
           f"{w_abs:.4g} mean_rel {w_rel:.3g} cos {w_cos:.6f}", flush=True)
     if not (w_cos >= KERNEL_MIN_COS and w_rel <= KERNEL_MAX_MEAN_REL):
         fail("block_sparse_attention on the card disagrees with the CPU")
-    del q, k, v, x, q_mid, out, got, ref
+    del q, k, v, x, q_mid
 
     # --- greedy titles from 3072-token inputs: 16 K10 launches an encode,
     # all on the wgmma kernel ---
@@ -1955,13 +1991,10 @@ def bigbird_phases(dev, smi, cli_argv):
     tpu = "video_chapter_generation_tpu/ops/sparse_attention_pallas.py:108"
     return [{"name": "sparse_band_attention", "route": "cuda",
              "source": src, "replaces": tpu,
-             "launches": launches - mma_launches, "max_abs_err": max_abs,
-             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-             "bound_by": b_by, "library_ms": lib_ms},
+             "launches": launches - mma_launches, **row},
             {"name": "sparse_band_attention_mma_sync", "route": "cuda",
              "source": src, "replaces": tpu, "launches": mma_launches,
-             "max_abs_err": m_abs, "ms": m_ms, "plain_ms": m_pms,
-             "bound_ms": m_bms, "bound_by": m_bby, "library_ms": m_lms}]
+             **mma_row}]
 
 
 def window_phases(dev, smi, frames, vision):
@@ -3121,6 +3154,536 @@ def vision_titles_phase(dev, smi, cli_argv, serving, int8_entry):
     return out
 
 
+def native_decode_phase(dev, smi, pipe, corpus):
+    """The native host decoder (data/native_loader.py, native/vcg_host.cc
+    built with g++ and libjpeg), where the machine has both (checked
+    before any build; where it lacks them, a line says so and the phase
+    runs nothing): its s2d decode of one video's frames bit for bit
+    equal to PIL plus the numpy s2d pack, frames/s of both, and
+    ChapterPipeline over the same video with it installed giving clip
+    scores and cut points bit for bit equal to the PIL run's, with the
+    exact K1-K4 launch counts. Returns those launches, or None."""
+    import numpy as np
+
+    from video_chapter_generation_tpu_torch.data import (
+        frames as host_frames,
+        native_loader,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem import stem_s2d
+    from video_chapter_generation_tpu_torch.ops.tsm_block import (
+        tsm_bottleneck,
+        tsm_bottleneck_s2,
+    )
+
+    ok, why = native_loader.toolchain()
+    if not ok:
+        print(f"# native_decode: not run: {why} on this machine (nothing "
+              f"can be installed there); the pipeline decodes with PIL",
+              flush=True)
+        return None
+    t0 = time.time()
+    lib = native_loader.build_library()
+    print(f"# native_decode: {lib.name} built with {why} in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    vid = corpus.vids[0]
+    paths = [corpus.frame_path(vid, i)
+             for i in range(1, corpus.image_num(vid) + 1)]
+    loader = native_loader.NativeLoader(8)
+    rates = {}
+    for name, decode in (
+            ("PIL + numpy s2d", lambda: host_frames.load_clip_frames(
+                paths, 224, s2d=True)),
+            ("native s2d", lambda: loader.decode_batch_s2d(paths, 224))):
+        t0 = time.time()
+        out = decode()
+        rates[name] = (len(paths) / (time.time() - t0), out)
+    (pil_rate, pil), (nat_rate, nat) = rates.values()
+    if loader.failures or not np.array_equal(pil, nat):
+        fail(f"the native s2d decode differs from PIL's on {vid} "
+             f"({loader.failures} failed decodes)")
+    print(f"# native_decode: {len(paths)} frames of {vid} at 224 px, the "
+          f"s2d pack bit for bit PIL's; PIL + numpy s2d "
+          f"{pil_rate:.1f} frames/s, native s2d (8 threads) "
+          f"{nat_rate:.1f} frames/s on {smi}; information only", flush=True)
+
+    counted = (stem_s2d, tsm_bottleneck, tsm_bottleneck_s2)
+    ref = pipe.run([vid])[vid]
+    installed = native_loader.install_native_loader(8)
+    for k in counted:
+        k.launches = 0
+    try:
+        got = pipe.run([vid])[vid]
+    finally:
+        host_frames.set_native_loader(None)
+    import torch
+
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counted}
+    calls = math.ceil(len(got.clip_scores) / SCORE_BATCH)
+    want = {"stem_s2d": calls, "tsm_bottleneck": 13 * calls,
+            "tsm_bottleneck_s2": 3 * calls}
+    print(f"# native_decode: ChapterPipeline on {vid} with the native "
+          f"decoder: {len(got.clip_scores)} clips, cut points "
+          f"{got.cut_points}, launches {launches}", flush=True)
+    if installed.failures:
+        fail(f"the pipeline's native decode failed on {installed.failures} "
+             f"frames")
+    if launches != want:
+        fail(f"native_decode launch counts {launches} != {want}")
+    if not (np.array_equal(np.asarray(got.clip_scores),
+                           np.asarray(ref.clip_scores))
+            and got.cut_points == ref.cut_points):
+        fail("the pipeline's scores or cut points differ between the "
+             "native and the PIL decoder")
+    return launches
+
+
+def title_training_phase(dev, smi, cli_argv, emb_dir, k10_entry):
+    """Title training through cli/train_title.main: Pegasus-large at the
+    JAX CLI's defaults (bf16, batch 16, 512 -> 30 tokens) on a synthetic
+    corpus for TITLE_STEPS optimizer steps and the eval, with finite
+    losses, moved parameters and a checkpoint; gradient accumulation (2
+    micro-batches) against one update over both, and remat against none;
+    cli/infer_video restoring that checkpoint beside the inference
+    phase's boundary checkpoint and titling from it; then the
+    vision-conditioned model over the vision_titles phase's embeddings,
+    BigBird at 3072 tokens (K10: no launch in a training step, 16 a batch
+    in the eval) and BART, 2 steps each, their checkpoints not written.
+    Prints ms a step, tokens/s and peak memory of each run. Returns K10's
+    entry for the BigBird eval, held and timed on that eval's inputs."""
+    import dataclasses
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from video_chapter_generation_tpu_torch.cli import (
+        infer_video,
+        train_title,
+    )
+    from video_chapter_generation_tpu_torch.cli.common import parse_config
+    from video_chapter_generation_tpu_torch.core.checkpoint import (
+        CheckpointManager,
+    )
+    from video_chapter_generation_tpu_torch.data.corpus import VideoCorpus
+    from video_chapter_generation_tpu_torch.data.loader import collate
+    from video_chapter_generation_tpu_torch.data.synth import (
+        make_synth_corpus_on_disk,
+    )
+    from video_chapter_generation_tpu_torch.data.tokenization import (
+        UnigramTokenizer,
+    )
+    from video_chapter_generation_tpu_torch.models import (
+        sparse_attention as sparse_model,
+    )
+    from video_chapter_generation_tpu_torch.ops.sparse_attention import (
+        sparse_band_attention,
+    )
+    from video_chapter_generation_tpu_torch.train.loop import Trainer
+    from video_chapter_generation_tpu_torch.train.optim import make_optimizer
+
+    t_phase = time.time()
+    build = ROOT / "video_chapter_generation_tpu_torch" / "_build"
+    n_train = TITLE_BATCH * TITLE_STEPS
+    paths = make_synth_corpus_on_disk(
+        str(build / "synth_title_corpus"), n_videos=n_train + TITLE_BATCH,
+        video_sec=96, hw=32, seed=SEED + 11,
+        splits={"train": n_train, "val": TITLE_BATCH})
+    corpus = VideoCorpus.from_files(paths["img_dir"], paths["data_file"],
+                                    paths["train_vid_file"],
+                                    paths["subtitle_dir"])
+    val_vids = open(paths["val_vid_file"]).read().split()
+    small = {}
+    for name, vids in (("train", corpus.vids[:4]), ("val", val_vids[:2])):
+        small[name] = build / f"title_small_{name}.txt"
+        small[name].write_text("\n".join(vids) + "\n")
+    # the corpus's piece table, padded with pieces no text contains to
+    # Pegasus-large's vocabulary: the embedding and the LM head at their
+    # published size; train_title and infer_video read the same table
+    tok = UnigramTokenizer.build_from_corpus(
+        [s["text"] for vid in corpus.vids for s in corpus.subtitles(vid)],
+        vocab_size=8000)
+    pieces = dict(tok.pieces)
+    specials = {tok.pad_token, tok.eos_token, tok.unk_token}
+    low = min(pieces.values()) - 10.0
+    n = len(specials) + len([q for q in pieces if q not in specials])
+    pieces.update({f"<unused{i}>": low for i in range(PEGASUS_VOCAB - n)})
+    tsv = build / "title_pieces.tsv"
+    tsv.write_text("".join(f"{q}\t{v}\n" for q, v in pieces.items()))
+    if UnigramTokenizer.from_tsv(str(tsv)).vocab_size != PEGASUS_VOCAB:
+        fail("the padded piece table is not Pegasus-large's vocabulary")
+    print(f"# title corpus ({n_train + TITLE_BATCH} videos) and piece table: "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+
+    def argv_for(train_file, val_file, batch, *extra, img=paths["img_dir"],
+                 data=paths["data_file"], subs=paths["subtitle_dir"]):
+        return [f"data.img_dir={img}", f"data.data_file={data}",
+                f"data.subtitle_dir={subs}",
+                f"data.train_vid_file={train_file}",
+                f"data.val_vid_file={val_file}",
+                "model.compute_dtype=bfloat16", f"data.batch_size={batch}",
+                f"data.title_input_len={TITLE_IN}",
+                f"data.title_decode_len={TITLE_OUT}", "optim.lr_decay=false",
+                "train.max_epochs=1", "train.eval_every_epochs=1",
+                "train.resume=false", *extra, "--spm_tsv", str(tsv)]
+
+    steps, snap = [], {}
+    plain_step = Trainer.train_step
+
+    def spy(self, batch):
+        """Trainer.train_step, with its loss, its K10 launches and its
+        wall time (synchronized) kept; the first keeps a few parameters and
+        the time it starts at."""
+        k10 = sparse_band_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if not steps:
+            snap.update({k: p.detach().clone() for k, p in list(
+                self.model.named_parameters())[::40]})
+            snap["first step at"] = t0
+        m = plain_step(self, batch)
+        loss = float(m["loss"].detach())
+        steps.append((loss, sparse_band_attention.launches - k10,
+                      time.time() - t0))
+        return m
+
+    plain_save = CheckpointManager.save
+
+    def train(name, argv, ckpt, want_steps, keep=False):
+        """One train_title run. keep: the checkpoint is written (and kept
+        for infer_video); otherwise the save is recorded, not written."""
+        steps.clear()
+        snap.clear()
+        scores = []
+        shutil.rmtree(ckpt, ignore_errors=True)
+        sparse_band_attention.launches = 0
+        sparse_band_attention.mma_sync_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        said = io.StringIO()
+        t0 = time.time()
+        Trainer.train_step = spy
+        if not keep:
+            CheckpointManager.save = lambda self, epoch, state, score=None, \
+                metrics=None: scores.append(score)
+        try:
+            with contextlib.redirect_stdout(said):
+                trainer = train_title.main(argv + [
+                    f"train.ckpt_dir={ckpt}", f"train.log_dir={ckpt}_logs",
+                    "--device", str(dev)])
+        finally:
+            Trainer.train_step = plain_step
+            CheckpointManager.save = plain_save
+            for line in said.getvalue().splitlines():
+                print(f"# {name}: {line}", flush=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        set_up = snap.pop("first step at", t0) - t0
+        losses = [st[0] for st in steps]
+        moved = sum(not torch.equal(v, dict(
+            trainer.model.named_parameters())[k].detach())
+            for k, v in snap.items())
+        k10_train = sum(st[1] for st in steps)
+        k10_eval = sparse_band_attention.launches - k10_train
+        cfg = trainer.cfg
+        step_s = float(np.median([st[2] for st in steps[1:] or steps]))
+        tokens = cfg.data.batch_size * (cfg.data.title_input_len
+                                        + cfg.data.title_decode_len)
+        print(f"# {name}: {len(steps)} steps, losses "
+              f"{[round(x, 4) for x in losses]}, {moved} of {len(snap)} "
+              f"sampled parameters moved; {1e3 * step_s:.1f} ms a step "
+              f"(median), {tokens / step_s:.0f} tokens/s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K10 "
+              f"launches: {k10_train} in training steps, {k10_eval} in the "
+              f"eval ({sparse_band_attention.mma_sync_launches} mma.sync); "
+              f"{wall:.1f} s in all, {set_up:.1f} s of it before the first "
+              f"step (corpus, tokenizer, seeded model on the card)"
+              f"{', with a checkpoint written' if keep else ''} on {smi}; "
+              f"information only", flush=True)
+        if len(steps) != want_steps or not np.isfinite(losses).all():
+            fail(f"{name}: {len(steps)} steps, losses {losses}")
+        if not moved:
+            fail(f"{name}: no sampled parameter moved")
+        if keep:
+            ck = CheckpointManager(str(ckpt))
+            scores = [ck.metrics_for(ck.latest_step()).get("score")
+                      ] if ck.steps() else []
+        if not scores or scores[-1] is None or not np.isfinite(scores[-1]):
+            fail(f"{name}: no checkpoint saved with an eval score")
+        return trainer, k10_train, k10_eval
+
+    # --- Pegasus-large at the JAX CLI's defaults ---
+    ckpt = build / "title_ckpt"
+    trainer, _, _ = train(
+        "train_title pegasus", argv_for(paths["train_vid_file"],
+                                        paths["val_vid_file"], TITLE_BATCH),
+        ckpt, TITLE_STEPS, keep=True)
+    model, task = trainer.model, trainer.task
+    params = list(model.parameters())
+    ds = trainer.train_loader.dataset
+    items = [ds.__getitem__(i, 0) for i in range(len(ds))]
+
+    # accumulation: A then B (float32, dropout off) vs A and B at once;
+    # A and B pair rows of equal decoder length, so that the mean of the
+    # two batch means is the mean over both
+    by_len = {}
+    for it in items:
+        by_len.setdefault(int(it["decode_attention_mask"].sum()),
+                          []).append(it)
+    a_rows, b_rows = [], []
+    for group in by_len.values():
+        while len(group) >= 2 and len(a_rows) < ACCUM_ROWS:
+            a_rows.append(group.pop())
+            b_rows.append(group.pop())
+    if len(a_rows) < ACCUM_ROWS:
+        fail("too few rows of equal decoder length for the accumulation "
+             "check")
+    p0 = [p.detach().clone() for p in params]
+    model.eval()  # no dropout; gradients still recorded
+    task.dtype = torch.float32
+
+    plain_clip = torch.nn.utils.clip_grad_norm_
+
+    def update(batches, k):
+        """One optimizer update of the Trainer over batches as k
+        micro-steps, from p0 and a fresh AdamW: (the gradient it clips,
+        the parameters' change)."""
+        with torch.no_grad():
+            for p, q in zip(params, p0):
+                p.copy_(q)
+        trainer.cfg = trainer.cfg.replace(optim=dataclasses.replace(
+            trainer.cfg.optim, gradient_accumulation_steps=k))
+        trainer.opt = make_optimizer(trainer.cfg.optim, model, task.entries)
+        trainer.step = 0
+        grads = []
+
+        def clip(*args, **kw):  # keeps the gradient the update is given
+            grads[:] = [torch.zeros_like(p) if p.grad is None
+                        else p.grad.detach().clone() for p in params]
+            return plain_clip(*args, **kw)
+
+        torch.nn.utils.clip_grad_norm_ = clip
+        try:
+            for b in batches:
+                trainer.train_step(b)
+        finally:
+            torch.nn.utils.clip_grad_norm_ = plain_clip
+        if trainer.step != k or not grads:
+            fail("the accumulation cycle did not close")
+        return grads, [(p.detach() - q) for p, q in zip(params, p0)]
+
+    def cos_of(xs, ys):
+        dot = sum((x.double() * y.double()).sum() for x, y in zip(xs, ys))
+        return (dot / (sum((x.double() ** 2).sum() for x in xs).sqrt()
+                       * sum((y.double() ** 2).sum() for y in ys).sqrt())
+                ).item()
+
+    g_acc, d_acc = update([collate(a_rows), collate(b_rows)], 2)
+    g_one, d_one = update([collate(a_rows + b_rows)], 1)
+    g_rel = (sum(((x.double() - y.double()) ** 2).sum()
+                 for x, y in zip(g_acc, g_one)).sqrt()
+             / sum((y.double() ** 2).sum() for y in g_one).sqrt()).item()
+    c_acc = cos_of(d_acc, d_one)
+    del g_acc, g_one, d_acc, d_one
+    print(f"# title accumulation: gradient_accumulation_steps=2 over 2 x "
+          f"{ACCUM_ROWS} rows vs one update over the {2 * ACCUM_ROWS} rows "
+          f"(float32, dropout off): the updates' gradients (before the "
+          f"clip) {g_rel:.3g} apart (relative norm); cosine of the "
+          f"parameters' change {c_acc:.6f}", flush=True)
+    if not (g_rel <= ACCUM_MAX_GRAD_REL and c_acc >= ACCUM_MIN_COS):
+        fail(f"an accumulated update disagrees with one update over both "
+             f"batches (gradients {g_rel:.3g} apart, cosine {c_acc:.6f})")
+
+    # remat: one bf16 step each way on the same batch and dropout seed
+    with torch.no_grad():
+        for p, q in zip(params, p0):
+            p.copy_(q)
+    del p0
+    model.train()
+    task.dtype = torch.bfloat16
+    batch = collate(items[:TITLE_BATCH])
+    runs = {}
+    for remat in (False, True):
+        model.cfg = dataclasses.replace(model.cfg, remat=remat)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 12)
+        loss, _ = task.loss_fn(model, batch, gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[remat] = (loss.detach(), [p.grad.clone() for p in params],
+                       torch.cuda.max_memory_allocated() / 2 ** 30)
+    model.cfg = dataclasses.replace(model.cfg, remat=False)
+    model.zero_grad(set_to_none=True)
+    (l0, g0, m0), (l1, g1, m1) = runs[False], runs[True]
+    c_remat = cos_of(g0, g1)
+    print(f"# title remat: loss {l0.item():.6f} without, {l1.item():.6f} "
+          f"with (equal: {torch.equal(l0, l1)}); gradients' cosine "
+          f"{c_remat:.7f}; peak {m0:.2f} GiB without, {m1:.2f} GiB with "
+          f"(batch {TITLE_BATCH}, bf16) on {smi}", flush=True)
+    if not torch.equal(l0, l1) or not c_remat >= REMAT_MIN_COS:
+        fail("a remat step disagrees with the step without remat")
+    del runs, g0, g1
+
+    # where a step's time goes (information only): the Trainer's step on
+    # one batch outside the CLI's loop (no loader threads), timed, then one
+    # torch.profiler trace; the model's arithmetic as 6 x parameters x
+    # tokens (encoder layers over the input, decoder layers and the tied
+    # head over the target; attention scores left out)
+    trainer.opt = make_optimizer(trainer.cfg.optim, model, task.entries)
+    trainer.train_step(batch)  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    step_s = sorted(times)[1]
+    n_enc = sum(q.numel() for q in model.model.encoder.parameters())
+    n_dec = sum(q.numel() for q in model.model.decoder.parameters())
+    n_head = model.model.shared.weight.numel()
+    flops = 6 * TITLE_BATCH * (n_enc * TITLE_IN + (n_dec + n_head) * TITLE_OUT)
+    trace = "trace: not measured"
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+        # kernels only: a named range (the optimizer's step) also shows a
+        # device span, which would count its kernels twice
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "#" not in e.key
+                and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
+
+        def dev_us(e):
+            return (getattr(e, "self_device_time_total", 0)
+                    or getattr(e, "self_cuda_time_total", 0))
+
+        busy = sum(dev_us(e) for e in kern)
+        opt_us = sum(dev_us(e) for e in kern
+                     if "multi_tensor" in e.key or "foreach" in e.key.lower())
+        top = sorted(kern, key=dev_us, reverse=True)[:4]
+        if busy > 0:
+            trace = (f"trace: {sum(e.count for e in kern)} kernels, device "
+                     f"busy {busy / wall_us:.3f} of the traced wall time, "
+                     f"multi-tensor (AdamW, clip) kernels "
+                     f"{opt_us / busy:.3f} of the device time; largest: "
+                     + ", ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.1f} ms"
+                                 for e in top))
+        else:
+            trace = "trace: the profiler saw no device time"
+    except Exception as exc:  # the trace is information only
+        trace = f"trace: not measured ({type(exc).__name__})"
+    print(f"# title training step, Pegasus-large bf16, batch {TITLE_BATCH}, "
+          f"{TITLE_IN} -> {TITLE_OUT} tokens, outside the CLI's loader: "
+          f"{1e3 * step_s:.1f} ms (median of 3), model arithmetic "
+          f"{flops / 1e12:.2f} TFLOP a step, {flops / step_s / 1e12:.1f} "
+          f"TFLOP/s; {trace}; on {smi}; information only", flush=True)
+    print(f"# title_training: {time.time() - t_phase:.1f} s into the phase "
+          f"after the Pegasus run and its checks", flush=True)
+    del model, task, params, trainer, items
+    torch.cuda.empty_cache()
+
+    # --- infer_video from that checkpoint, beside the boundary one ---
+    icfg = parse_config(cli_argv)[0]
+    serve = build / "title_serving_ckpt"
+    shutil.rmtree(serve, ignore_errors=True)
+    serve.mkdir(parents=True)
+    boundary = Path(icfg.train.ckpt_dir)
+    for src, epoch in ((boundary / "ckpt_0", 0), (ckpt / "ckpt_0", 1)):
+        for ext in ("pt", "json"):
+            os.symlink(f"{src}.{ext}", serve / f"ckpt_{epoch}.{ext}")
+    cwd = os.getcwd()
+    os.chdir(build)  # the CLI writes test_results/ where it runs
+    said = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(said):
+            results = infer_video.main(cli_argv + [
+                f"train.ckpt_dir={serve}", "--spm_tsv", str(tsv)])
+    finally:
+        os.chdir(cwd)
+        for line in said.getvalue().splitlines():
+            print(f"# infer_video, trained titles: {line}", flush=True)
+    out = said.getvalue()
+    n_titles = sum(len(r.titles) for r in results.values())
+    print(f"# infer_video from the trained title checkpoint: "
+          f"{len(results)} videos, {n_titles} titles, "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if "restored checkpoint at epoch 0" not in out or \
+            "restored checkpoint at epoch 1" not in out:
+        fail("infer_video did not restore the boundary and the title "
+             "checkpoints")
+    for vid, r in results.items():
+        if not r.cut_points or len(r.titles) != len(r.spans):
+            fail(f"{vid}: {len(r.titles)} titles for {len(r.spans)} "
+                 f"chapters")
+    shutil.rmtree(serve, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # --- vision-conditioned (the inference corpus, whose clips have
+    # embeddings), BigBird at 3072 tokens, BART: 2 steps each ---
+    d = icfg.data
+    train("train_title vision", argv_for(
+        d.test_vid_file, d.test_vid_file, SMALL_BATCH,
+        f"model.vision_init={emb_dir}", "train.max_epochs=2",
+        "train.eval_every_epochs=2", "train.save_every_epochs=2",
+        img=d.img_dir, data=d.data_file, subs=d.subtitle_dir),
+        build / "title_ckpt_vision", 2)
+    torch.cuda.empty_cache()
+    # the eval's first K10 call (encoder layer 0 of its one batch) keeps
+    # its inputs, and K10 is held to its plain version on them below
+    seen = {}
+    real_k10 = sparse_model.sparse_band_attention
+
+    def keep_first(q_mid, k, v, mask, ids, valid, bs, out):
+        if not seen:
+            seen["args"] = (q_mid.clone(), k.clone(), v.clone(),
+                            mask.clone(), (ids, valid), bs)
+        return real_k10(q_mid, k, v, mask, ids, valid, bs, out)
+
+    sparse_model.sparse_band_attention = keep_first
+    try:
+        big, k10_train, k10_eval = train(
+            "train_title bigbird", argv_for(
+                small["train"], small["val"], SMALL_BATCH, "--title_arch",
+                "bigbird", f"data.title_input_len={BIGBIRD_IN}"),
+            build / "title_ckpt_bigbird", 2)
+    finally:
+        sparse_model.sparse_band_attention = real_k10
+    s2s = big.model.cfg
+    del big
+    if k10_train or k10_eval != s2s.encoder_layers or \
+            sparse_band_attention.mma_sync_launches:
+        fail(f"BigBird title training launched K10 {k10_train} times in "
+             f"its steps and {k10_eval} in its one eval batch (want 0 and "
+             f"{s2s.encoder_layers}, none mma.sync)")
+    torch.cuda.empty_cache()
+    q_mid, k, v, mask, tabs, bs = seen.pop("args")
+    k10_row = hold_k10(q_mid, k, v, mask, tabs, bs, "sparse_band_attn",
+                       f"the title eval batch's encoder layer 0, rows of "
+                       f"{mask.sum(1).tolist()} tokens", smi)
+    del q_mid, k, v, mask
+    train("train_title bart", argv_for(small["train"], small["val"],
+                                       SMALL_BATCH, "--title_arch", "bart"),
+          build / "title_ckpt_bart", 2)
+    torch.cuda.empty_cache()
+    return dict({key: k10_entry[key] for key in ("name", "route", "source",
+                                                 "replaces")},
+                launches=k10_eval, **k10_row,
+                path="train_title --title_arch bigbird (eval; 0 launches "
+                     "in its training steps)")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3418,6 +3981,8 @@ def main() -> int:
         print(f"# phase {name}: {laps[name]:.1f} s", flush=True)
         return out
 
+    native_launches = timed("native_decode", native_decode_phase, dev, smi,
+                            pipe, corpus)
     timed("title_decode", title_decode_phase, dev, smi, s2s)
     infer_kernels, cli_argv = timed("infer", infer_phases, dev, smi, frames,
                                     vision, ts_sd, delta)
@@ -3468,9 +4033,20 @@ def main() -> int:
         "vision_titles", vision_titles_phase, dev, smi, cli_argv,
         {k["name"]: k for k in kernels},
         next(k for k in infer_kernels if k["name"] == "tsm_bottleneck_int8"))
+    # title training: K10 on the BigBird eval's inputs, its launches in
+    # that eval (none in its training steps); the native decode path: K1-K4 at the serving
+    # entries' shapes, this phase's launches
+    title_kernel = timed(
+        "title_training", title_training_phase, dev, smi, cli_argv,
+        str(ROOT / "video_chapter_generation_tpu_torch" / "_build"
+            / "vision_embs_bf16"), bigbird_kernels[0])
+    native_kernels = [dict(k, launches=native_launches[k["name"]],
+                           path="ChapterPipeline, native decode")
+                      for k in kernels] if native_launches else []
     print(json.dumps({"kernels": kernels + infer_kernels + bigbird_kernels
                       + train_kernels + window_kernels + int8_s2_kernels
-                      + [chain_kernel] + vision_kernels}))
+                      + [chain_kernel] + vision_kernels + [title_kernel]
+                      + native_kernels}))
     print(f"# phase seconds {json.dumps(laps)}; chip_smoke wall time "
           f"{time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@ contract and the vision-embedding block selection, provider and
 attachment. All must be equal, not close: the copies are the same
 code."""
 
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -263,3 +264,38 @@ def test_vision_emb_provider_and_attachment_match(tmp_path):
                     ([b.mean(0) for b in blocks], 5)]:
         _same(datasets.chapter_vision_embs(embs, n, 6),
               jax_attach(embs, n, 6))
+
+
+def test_native_loader_branches_match(disk):
+    """load_clip_frames with a native decode function installed (JAX
+    data/frames.py:29-67): frames and the s2d pack come from it, a frame
+    cache keeps the PIL path, and uninstalling restores PIL; the same
+    on both copies. space_to_depth4 equals the JAX native_loader's."""
+    from video_chapter_generation_tpu.data import frames as jax_frames
+    from video_chapter_generation_tpu.data import native_loader as jax_nl
+    from video_chapter_generation_tpu_torch.data import frames
+
+    a, _ = disk
+    paths = sorted(str(p) for p in Path(a["img_dir"]).rglob("*.jpg"))[:4]
+
+    def fake(ps, hw):
+        return np.full((len(ps), hw, hw, 3), len(ps), np.uint8)
+
+    fake.s2d = lambda ps, hw: np.full((len(ps), hw // 4, hw // 4, 48), 9,
+                                      np.uint8)
+    try:
+        for mod in (frames, jax_frames):
+            mod.set_native_loader(fake)
+        for s2d in (False, True):
+            _same(frames.load_clip_frames(paths, 32, s2d=s2d),
+                  jax_frames.load_clip_frames(paths, 32, s2d=s2d))
+        got = frames.load_clip_frames(paths, 32, cache=frames.FrameCache())
+        _same(got, jax_frames.load_clip_frames(
+            paths, 32, cache=jax_frames.FrameCache()))
+        assert not (got == len(paths)).all()  # decoded, not the fake's
+    finally:
+        for mod in (frames, jax_frames):
+            mod.set_native_loader(None)
+    pil = frames.load_clip_frames(paths, 32)
+    _same(pil, jax_frames.load_clip_frames(paths, 32))
+    _same(frames.space_to_depth4(pil), jax_nl.space_to_depth4(pil))

@@ -36,7 +36,8 @@ def test_port_module_list_is_complete():
                  "ops.tsm_conv", "ops.temporal_shift", "ops.preprocess",
                  "evalkit.metrics", "models.fusion", "pipeline.boundary",
                  "pipeline.vision_emb", "cli.extract_vision_emb",
-                 "cli.infer_video"):
+                 "cli.infer_video", "cli.train_title", "data.native_loader",
+                 "train.objectives", "models.seq2seq", "models.bert"):
         assert f"{PORT}.{name}" in MODULES, name
 
 

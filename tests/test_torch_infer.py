@@ -439,17 +439,18 @@ def test_title_restore(tmp_path, capsys):
 @pytest.mark.parametrize("extra", [
     ["--num_beams", "4", "--sharded"], ["--vision_emb_dir", "embs",
                                         "--sharded"],
-    ["--fusion_type", "mlp", "model.kind=text"], ["--sharded"],
+    ["--fusion_type", "mlp", "model.kind=text", "--sharded"], ["--sharded"],
     ["--title_arch", "bigbird", "--num_beams", "4",
      "model.kind=two_stream_window"],
     ["--title_arch", "bart", "--sharded"], ["model.kind=two_stream_window"],
-    ["model.kind=text"]])
+    ["model.kind=text", "--sharded"]])
 def test_infer_video_names_what_is_not_ported(cli_case, extra):
     """Each names its ROADMAP item; the window model names the JAX
-    package's fault (its infer_video cannot serve it either). Beams and
-    vision-conditioned titles are served (tests/test_torch_beam_search.py,
-    tests/test_torch_vision_titles.py); beside what is not, they are
-    refused all the same."""
+    package's fault (its infer_video cannot serve it either). Beams,
+    vision-conditioned titles and the text-only boundary model are served
+    (tests/test_torch_beam_search.py, tests/test_torch_vision_titles.py,
+    tests/test_torch_text_task.py); beside what is not, they are refused
+    all the same."""
     overrides = [e for e in extra if "=" in e]
     flags = [e for e in extra if "=" not in e]
     with pytest.raises(SystemExit, match="ROADMAP (queue 1 item|lists this "

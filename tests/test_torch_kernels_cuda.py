@@ -912,3 +912,31 @@ def test_tsm_bottleneck_chain_kernel(dev, nblk, c, f):
     assert torch.equal(got, seq)
     assert torch.equal(halo, seq.view(2 * t, 12, 6, 2 * c))
     _close(got, tsm_bottleneck_chain_plain(x, blocks, t))
+
+
+def test_sparse_band_attention_refuses_inputs_that_require_grad(dev):
+    """K10 writes its output through a pointer, which autograd cannot see:
+    on inputs that require a gradient the wrapper raises instead of
+    dropping it; under no_grad the same inputs launch."""
+    from video_chapter_generation_tpu_torch.ops.sparse_attention import (
+        sparse_band_attention,
+        structured_ids,
+    )
+
+    b, nb, h, hd, bs = 1, 10, 2, 64, 64
+    l = nb * bs
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(b, l, h, hd, generator=g).to(dev, torch.bfloat16)
+               for _ in range(3))
+    mask = torch.ones(b, l, dtype=torch.int32, device=dev)
+    ids, valid = (torch.from_numpy(a).to(dev)
+                  for a in structured_ids(nb, None))
+    out = torch.zeros_like(q)
+    k.requires_grad_(True)
+    before = sparse_band_attention.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        sparse_band_attention(q[:, bs:-bs], k, v, mask, ids, valid, bs, out)
+    assert sparse_band_attention.launches == before
+    with torch.no_grad():
+        sparse_band_attention(q[:, bs:-bs], k, v, mask, ids, valid, bs, out)
+    assert sparse_band_attention.launches == before + 1

@@ -10,14 +10,16 @@ points -> titles (counterpart of the JAX package's cli/infer_video.py).
         [--int8_vision] [--int8_titles] [--pipelined] [--tiny] \
         [--device cpu]
 
-Runs on the card unless --device says otherwise. The boundary model is
-the best checkpoint in train.ckpt_dir (else the newest; its contract
-must match this config), scoring per-clip frames (uint8 -> normalized on
-the device -> the frames stem, model.stem_input=frames). The title model
+Runs on the card unless --device says otherwise. The boundary model
+(model.kind two_stream, or text: the subtitle-only BertForChapter) is the
+best checkpoint of its kind in train.ckpt_dir (else the newest; its
+contract must match this config), scoring per-clip frames (uint8 ->
+normalized on the device -> the frames stem, model.stem_input=frames).
+The title model
 (--title_arch: Pegasus-large, BigBird-Pegasus-large or BART-large)
 decodes data.title_decode_len tokens, greedy or, with --num_beams N > 1,
-by beam search, from a title checkpoint in the same directory, else
-seeded random weights (a line says which). --vision_emb_dir DIR (the
+by beam search, from the best title checkpoint in the same directory
+(cli/train_title's), else seeded random weights (a line says which). --vision_emb_dir DIR (the
 output of cli/extract_vision_emb) conditions the titles on each
 chapter's vision embeddings: the title model becomes Seq2SeqVisionEmb
 with the --fusion_type head (cross_attn, the default, or mlp), its fused
@@ -82,7 +84,6 @@ KIND_NOT_PORTED = {
                          "the JAX package's faults. Train and score the "
                          "window model with cli/train_segment and "
                          "cli/eval_segment.build_score_fn",
-    "text": "the text-only scorer is ROADMAP queue 1 item 6",
 }
 
 
@@ -121,8 +122,11 @@ def main(argv=None) -> Dict[str, VideoChapters]:
     if kind in KIND_NOT_PORTED:
         raise SystemExit(f"model.kind={kind} is not ported to the PyTorch "
                          f"port yet: {KIND_NOT_PORTED[kind]}")
-    if kind != "two_stream":
+    if kind not in ("two_stream", "text"):
         raise SystemExit(f"unknown model.kind {kind}")
+    if int8_vision and kind != "two_stream":
+        raise SystemExit("--int8_vision needs model.kind=two_stream (the "
+                         "JAX CLI's rule, infer_video.py:99-101)")
     if int8_vision and cfg.model.stem_input != "frames":
         raise SystemExit("--int8_vision on this CLI serves "
                          "model.stem_input=frames only (the JAX CLI's rule, "

@@ -9,9 +9,10 @@ package's cli/train_segment.py).
 
 Runs on the card unless --device says otherwise. model.kind defaults to
 two_stream_window, the window model (JAX cli/train_segment.py:47-53);
-two_stream is the base model; text is not ported yet (ROADMAP queue 1).
---init_streams warm-starts the text and vision streams from a checkpoint
-this CLI wrote, of either model. Returns the Trainer.
+two_stream is the base model; text the subtitle-only BertForChapter
+(:60-66, clips without frames). --init_streams warm-starts the text and
+vision streams from a checkpoint this CLI wrote, of a two-stream model.
+Returns the Trainer.
 """
 
 from __future__ import annotations
@@ -25,12 +26,9 @@ from ..data.datasets import ClipDataset, WindowClipDataset
 from ..data.loader import DataLoader
 from ..models.bert import BertConfig
 from ..train.loop import Trainer
-from ..train.tasks import SegmentTask, SegmentWindowTask
+from ..train.tasks import SegmentTask, SegmentTextTask, SegmentWindowTask
 from .common import load_bert_tokenizer, load_corpus, parse_config
 
-NOT_PORTED = {
-    "text": "the text-only task is ROADMAP queue 1 item 6 (training)",
-}
 TASKS = {"two_stream_window": SegmentWindowTask, "two_stream": SegmentTask}
 
 
@@ -69,10 +67,7 @@ def main(argv=None) -> Trainer:
                                "%(message)s")
     cfg, args = parse_config(argv, "train chapter-boundary model")
     kind = cfg.model.kind
-    if kind in NOT_PORTED:
-        raise SystemExit(f"model.kind={kind} is not ported to the PyTorch "
-                         f"port yet: {NOT_PORTED[kind]}")
-    if kind not in TASKS:
+    if kind != "text" and kind not in TASKS:
         raise SystemExit(f"unknown model.kind {kind}")
     corpus = load_corpus(cfg, "train")
     val_corpus = load_corpus(cfg, "val")
@@ -83,10 +78,14 @@ def main(argv=None) -> Trainer:
     # raises in torch where a JAX lookup would clamp it)
     bert_cfg = (BertConfig.tiny(vocab_size=tokenizer.vocab_size)
                 if args.tiny else None)
-    try:
-        task = TASKS[kind](cfg, tiny=args.tiny, hw=hw, bert_cfg=bert_cfg)
-    except ValueError as e:  # a model config the port refuses
-        raise SystemExit(f"model config refused: {e}") from e
+    if kind == "text":
+        task = SegmentTextTask(cfg, tiny=args.tiny,
+                               vocab_size=tokenizer.vocab_size)
+    else:
+        try:
+            task = TASKS[kind](cfg, tiny=args.tiny, hw=hw, bert_cfg=bert_cfg)
+        except ValueError as e:  # a model config the port refuses
+            raise SystemExit(f"model config refused: {e}") from e
     task.contract = dict(task.contract, vocab_hash=vocab_hash(tokenizer))
     if init_streams:
         _warm_start(task, init_streams)
@@ -99,9 +98,10 @@ def main(argv=None) -> Trainer:
                                      d.max_text_len, d.window_size,
                                      cfg.model.data_mode, d.fps,
                                      cfg.train.seed, hw, s2d=s2d)
+        mode = "text" if kind == "text" else cfg.model.data_mode
         return ClipDataset(c, tokenizer, d.clip_frame_num, d.max_text_len,
-                           cfg.model.data_mode, d.fps, cfg.train.seed, hw,
-                           s2d=s2d)
+                           mode, d.fps, cfg.train.seed, hw,
+                           s2d=s2d and kind != "text")
 
     train_loader = DataLoader(make_ds(corpus), cfg.data.batch_size,
                               seed=cfg.train.seed)

@@ -12,7 +12,11 @@ Retention is orbax's under the JAX manager's best_fn (core/checkpoint.py
 :31-39, orbax's BestN policy): with more than max_to_keep checkpoints,
 keep the max_to_keep best by score, a checkpoint saved without one
 counting as -inf; ties keep the newer. The best checkpoint is the last
-of that order. Files are written to a temporary name and renamed, so a
+of that order; `best_step(model_kind)` takes it among the checkpoints
+whose contract names that model kind, so one directory can serve a
+boundary model and a title model (the JAX package's restores take the
+best of any kind, and a title model there falls back to random weights
+beside a better-scored boundary checkpoint). Files are written to a temporary name and renamed, so a
 reader never sees half a checkpoint; they load with weights_only=True.
 """
 
@@ -74,9 +78,23 @@ class CheckpointManager:
         return sorted(self.steps(), key=lambda e: self.metrics_for(e).get(
             "score", float("-inf")))
 
-    def best_step(self) -> Optional[int]:
-        by_score = self._by_score()
+    def best_step(self, model_kind: Optional[str] = None,
+                  default_kind: Optional[str] = None) -> Optional[int]:
+        """The best-scored epoch; with model_kind, the best of those whose
+        contract's model_kind is that kind (a checkpoint without one
+        counts as default_kind, and as any kind when that is None)."""
+        def fits(e):
+            kind = self.model_kind(e) or default_kind
+            return kind is None or kind == model_kind
+
+        by_score = [e for e in self._by_score()
+                    if model_kind is None or fits(e)]
         return by_score[-1] if by_score else None
+
+    def model_kind(self, step: int) -> Optional[str]:
+        """The model_kind of a checkpoint's contract, None without one."""
+        return (self.metrics_for(step).get("contract") or {}).get(
+            "model_kind")
 
     def _load(self, epoch: int) -> Dict[str, Any]:
         return torch.load(self._path(epoch), map_location="cpu",
@@ -86,9 +104,11 @@ class CheckpointManager:
         """(epoch, state) of the newest checkpoint, or None."""
         return self.restore_raw()
 
-    def restore_best(self) -> Optional[Tuple[int, Dict[str, Any]]]:
-        """(epoch, state) of the best-scored checkpoint, or None."""
-        step = self.best_step()
+    def restore_best(self, model_kind: Optional[str] = None
+                     ) -> Optional[Tuple[int, Dict[str, Any]]]:
+        """(epoch, state) of the best-scored checkpoint (of model_kind,
+        when given), or None."""
+        step = self.best_step(model_kind)
         return None if step is None else self.restore_raw(step)
 
     def restore_raw(self, step: Optional[int] = None

@@ -9,12 +9,14 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 from ..core.seeding import host_rng
+from ..datasetkit.parsing import clean_str, remove_timestamp
 from .clip_grid import (
     ClipInfo,
     build_clip_grid,
+    chapter_spans,
     frame_indices_for_clip,
     label_clips,
     subtitle_text_for_window,
@@ -24,7 +26,11 @@ from .clip_grid import (
 )
 from .corpus import VideoCorpus
 from .frames import FRAME_HW, FrameCache, load_clip_frames
-from .text_encode import encode_clip_text
+from .text_encode import (
+    encode_clip_text,
+    encode_encoder_text,
+    encode_title_decoder,
+)
 
 
 def _video_clip_structure(corpus: VideoCorpus, vid: str, clip_frame_num: int,
@@ -323,6 +329,172 @@ def _chapter_text(subtitles, start_t, end_t, fps: int = 1) -> str:
         subtitles, start_t, end_t, 1 * fps, fps=fps, early_stop=True
     )
     return " ".join(text.split()).lower()
+
+
+def _clean_title(description: str) -> str:
+    """Copied from video_chapter_generation_tpu/data/datasets.py:345."""
+    return remove_timestamp(clean_str(description)).lower()
+
+
+class ChapterTitleDataset:
+    """Random chapter per video -> (chapter subtitles, cleaned title).
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:349.
+    """
+
+    def __init__(self, corpus: VideoCorpus, tokenizer, max_text_len: int = 512,
+                 chapter_title_text_len: int = 30, seed: int = 123,
+                 fps: int = 1):
+        self.corpus = corpus
+        self.tokenizer = tokenizer
+        self.max_text_len = max_text_len
+        self.chapter_title_text_len = chapter_title_text_len
+        self.seed = seed
+        self.fps = fps
+
+    def __len__(self):
+        return len(self.corpus.vids)
+
+    def _encode(self, vid, chapter_idx) -> Dict[str, np.ndarray]:
+        rec = self.corpus.records[vid]
+        chapters = self.corpus.chapter_descriptions(vid)
+        duration = round(rec.duration - 1)
+        secs = [c[0] for c in chapters]
+        spans = chapter_spans(secs, duration)
+        start_t, end_t = spans[chapter_idx]
+        title = _clean_title(chapters[chapter_idx][1])
+        text = _chapter_text(self.corpus.subtitles(vid), start_t, end_t,
+                             self.fps)
+        ids, mask = encode_encoder_text(text, self.tokenizer,
+                                        self.max_text_len)
+        dec = encode_title_decoder(title, self.tokenizer,
+                                   self.chapter_title_text_len)
+        return {
+            "text_ids": ids,
+            "attention_mask": mask,
+            **dec,
+            "chapter_start": np.int32(start_t),
+            "chapter_end": np.int32(end_t),
+        }
+
+    def __getitem__(self, i: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        rng = host_rng(self.seed, epoch, i)
+        vid = self.corpus.vids[i]
+        n = len(self.corpus.records[vid].timestamp_lines)
+        chapter_idx = int(rng.integers(0, n))
+        return self._encode(vid, chapter_idx)
+
+
+class AllChapterTitleDataset(ChapterTitleDataset):
+    """ALL chapters of every video (eval). With `vid2cut_points`, chapters
+    come from PREDICTED cut points instead of GT (the end-to-end eval,
+    youtube_chapter_title_dataset.py:521-760); titles are then matched to
+    the nearest GT chapter for scoring.
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:395.
+    """
+
+    def __init__(self, corpus, tokenizer, max_text_len=512,
+                 chapter_title_text_len=30, fps: int = 1,
+                 vid2cut_points: Optional[Dict[str, List[int]]] = None):
+        super().__init__(corpus, tokenizer, max_text_len,
+                         chapter_title_text_len, fps=fps)
+        self.items: List[Tuple[str, int, Optional[Tuple[int, float]]]] = []
+        self.vid2cut_points = vid2cut_points
+        for vid in corpus.vids:
+            if vid2cut_points is None:
+                n = len(corpus.records[vid].timestamp_lines)
+                self.items += [(vid, k, None) for k in range(n)]
+            else:
+                cps = vid2cut_points.get(vid, [])
+                duration = round(corpus.records[vid].duration - 1)
+                for k, span in enumerate(chapter_spans(list(cps), duration)):
+                    self.items.append((vid, k, span))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        vid, k, span = self.items[i]
+        if span is None:
+            out = self._encode(vid, k)
+            out["item_index"] = np.int32(i)
+            return out
+        # predicted span: encoder text from the span; target title = nearest
+        # GT chapter's title
+        start_t, end_t = span
+        chapters = self.corpus.chapter_descriptions(vid)
+        nearest = min(chapters, key=lambda c: abs(c[0] - start_t))
+        title = _clean_title(nearest[1])
+        text = _chapter_text(self.corpus.subtitles(vid), start_t, end_t,
+                             self.fps)
+        ids, mask = encode_encoder_text(text, self.tokenizer,
+                                        self.max_text_len)
+        dec = encode_title_decoder(title, self.tokenizer,
+                                   self.chapter_title_text_len)
+        return {
+            "text_ids": ids, "attention_mask": mask, **dec,
+            "chapter_start": np.int32(start_t),
+            "chapter_end": np.int32(end_t), "item_index": np.int32(i),
+        }
+
+
+class _VisionEmbMixin:
+    """Shared vision-emb attachment: emb_provider(vid, start, end) ->
+    list of per-block [T, D] (mean-pooled here) or [D] arrays; padded to
+    max_vision_emb with a validity mask
+    (youtube_chapter_title_dataset.py:222-248, :424-450).
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:446.
+    """
+
+    def _attach_vision(self, out: Dict[str, np.ndarray],
+                       vid: str) -> Dict[str, np.ndarray]:
+        embs = self.emb_provider(
+            vid, int(out["chapter_start"]), int(out["chapter_end"])
+        )
+        out["vision_embs"], out["vision_attention_mask"] = \
+            chapter_vision_embs(embs, self.max_vision_emb, self.emb_dim)
+        return out
+
+
+class ChapterTitleVisionEmbDataset(_VisionEmbMixin, ChapterTitleDataset):
+    """Random-chapter title dataset + per-16s-block vision embeddings
+    (youtube_chapter_title_dataset.py:162-290).
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:468.
+    """
+
+    def __init__(self, corpus, tokenizer, emb_provider: Callable,
+                 max_vision_emb: int = 10, emb_dim: int = 2048, **kw):
+        super().__init__(corpus, tokenizer, **kw)
+        self.emb_provider = emb_provider
+        self.max_vision_emb = max_vision_emb
+        self.emb_dim = emb_dim
+
+    def __getitem__(self, i: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        out = super().__getitem__(i, epoch)
+        return self._attach_vision(out, self.corpus.vids[i])
+
+
+class AllChapterTitleVisionEmbDataset(_VisionEmbMixin, AllChapterTitleDataset):
+    """ALL chapters (GT or predicted cut points) + vision embeddings — the
+    eval dataset of test_chapter_title_gen_vision_emb.py
+    (youtube_chapter_title_dataset.py:330-517 with vision_emb_dir set).
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:484.
+    """
+
+    def __init__(self, corpus, tokenizer, emb_provider: Callable,
+                 max_vision_emb: int = 10, emb_dim: int = 2048, **kw):
+        super().__init__(corpus, tokenizer, **kw)
+        self.emb_provider = emb_provider
+        self.max_vision_emb = max_vision_emb
+        self.emb_dim = emb_dim
+
+    def __getitem__(self, i: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        out = super().__getitem__(i, epoch)
+        return self._attach_vision(out, self.items[i][0])
 
 
 def chapter_vision_embs(embs, max_vision_emb: int = 10, emb_dim: int = 2048

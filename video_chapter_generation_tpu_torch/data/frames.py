@@ -2,7 +2,8 @@
 
 The port's own copy of video_chapter_generation_tpu/data/frames.py (the definitions the port uses;
 each names the line it was copied from), so the port never imports
-the JAX package.
+the JAX package. When the native decoder (data/native_loader.py) is
+installed, `load_clip_frames` decodes through it.
 """
 
 from __future__ import annotations
@@ -16,6 +17,17 @@ FRAME_HW = 224
 
 
 _native_loader = None
+
+
+def set_native_loader(loader) -> None:
+    """Install a native decode function: paths list -> uint8 [N,H,W,3]
+    (data/native_loader.py:install_native_loader installs one; None puts
+    PIL back).
+
+    Copied from video_chapter_generation_tpu/data/frames.py:29.
+    """
+    global _native_loader
+    _native_loader = loader
 
 
 def load_frame(path: str, hw: int = FRAME_HW) -> np.ndarray:

@@ -6,7 +6,7 @@ the JAX package.
 """
 
 from __future__ import annotations
-from typing import Tuple
+from typing import Dict, Tuple
 import numpy as np
 
 
@@ -50,3 +50,46 @@ def encode_encoder_text(
         np.asarray(ids, dtype=np.int32),
         np.asarray(attention_mask, dtype=np.int32),
     )
+
+
+def encode_title_decoder(
+    title: str, tokenizer, chapter_title_text_len: int = 30
+) -> Dict[str, np.ndarray]:
+    """Manual shift-right decoder encoding of a chapter title.
+
+    decoder start token = pad token (Pegasus convention); targets end with
+    EOS (EOS overwrites the last position when the title is too long);
+    both sides padded with EOS beyond the mask.
+
+    Copied from video_chapter_generation_tpu/data/text_encode.py:56.
+    """
+    bos_token = tokenizer.pad_token
+    eos_token = tokenizer.eos_token
+
+    decode_tokens = tokenizer.tokenize(title)
+    input_decode_tokens = ([bos_token] + decode_tokens)[:chapter_title_text_len]
+
+    if len(decode_tokens) >= chapter_title_text_len:
+        target_decode_tokens = list(decode_tokens)
+        target_decode_tokens[chapter_title_text_len - 1] = eos_token
+    else:
+        target_decode_tokens = decode_tokens + [eos_token]
+    target_decode_tokens = target_decode_tokens[:chapter_title_text_len]
+
+    decode_attention_mask = [1] * (len(decode_tokens) + 1)
+    decode_attention_mask = decode_attention_mask[:chapter_title_text_len]
+    if len(decode_attention_mask) < chapter_title_text_len:
+        n_pad = chapter_title_text_len - len(decode_attention_mask)
+        input_decode_tokens = input_decode_tokens + [eos_token] * n_pad
+        target_decode_tokens = target_decode_tokens + [eos_token] * n_pad
+        decode_attention_mask = decode_attention_mask + [0] * n_pad
+
+    return {
+        "input_decode_ids": np.asarray(
+            tokenizer.convert_tokens_to_ids(input_decode_tokens), dtype=np.int32
+        ),
+        "target_decode_ids": np.asarray(
+            tokenizer.convert_tokens_to_ids(target_decode_tokens), dtype=np.int32
+        ),
+        "decode_attention_mask": np.asarray(decode_attention_mask, dtype=np.int32),
+    }

@@ -1,6 +1,7 @@
-"""BERT encoder with pooler (counterpart of the JAX package's
-models/bert.py). Module names follow HuggingFace's `BertModel`, so the
-JAX package's `convert_hf_bert` reads this state dict as it is.
+"""BERT encoder with pooler, and BertForChapter with its chapter and MLM
+heads (counterpart of the JAX package's models/bert.py). Module names
+follow HuggingFace's `BertModel`, so the JAX package's `convert_hf_bert`
+reads this state dict as it is (BertForChapter's under `base_model.`).
 
 In train() mode the hidden and attention dropouts of the JAX package
 (rates 0.1, models/bert.py:35-36) are active, drawn from the
@@ -185,3 +186,29 @@ class BertModel(nn.Module):
         for layer in self.encoder.layer:
             hidden = layer(hidden, bias, generator)
         return hidden, self.pooler(hidden)
+
+
+class BertForChapter(nn.Module):
+    """The reference's BertHugface (JAX models/bert.py:152-191): a 2-way
+    chapter head over the pooled output, or with pretrain_stage the
+    bias-free vocabulary (MLM) head over every position.
+
+    forward(text_ids [B, L], attention_mask [B, L]) -> (logits, probs):
+    [B, 2] or [B, L, vocab]; probs the softmax in at least float32."""
+
+    def __init__(self, cfg: BertConfig, pretrain_stage: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.pretrain_stage = pretrain_stage
+        self.base_model = BertModel(cfg)
+        self.head = (nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
+                     if pretrain_stage else nn.Linear(cfg.hidden_size, 2))
+
+    def forward(self, text_ids: torch.Tensor, attention_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        hidden, pooled = self.base_model(text_ids, attention_mask,
+                                         generator=generator)
+        logits = self.head(hidden if self.pretrain_stage else pooled)
+        probs = torch.softmax(
+            logits.to(torch.promote_types(logits.dtype, torch.float32)), -1)
+        return logits, probs

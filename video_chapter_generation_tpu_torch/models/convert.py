@@ -66,7 +66,7 @@ def from_jax(tree, entries: Sequence[Entry]) -> Dict[str, torch.Tensor]:
     for path, key, kind in entries:
         a = np.asarray(_get(tree, path))
         if a.dtype != np.int8:
-            a = a.astype(np.float32)
+            a = a.astype(np.float32, copy=False)
         # np.array copies: the state dict owns writable, contiguous memory
         sd[key] = torch.from_numpy(np.array(_to_torch_layout(a, kind)))
     return sd
@@ -168,6 +168,16 @@ def bert_entries(num_layers: int) -> List[Entry]:
         out += _ln((fl, "output_ln"), f"{hf}.output.LayerNorm")
     out += _dense(("pooler",), "pooler.dense")
     return out
+
+
+def bert_for_chapter_entries(num_layers: int,
+                             pretrain_stage: bool = False) -> List[Entry]:
+    """BertForChapter params {base_model, head} <-> port keys: the chapter
+    head (kernel and bias), or the bias-free MLM head with
+    pretrain_stage."""
+    return ([(("params", "base_model", *p), f"base_model.{k}", kind)
+             for p, k, kind in bert_entries(num_layers)]
+            + _dense(("params", "head"), "head", bias=not pretrain_stage))
 
 
 def _self_attention(jax_path, key) -> List[Entry]:

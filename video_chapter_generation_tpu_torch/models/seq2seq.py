@@ -1,5 +1,6 @@
-"""Encoder-decoder title models with KV-cached decoding: greedy, top-k
-and sampling, beam search, and the vision-conditioned variant
+"""Encoder-decoder title models: the teacher-forced training forward
+with dropout and rematerialization, KV-cached decoding (greedy, top-k
+and sampling, beam search), and the vision-conditioned variant
 (counterpart of the JAX package's models/seq2seq.py:35-1033).
 
 Three families from one config (JAX :35-120): Pegasus-large (pre-norm
@@ -20,6 +21,18 @@ for Int8Embed (models/quant_layers.py; load a state dict made by
 ops/quantize.py:quantize_seq2seq), and kv_quant keeps the cross-attention
 K/V cache in int8 with scales per (batch, head, channel) that fold into q
 and into the attention output exactly.
+
+Training (JAX :44, 74-77, 416-420, 495-519): `forward` is the
+teacher-forced encode and decode with the causal and padding biases. In
+train() mode dropout (cfg.dropout) applies where the JAX model applies
+it: after the embeddings, after each FFN activation and on every
+residual branch; attention probabilities are not dropped. The masks come
+from a torch.Generator: each encode or decode draws one seed a layer
+from the caller's generator (one host read), and every layer draws its
+masks from a generator seeded with its own seed, in the spirit of JAX's
+fold_in. With cfg.remat each layer runs under torch.utils.checkpoint,
+and its recomputation re-seeds the same generator, so the masks and the
+gradients are those of the run without remat.
 """
 
 from __future__ import annotations
@@ -32,9 +45,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from .bert import dropout
 from .quant_layers import Int8Embed, Int8Linear
-from .sparse_attention import block_sparse_attention
+from .sparse_attention import SPARSE_IMPLS, block_sparse_attention
 
 NEG_INF = -1e9
 FUSION_TYPES = ("cross_attn", "mlp")  # Seq2SeqVisionEmb's fusion heads
@@ -66,6 +81,13 @@ class Seq2SeqConfig:
     num_global_blocks: int = 1
     weight_quant: bool = False
     kv_quant: bool = False
+    # training (JAX :44, 64-67, 74-77): the dropout rate in train() mode,
+    # one checkpointed recomputation a layer, and the block-sparse
+    # encoder's route ("auto": K10 where no gradient is needed, the
+    # gather formulation where one is; "gather" or "kernel" force one)
+    dropout: float = 0.1
+    remat: bool = False
+    sparse_impl: str = "auto"
 
     @classmethod
     def pegasus_large(cls) -> "Seq2SeqConfig":
@@ -118,6 +140,44 @@ def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
     return (1.0 - mask[:, None, None, :].float()) * NEG_INF
 
 
+def _causal_bias(length: int, device) -> torch.Tensor:
+    """Additive float32 [1, 1, L, L]: -1e9 above the diagonal (JAX
+    seq2seq.py:382-385)."""
+    i = torch.arange(length, device=device)
+    return torch.where(i[None, :] <= i[:, None], 0.0, NEG_INF)[None, None]
+
+
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """bf16/fp16 -> float32; float32 and float64 as they are."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _layer_seeds(generator: Optional[torch.Generator], n: int,
+                 on: bool) -> List[Optional[int]]:
+    """n dropout seeds drawn from `generator` (the default generator when
+    None), one host read; all None when dropout is off."""
+    if not on:
+        return [None] * n
+    dev = generator.device if generator is not None else "cpu"
+    return torch.randint(0, 2 ** 62, (n,), generator=generator,
+                         device=dev).tolist()
+
+
+def _seeded(seed: Optional[int], device) -> Optional[torch.Generator]:
+    if seed is None:
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def _drop(x: torch.Tensor, p: float,
+          gen: Optional[torch.Generator]) -> torch.Tensor:
+    """models/bert.py's inverted dropout from `gen`; the identity without
+    a generator (dropout off)."""
+    return dropout(x, p, gen is not None, gen)
+
+
 def _linear(cfg: Seq2SeqConfig, d_in: int, d_out: int,
             bias: bool = True) -> nn.Module:
     """nn.Linear, or its weight-only int8 form (JAX seq2seq.py:139-145)."""
@@ -125,8 +185,10 @@ def _linear(cfg: Seq2SeqConfig, d_in: int, d_out: int,
                                                            bias=bias)
 
 
-def _ffn(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    return layer.fc2(layer.act(layer.fc1(x)))
+def _ffn(layer: nn.Module, x: torch.Tensor,
+         gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """fc2(dropout(act(fc1(x)))) (JAX seq2seq.py:232-242)."""
+    return layer.fc2(_drop(layer.act(layer.fc1(x)), layer.p, gen))
 
 
 def _activation(name: str):
@@ -194,7 +256,7 @@ class Attention(nn.Module):
         else:
             k, v = cached_kv
         att = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
-        att = torch.softmax(att.float() + bias, dim=-1).to(q.dtype)
+        att = torch.softmax(_at_least_f32(att) + bias, dim=-1).to(q.dtype)
         ctx = att @ v.to(q.dtype)
         if v_scale is not None:
             ctx = ctx * v_scale.to(ctx.dtype)
@@ -210,7 +272,7 @@ class Attention(nn.Module):
         ctx = block_sparse_attention(
             split(self.q_proj(x)), split(self.k_proj(x)),
             split(self.v_proj(x)), mask, cfg.block_size, cfg.num_rand_blocks,
-            cfg.num_global_blocks, rand_map=rand_map)
+            cfg.num_global_blocks, rand_map=rand_map, impl=cfg.sparse_impl)
         return self.out_proj(ctx.reshape(b, l, d))
 
 
@@ -219,6 +281,7 @@ class EncoderLayer(nn.Module):
         super().__init__()
         d = cfg.d_model
         self.cfg = cfg
+        self.p = cfg.dropout
         self.act = _activation(cfg.activation)
         self.self_attn = Attention(cfg)
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
@@ -226,9 +289,13 @@ class EncoderLayer(nn.Module):
         self.fc2 = _linear(cfg, cfg.ffn_dim, d)
         self.final_layer_norm = nn.LayerNorm(d, eps=1e-5)
 
-    def forward(self, x, bias, mask=None, rand_map=None):
+    def forward(self, x, bias, mask=None, rand_map=None,
+                seed: Optional[int] = None):
         """Pre- or post-norm (JAX seq2seq.py:256-278); the block-sparse
-        encoder attends with the [B, L] mask, the full one with bias."""
+        encoder attends with the [B, L] mask, the full one with bias.
+        seed: this layer's dropout seed (None: no dropout)."""
+        gen = _seeded(seed, x.device)
+
         def attend(y):
             if self.cfg.encoder_attention == "block_sparse":
                 return self.self_attn.sparse_self(y, mask, rand_map)
@@ -236,10 +303,10 @@ class EncoderLayer(nn.Module):
 
         ln1, ln2 = self.self_attn_layer_norm, self.final_layer_norm
         if self.cfg.pre_norm:
-            x = x + attend(ln1(x))
-            return x + _ffn(self, ln2(x))
-        x = ln1(x + attend(x))
-        return ln2(x + _ffn(self, x))
+            x = x + _drop(attend(ln1(x)), self.p, gen)
+            return x + _drop(_ffn(self, ln2(x), gen), self.p, gen)
+        x = ln1(x + _drop(attend(x), self.p, gen))
+        return ln2(x + _drop(_ffn(self, x, gen), self.p, gen))
 
 
 class DecoderLayer(nn.Module):
@@ -247,6 +314,7 @@ class DecoderLayer(nn.Module):
         super().__init__()
         d = cfg.d_model
         self.pre_norm = cfg.pre_norm
+        self.p = cfg.dropout
         self.act = _activation(cfg.activation)
         self.self_attn = Attention(cfg)
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
@@ -255,6 +323,27 @@ class DecoderLayer(nn.Module):
         self.fc1 = _linear(cfg, d, cfg.ffn_dim)
         self.fc2 = _linear(cfg, cfg.ffn_dim, d)
         self.final_layer_norm = nn.LayerNorm(d, eps=1e-5)
+
+    def forward(self, x, enc, self_bias, cross_bias,
+                seed: Optional[int] = None):
+        """Teacher forcing over the whole target x [B, L, D] (JAX
+        seq2seq.py:307-325); seed: this layer's dropout seed (None: no
+        dropout)."""
+        gen = _seeded(seed, x.device)
+        ln1 = self.self_attn_layer_norm
+        ln2 = self.encoder_attn_layer_norm
+        ln3 = self.final_layer_norm
+        if self.pre_norm:
+            y = ln1(x)
+            x = x + _drop(self.self_attn(y, self_bias, kv_in=y), self.p, gen)
+            x = x + _drop(self.encoder_attn(ln2(x), cross_bias, kv_in=enc),
+                          self.p, gen)
+            return x + _drop(_ffn(self, ln3(x), gen), self.p, gen)
+        x = ln1(x + _drop(self.self_attn(x, self_bias, kv_in=x), self.p,
+                          gen))
+        x = ln2(x + _drop(self.encoder_attn(x, cross_bias, kv_in=enc),
+                          self.p, gen))
+        return ln3(x + _drop(_ffn(self, x, gen), self.p, gen))
 
     def step(self, x, position: int, self_cache, cross_kv, self_bias,
              cross_bias):
@@ -311,6 +400,9 @@ class Seq2Seq(nn.Module):
 
     def __init__(self, cfg: Seq2SeqConfig):
         super().__init__()
+        if cfg.sparse_impl not in SPARSE_IMPLS:
+            raise ValueError(f"sparse_impl {cfg.sparse_impl!r}: one of "
+                             f"{SPARSE_IMPLS}")
         self.cfg = cfg
         self.model = _Backbone(cfg)
         self.register_buffer("final_logits_bias",
@@ -324,9 +416,14 @@ class Seq2Seq(nn.Module):
                positions: torch.Tensor):
         """Token embedding (scaled by sqrt(d_model) where the config says),
         plus the position table, then the embedding LayerNorm where there
-        is one (JAX seq2seq.py:446-462, 484-485)."""
+        is one (JAX seq2seq.py:446-462, 484-485). Pad tokens pass no
+        gradient to the shared table (HF's padding_idx, JAX :454-455); the
+        LM head's use of the table still does."""
         cfg = self.cfg
         x = self.model.shared(ids)
+        if x.requires_grad:
+            x = torch.where((ids == cfg.pad_token_id)[..., None], x.detach(),
+                            x)
         if cfg.scale_embedding:
             x = x * math.sqrt(cfg.d_model)
         if cfg.learned_positions:
@@ -334,7 +431,7 @@ class Seq2Seq(nn.Module):
         else:
             if self._sin_pos.device != ids.device:
                 self._sin_pos = self._sin_pos.to(ids.device)
-            x = (x.float() + self._sin_pos[positions]).to(x.dtype)
+            x = (_at_least_f32(x) + self._sin_pos[positions]).to(x.dtype)
         if cfg.embed_layernorm:
             x = side.layernorm_embedding(x)
         return x
@@ -344,22 +441,83 @@ class Seq2Seq(nn.Module):
             logits = self.model.shared.logits(hidden)
         else:
             logits = hidden @ self.model.shared.weight.t()
-        return logits.float() + self.final_logits_bias.float()
+        return _at_least_f32(logits) + self.final_logits_bias.float()
+
+    def _run(self, layer: nn.Module, *args):
+        """One layer, under torch.utils.checkpoint with cfg.remat while
+        gradients are recorded (its last argument is its dropout seed, so
+        the recomputation draws the same masks)."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(layer, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return layer(*args)
+
+    def encode_train(self, input_ids: torch.Tensor,
+                     attention_mask: torch.Tensor, rand_maps=None,
+                     generator: Optional[torch.Generator] = None,
+                     dropout: Optional[bool] = None) -> torch.Tensor:
+        """The encoder, with gradients where they are recorded and
+        dropout from `generator` (JAX seq2seq.py:476-493); dropout None
+        follows train() mode. rand_maps: optional per-layer list of numpy
+        random-block maps for a block-sparse encoder; by default every
+        layer uses the seed-0 map."""
+        enc = self.model.encoder
+        on = (self.training if dropout is None else dropout) \
+            and self.cfg.dropout > 0
+        seeds = _layer_seeds(generator, len(enc.layers) + 1, on)
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+        x = self._embed(enc, input_ids, pos[None])
+        x = _drop(x, self.cfg.dropout, _seeded(seeds[0], x.device))
+        bias = _mask_bias(attention_mask)
+        for i, layer in enumerate(enc.layers):
+            x = self._run(layer, x, bias, attention_mask,
+                          None if rand_maps is None else rand_maps[i],
+                          seeds[i + 1])
+        return enc.layer_norm(x) if self.cfg.pre_norm else x
 
     @torch.no_grad()
     def encode(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                rand_maps=None) -> torch.Tensor:
-        """rand_maps: optional per-layer list of numpy random-block maps
-        for a block-sparse encoder (JAX seq2seq.py:476-493); by default
-        every layer uses the seed-0 map."""
-        enc = self.model.encoder
-        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
-        x = self._embed(enc, input_ids, pos[None])
-        bias = _mask_bias(attention_mask)
-        for i, layer in enumerate(enc.layers):
-            x = layer(x, bias, mask=attention_mask,
-                      rand_map=None if rand_maps is None else rand_maps[i])
-        return enc.layer_norm(x) if self.cfg.pre_norm else x
+        """encode_train without gradients or dropout (serving)."""
+        return self.encode_train(input_ids, attention_mask, rand_maps,
+                                 dropout=False)
+
+    def decode(self, decoder_input_ids: torch.Tensor,
+               enc_hidden: torch.Tensor, enc_mask: torch.Tensor,
+               decoder_mask: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Teacher-forced decoding -> logits [B, L, V] in at least
+        float32 (JAX seq2seq.py:495-513): causal self-attention, plus the
+        decoder padding bias where decoder_mask is given, and the encoder
+        padding bias on the cross attention."""
+        dec = self.model.decoder
+        on = self.training and self.cfg.dropout > 0
+        seeds = _layer_seeds(generator, len(dec.layers) + 1, on)
+        n = decoder_input_ids.shape[1]
+        pos = torch.arange(n, device=decoder_input_ids.device)
+        x = self._embed(dec, decoder_input_ids, pos[None])
+        x = _drop(x, self.cfg.dropout, _seeded(seeds[0], x.device))
+        self_bias = _causal_bias(n, x.device)
+        if decoder_mask is not None:
+            self_bias = self_bias + _mask_bias(decoder_mask)
+        cross_bias = _mask_bias(enc_mask)
+        for i, layer in enumerate(dec.layers):
+            x = self._run(layer, x, enc_hidden, self_bias, cross_bias,
+                          seeds[i + 1])
+        if self.cfg.pre_norm:
+            x = dec.layer_norm(x)
+        return self._head(x)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                decoder_input_ids: torch.Tensor,
+                decoder_attention_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Teacher-forced logits [B, L_dec, V] (JAX seq2seq.py:515-519);
+        dropout in train() mode, drawn from `generator`."""
+        enc = self.encode_train(input_ids, attention_mask,
+                                generator=generator)
+        return self.decode(decoder_input_ids, enc, attention_mask,
+                           decoder_attention_mask, generator)
 
     @torch.no_grad()
     def init_cache(self, batch: int, max_len: int,
@@ -665,6 +823,21 @@ class Seq2SeqVisionEmb(nn.Module):
             cfg.d_model, vision_emb_size,
             128 if fusion_type == "mlp" else cfg.d_model, fusion_type)
 
+    def encode_fused_train(self, vision_emb: torch.Tensor,
+                           vision_attention_mask: torch.Tensor,
+                           input_ids: torch.Tensor,
+                           attention_mask: torch.Tensor,
+                           generator: Optional[torch.Generator] = None,
+                           dropout: Optional[bool] = None) -> torch.Tensor:
+        """The encoder states plus the fusion head's output over the
+        vision embeddings (JAX :756-760), with gradients where they are
+        recorded and the encoder's dropout (None: in train() mode)."""
+        enc = self.seq2seq.encode_train(input_ids, attention_mask,
+                                        generator=generator, dropout=dropout)
+        fused = self.fusion_head(enc, vision_emb.to(enc.dtype),
+                                 vision_attention_mask)
+        return fused + enc
+
     @torch.no_grad()
     def encode_fused(self, vision_emb: torch.Tensor,
                      vision_attention_mask: torch.Tensor,
@@ -673,7 +846,19 @@ class Seq2SeqVisionEmb(nn.Module):
         """vision_emb [B, V, D_v] (cast to the encoder's dtype),
         vision_attention_mask [B, V] -> fused encoder states [B, L, D],
         for generate / beam_search on self.seq2seq as enc_hidden."""
-        enc = self.seq2seq.encode(input_ids, attention_mask)
-        fused = self.fusion_head(enc, vision_emb.to(enc.dtype),
-                                 vision_attention_mask)
-        return fused + enc
+        return self.encode_fused_train(vision_emb, vision_attention_mask,
+                                       input_ids, attention_mask,
+                                       dropout=False)
+
+    def forward(self, vision_emb: torch.Tensor,
+                vision_attention_mask: torch.Tensor,
+                input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                decoder_input_ids: torch.Tensor,
+                decoder_attention_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Teacher-forced logits over the fused encoder states (JAX
+        :762-772)."""
+        enc = self.encode_fused_train(vision_emb, vision_attention_mask,
+                                      input_ids, attention_mask, generator)
+        return self.seq2seq.decode(decoder_input_ids, enc, attention_mask,
+                                   decoder_attention_mask, generator)

@@ -181,7 +181,9 @@ def sparse_band_attention(q_mid, k, v, mask, ids, valid, block_size: int,
     serving shape) run the wgmma kernel, which derives parts 0-4 from the
     structure (a table whose ids[:, :5] are not structured_ids' raises
     ValueError); every other shape runs the mma.sync kernel, and counts
-    in `mma_sync_launches` as well as in `launches`."""
+    in `mma_sync_launches` as well as in `launches`. The kernels have no
+    backward: a CUDA input that requires a gradient raises
+    NotImplementedError (the models' gather formulation trains)."""
     bs = block_size
     l = k.shape[1]
     if q_mid.device.type == "cpu":
@@ -190,6 +192,11 @@ def sparse_band_attention(q_mid, k, v, mask, ids, valid, block_size: int,
         return out[:, bs:l - bs]
     if q_mid.device.type != "cuda":
         raise NotImplementedError(f"sparse_band_attention on {q_mid.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q_mid, k,
+                                                                  v)):
+        raise NotImplementedError(
+            "sparse_band_attention has no backward: its kernel writes the "
+            "output through a pointer, which autograd cannot see")
     _check(q_mid, k, v, mask, ids, valid, bs, out)
     h, hd = q_mid.shape[2:]
     wgmma = _takes_wgmma(bs, hd, ids.shape[1], l // bs - 2)

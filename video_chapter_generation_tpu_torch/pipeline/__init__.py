@@ -2,6 +2,7 @@
 
 from .boundary import (
     make_packed_two_stream_score_fn,
+    make_text_score_fn,
     make_two_stream_score_fn,
     make_window_score_fn,
     pack_to_device,
@@ -12,6 +13,7 @@ from .whole_video import ChapterPipeline, VideoChapters, bucket_title_fn
 
 __all__ = [
     "make_packed_two_stream_score_fn",
+    "make_text_score_fn",
     "make_two_stream_score_fn",
     "make_window_score_fn",
     "pack_to_device",

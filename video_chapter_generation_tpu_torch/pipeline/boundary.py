@@ -1,7 +1,7 @@
 """Batched boundary scoring (counterpart of the JAX package's
-pipeline/boundary.py): the two-stream score functions, on per-clip
-frames and on a video's frame pack, the window model's, and the per-clip
-scoring loop."""
+pipeline/boundary.py): the text-only score function, the two-stream
+ones, on per-clip frames and on a video's frame pack, the window
+model's, and the per-clip scoring loop."""
 
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 from ..core.metrics import StepTimer
 from ..data.clip_grid import ClipInfo
 from ..data.loader import collate
+from ..models.bert import BertForChapter
 from ..models.fusion import TwoStream, TwoStreamWindow
 from ..ops.preprocess import normalize_frames
 
@@ -102,6 +103,23 @@ def pack_to_device(pack: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return host.pin_memory().to(device, non_blocking=True)
     return host.to(device)
+
+
+def make_text_score_fn(model: BertForChapter, device: torch.device):
+    """score(batch) -> positive-class probability [B] float32 on the
+    device from a text-only BertForChapter (JAX boundary.py:89-103):
+    batch["text_ids"] and batch["attention_mask"] only."""
+
+    def to_dev(a):
+        return torch.as_tensor(a).to(device, non_blocking=True)
+
+    @torch.no_grad()
+    def score(batch) -> torch.Tensor:
+        _, probs = model(to_dev(batch["text_ids"]).long(),
+                         to_dev(batch["attention_mask"]))
+        return probs[:, 1]
+
+    return score
 
 
 def _vision(model: TwoStream, quant_scales):

@@ -1,7 +1,13 @@
 """The generic training loop (counterpart of the JAX package's
 train/loop.py:77-226): the same epoch loop, per-epoch LR multiplier,
 StepTimer "train_step", eval hook, save cadence and resume, on one
-device (no mesh).
+device (no mesh). With optim.gradient_accumulation_steps = k > 1 a
+train step is a micro-step: one update every k of them, as under the
+JAX package's optax.MultiSteps (loop.py:9), with `step` counting
+micro-steps as the JAX TrainState does. Each micro-step adds the
+gradient of loss / k to .grad, so the update sees the mean of the k
+micro-batch gradients; a checkpoint taken mid-cycle keeps the .grad
+sums, and training resumes mid-cycle.
 
 task provides: model (built on the meta device), entries (models/convert
 table), init_state() -> state dict, loss_fn(model, batch, generator) ->
@@ -58,8 +64,13 @@ class Trainer:
 
     # -- checkpoint ------------------------------------------------------
     def state(self) -> Dict[str, Any]:
-        return {"model": self.model.state_dict(),
-                "optimizer": self.opt.state_dict(), "step": self.step}
+        out = {"model": self.model.state_dict(),
+               "optimizer": self.opt.state_dict(), "step": self.step}
+        if self.step % self.cfg.optim.gradient_accumulation_steps:
+            out["grads"] = {n: p.grad for n, p in
+                            self.model.named_parameters()
+                            if p.grad is not None}
+        return out
 
     def _try_resume(self):
         restored = self.ckpt.restore_latest()
@@ -68,6 +79,9 @@ class Trainer:
         epoch, state = restored
         self.model.load_state_dict(state["model"])
         self.opt.load_state_dict(state["optimizer"])
+        params = dict(self.model.named_parameters())
+        for name, grad in state.get("grads", {}).items():
+            params[name].grad = grad.to(params[name].device)
         self.step = int(state["step"])
         self.best_result = float(self.ckpt.metrics_for(epoch).get(
             "best_result", self.best_result))
@@ -76,14 +90,18 @@ class Trainer:
 
     # -- loops -----------------------------------------------------------
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
+        k = self.cfg.optim.gradient_accumulation_steps
+        if self.step % k == 0:  # the first micro-step of an update
+            self.opt.zero_grad(set_to_none=True)
         loss, metrics = self.task.loss_fn(self.model, batch, self.generator)
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
+        (loss / k).backward()
+        self.step += 1
+        if self.step % k:
+            return metrics
         # clip_by_global_norm_ref (train/optim.py:87): max_norm / (norm + 1e-6)
         torch.nn.utils.clip_grad_norm_(self.model.parameters(),
                                        self.cfg.optim.grad_norm_clip)
         self.opt.step()
-        self.step += 1
         return metrics
 
     def run_epoch(self, epoch: int) -> Dict[str, float]:

@@ -7,7 +7,11 @@ is torch.nn.utils.clip_grad_norm_ (it divides by norm + 1e-6, as
 clip_by_global_norm_ref does) followed by torch.optim.AdamW with the
 decay and no-decay parameters in two groups and lr = learning_rate *
 lr_mult (AdamW's decoupled decay multiplies by that lr, as the optax chain
-scales the decayed weights by it).
+scales the decayed weights by it). gradient_accumulation_steps = k > 1
+wraps that chain in optax.MultiSteps (train/optim.py:129-130): the
+Trainer (train/loop.py) sums each micro-batch's gradient of loss / k in
+.grad and takes one clip and one AdamW step every k micro-steps, on the
+mean of the k gradients.
 """
 
 from __future__ import annotations
@@ -44,9 +48,12 @@ def decays(jax_path: Sequence[str]) -> bool:
 
 def no_decay_mask(model: torch.nn.Module, entries) -> Dict[str, bool]:
     """Port parameter name -> whether it decays, by the JAX rule applied
-    to the parameter's JAX path (entries: models/convert.py's table for
-    the model, (jax path, port key, kind))."""
-    paths = {key: path[1:] for path, key, _ in entries if path[0] == "params"}
+    to the parameter's JAX path under "params" (entries: models/convert.py's
+    table for the model, (jax path, port key, kind))."""
+    # a tree with BatchNorm holds {"params", "batch_stats"}; the title
+    # models' tables are rooted at their params
+    paths = {key: path[1:] if path[0] == "params" else path
+             for path, key, _ in entries if path[0] != "batch_stats"}
     mask = {}
     for name, _ in model.named_parameters():
         if name not in paths:
@@ -79,10 +86,9 @@ def lr_multiplier(epoch: int, cfg: OptimConfig) -> float:
 def make_optimizer(cfg: OptimConfig, model: torch.nn.Module,
                    entries) -> torch.optim.AdamW:
     """AdamW with the JAX package's decay partition (train/optim.py:109).
-    Set the per-epoch multiplier with set_lr_mult."""
-    if cfg.gradient_accumulation_steps > 1:
-        raise NotImplementedError(
-            "gradient_accumulation_steps > 1 is not ported yet")
+    Set the per-epoch multiplier with set_lr_mult; with
+    gradient_accumulation_steps > 1 the caller steps it once every k
+    micro-steps."""
     mask = no_decay_mask(model, entries)
     params = dict(model.named_parameters())
     groups = [
@@ -99,4 +105,3 @@ def set_lr_mult(opt: torch.optim.Optimizer, cfg: OptimConfig,
                 mult: float) -> None:
     for group in opt.param_groups:
         group["lr"] = cfg.learning_rate * mult
-

@@ -1,13 +1,14 @@
 """Training tasks (counterpart of the JAX package's train/tasks.py):
 SegmentWindowTask, the flagship window model of :87-166 with its AUC/mAP
-eval; SegmentTask, the base two-stream clip classifier of :169-213; and
-of TitleGenTask (:365-383) and TitleGenVisionTask (:422-447) the model,
-its weights and its contract, which serving needs (their losses and
-evals are ROADMAP queue 1 item 6).
+eval; SegmentTask, the base two-stream clip classifier of :169-213;
+SegmentTextTask, the subtitle-only classifier of :216-268; TitleGenTask
+(:365-419) and TitleGenVisionTask (:422-462), the title models with
+their loss and eval.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -17,12 +18,17 @@ from ..core.config import Config
 from ..core.contract import build_contract
 from ..evalkit.metrics import average_precision_score, roc_auc_score
 from ..models import convert
-from ..models.bert import BertConfig, BertModel
-from ..models.fusion import WINDOW_HEAD_TYPES, TwoStream, TwoStreamWindow
+from ..models.bert import BertConfig, BertForChapter, BertModel
+from ..models.fusion import (
+    WINDOW_HEAD_TYPES,
+    TwoStream,
+    TwoStreamWindow,
+    _autocast,
+)
 from ..models.resnet import STAGE_SIZES, ResNet
 from ..models.seq2seq import Seq2Seq, Seq2SeqConfig, Seq2SeqVisionEmb
 from ..ops.preprocess import normalize_frames
-from .objectives import clip_classification_loss
+from .objectives import clip_classification_loss, seq2seq_title_loss
 
 TINY_STAGE_SIZES = (1, 1, 1, 1)
 
@@ -67,12 +73,8 @@ class _SegmentBase:
         under model.compute_dtype=float64)."""
         tree = convert.random_jax_tree(self.model, self.entries,
                                        seed=self.cfg.train.seed)
-        state = convert._with_bn_counters(convert.from_jax(tree,
-                                                           self.entries))
-        if self.dtype == torch.float64:
-            state = {k: v.double() if v.is_floating_point() else v
-                     for k, v in state.items()}
-        return state
+        return _init_dtype(convert._with_bn_counters(
+            convert.from_jax(tree, self.entries)), self.dtype)
 
     def _batch(self, model, batch, img_key: str):
         """(frames, ids, mask) on the model's device. uint8 frames for a
@@ -125,13 +127,7 @@ class SegmentWindowTask(_SegmentBase):
             _, prob = model.serve(*self._batch(model, batch, "img_clips"))
             scores.append(prob[:, 1].float().cpu().numpy())
             labels.append(np.asarray(batch["label"]))
-        y, s = np.concatenate(labels), np.concatenate(scores)
-        if 0 < y.sum() < len(y):
-            auc = roc_auc_score(y, s)
-            m_ap = average_precision_score(y, s)
-        else:
-            auc = m_ap = 0.0
-        return m_ap, {"auc": auc, "m_ap": m_ap}
+        return _binary_eval(scores, labels)
 
 
 class SegmentTask(_SegmentBase):
@@ -169,11 +165,92 @@ class SegmentTask(_SegmentBase):
             batch["label"]).to(logits.device))
 
 
+def _init_dtype(state: Dict[str, torch.Tensor],
+                dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """float64 compute keeps float64 weights; other dtypes keep float32
+    weights (bf16 runs under autocast on the card)."""
+    if dtype != torch.float64:
+        return state
+    return {k: v.double() if v.is_floating_point() else v
+            for k, v in state.items()}
+
+
+def _put(model: torch.nn.Module, batch, *keys):
+    dev = next(model.parameters()).device
+    return [torch.as_tensor(np.asarray(batch[k])).to(dev, non_blocking=True)
+            for k in keys]
+
+
+def _binary_eval(scores, labels):
+    """(mAP, {"auc", "m_ap"}); both 0 when the labels hold one class."""
+    y, s = np.concatenate(labels), np.concatenate(scores)
+    if 0 < y.sum() < len(y):
+        auc = roc_auc_score(y, s)
+        m_ap = average_precision_score(y, s)
+    else:
+        auc = m_ap = 0.0
+    return m_ap, {"auc": auc, "m_ap": m_ap}
+
+
+class SegmentTextTask:
+    """The subtitle-only boundary classifier (train/tasks.py:216-268):
+    BertForChapter's chapter head over the pooled text, binary clip cross
+    entropy, AUC/mAP eval. vocab_size sets the BERT vocabulary (the
+    tokenizer's, as the JAX task does); bert_cfg overrides the whole
+    BERT configuration."""
+
+    def __init__(self, cfg: Config, tiny: bool = False,
+                 vocab_size: Optional[int] = None,
+                 bert_cfg: Optional[BertConfig] = None):
+        self.cfg = cfg
+        self.dtype = compute_dtype(cfg)
+        bc = bert_cfg or (BertConfig.tiny() if tiny else BertConfig())
+        if vocab_size is not None:
+            bc = dataclasses.replace(bc, vocab_size=vocab_size)
+        self.bert_cfg = bc
+        with torch.device("meta"):
+            self.model = BertForChapter(bc, pretrain_stage=False)
+        self.entries = convert.bert_for_chapter_entries(bc.num_layers)
+        self.contract = build_contract(
+            model_kind="text", max_text_len=cfg.data.max_text_len,
+            vocab_size=bc.vocab_size)
+
+    def init_state(self) -> Dict[str, torch.Tensor]:
+        """Seeded random weights (train.seed) in the JAX layout."""
+        tree = convert.random_jax_tree(self.model, self.entries,
+                                       seed=self.cfg.train.seed)
+        return _init_dtype(convert.from_jax(tree, self.entries), self.dtype)
+
+    def loss_fn(self, model: BertForChapter, batch: Dict[str, np.ndarray],
+                generator: Optional[torch.Generator] = None):
+        ids, mask, label = _put(model, batch, "text_ids", "attention_mask",
+                                "label")
+        with _autocast(self.dtype, ids.device):
+            logits, _ = model(ids.long(), mask, generator=generator)
+        return clip_classification_loss(logits, label)
+
+    def eval_fn(self, model: BertForChapter, loader):
+        """(mAP, {"auc", "m_ap"}) of the positive-class scores."""
+        scores, labels = [], []
+        with torch.no_grad():
+            for batch in loader:
+                ids, mask = _put(model, batch, "text_ids", "attention_mask")
+                with _autocast(self.dtype, ids.device):
+                    _, prob = model(ids.long(), mask)
+                scores.append(prob[:, 1].float().cpu().numpy())
+                labels.append(np.asarray(batch["label"]))
+        return _binary_eval(scores, labels)
+
+
 class TitleGenTask:
     """Seq2seq chapter titles (Pegasus, BigBird-Pegasus or BART, as the
-    Seq2SeqConfig says): the model (built on the meta device), its seeded
-    random weights and its contract, which records the encoder's
-    attention (full or block_sparse) as the JAX task does (:376)."""
+    Seq2SeqConfig says; train/tasks.py:365-419): the model (built on the
+    meta device), its seeded random weights, its contract, which records
+    the encoder's attention (full or block_sparse) as the JAX task does
+    (:376), the teacher-forced title loss and its eval. bf16 compute runs
+    under autocast on the card with float32 weights."""
+
+    _inputs = ("text_ids", "attention_mask")
 
     def __init__(self, cfg: Config, seq2seq_cfg: Seq2SeqConfig):
         self.cfg = cfg
@@ -191,18 +268,53 @@ class TitleGenTask:
 
     def init_state(self) -> Dict[str, torch.Tensor]:
         """Seeded random weights (train.seed) in the JAX layout, carried
-        over as a float32 state dict."""
+        over as a float32 state dict (float64 under
+        model.compute_dtype=float64)."""
         tree = convert.random_jax_tree(self.model, self.entries,
                                        seed=self.cfg.train.seed)
-        return convert.from_jax_seq2seq(tree, self.s2s_cfg)
+        return _init_dtype(convert.from_jax(tree, self.entries), self.dtype)
+
+    def _metrics(self, model, batch, generator=None):
+        """The title loss of one host batch on the model's device."""
+        keys = self._inputs + ("input_decode_ids", "decode_attention_mask",
+                               "target_decode_ids")
+        args = [t.long() if k.endswith("_ids") else t
+                for k, t in zip(keys, _put(model, batch, *keys))]
+        with _autocast(self.dtype, args[0].device):
+            logits = model(*args[:-1], generator=generator)
+        return seq2seq_title_loss(logits, args[-1], args[-2])
+
+    def loss_fn(self, model, batch: Dict[str, np.ndarray],
+                generator: Optional[torch.Generator] = None):
+        """(loss, {"loss", "acc"}) with dropout from `generator` in
+        train() mode (train/tasks.py:385-395)."""
+        return self._metrics(model, batch, generator)
+
+    def eval_fn(self, model, loader):
+        """(-mean loss, {"loss", "acc"}) over the loader, the means of the
+        per-batch values (train/tasks.py:397-419)."""
+        losses, accs = [], []
+        with torch.no_grad():
+            for batch in loader:
+                _, m = self._metrics(model, batch)
+                losses.append(float(m["loss"]))
+                accs.append(float(m["acc"]))
+        return -float(np.mean(losses)), {"loss": float(np.mean(losses)),
+                                         "acc": float(np.mean(accs))}
 
 
 class TitleGenVisionTask(TitleGenTask):
-    """Vision-conditioned titles (JAX :422-447, the PegasusVisionEmb
+    """Vision-conditioned titles (JAX :422-462, the PegasusVisionEmb
     recipe): Seq2SeqVisionEmb over the configured title family, its seeded
-    random weights (train.seed) and the contract of model_kind
+    random weights (train.seed), the contract of model_kind
     "title_vision", which also records the fusion type and the vision
-    embedding width."""
+    embedding width, and the title loss over the fused encoder states. Its
+    eval is TitleGenTask's on the vision forward; the JAX task inherits
+    one that feeds the vision model the plain model's inputs and fails
+    (ROADMAP, the JAX package's faults)."""
+
+    _inputs = ("vision_embs", "vision_attention_mask", "text_ids",
+               "attention_mask")
 
     def __init__(self, cfg: Config, seq2seq_cfg: Seq2SeqConfig,
                  fusion_type: str = "cross_attn",
@@ -224,8 +336,3 @@ class TitleGenVisionTask(TitleGenTask):
             vocab_size=seq2seq_cfg.vocab_size,
             encoder_attention=seq2seq_cfg.encoder_attention,
             d_model=seq2seq_cfg.d_model)
-
-    def init_state(self) -> Dict[str, torch.Tensor]:
-        tree = convert.random_jax_tree(self.model, self.entries,
-                                       seed=self.cfg.train.seed)
-        return convert.from_jax(tree, self.entries)
