@@ -161,7 +161,8 @@
 13. title_training (cli/train_title). Pegasus-large at the JAX CLI's
    defaults (bf16, data.batch_size=16, 512 -> 30 tokens) on a synthetic
    corpus whose piece table is padded to Pegasus-large's 96,103 entries:
-   4 optimizer steps and the eval, finite losses, moved parameters, a
+   10 epochs of 4 optimizer steps and the eval, finite losses, moved
+   parameters, a
    checkpoint with an eval score; gradient_accumulation_steps=2 over two
    batches of 8 rows of equal decoder length (float32, dropout off)
    against one update over the 16 (the gradient each update clips within
@@ -178,10 +179,39 @@
    its first launch in the BigBird eval (encoder layer 0 of the eval
    batch, its real mask): that entry of the kernels line. Each run prints
    ms a step, tokens/s, peak memory and its set-up time.
-14. Prints one JSON line of the kernels (a bound over several shapes
+14. evaluation (the offline chain). datasetkit/flatten over the
+   inference corpus (2 videos of 120 s at 224 px); cli/eval_segment on
+   the window model from phase 8's auto checkpoint (per vision call K6
+   1, the frames stem 1, K2/K3 13, K4 3); cli/eval_segment on the
+   frames-stem two-stream model from phase 5's checkpoint in bf16 and
+   with --int8_vision (K9 10 a call plus the bf16 calibration call), mAP
+   and F1@3 of both printed; cli/eval_title on Pegasus-large from phase
+   13's checkpoint as it was written, with --location gt, then
+   --location pred on the window model's vid2cut_points.json with
+   --num_beams 4: restored checkpoints, finite metrics, both result
+   files, the CLI's ids of its first title batch (before the trim at
+   EOS; greedy, then beam 4) equal to a direct generate / beam_search of
+   the same checkpoint restored by this script on the same inputs, its
+   titles the decoded ids, a non-empty title per chapter and the title
+   file's 12 ROUGE lines; cli/eval_title --title_arch bigbird
+   data.title_input_len=3072 (seeded weights: no BigBird checkpoint is
+   kept), 16 K10 launches an encode, two encodes a title batch (the
+   teacher-forced forward and the generate). Every kernel of these paths
+   is held to its plain version, and timed, on the arguments of the
+   path's own first vision call (192 frames of the window model, 256 of
+   the two-stream model in bf16, whose clips the int8 run calibrates on,
+   and of its W8A8 blocks) or, K10, of its first launch (the eval batch's
+   real mask). Each step's wall time, device_score and
+   title_generate are printed; the kernels line gains this phase's paths
+   with those numbers and this phase's launches.
+15. pretrain_lang. cli/pretrain_lang --task mlm at BERT-base width (the
+   synthetic corpus's vocabulary padded to BERT-base's 30,522; batch 8,
+   100 tokens, bf16) for 3 steps: finite losses, moved parameters, a
+   checkpoint that restores; ms a step printed.
+16. Prints one JSON line of the kernels (a bound over several shapes
    is the sum of each shape's), the wall time of each phase
    and of the script and, last, the device line. The title decode of 4
-   and each of 5-13 also print their wall time as they end ("serving",
+   and each of 5-15 also print their wall time as they end ("serving",
    1-4 up to the title decode, prints only on that line).
 
 After the serving path (4), the native_decode phase: where the machine
@@ -266,10 +296,13 @@ WIDE_FRAMES, WIDE_PX = 8, (320, 260)
 # GEMM shapes: bf16 rounds at other places)
 BEAMS, BEAM_SCORE_TOL = 4, 1e-2
 # title training at the JAX CLI's defaults (Pegasus-large, bf16, 512 -> 30
-# tokens, batch 16), TITLE_STEPS optimizer steps, the synthetic corpus's
-# piece table padded to Pegasus-large's vocabulary; the smaller runs
-# (vision-conditioned, BigBird at BIGBIRD_IN tokens, BART) at batch 2
+# tokens, batch 16), TITLE_EPOCHS epochs of TITLE_STEPS optimizer steps
+# (after one epoch the greedy titles are EOS or the word boundary alone:
+# all empty), the synthetic corpus's piece table padded to Pegasus-large's
+# vocabulary; the smaller runs (vision-conditioned, BigBird at BIGBIRD_IN
+# tokens, BART) at batch 2
 TITLE_BATCH, TITLE_STEPS, PEGASUS_VOCAB, SMALL_BATCH = 16, 4, 96103, 2
+TITLE_EPOCHS = 10
 # accumulation over batches A and B (float32, dropout off) against one
 # update over both: the gradient the update takes (before the clip),
 # relative norm of the difference (a sum of the two gradients, or a mean
@@ -278,6 +311,9 @@ TITLE_BATCH, TITLE_STEPS, PEGASUS_VOCAB, SMALL_BATCH = 16, 4, 96103, 2
 # seed): equal losses, cosine of the gradients
 ACCUM_MAX_GRAD_REL, ACCUM_MIN_COS, REMAT_MIN_COS, ACCUM_ROWS = \
     1e-3, 0.999, 0.9999, 8
+# BERT subtitle pretraining: BERT-base's vocabulary (the synthetic
+# corpus's padded to it)
+BERT_VOCAB = 30522
 
 
 def fail(msg: str):
@@ -1802,6 +1838,136 @@ def hold_k10(q_mid, k, v, mask, tabs, bs, name, label, smi):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
+@contextlib.contextmanager
+def first_calls(spots):
+    """While open, module.name for each (module, name) -> n of spots keeps
+    the arguments of its first n calls (tensors cloned) in kept[name], a
+    list of (args, kwargs); yields kept. The call itself goes on to the
+    function, whose launch count is the one that counts."""
+    import torch
+
+    def keep(a):
+        return a.clone() if torch.is_tensor(a) else a
+
+    kept = {name: [] for _, name in spots}
+    real = {spot: getattr(*spot) for spot in spots}
+    for (mod, name), n in spots.items():
+        def spy(*args, _fn=real[(mod, name)], _calls=kept[name], _n=n,
+                **kwargs):
+            if len(_calls) < _n:
+                _calls.append((tuple(map(keep, args)),
+                               {k: keep(v) for k, v in kwargs.items()}))
+            return _fn(*args, **kwargs)
+
+        setattr(mod, name, spy)
+    try:
+        yield kept
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+
+def hold_vision_call(kept):
+    """The kernels of one vision call, each on the arguments that
+    first_calls kept from the path's own launches (normalize_frames,
+    stem_frames, tsm_bottleneck, tsm_bottleneck_s2, int8_bottleneck: those
+    kept), against its plain version, timed beside it and its yardstick.
+    Returns {kernel name: its kernels-line numbers}, per vision call: times
+    and work summed over the call's launches, the bound the sum of each
+    launch's (K9's operations at the int8 peak)."""
+    import torch
+
+    from video_chapter_generation_tpu_torch.ops.preprocess import (
+        affine_consts,
+        normalize_frames,
+        normalize_frames_reference,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem import (
+        stem_frames,
+        stem_frames_reference,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block import (
+        tsm_bottleneck,
+        tsm_bottleneck_reference,
+        tsm_bottleneck_s2,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block_int8 import (
+        int8_bottleneck,
+        int8_bottleneck_plain,
+    )
+
+    entries, parts = {}, {}
+
+    def held(name, label, kernel, plain, flops, nbytes, **kw):
+        entries.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0,
+                                  "bytes": 0.0, "max_abs": 0.0})
+        parts.setdefault(name, []).append((flops, nbytes))
+        return hold(entries, name, label, kernel, plain, flops, nbytes, **kw)
+
+    for (u8, dt), _ in kept.get("normalize_frames", []):
+        held("normalize_frames", f"{tuple(u8.shape)} u8 -> {str(dt)[6:]}",
+             lambda: normalize_frames(u8, dt),
+             lambda: normalize_frames_reference(u8, dt), 2 * u8.numel(),
+             u8.numel() * (1 + torch.empty((), dtype=dt).element_size()),
+             exact=True)
+        # the yardstick: one torch.addcmul of the same affine (float32 out)
+        scale, bias = affine_consts(u8.device)
+        entries["normalize_frames"]["library_ms"] = cuda_ms(
+            lambda: torch.addcmul(bias, u8, scale))
+    for (x, w7, s, b), _ in kept.get("stem_frames", []):
+        n, hh = x.shape[0], x.shape[1]
+        held("stem_frames", f"{tuple(x.shape)} {str(x.dtype)[6:]}",
+             lambda: stem_frames(x, w7, s, b),
+             lambda: stem_frames_reference(x, w7, s, b),
+             2 * n * (hh // 2) ** 2 * 147 * 64,
+             x.numel() * 2 + 147 * 64 * 2 + n * (hh // 4) ** 2 * 64 * 2,
+             library=library_stem(x, w7, s, b))
+    for name, stride in (("tsm_bottleneck", 1), ("tsm_bottleneck_s2", 2)):
+        for i, (args, _) in enumerate(kept.get(name, [])):
+            x, ws = args[0], args[1:10]
+            if stride == 1:
+                n_seg, n_div, wp, sp, bp = args[10:15]
+                kernel = (lambda args=args: tsm_bottleneck(*args))
+            else:
+                wp, sp, bp, n_seg, n_div = args[10:15]
+                kernel = (lambda args=args: tsm_bottleneck_s2(*args))
+            nt, h, w, c = x.shape
+            f, co = ws[0].shape[1], ws[2].shape[1]
+            flops, _, m_out, nw = block_work(nt, h, w, c, f, co, stride,
+                                             wp is not None)
+            held(name, f"launch {i:2d} {tuple(x.shape)} F={f}"
+                 + (" proj" if wp is not None else ""), kernel,
+                 lambda x=x, ws=ws, n_seg=n_seg, n_div=n_div, wp=wp, sp=sp,
+                 bp=bp, stride=stride: tsm_bottleneck_reference(
+                     x, *ws, n_seg, n_div, wp, sp, bp, stride=stride),
+                 flops, x.numel() * 2 + nw * 2 + m_out * co * 2,
+                 library=library_block(x, *ws, wp, sp, bp, stride, n_seg))
+    for i, ((x, q, n_seg, n_div, mode, dt), _) in enumerate(
+            kept.get("int8_bottleneck", [])):
+        nt, h, w, c = x.shape
+        f, m = q.f, nt * h * w
+        held("tsm_bottleneck_int8",
+             f"launch {i:2d} {tuple(x.shape)} {str(x.dtype)[6:]} -> {mode} "
+             f"F={f}",
+             lambda x=x, q=q, n_seg=n_seg, n_div=n_div, mode=mode, dt=dt:
+                 int8_bottleneck(x, q, n_seg, n_div, mode, dt),
+             lambda x=x, q=q, n_seg=n_seg, n_div=n_div, mode=mode, dt=dt:
+                 int8_bottleneck_plain(x, q, n_seg, n_div)[
+                     1 if mode == "i8" else 0].to(
+                         torch.int8 if mode == "i8" else dt),
+             2 * m * (2 * c * f + 9 * f * f),
+             x.numel() * x.element_size() + 2 * c * f + 9 * f * f
+             + m * c * (1 if mode == "i8" else 2), exact_int=mode == "i8")
+    rows = {}
+    for name, e in entries.items():
+        b_ms, b_by = bound_sum(parts[name], PEAK_INT8_OPS if name ==
+                               "tsm_bottleneck_int8" else PEAK_BF16_FLOPS)
+        rows[name] = {"max_abs_err": e["max_abs"], "ms": e["ms"],
+                      "plain_ms": e["plain_ms"], "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": e.get("library_ms")}
+    return rows
+
+
 def bigbird_phases(dev, smi, cli_argv):
     """K10 against its plain version at the BigBird-Pegasus serving shape,
     greedy titles of the full-width BigBird model, cli/infer_video
@@ -2383,8 +2549,11 @@ def window_phases(dev, smi, frames, vision):
               f"min {cos.min().item():.6f}", flush=True)
         if cos.min().item() < WINDOW_TRUNK_MIN_COS:
             fail(f"the {mode} trunk disagrees with the auto kernel trunk")
-    for impl in runs:
-        shutil.rmtree(build / f"window_ckpt_{impl}", ignore_errors=True)
+    # the auto checkpoint stays for the evaluation phase, with the
+    # training vocabulary that its contract's vocab_hash names
+    shutil.rmtree(build / "window_ckpt_pallas", ignore_errors=True)
+    vocab = build / "window_vocab.txt"
+    vocab.write_text("\n".join(sorted(tok.vocab, key=tok.vocab.get)) + "\n")
 
     sources = {
         "tsm_conv1x1_bn_relu": ("csrc/tsm_conv.cu", "tsm_conv_pallas.py:204"),
@@ -2411,7 +2580,7 @@ def window_phases(dev, smi, frames, vision):
                     "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": (e["library_ms"] if name != "temporal_shift"
                                    else None)})
-    return out
+    return out, {"argv": runs["auto"][1], "vocab": str(vocab)}
 
 
 def int8_s2_phases(dev, smi, frames, vision, cli_argv):
@@ -2888,6 +3057,7 @@ def vision_titles_phase(dev, smi, cli_argv, serving, int8_entry):
     import torch
 
     from video_chapter_generation_tpu_torch.cli import (
+        eval_title,
         extract_vision_emb,
         infer_video,
     )
@@ -3026,14 +3196,6 @@ def vision_titles_phase(dev, smi, cli_argv, serving, int8_entry):
     del ref, embs
 
     # --- infer_video with vision-conditioned beam-4 titles ---
-    captured = []
-    plain_beam = infer_video.beam_search
-
-    def beam_spy(model, ids, mask, **kw):  # keeps its first call's inputs
-        if not captured:
-            captured.append((model, ids, mask, kw))
-        return plain_beam(model, ids, mask, **kw)
-
     def vision_calls(results):  # the boundary model's frames-stem trunk
         n = sum(math.ceil(len(r.clip_scores) / SCORE_BATCH)
                 for r in results.values())
@@ -3042,16 +3204,15 @@ def vision_titles_phase(dev, smi, cli_argv, serving, int8_entry):
 
     cwd = os.getcwd()
     os.chdir(build)  # the CLI writes test_results/ where it runs
-    infer_video.beam_search = beam_spy
-    try:
-        results, said, _ = run(
-            "infer_video vision titles",
-            lambda: infer_video.main(cli_argv + [
-                "--vision_emb_dir", str(dirs["bf16"]), "--fusion_type",
-                "cross_attn", "--num_beams", str(BEAMS), "--pipelined"]),
-            vision_calls)
+    try:  # the title decode's first beam search keeps its inputs
+        with first_calls({(eval_title, "beam_search"): 1}) as kept:
+            results, said, _ = run(
+                "infer_video vision titles",
+                lambda: infer_video.main(cli_argv + [
+                    "--vision_emb_dir", str(dirs["bf16"]), "--fusion_type",
+                    "cross_attn", "--num_beams", str(BEAMS), "--pipelined"]),
+                vision_calls)
     finally:
-        infer_video.beam_search = plain_beam
         os.chdir(cwd)
     if "restored checkpoint at epoch 0" not in said:
         fail("infer_video did not restore the boundary checkpoint")
@@ -3061,7 +3222,7 @@ def vision_titles_phase(dev, smi, cli_argv, serving, int8_entry):
         if not r.cut_points or len(r.titles) != len(r.spans):
             fail(f"{vid}: {len(r.titles)} titles for {len(r.spans)} "
                  f"chapters")
-    if len(results) != INFER_VIDEOS or not captured:
+    if len(results) != INFER_VIDEOS or not kept["beam_search"]:
         fail(f"infer_video chaptered {len(results)} videos")
     stages = json.loads(said.split("stage seconds: ")[1].splitlines()[0])
     steps = sum(1 for r in results.values() if r.spans) * TITLE_OUT
@@ -3071,7 +3232,7 @@ def vision_titles_phase(dev, smi, cli_argv, serving, int8_entry):
           f"step over {steps} steps on {smi}", flush=True)
 
     # --- the title path on the CLI's first title inputs, on the card ---
-    s2s, ids, mask, kw = captured[0]
+    (s2s, ids, mask), kw = kept.pop("beam_search")[0]
     enc, max_len, lp = kw["enc_hidden"], kw["max_len"], 1.0
     greedy = generate(s2s, ids, mask, max_len=max_len, enc_hidden=enc)
     one = beam_search(s2s, ids, mask, num_beams=1, max_len=max_len,
@@ -3139,7 +3300,7 @@ def vision_titles_phase(dev, smi, cli_argv, serving, int8_entry):
           f"fused states: greedy {g_ms:.3f} ms per step, beam-{BEAMS} "
           f"{b_ms:.3f} ms per step ({b_ms / g_ms:.2f}x; median of 3) on "
           f"{smi}", flush=True)
-    del captured, s2s, enc
+    del kept, s2s, enc
     torch.cuda.empty_cache()
 
     out = []
@@ -3241,7 +3402,7 @@ def native_decode_phase(dev, smi, pipe, corpus):
 def title_training_phase(dev, smi, cli_argv, emb_dir, k10_entry):
     """Title training through cli/train_title.main: Pegasus-large at the
     JAX CLI's defaults (bf16, batch 16, 512 -> 30 tokens) on a synthetic
-    corpus for TITLE_STEPS optimizer steps and the eval, with finite
+    corpus for TITLE_EPOCHS x TITLE_STEPS optimizer steps and the eval, with finite
     losses, moved parameters and a checkpoint; gradient accumulation (2
     micro-batches) against one update over both, and remat against none;
     cli/infer_video restoring that checkpoint beside the inference
@@ -3415,9 +3576,12 @@ def title_training_phase(dev, smi, cli_argv, emb_dir, k10_entry):
     # --- Pegasus-large at the JAX CLI's defaults ---
     ckpt = build / "title_ckpt"
     trainer, _, _ = train(
-        "train_title pegasus", argv_for(paths["train_vid_file"],
-                                        paths["val_vid_file"], TITLE_BATCH),
-        ckpt, TITLE_STEPS, keep=True)
+        "train_title pegasus", argv_for(
+            paths["train_vid_file"], paths["val_vid_file"], TITLE_BATCH,
+            f"train.max_epochs={TITLE_EPOCHS}",
+            f"train.eval_every_epochs={TITLE_EPOCHS}",
+            f"train.save_every_epochs={TITLE_EPOCHS}"),
+        ckpt, TITLE_EPOCHS * TITLE_STEPS, keep=True)
     model, task = trainer.model, trainer.task
     params = list(model.parameters())
     ds = trainer.train_loader.dataset
@@ -3598,7 +3762,8 @@ def title_training_phase(dev, smi, cli_argv, emb_dir, k10_entry):
     shutil.rmtree(serve, ignore_errors=True)
     serve.mkdir(parents=True)
     boundary = Path(icfg.train.ckpt_dir)
-    for src, epoch in ((boundary / "ckpt_0", 0), (ckpt / "ckpt_0", 1)):
+    title_src = ckpt / f"ckpt_{CheckpointManager(str(ckpt)).latest_step()}"
+    for src, epoch in ((boundary / "ckpt_0", 0), (title_src, 1)):
         for ext in ("pt", "json"):
             os.symlink(f"{src}.{ext}", serve / f"ckpt_{epoch}.{ext}")
     cwd = os.getcwd()
@@ -3626,8 +3791,7 @@ def title_training_phase(dev, smi, cli_argv, emb_dir, k10_entry):
         if not r.cut_points or len(r.titles) != len(r.spans):
             fail(f"{vid}: {len(r.titles)} titles for {len(r.spans)} "
                  f"chapters")
-    shutil.rmtree(serve, ignore_errors=True)
-    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(serve, ignore_errors=True)  # ckpt stays for evaluation
     torch.cuda.empty_cache()
 
     # --- vision-conditioned (the inference corpus, whose clips have
@@ -3642,24 +3806,12 @@ def title_training_phase(dev, smi, cli_argv, emb_dir, k10_entry):
     torch.cuda.empty_cache()
     # the eval's first K10 call (encoder layer 0 of its one batch) keeps
     # its inputs, and K10 is held to its plain version on them below
-    seen = {}
-    real_k10 = sparse_model.sparse_band_attention
-
-    def keep_first(q_mid, k, v, mask, ids, valid, bs, out):
-        if not seen:
-            seen["args"] = (q_mid.clone(), k.clone(), v.clone(),
-                            mask.clone(), (ids, valid), bs)
-        return real_k10(q_mid, k, v, mask, ids, valid, bs, out)
-
-    sparse_model.sparse_band_attention = keep_first
-    try:
+    with first_calls({(sparse_model, "sparse_band_attention"): 1}) as kept:
         big, k10_train, k10_eval = train(
             "train_title bigbird", argv_for(
                 small["train"], small["val"], SMALL_BATCH, "--title_arch",
                 "bigbird", f"data.title_input_len={BIGBIRD_IN}"),
             build / "title_ckpt_bigbird", 2)
-    finally:
-        sparse_model.sparse_band_attention = real_k10
     s2s = big.model.cfg
     del big
     if k10_train or k10_eval != s2s.encoder_layers or \
@@ -3668,8 +3820,10 @@ def title_training_phase(dev, smi, cli_argv, emb_dir, k10_entry):
              f"its steps and {k10_eval} in its one eval batch (want 0 and "
              f"{s2s.encoder_layers}, none mma.sync)")
     torch.cuda.empty_cache()
-    q_mid, k, v, mask, tabs, bs = seen.pop("args")
-    k10_row = hold_k10(q_mid, k, v, mask, tabs, bs, "sparse_band_attn",
+    (q_mid, k, v, mask, ids, valid, bs, _), _ = \
+        kept.pop("sparse_band_attention")[0]
+    k10_row = hold_k10(q_mid, k, v, mask, (ids, valid), bs,
+                       "sparse_band_attn",
                        f"the title eval batch's encoder layer 0, rows of "
                        f"{mask.sum(1).tolist()} tokens", smi)
     del q_mid, k, v, mask
@@ -3681,7 +3835,474 @@ def title_training_phase(dev, smi, cli_argv, emb_dir, k10_entry):
                                                  "replaces")},
                 launches=k10_eval, **k10_row,
                 path="train_title --title_arch bigbird (eval; 0 launches "
-                     "in its training steps)")
+                     "in its training steps)"), {"ckpt": str(ckpt),
+                                                 "tsv": str(tsv)}
+
+
+def evaluation_phase(dev, smi, cli_argv, window_eval, title_eval, entries):
+    """The offline evaluation chain on the card: datasetkit/flatten over
+    the inference phase's test split (2 synthetic videos of 120 s at
+    224 px); cli/eval_segment on the window model from the window phase's
+    auto checkpoint (launches a vision call exact: K6 1, the frames stem
+    1, K2/K3 13, K4 3); cli/eval_segment on the frames-stem two-stream
+    model from the inference phase's checkpoint, bf16 and --int8_vision
+    (K9 10 a call, plus the bf16 calibration call), mAP and F1@3 side by
+    side; cli/eval_title on Pegasus-large from the title_training phase's
+    checkpoint as it was written, with --location gt, then --location pred
+    on the window model's vid2cut_points.json with --num_beams 4, the
+    CLI's ids of its first batch (before the trim at EOS) equal to a
+    direct generate / beam_search of the same checkpoint restored here on
+    the same inputs; then BigBird-Pegasus-large at 3072 tokens from
+    seeded weights (K10: 16 launches an encode, two encodes a batch). Each
+    run must restore its checkpoint (BigBird: none is kept) and write its
+    result files with finite metrics; each Pegasus title must be
+    non-empty. Every kernel of these paths is held to its plain version
+    on the arguments of the path's own first vision call (K10: its first
+    launch; the int8 run's bf16 stages: the bf16 run's, on the clips its
+    calibration call takes). Returns the kernels' entries for these paths
+    (those numbers, this phase's launches), and removes the checkpoints it
+    was handed."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from video_chapter_generation_tpu_torch.cli import (
+        eval_segment,
+        eval_title,
+    )
+    from video_chapter_generation_tpu_torch.cli.common import parse_config
+    from video_chapter_generation_tpu_torch.core.checkpoint import (
+        CheckpointManager,
+    )
+    from video_chapter_generation_tpu_torch.core.metrics import StepTimer
+    from video_chapter_generation_tpu_torch.data.tokenization import (
+        UnigramTokenizer,
+    )
+    from video_chapter_generation_tpu_torch.datasetkit import flatten
+    from video_chapter_generation_tpu_torch.models import resnet as resnet_model
+    from video_chapter_generation_tpu_torch.models import (
+        sparse_attention as sparse_model,
+    )
+    from video_chapter_generation_tpu_torch.models.seq2seq import (
+        Seq2Seq,
+        Seq2SeqConfig,
+        beam_search,
+        generate,
+        trim_at_eos,
+    )
+    from video_chapter_generation_tpu_torch.ops.preprocess import (
+        normalize_frames,
+    )
+    from video_chapter_generation_tpu_torch.ops.sparse_attention import (
+        sparse_band_attention,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem import stem_frames
+    from video_chapter_generation_tpu_torch.ops.tsm_block import (
+        tsm_bottleneck,
+        tsm_bottleneck_s2,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block_int8 import (
+        tsm_bottleneck_int8,
+    )
+    from video_chapter_generation_tpu_torch.pipeline import (
+        boundary as boundary_model,
+    )
+
+    build = ROOT / "video_chapter_generation_tpu_torch" / "_build"
+    work = build / "evaluation"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    counted = (normalize_frames, stem_frames, tsm_bottleneck,
+               tsm_bottleneck_s2, tsm_bottleneck_int8, sparse_band_attention)
+    laps, seen, rows = {}, {}, {}
+
+    def run(name, fn):
+        """fn() in the work directory (the CLIs write test_results/ where
+        they run), every count at 0 just before and read just after, its
+        stdout kept. Returns (fn's result, its stdout)."""
+        for k in counted:
+            k.launches = 0
+        said = io.StringIO()
+        cwd = os.getcwd()
+        os.chdir(work)
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(said):
+                out = fn()
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+            for line in said.getvalue().splitlines():
+                print(f"# {name}: {line}", flush=True)
+        laps[name] = time.time() - t0
+        seen[name] = {k.__name__: k.launches for k in counted
+                      if k.launches}
+        print(f"# {name}: {laps[name]:.1f} s, launches {seen[name]} on "
+              f"{smi}", flush=True)
+        return out, said.getvalue()
+
+    def check_segment(name, result, text, prefix, want):
+        if "restored checkpoint at epoch" not in text:
+            fail(f"{name} did not restore its checkpoint")
+        if seen[name] != want:
+            fail(f"{name} launch counts {seen[name]} != {want}")
+        bad = {k: v for k, v in result.items() if k != "vid2cut_points"
+               and not math.isfinite(v)}
+        if bad:
+            fail(f"{name}: metrics not finite {bad}")
+        for path in (f"{prefix}.txt", f"{prefix}_vid2cut_points.json"):
+            if not (work / path).is_file():
+                fail(f"{name} wrote no {path}")
+
+    def hold_first_call(name, kept, per_call):
+        """The kernels of the run's first vision call, on its arguments."""
+        got = {k: len(v) for k, v in kept.items()}
+        if got != per_call:
+            fail(f"{name}: kept {got} launches of its first vision call, "
+                 f"want {per_call}")
+        t0 = time.time()
+        rows[name] = hold_vision_call(kept)
+        print(f"# {name}: the first vision call's kernels held to their "
+              f"plain versions on its own arguments in "
+              f"{time.time() - t0:.1f} s on {smi}", flush=True)
+
+    # --- flatten the inference corpus's test split ---
+    cfg, _ = parse_config(cli_argv)
+    d = cfg.data
+    clips_json = work / "test_clips.json"
+    run("flatten", lambda: flatten.main([
+        "--img_dir", d.img_dir, "--data_file", d.data_file, "--vid_file",
+        d.test_vid_file, "--subtitle_dir", d.subtitle_dir, "--out",
+        str(clips_json), "--clip_frame_num", str(CLIP_FRAMES)]))
+    n_clips = len(json.loads(clips_json.read_text()))
+    if n_clips == 0:
+        fail("flatten wrote no clips")
+
+    # --- the window model (the README's evaluation) ---
+    stage = {"normalize_frames": 1, "stem_frames": 1}
+    per_call = dict(stage, tsm_bottleneck=13, tsm_bottleneck_s2=3)
+    calls = math.ceil(n_clips / WINDOW_BATCH)
+    timer = StepTimer()
+    name = "eval_segment window"
+    trunk_spots = {(boundary_model, "normalize_frames"): 1,
+                   (resnet_model, "stem_frames"): 1,
+                   (resnet_model, "tsm_bottleneck"): 13,
+                   (resnet_model, "tsm_bottleneck_s2"): 3}
+    with first_calls(trunk_spots) as kept:
+        result, text = run(name, lambda: eval_segment.main(
+            window_eval["argv"] + [f"data.test_clips_json={clips_json}",
+                                   f"data.batch_size={WINDOW_BATCH}",
+                                   "--bert_vocab", window_eval["vocab"]],
+            timer=timer))
+    check_segment(name, result, text, "test_results/two_stream_window_head_"
+                  "mlp", {k: v * calls for k, v in per_call.items()})
+    hold_first_call(name, kept, per_call)
+    del kept
+    cut_points = work / "test_results" / \
+        "two_stream_window_head_mlp_vid2cut_points.json"
+    window_cuts = {vid: v["second_pred_cut_points"] for vid, v in
+                   json.loads(cut_points.read_text()).items()}
+    dev_s = timer.summary()["device_score"]
+    print(f"# {name}: {n_clips} clips in {calls} vision calls of "
+          f"{WINDOW_BATCH} windows x 3 clips x {CLIP_FRAMES} frames; AUC "
+          f"{result['AUC']:.4f} mAP {result['mAP']:.4f} F1@3 "
+          f"{result['f1_3']:.4f}; device_score {dev_s['seconds']:.3f} s "
+          f"({dev_s['items_per_sec']:.1f} clips/s); predicted cut points "
+          f"{window_cuts}; on {smi}", flush=True)
+    shutil.rmtree(parse_config(window_eval["argv"])[0].train.ckpt_dir,
+                  ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # --- the frames-stem two-stream model, bf16 then --int8_vision ---
+    from video_chapter_generation_tpu_torch.cli.common import (
+        load_bert_tokenizer,
+        load_corpus,
+    )
+
+    tok = load_bert_tokenizer(parse_config(cli_argv)[1],
+                              load_corpus(cfg, "test"))
+    vocab = work / "infer_vocab.txt"
+    vocab.write_text("\n".join(sorted(tok.vocab, key=tok.vocab.get)) + "\n")
+    calls = math.ceil(n_clips / SCORE_BATCH)
+    calib = dict(stage, tsm_bottleneck=13, tsm_bottleneck_s2=3)
+    wants = {"bf16": {k: v * calls for k, v in calib.items()},
+             "int8": {k: v * calls + calib.get(k, 0) for k, v in dict(
+                 stage, tsm_bottleneck=3, tsm_bottleneck_s2=3,
+                 tsm_bottleneck_int8=10).items()}}
+    scores = {}
+    for mode, flags in (("bf16", []), ("int8", ["--int8_vision"])):
+        name = f"eval_segment two_stream {mode}"
+        timer = StepTimer()
+        # bf16: the first vision call, whose clips the int8 run's bf16
+        # calibration call takes too; int8: the W8A8 blocks of its first
+        # int8 call
+        spots = ({(resnet_model, "int8_bottleneck"): 10} if flags
+                 else trunk_spots)
+        with first_calls(spots) as kept:
+            scores[mode], text = run(
+                name, lambda flags=flags, timer=timer: eval_segment.main(
+                    cli_argv + [f"data.test_clips_json={clips_json}",
+                                "--bert_vocab", str(vocab)] + flags,
+                    timer=timer))
+        check_segment(name, scores[mode], text,
+                      "test_results/two_stream_head_mlp", wants[mode])
+        hold_first_call(name, kept, {"int8_bottleneck": 10} if flags
+                        else per_call)
+        del kept
+        dev_s = timer.summary()["device_score"]
+        print(f"# {name}: device_score {dev_s['seconds']:.3f} s "
+              f"({dev_s['items_per_sec']:.1f} clips/s) on {smi}", flush=True)
+    print("# eval_segment two_stream, bf16 against --int8_vision (the same "
+          "checkpoint and clips; information only): "
+          + ", ".join(f"{k} {scores['bf16'][k]:.4f} / {scores['int8'][k]:.4f}"
+                      for k in ("AUC", "mAP", "recall_3", "precision_3",
+                                "f1_3")), flush=True)
+    torch.cuda.empty_cache()
+
+    # --- Pegasus-large titles from the title_training checkpoint ---
+    title_ckpt = title_eval["ckpt"]
+    pieces = UnigramTokenizer.from_tsv(title_eval["tsv"])
+    title_argv = [a for a in cli_argv if not a.startswith(
+        ("train.ckpt_dir=", "data.batch_size="))] + [
+        f"train.ckpt_dir={title_ckpt}", "model.compute_dtype=bfloat16",
+        f"data.title_input_len={TITLE_IN}",
+        f"data.title_decode_len={TITLE_OUT}", f"data.batch_size={TITLE_BATCH}",
+        "--spm_tsv", title_eval["tsv"]]
+    cuts_file = work / "window_vid2cut_points.json"
+    shutil.copy(cut_points, cuts_file)
+    direct = None  # the checkpoint restored here too, for the direct decode
+    for loc, flags in (("gt", []), ("pred", [
+            "--cut_points", str(cuts_file), "--num_beams", str(BEAMS)])):
+        name = f"eval_title {loc}" + (f" beams {BEAMS}" if flags else "")
+        decode = beam_search if flags else generate
+        timer = StepTimer()
+        with first_calls({(eval_title, decode.__name__): 1,
+                          (eval_title, "trim_at_eos"): 1}) as kept:
+            result, text = run(name, lambda flags=flags, loc=loc, timer=timer:
+                               eval_title.main(title_argv + ["--location", loc]
+                                               + flags, timer=timer))
+        if "restored checkpoint at epoch" not in text:
+            fail(f"{name} did not restore the title checkpoint")
+        if not (math.isfinite(result["test_loss"])
+                and math.isfinite(result["test_acc"])):
+            fail(f"{name}: loss {result['test_loss']} acc "
+                 f"{result['test_acc']}")
+        # the CLI's first batch: its ids before the trim against the
+        # direct decode of the same inputs, and its texts against theirs
+        (cli_model, ids, mask), kw = kept[decode.__name__][0]
+        (cli_ids, eos), _ = kept["trim_at_eos"][0]
+        if direct is None:
+            t0 = time.time()
+            ck = CheckpointManager(title_ckpt)
+            step = ck.best_step("title")
+            _, state = ck.restore_raw(step)
+            with torch.device("meta"):
+                direct = Seq2Seq(cli_model.cfg)
+            direct.load_state_dict(state["model"], assign=True)
+            direct.to(dev, torch.bfloat16).eval()
+            del state
+            print(f"# the title checkpoint (epoch {step}) restored here for "
+                  f"the direct decode: {time.time() - t0:.1f} s", flush=True)
+        with torch.no_grad():
+            want = decode(direct, ids, mask, **kw)
+        want = (want[0] if flags else want).cpu().numpy()
+        gen = result["gen_texts"]
+        texts = [pieces.decode(list(r)) for r in trim_at_eos(cli_ids, eos)]
+        print(f"# {name}: the CLI's ids of its first batch {cli_ids.shape} "
+              f"{'equal' if np.array_equal(cli_ids, want) else 'UNEQUAL'} "
+              f"to the direct {decode.__name__} of the restored checkpoint "
+              f"on its inputs; first row {cli_ids[0][:8].tolist()}",
+              flush=True)
+        if not np.array_equal(cli_ids, want):
+            fail(f"{name}: the CLI's ids differ from a direct "
+                 f"{decode.__name__} on the same checkpoint and inputs")
+        if gen[:len(texts)] != texts:
+            fail(f"{name}: the CLI's titles are not the decoded ids")
+        if not gen or not all(t.strip() for t in gen):
+            fail(f"{name}: {sum(not t.strip() for t in gen)} of {len(gen)} "
+                 f"titles empty")
+        path = work / "test_results" / "chapter_title_gen" / \
+            f"{loc}_batch_{TITLE_BATCH}.txt"
+        lines = path.read_text().splitlines() if path.is_file() else []
+        rouge_lines = [x for x in lines if x.startswith(
+            ("random ", "lead ", "principal ", "rouge-"))]
+        if len(rouge_lines) != 12:
+            fail(f"{name}: {len(rouge_lines)} ROUGE lines in {path}")
+        gen_s = timer.summary()["title_generate"]
+        if loc == "gt":
+            n_chapters = len(gen)
+        print(f"# {name}: {len(gen)} chapters, loss {result['test_loss']:.4f} "
+              f"acc {result['test_acc']:.4f}, generated rouge-1 f "
+              f"{result['generated']['rouge-1']['f']:.4f}, first title "
+              f"{gen[0]!r}; title_generate {gen_s['seconds']:.3f} s for "
+              f"{gen_s['items']} titles on {smi}", flush=True)
+        del kept, cli_model
+    del direct
+    shutil.rmtree(title_ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # --- BigBird-Pegasus-large titles at 3072 tokens (K10): no checkpoint
+    # of its kind is kept, so the CLI seeds its weights as at any start;
+    # the teacher-forced forward and the generate each encode a batch ---
+    name = "eval_title gt bigbird"
+    big_argv = [a for a in title_argv if not a.startswith(
+        ("train.ckpt_dir=", "data.title_input_len="))] + [
+        f"train.ckpt_dir={work / 'bigbird_ckpt'}",
+        f"data.title_input_len={BIGBIRD_IN}", "--title_arch", "bigbird",
+        "--location", "gt"]
+    sparse_band_attention.mma_sync_launches = 0
+    timer = StepTimer()
+    with first_calls({(sparse_model, "sparse_band_attention"): 1}) as kept:
+        result, text = run(name, lambda: eval_title.main(big_argv,
+                                                         timer=timer))
+    gen = result["gen_texts"]
+    batches = math.ceil(len(gen) / TITLE_BATCH)
+    layers = Seq2SeqConfig.bigbird_pegasus_large().encoder_layers
+    want = {"sparse_band_attention": 2 * layers * batches}
+    if seen[name] != want or sparse_band_attention.mma_sync_launches:
+        fail(f"{name} launch counts {seen[name]} != {want} (mma.sync "
+             f"{sparse_band_attention.mma_sync_launches})")
+    if len(gen) != n_chapters or not math.isfinite(result["test_loss"]):
+        fail(f"{name}: {len(gen)} titles for {n_chapters} chapters, loss "
+             f"{result['test_loss']}")
+    (q_mid, k, v, mask, ids, valid, bs, _), _ = \
+        kept["sparse_band_attention"][0]
+    del kept
+    rows[name] = {"sparse_band_attention": hold_k10(
+        q_mid, k, v, mask, (ids, valid), bs, "sparse_band_attn",
+        f"the title eval's first launch, rows of {mask.sum(1).tolist()} "
+        f"tokens", smi)}
+    del q_mid, k, v, mask
+    gen_s = timer.summary()["title_generate"]
+    print(f"# {name}: {len(gen)} chapters of {BIGBIRD_IN} tokens, seeded "
+          f"weights, loss {result['test_loss']:.4f}; title_generate "
+          f"{gen_s['seconds']:.3f} s for {gen_s['items']} titles on {smi}",
+          flush=True)
+    print(f"# evaluation step seconds {json.dumps(laps)}", flush=True)
+
+    # the int8 run's bf16 launches (its calibration call, then layer 1 and
+    # the stride-2 blocks of each call) at the bf16 run's first-call rows:
+    # the same clips, the same shapes
+    rows["eval_segment two_stream int8"] = dict(
+        rows["eval_segment two_stream bf16"],
+        **rows["eval_segment two_stream int8"])
+    paths = {"eval_segment window": "cli/eval_segment (window model)",
+             "eval_segment two_stream bf16": "cli/eval_segment (two-stream)",
+             "eval_segment two_stream int8": "cli/eval_segment --int8_vision",
+             name: "cli/eval_title --title_arch bigbird"}
+    return [dict({key: entries[k][key] for key in ("name", "route", "source",
+                                                  "replaces")},
+                 launches=seen[run_name][k], **row, path=path)
+            for run_name, path in paths.items()
+            for k, row in rows[run_name].items()]
+
+
+def pretrain_lang_phase(dev, smi):
+    """cli/pretrain_lang --task mlm at BERT-base width on the card: 3
+    steps at batch 8, max_text_len 100, bf16, on a synthetic corpus of 24
+    videos whose vocabulary is padded to BERT-base's; a finite loss,
+    moved parameters and a checkpoint that restores. Prints ms a step (information only). No kernel of the port
+    runs there."""
+    import shutil
+
+    import torch
+
+    from video_chapter_generation_tpu_torch.cli import pretrain_lang
+    from video_chapter_generation_tpu_torch.core.checkpoint import (
+        CheckpointManager,
+    )
+    from video_chapter_generation_tpu_torch.data.synth import (
+        make_synth_corpus_on_disk,
+    )
+    from video_chapter_generation_tpu_torch.train.loop import Trainer
+
+    build = ROOT / "video_chapter_generation_tpu_torch" / "_build"
+    paths = make_synth_corpus_on_disk(
+        str(build / "synth_lang_corpus"), n_videos=24, video_sec=60, hw=32,
+        seed=SEED + 31, splits={"train": 24})
+    # the corpus's WordPiece vocabulary padded to BERT-base's 30,522
+    # entries: the embedding and the MLM head at their published size
+    from video_chapter_generation_tpu_torch.data.corpus import VideoCorpus
+    from video_chapter_generation_tpu_torch.data.tokenization import (
+        WordPieceTokenizer,
+    )
+
+    corpus = VideoCorpus.from_files(paths["img_dir"], paths["data_file"],
+                                    paths["train_vid_file"],
+                                    paths["subtitle_dir"])
+    tok = WordPieceTokenizer.build_from_corpus(
+        [s["text"] for vid in corpus.vids for s in corpus.subtitles(vid)],
+        vocab_size=8000)
+    words = sorted(tok.vocab, key=tok.vocab.get)
+    words += [f"[unused{i}]" for i in range(BERT_VOCAB - len(words))]
+    vocab = build / "lang_vocab.txt"
+    vocab.write_text("\n".join(words) + "\n")
+    ckpt = build / "lang_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    snap, times = {}, []
+    plain_step = Trainer.train_step
+
+    def spy(self, batch):
+        if not snap:
+            snap.update({k: p.detach().clone() for k, p in list(
+                self.model.named_parameters())[::10]})
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m = plain_step(self, batch)
+        loss = float(m["loss"].detach())
+        times.append((loss, time.time() - t0))
+        return m
+
+    said = io.StringIO()
+    Trainer.train_step = spy
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(said):
+            trainer = pretrain_lang.main([
+                f"data.img_dir={paths['img_dir']}",
+                f"data.data_file={paths['data_file']}",
+                f"data.subtitle_dir={paths['subtitle_dir']}",
+                f"data.train_vid_file={paths['train_vid_file']}",
+                "data.batch_size=8", f"data.max_text_len={TEXT_LEN}",
+                "model.compute_dtype=bfloat16", "train.max_epochs=1",
+                "train.resume=false", "optim.learning_rate=1e-3",
+                f"train.ckpt_dir={ckpt}", f"train.log_dir={ckpt}_logs",
+                "--task", "mlm", "--bert_vocab", str(vocab), "--device",
+                str(dev)])
+    finally:
+        Trainer.train_step = plain_step
+        for line in said.getvalue().splitlines():
+            print(f"# pretrain_lang: {line}", flush=True)
+    wall = time.time() - t0
+    losses = [x[0] for x in times]
+    params = dict(trainer.model.named_parameters())
+    moved = sum(not torch.equal(v, params[k].detach())
+                for k, v in snap.items())
+    ck = CheckpointManager(str(ckpt))
+    _, state = ck.restore_latest()
+    same = all(torch.equal(v.cpu(), state["model"][k].cpu())
+               for k, v in trainer.model.state_dict().items())
+    step_ms = 1e3 * min(x[1] for x in times[1:] or times)
+    print(f"# pretrain_lang --task mlm (BERT-base, vocabulary "
+          f"{trainer.task.bert_cfg.vocab_size}, batch 8 x {TEXT_LEN} tokens, "
+          f"bf16): {len(times)} steps, losses {[round(x, 4) for x in losses]}"
+          f", {moved} of {len(snap)} sampled parameters moved, checkpoint "
+          f"kind {ck.model_kind(ck.latest_step())!r} restores "
+          f"{'bit for bit' if same else 'DIFFERENTLY'}; {step_ms:.1f} ms a "
+          f"step (the fastest after the first), {wall:.1f} s in all on {smi};"
+          f" information only", flush=True)
+    if len(times) != 3 or not all(math.isfinite(x) for x in losses):
+        fail(f"pretrain_lang: {len(times)} steps, losses {losses}")
+    if trainer.task.bert_cfg.vocab_size != BERT_VOCAB:
+        fail(f"pretrain_lang built a vocabulary of "
+             f"{trainer.task.bert_cfg.vocab_size}")
+    if not moved or not same or ck.model_kind(ck.latest_step()) != \
+            "lang_pretrain":
+        fail("pretrain_lang: parameters did not move or the checkpoint "
+             "does not hold them")
+    shutil.rmtree(ckpt, ignore_errors=True)
 
 
 def main() -> int:
@@ -3991,7 +4612,8 @@ def main() -> int:
     bigbird_kernels = timed("bigbird", bigbird_phases, dev, smi, cli_argv)
     train_kernels = timed("training", training_phases, dev, smi, frames,
                           vision)
-    window_kernels = timed("window", window_phases, dev, smi, frames, vision)
+    window_kernels, window_eval = timed("window", window_phases, dev, smi,
+                                        frames, vision)
     int8_s2_kernels = timed("int8_s2", int8_s2_phases, dev, smi, frames,
                             vision, cli_argv)
     chain_kernel = timed("chain", chain_phases, dev, smi, frames, vision)
@@ -4036,17 +4658,26 @@ def main() -> int:
     # title training: K10 on the BigBird eval's inputs, its launches in
     # that eval (none in its training steps); the native decode path: K1-K4 at the serving
     # entries' shapes, this phase's launches
-    title_kernel = timed(
+    title_kernel, title_eval = timed(
         "title_training", title_training_phase, dev, smi, cli_argv,
         str(ROOT / "video_chapter_generation_tpu_torch" / "_build"
             / "vision_embs_bf16"), bigbird_kernels[0])
+    # the offline evaluation chain from the window, inference and title
+    # checkpoints: K6, K8, K2/K3 and K4 (and K9 with --int8_vision) with
+    # the serving, inference and window entries' times, this phase's
+    # launches
+    eval_kernels = timed(
+        "evaluation", evaluation_phase, dev, smi, cli_argv, window_eval,
+        title_eval, {k["name"]: k for k in kernels + infer_kernels
+                     + window_kernels + bigbird_kernels[:1]})
+    timed("pretrain_lang", pretrain_lang_phase, dev, smi)
     native_kernels = [dict(k, launches=native_launches[k["name"]],
                            path="ChapterPipeline, native decode")
                       for k in kernels] if native_launches else []
     print(json.dumps({"kernels": kernels + infer_kernels + bigbird_kernels
                       + train_kernels + window_kernels + int8_s2_kernels
                       + [chain_kernel] + vision_kernels + [title_kernel]
-                      + native_kernels}))
+                      + eval_kernels + native_kernels}))
     print(f"# phase seconds {json.dumps(laps)}; chip_smoke wall time "
           f"{time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

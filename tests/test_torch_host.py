@@ -2,9 +2,10 @@
 the originals, on the same inputs (a synthetic corpus on disk): clip
 grids, corpus records, training and inference dataset items, tokenizers,
 collate and the loader, cut points, config overrides, the checkpoint
-contract and the vision-embedding block selection, provider and
-attachment. All must be equal, not close: the copies are the same
-code."""
+contract, the vision-embedding block selection, provider and
+attachment, the boundary metrics, ROUGE, the segment and title
+evaluation with their result files and the clips-JSON flatten. All must
+be equal, not close: the copies are the same code."""
 
 from pathlib import Path
 from types import SimpleNamespace
@@ -21,7 +22,13 @@ from video_chapter_generation_tpu.data import loader as jax_loader
 from video_chapter_generation_tpu.data import synth as jax_synth
 from video_chapter_generation_tpu.data import tokenization as jax_tok
 from video_chapter_generation_tpu.evalkit import boundary as jax_boundary
+from video_chapter_generation_tpu.datasetkit import flatten as jax_flatten
 from video_chapter_generation_tpu.evalkit import metrics as jax_metrics
+from video_chapter_generation_tpu.evalkit import rouge as jax_rouge
+from video_chapter_generation_tpu.evalkit import (
+    segment_eval as jax_segment_eval,
+)
+from video_chapter_generation_tpu.evalkit import title_eval as jax_title_eval
 from video_chapter_generation_tpu_torch.core import config, contract
 from video_chapter_generation_tpu_torch.data import (
     clip_grid,
@@ -31,7 +38,14 @@ from video_chapter_generation_tpu_torch.data import (
     synth,
     tokenization,
 )
-from video_chapter_generation_tpu_torch.evalkit import boundary, metrics
+from video_chapter_generation_tpu_torch.datasetkit import flatten
+from video_chapter_generation_tpu_torch.evalkit import (
+    boundary,
+    metrics,
+    rouge,
+    segment_eval,
+    title_eval,
+)
 
 
 @pytest.fixture(scope="module")
@@ -299,3 +313,137 @@ def test_native_loader_branches_match(disk):
     pil = frames.load_clip_frames(paths, 32)
     _same(pil, jax_frames.load_clip_frames(paths, 32))
     _same(frames.space_to_depth4(pil), jax_nl.space_to_depth4(pil))
+
+
+WORDS = ["the", "cat", "sat", "on", "mat", "a", "dog", "ran", "intro",
+         "part", "two", "", "end"]
+
+
+def _sentence(rng, lo=0, hi=14):
+    """A random sentence over a small vocabulary: repeats, empty words
+    (double spaces) and empty sentences included."""
+    return " ".join(rng.choice(WORDS, int(rng.integers(lo, hi))))
+
+
+def test_boundary_metrics_match():
+    rng = np.random.default_rng(2)
+    for _ in range(60):
+        gt = sorted(rng.choice(200, int(rng.integers(1, 6)), replace=False))
+        pred = sorted(rng.choice(200, int(rng.integers(0, 8)),
+                                 replace=False))
+        assert boundary.calculate_pr(gt, pred) == \
+            jax_boundary.calculate_pr(gt, pred)
+        p, r = rng.random(2) * (rng.random() < 0.9)
+        assert boundary.f1(p, r) == jax_boundary.f1(p, r)
+    per_video = [(sorted(rng.choice(100, int(rng.integers(0, 4)),
+                                    replace=False)),
+                  sorted(rng.choice(100, int(rng.integers(0, 5)),
+                                    replace=False))) for _ in range(12)]
+    assert boundary.aggregate_pr_over_videos(per_video) == \
+        jax_boundary.aggregate_pr_over_videos(per_video)
+    for seed in range(5):
+        args = (int(rng.integers(5, 80)), float(rng.random()), 16, 2)
+        assert boundary.random_guess_cut_points(
+            *args, np.random.default_rng(seed)) == \
+            jax_boundary.random_guess_cut_points(
+                *args, np.random.default_rng(seed))
+    with pytest.raises(ZeroDivisionError):
+        boundary.calculate_pr([], [3])
+
+
+def test_rouge_matches():
+    rng = np.random.default_rng(3)
+    hyps = [_sentence(rng) for _ in range(80)]
+    refs = [_sentence(rng) for _ in range(80)]
+    for h, r in zip(hyps, refs):
+        assert rouge.rouge_scores(h, r) == jax_rouge.rouge_scores(h, r)
+    assert rouge.rouge_scores_avg(hyps, refs) == \
+        jax_rouge.rouge_scores_avg(hyps, refs)
+    assert rouge.rouge_scores_avg([], []) == jax_rouge.rouge_scores_avg([], [])
+
+
+def _scored_clips(mod, rng_seed, n_videos=4):
+    """Random scored ClipInfos of the given module, video-contiguous."""
+    rng = np.random.default_rng(rng_seed)
+    out = []
+    for v in range(n_videos):
+        n = int(rng.integers(3, 25))
+        labels = (rng.random(n) < 0.3).astype(int)
+        cuts = sorted(rng.choice(4 * n, int(rng.integers(0, 4)),
+                                 replace=False).tolist())
+        for k in range(n):
+            score = float(np.round(rng.random(), 2))
+            out.append(mod.ClipInfo(
+                image_paths=[], text_clip="", clip_label=int(labels[k]),
+                clip_start_end=(4 * k, 4 * k + 16), cut_points=cuts,
+                vid=f"v{v}", pred_score=score, pred_label=int(score >= 0.5)))
+    return out
+
+
+@pytest.mark.parametrize("compat", [False, True])
+def test_segment_eval_and_result_files_match(tmp_path, compat):
+    for seed in range(4):
+        got = segment_eval.evaluate_segment_predictions(
+            _scored_clips(segment_eval, seed), 16, 2,
+            rng=np.random.default_rng(seed),
+            compat_first_clip_double_count=compat)
+        want = jax_segment_eval.evaluate_segment_predictions(
+            _scored_clips(jax_segment_eval, seed), 16, 2,
+            rng=np.random.default_rng(seed),
+            compat_first_clip_double_count=compat)
+        assert got == want
+    assert segment_eval.group_clips_by_video(_scored_clips(segment_eval, 0)
+                                             ).keys() == \
+        jax_segment_eval.group_clips_by_video(
+            _scored_clips(jax_segment_eval, 0)).keys()
+    segment_eval.write_segment_result_files(
+        got, str(tmp_path / "p" / "r.txt"), str(tmp_path / "p" / "c.json"))
+    jax_segment_eval.write_segment_result_files(
+        want, str(tmp_path / "j" / "r.txt"), str(tmp_path / "j" / "c.json"))
+    for name in ("r.txt", "c.json"):
+        assert (tmp_path / "p" / name).read_bytes() == \
+            (tmp_path / "j" / name).read_bytes()
+
+
+def test_title_eval_and_result_file_match(tmp_path):
+    rng = np.random.default_rng(4)
+    src = [_sentence(rng, 0, 60) for _ in range(20)]
+    gen = [_sentence(rng, 0, 8) for _ in range(20)]
+    gt = [_sentence(rng, 1, 8) for _ in range(20)]
+    for text in src[:5]:
+        assert title_eval.lead_baseline(text) == \
+            jax_title_eval.lead_baseline(text)
+        assert title_eval.principal_baseline(text) == \
+            jax_title_eval.principal_baseline(text)
+        assert title_eval.random_baseline(text, np.random.default_rng(1)) == \
+            jax_title_eval.random_baseline(text, np.random.default_rng(1))
+    got = title_eval.evaluate_titles(gen, gt, src, 1.5, 0.25, seed=9)
+    want = jax_title_eval.evaluate_titles(gen, gt, src, 1.5, 0.25, seed=9)
+    assert got == want
+    assert title_eval.evaluate_titles([""], [""], [""]) == \
+        jax_title_eval.evaluate_titles([""], [""], [""])
+    title_eval.write_title_result_file(got, str(tmp_path / "p" / "t.txt"))
+    jax_title_eval.write_title_result_file(want, str(tmp_path / "j" / "t.txt"))
+    assert (tmp_path / "p" / "t.txt").read_bytes() == \
+        (tmp_path / "j" / "t.txt").read_bytes()
+
+
+def test_flatten_matches(disk, tmp_path, capsys):
+    a, b = disk
+    pa, pb = _corpora(disk)
+    ga, gb = flatten.flatten_corpus(pa, 8), jax_flatten.flatten_corpus(pb, 8)
+    assert len(ga) == len(gb) > 0
+    for x, y in zip(ga, gb):
+        x, y = dict(x), dict(y)
+        x["image_paths"] = [_rel(p, pa.img_dir) for p in x["image_paths"]]
+        y["image_paths"] = [_rel(p, pb.img_dir) for p in y["image_paths"]]
+        assert x == y
+    argv = ["--img_dir", a["img_dir"], "--data_file", a["data_file"],
+            "--vid_file", a["train_vid_file"], "--subtitle_dir",
+            a["subtitle_dir"], "--clip_frame_num", "8", "--fps", "1"]
+    flatten.main(argv + ["--out", str(tmp_path / "p.json")])
+    jax_flatten.main(argv + ["--out", str(tmp_path / "j.json")])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].replace("p.json", "j.json") == out[1]
+    assert (tmp_path / "p.json").read_bytes() == \
+        (tmp_path / "j.json").read_bytes()

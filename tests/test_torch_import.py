@@ -37,7 +37,11 @@ def test_port_module_list_is_complete():
                  "evalkit.metrics", "models.fusion", "pipeline.boundary",
                  "pipeline.vision_emb", "cli.extract_vision_emb",
                  "cli.infer_video", "cli.train_title", "data.native_loader",
-                 "train.objectives", "models.seq2seq", "models.bert"):
+                 "train.objectives", "models.seq2seq", "models.bert",
+                 "cli.eval_segment", "cli.eval_title", "cli.pretrain_lang",
+                 "evalkit.rouge", "evalkit.segment_eval",
+                 "evalkit.title_eval", "datasetkit.flatten", "train.optim",
+                 "train.tasks"):
         assert f"{PORT}.{name}" in MODULES, name
 
 

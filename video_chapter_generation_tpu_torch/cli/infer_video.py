@@ -37,30 +37,20 @@ video. Flags the port does not serve yet exit naming their ROADMAP item.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import sys
 from typing import Dict
 
 import numpy as np
-import torch
 
 from ..core.contract import vocab_hash
 from ..data.datasets import npy_vision_emb_provider
 from ..data.frames import load_clip_frames
 from ..device import resolve_device
-from ..models.seq2seq import (
-    FUSION_TYPES,
-    Seq2Seq,
-    Seq2SeqVisionEmb,
-    beam_search,
-    generate,
-    trim_at_eos,
-)
-from ..ops.quantize import quantize_seq2seq
+from ..models.seq2seq import FUSION_TYPES
 from ..pipeline import ChapterPipeline, VideoChapters
-from ..train.tasks import TitleGenTask, TitleGenVisionTask, compute_dtype
+from ..train.tasks import TitleGenTask, TitleGenVisionTask
 from .common import (
     load_bert_tokenizer,
     load_corpus,
@@ -70,9 +60,8 @@ from .common import (
     title_s2s_config,
 )
 from .eval_segment import build_score_fn
-from .eval_title import _restore
+from .eval_title import VISION_EMB_DIM, build_title_model
 
-VISION_EMB_DIM = 2048  # the ResNet50-TSM embedding width (JAX :135)
 NOT_PORTED = {"--sharded": "sharded serving is ROADMAP queue 1 item 10"}
 KIND_NOT_PORTED = {
     # the JAX CLI cannot serve it either: its ChapterPipeline builds
@@ -148,38 +137,7 @@ def main(argv=None) -> Dict[str, VideoChapters]:
     task = (TitleGenVisionTask(cfg, s2s_cfg, fusion_type, VISION_EMB_DIM)
             if vision else TitleGenTask(cfg, s2s_cfg))
     task.contract = dict(task.contract, vocab_hash=vocab_hash(title_tokenizer))
-    weights = _restore(cfg, task)
-    model = task.model
-    if int8_titles:  # quantized on the device, where it is quick
-        weights = quantize_seq2seq({k: v.to(dev) for k, v in weights.items()})
-        s2s_cfg = dataclasses.replace(s2s_cfg, weight_quant=True,
-                                      kv_quant=True)
-        with torch.device("meta"):
-            model = (Seq2SeqVisionEmb(s2s_cfg, fusion_type, VISION_EMB_DIM)
-                     if vision else Seq2Seq(s2s_cfg))
-    model.load_state_dict(weights, assign=True)
-    model.to(dev, compute_dtype(cfg)).eval()
-    max_len = cfg.data.title_decode_len
-
-    def decode(s2s, ids, mask, enc_hidden=None):
-        if num_beams > 1:
-            return beam_search(s2s, ids, mask, num_beams=num_beams,
-                               max_len=max_len, enc_hidden=enc_hidden)[0]
-        return generate(s2s, ids, mask, max_len=max_len,
-                        enc_hidden=enc_hidden)
-
-    def put(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(dev)
-
-    def title_fn(text_ids, attention_mask, *vision_inputs):
-        ids, mask = put(text_ids).long(), put(attention_mask)
-        if vision:  # fused encode, then the inner Seq2Seq decodes (JAX :171)
-            vis, vis_mask = map(put, vision_inputs)
-            out = decode(model.seq2seq, ids, mask,
-                         model.encode_fused(vis, vis_mask, ids, mask))
-        else:
-            out = decode(model, ids, mask)
-        return trim_at_eos(out.cpu().numpy(), s2s_cfg.eos_token_id)
+    _, title_fn = build_title_model(cfg, task, dev, num_beams, int8_titles)
 
     pipe = ChapterPipeline(
         corpus, tokenizer, score_fn, title_fn,

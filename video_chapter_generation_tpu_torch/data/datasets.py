@@ -557,3 +557,93 @@ def npy_vision_emb_provider(emb_dir: str, block_sec: int = 16) -> Callable:
         return out
 
     return provider
+
+
+# ignore-index for token losses (youtube_dataset.py:20; JAX data/datasets.py:54)
+Y_PAD = -1
+
+
+def mlm_mask(ids: np.ndarray, attention_mask: np.ndarray, vocab_size: int,
+             mask_token_id: int, rng, special_ids=(),
+             mask_prob: float = 0.15) -> Tuple[np.ndarray, np.ndarray]:
+    """BERT MLM corruption (youtube_subtitle_dataset.py:349-402): select 15%
+    of real tokens; 80% -> [MASK], 10% -> random token, 10% -> keep.
+    Returns (corrupted_ids, targets with Y_PAD elsewhere).
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:543.
+    """
+    ids = ids.copy()
+    targets = np.full_like(ids, Y_PAD)
+    candidates = np.flatnonzero(
+        (attention_mask == 1) & ~np.isin(ids, list(special_ids))
+    )
+    n = max(1, int(round(len(candidates) * mask_prob))) if len(candidates) else 0
+    if n == 0:
+        return ids, targets
+    chosen = rng.choice(candidates, size=n, replace=False)
+    targets[chosen] = ids[chosen]
+    roll = rng.random(n)
+    for pos, r in zip(chosen, roll):
+        if r < 0.8:
+            ids[pos] = mask_token_id
+        elif r < 0.9:
+            ids[pos] = int(rng.integers(0, vocab_size))
+        # else keep
+    return ids, targets
+
+
+class SubtitlePretrainDataset:
+    """Random 16 s subtitle window per video; BERT-MLM or GPT next-token.
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:569.
+    """
+
+    def __init__(self, corpus: VideoCorpus, tokenizer, task: str = "mlm",
+                 window_sec: int = 16, max_text_len: int = 100,
+                 seed: int = 123):
+        assert task in ("mlm", "next_token")
+        self.corpus = corpus
+        self.tokenizer = tokenizer
+        self.task = task
+        self.window_sec = window_sec
+        self.max_text_len = max_text_len
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.corpus.vids)
+
+    def _window_text(self, vid: str, rng) -> str:
+        image_num = self.corpus.image_num(vid)
+        hi = max(1, image_num - self.window_sec)
+        start = int(rng.integers(0, hi))
+        return subtitle_text_for_window(
+            self.corpus.subtitles(vid), start, start + self.window_sec
+        )
+
+    def __getitem__(self, i: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        rng = host_rng(self.seed, epoch, i)
+        vid = self.corpus.vids[i]
+        text = self._window_text(vid, rng)
+        ids, mask = encode_clip_text(text, self.tokenizer, self.max_text_len)
+        if self.task == "next_token":
+            # position t's target is token t + 1, and the model that takes
+            # these items (LangPretrainTask) is the bidirectional BERT: each
+            # position sees the token it must predict, as in the JAX
+            # package (data/datasets.py:599-603), which this reproduces
+            targets = np.full_like(ids, Y_PAD)
+            real = np.flatnonzero(mask == 1)
+            if len(real) > 1:
+                targets[real[:-1]] = ids[real[1:]]
+            return {"text_ids": ids, "attention_mask": mask,
+                    "targets": targets}
+        specials = self.tokenizer.convert_tokens_to_ids(
+            [self.tokenizer.cls_token, self.tokenizer.pad_token]
+        )
+        mask_id = self.tokenizer.convert_tokens_to_ids(
+            [self.tokenizer.mask_token]
+        )[0]
+        corrupted, targets = mlm_mask(
+            ids, mask, self.tokenizer.vocab_size, mask_id, rng, specials
+        )
+        return {"text_ids": corrupted, "attention_mask": mask,
+                "targets": targets}

@@ -17,6 +17,9 @@ the shift, so the gradient of one is the other.
   (:191) are the JAX package's XLA forms of shift + 1x1 conv (three
   partial products; one 3-tap convolution with a channel-masked kernel):
   plain torch here, the conv1 of tsm_impl "xla" and "tap3".
+- `temporal_pool` (JAX ops/temporal_shift.py:133) is the max over time,
+  kernel 3, stride 2, pad 1: plain torch (the JAX package has no kernel
+  for it, and no model calls it).
 """
 
 from __future__ import annotations
@@ -157,3 +160,20 @@ def temporal_shift_conv1x1_3tap(x: torch.Tensor, kernel: torch.Tensor,
     x4 = x.reshape(b, n_segment, h * w, c).permute(0, 3, 1, 2)
     y = F.conv2d(x4, k3.permute(2, 1, 0)[..., None], padding=(1, 0))
     return y.permute(0, 2, 3, 1).reshape(nt, h, w, -1)
+
+
+def temporal_pool(x: torch.Tensor, n_segment: int) -> torch.Tensor:
+    """Max-pool over time, kernel 3, stride 2, pad 1 (JAX
+    ops/temporal_shift.py:133): x [N*T, H, W, C] -> [N*To, H, W, C] with
+    To = (T - 1) // 2 + 1. The padding is -inf for a float dtype and the
+    dtype's minimum for an integer one, so it never wins."""
+    nt = x.shape[0]
+    x5 = x.reshape(nt // n_segment, n_segment, *x.shape[1:])
+    low = (float("-inf") if x.dtype.is_floating_point
+           else torch.iinfo(x.dtype).min)
+    pad = x5.new_full((x5.shape[0], 1, *x5.shape[2:]), low)
+    xp = torch.cat([pad, x5, pad], dim=1)
+    t_out = (n_segment - 1) // 2 + 1
+    taps = [xp[:, k:k + 2 * t_out - 1:2] for k in range(3)]
+    out = torch.maximum(torch.maximum(taps[0], taps[1]), taps[2])
+    return out.reshape(-1, *x.shape[1:])

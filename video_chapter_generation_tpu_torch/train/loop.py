@@ -98,6 +98,12 @@ class Trainer:
         self.step += 1
         if self.step % k:
             return metrics
+        # optax updates every leaf: a parameter the loss does not reach
+        # (the pooler under the MLM head) still decays, as under AdamW
+        # with a zero gradient (AdamW skips a parameter without one)
+        for p in self.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         # clip_by_global_norm_ref (train/optim.py:87): max_norm / (norm + 1e-6)
         torch.nn.utils.clip_grad_norm_(self.model.parameters(),
                                        self.cfg.optim.grad_norm_clip)

@@ -1,7 +1,7 @@
 """Loss functions (counterpart of the JAX package's train/objectives.py):
-the clip classification loss and the title loss. The masked-token,
-InfoNCE and ListNet losses go with the models that need them (ROADMAP
-queue 1 item 12)."""
+the clip classification loss, the masked-token loss of subtitle
+pretraining and the title loss. The InfoNCE and ListNet losses go with
+the models that need them (ROADMAP queue 1 item 12)."""
 
 from __future__ import annotations
 
@@ -21,6 +21,26 @@ def clip_classification_loss(logits: torch.Tensor, labels: torch.Tensor
     labels = labels.long()
     loss = F.cross_entropy(logits, labels)
     acc = (logits.argmax(-1) == labels).to(logits.dtype).mean()
+    return loss, {"loss": loss, "acc": acc}
+
+
+def masked_token_loss(logits: torch.Tensor, targets: torch.Tensor,
+                      ignore_index: int = -1
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """logits [B, L, V], targets [B, L] -> cross entropy and accuracy over
+    the positions whose target is not ignore_index (MLM and next-token
+    pretraining; train/objectives.py:40). The reduction runs in at least
+    float32."""
+    logits = at_least_f32(logits)
+    targets = targets.long()
+    valid = targets != ignore_index
+    safe = torch.where(valid, targets, torch.zeros_like(targets))
+    ce = F.cross_entropy(logits.flatten(0, 1), safe.flatten(),
+                         reduction="none").reshape(targets.shape)
+    denom = torch.clamp(valid.sum(), min=1).to(logits.dtype)
+    loss = torch.where(valid, ce, torch.zeros_like(ce)).sum() / denom
+    hits = valid & (logits.argmax(-1) == safe)
+    acc = hits.sum().to(logits.dtype) / denom
     return loss, {"loss": loss, "acc": acc}
 
 

@@ -46,14 +46,19 @@ def decays(jax_path: Sequence[str]) -> bool:
     return not any(m in joined for m in _NO_DECAY_MARKERS)
 
 
-def no_decay_mask(model: torch.nn.Module, entries) -> Dict[str, bool]:
-    """Port parameter name -> whether it decays, by the JAX rule applied
-    to the parameter's JAX path under "params" (entries: models/convert.py's
-    table for the model, (jax path, port key, kind))."""
+def _param_paths(entries) -> Dict[str, Sequence[str]]:
+    """Port parameter name -> its JAX path under "params" (entries:
+    models/convert.py's table for the model, (jax path, port key, kind))."""
     # a tree with BatchNorm holds {"params", "batch_stats"}; the title
     # models' tables are rooted at their params
-    paths = {key: path[1:] if path[0] == "params" else path
-             for path, key, _ in entries if path[0] != "batch_stats"}
+    return {key: path[1:] if path[0] == "params" else path
+            for path, key, _ in entries if path[0] != "batch_stats"}
+
+
+def no_decay_mask(model: torch.nn.Module, entries) -> Dict[str, bool]:
+    """Port parameter name -> whether it decays, by the JAX rule applied
+    to the parameter's JAX path under "params"."""
+    paths = _param_paths(entries)
     mask = {}
     for name, _ in model.named_parameters():
         if name not in paths:
@@ -101,7 +106,47 @@ def make_optimizer(cfg: OptimConfig, model: torch.nn.Module,
                              betas=tuple(cfg.betas), eps=1e-8)
 
 
+def make_grouped_optimizer(cfg: OptimConfig, model: torch.nn.Module,
+                           entries,
+                           backbone_markers=("lang_model", "vision_model"),
+                           head_lr_mult: float = 2.0) -> torch.optim.AdamW:
+    """The domain-specific recipe (train/optim.py:148): backbone parameters
+    (a JAX path that names one of backbone_markers) at the base rate,
+    every other parameter at head_lr_mult times it, with the decay /
+    no-decay split of make_optimizer inside each group.
+
+    The JAX chain multiplies the whole update by the group's multiplier
+    after add_decayed_weights, so the weight decay term is scaled too.
+    Here the multiplier is the AdamW group's learning rate (its
+    "lr_scale" times learning_rate * lr_mult, see set_lr_mult), and
+    AdamW's decoupled decay multiplies by that rate: both terms scale
+    the same way."""
+    mask = no_decay_mask(model, entries)
+    paths = _param_paths(entries)
+    params = dict(model.named_parameters())
+
+    def is_backbone(name) -> bool:
+        joined = "/".join(str(k).lower() for k in paths[name])
+        return any(m in joined for m in backbone_markers)
+
+    groups = []
+    for backbone in (True, False):
+        scale = 1.0 if backbone else head_lr_mult
+        for decay in (True, False):
+            names = [n for n in params
+                     if is_backbone(n) == backbone and mask[n] == decay]
+            if names:
+                groups.append({
+                    "params": [params[n] for n in names],
+                    "weight_decay": cfg.weight_decay if decay else 0.0,
+                    "lr_scale": scale, "lr": cfg.learning_rate * scale})
+    return torch.optim.AdamW(groups, lr=cfg.learning_rate,
+                             betas=tuple(cfg.betas), eps=1e-8)
+
+
 def set_lr_mult(opt: torch.optim.Optimizer, cfg: OptimConfig,
                 mult: float) -> None:
+    """Every group's rate to learning_rate * mult, times the group's
+    "lr_scale" where it has one (make_grouped_optimizer)."""
     for group in opt.param_groups:
-        group["lr"] = cfg.learning_rate * mult
+        group["lr"] = cfg.learning_rate * mult * group.get("lr_scale", 1.0)

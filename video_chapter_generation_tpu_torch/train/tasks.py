@@ -1,7 +1,8 @@
 """Training tasks (counterpart of the JAX package's train/tasks.py):
 SegmentWindowTask, the flagship window model of :87-166 with its AUC/mAP
 eval; SegmentTask, the base two-stream clip classifier of :169-213;
-SegmentTextTask, the subtitle-only classifier of :216-268; TitleGenTask
+SegmentTextTask, the subtitle-only classifier of :216-268;
+LangPretrainTask, the BERT subtitle pretraining of :270-294; TitleGenTask
 (:365-419) and TitleGenVisionTask (:422-462), the title models with
 their loss and eval.
 """
@@ -28,7 +29,11 @@ from ..models.fusion import (
 from ..models.resnet import STAGE_SIZES, ResNet
 from ..models.seq2seq import Seq2Seq, Seq2SeqConfig, Seq2SeqVisionEmb
 from ..ops.preprocess import normalize_frames
-from .objectives import clip_classification_loss, seq2seq_title_loss
+from .objectives import (
+    clip_classification_loss,
+    masked_token_loss,
+    seq2seq_title_loss,
+)
 
 TINY_STAGE_SIZES = (1, 1, 1, 1)
 
@@ -240,6 +245,48 @@ class SegmentTextTask:
                 scores.append(prob[:, 1].float().cpu().numpy())
                 labels.append(np.asarray(batch["label"]))
         return _binary_eval(scores, labels)
+
+
+class LangPretrainTask:
+    """BERT subtitle pretraining, MLM or next token (train/tasks.py:270):
+    BertForChapter with the bias-free vocabulary head (pretrain_stage),
+    the masked-token cross entropy over SubtitlePretrainDataset items
+    ("text_ids", "attention_mask", "targets"), dropout from the caller's
+    generator. The model computes in model.compute_dtype (bf16 under
+    autocast with float32 weights on the card; float64 keeps float64
+    weights); the JAX task builds its BERT in float32 whatever the
+    config says. bert_cfg overrides the BERT configuration (its
+    vocabulary is vocab_size)."""
+
+    def __init__(self, cfg: Config, vocab_size: int, tiny: bool = False,
+                 bert_cfg: Optional[BertConfig] = None):
+        self.cfg = cfg
+        self.dtype = compute_dtype(cfg)
+        bc = bert_cfg or (BertConfig.tiny() if tiny else BertConfig())
+        self.bert_cfg = bc = dataclasses.replace(bc, vocab_size=vocab_size)
+        with torch.device("meta"):
+            self.model = BertForChapter(bc, pretrain_stage=True)
+        self.entries = convert.bert_for_chapter_entries(bc.num_layers,
+                                                        pretrain_stage=True)
+        self.contract = build_contract(
+            model_kind="lang_pretrain", max_text_len=cfg.data.max_text_len,
+            vocab_size=vocab_size)
+
+    def init_state(self) -> Dict[str, torch.Tensor]:
+        """Seeded random weights (train.seed) in the JAX layout."""
+        tree = convert.random_jax_tree(self.model, self.entries,
+                                       seed=self.cfg.train.seed)
+        return _init_dtype(convert.from_jax(tree, self.entries), self.dtype)
+
+    def loss_fn(self, model: BertForChapter, batch: Dict[str, np.ndarray],
+                generator: Optional[torch.Generator] = None):
+        """(loss, {"loss", "acc"}) of one host batch on the model's
+        device, with dropout from `generator` in train() mode."""
+        ids, mask, targets = _put(model, batch, "text_ids",
+                                  "attention_mask", "targets")
+        with _autocast(self.dtype, ids.device):
+            logits, _ = model(ids.long(), mask, generator=generator)
+        return masked_token_loss(logits, targets)
 
 
 class TitleGenTask:
