@@ -208,10 +208,33 @@
    synthetic corpus's vocabulary padded to BERT-base's 30,522; batch 8,
    100 tokens, bf16) for 3 steps: finite losses, moved parameters, a
    checkpoint that restores; ms a step printed.
-16. Prints one JSON line of the kernels (a bound over several shapes
+16. parallel (after 8, from the checkpoints of 5 and 8). Prints the card
+   count and make_mesh()'s shape; runs cli/infer_video --sharded with
+   phase 5's argv (--int8_vision --int8_titles --pipelined): on one card
+   a one-shard mesh, so each video's cut points and titles and the launch
+   counts equal phase 5's; scores phase 8's window model with
+   make_sharded_window_score_fn on two shards of the one card, 16 windows
+   a call, against the one-shard scorer (scores within 1e-2, labels equal
+   away from the threshold, launches a call K6 2, K8 2, K2/K3 26, K4 6),
+   holding those kernels to their plain versions on the first shard's
+   arguments; spawns two processes of cli/infer_video with the launcher's
+   environment (gloo on the shared card; NCCL where each has a card):
+   each serves vids[rank::2] and the first prints the merged lines, equal
+   to the sharded run's; and checks NCCL at world 1 (the object
+   collectives, a barrier, an all_reduce on the card) in a process of
+   its own. Each step's wall time, device_score and title_generate.
+17. gpt. cli/pretrain_lang --task next_token_gpt (12 layers, 10 heads,
+   300 wide) and --task next_token_glove (12 heads over a random 300-d
+   GloVe text file written for the corpus's words), over the corpus's
+   words padded to 10,000 (--glove_vocab), 3 steps each at
+   batch 8 x 100 tokens in bf16: finite losses, moved parameters, the
+   checkpoint's contract; cli/sample_lang on each checkpoint (2 prompts
+   x 2 samples of 20 tokens, top-k 10): two greedy runs equal, two
+   seeded sampled runs equal; ms a step printed.
+18. Prints one JSON line of the kernels (a bound over several shapes
    is the sum of each shape's), the wall time of each phase
    and of the script and, last, the device line. The title decode of 4
-   and each of 5-15 also print their wall time as they end ("serving",
+   and each of 5-17 also print their wall time as they end ("serving",
    1-4 up to the title decode, prints only on that line).
 
 After the serving path (4), the native_decode phase: where the machine
@@ -314,6 +337,14 @@ ACCUM_MAX_GRAD_REL, ACCUM_MIN_COS, REMAT_MIN_COS, ACCUM_ROWS = \
 # BERT subtitle pretraining: BERT-base's vocabulary (the synthetic
 # corpus's padded to it)
 BERT_VOCAB = 30522
+# the parallel phase: the window scorer's batch (windows of 3 clips) on a
+# mesh of two shards; how far a sharded score may lie from the unsharded
+# one (the bf16 kernels are row-local, but BERT's cuBLAS products may take
+# another algorithm at half the rows); each launcher process's time limit
+PARALLEL_BATCH, PARALLEL_SCORE_TOL, PARALLEL_RANK_TIMEOUT = 16, 1e-2, 420
+# the from-scratch GPT's word vocabulary (the JAX GPTConfig's default; the
+# synthetic corpus's few words padded to it)
+GPT_VOCAB = 10000
 
 
 def fail(msg: str):
@@ -1537,7 +1568,8 @@ def title_decode_phase(dev, smi, s2s):
 def infer_phases(dev, smi, frames, vision, ts_sd, delta):
     """K8 and K9 against their plain versions at the shapes of one
     256-frame vision call, then cli/infer_video end to end. Returns the
-    kernels' JSON entries."""
+    kernels' JSON entries, the CLI's argv and its run (each video's cut
+    points and titles, the launch counts, the vision calls)."""
     import os
 
     import numpy as np
@@ -1743,6 +1775,9 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
              "tsm_bottleneck": 13, "tsm_bottleneck_s2": 3,
              "tsm_bottleneck_int8": 0}
     want = {k: v * calls + calib[k] for k, v in per_call.items()}
+    run = {"results": {vid: (r.cut_points, r.titles)
+                       for vid, r in results.items()},
+           "launches": launches, "calls": calls}
     print(f"# infer_video --int8_vision --int8_titles --pipelined: "
           f"{len(results)} videos, {calls} vision calls (+1 calibration "
           f"call), launches {launches}, {wall:.1f} s (models, calibration "
@@ -1790,7 +1825,7 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
                     # the stem's cuDNN sequence; no one PyTorch call
                     # computes the pool with its affine or the W8A8 block
                     "library_ms": e.get("library_ms")})
-    return out, argv
+    return out, argv, run
 
 
 def hold_k10(q_mid, k, v, mask, tabs, bs, name, label, smi):
@@ -4305,6 +4340,485 @@ def pretrain_lang_phase(dev, smi):
     shutil.rmtree(ckpt, ignore_errors=True)
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _launcher_env(rank: int, world: int, port: int) -> dict:
+    """The environment torchrun gives rank `rank` of `world` on one host,
+    with this checkout on the import path."""
+    import os
+
+    path = os.environ.get("PYTHONPATH", "")
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                PYTHONPATH=str(ROOT) + (os.pathsep + path if path else ""))
+
+
+def _run_ranks(cmds, cwds, envs, timeout):
+    """Start every command at once; their outputs (stdout and stderr
+    together), after all have ended. Any that outlives `timeout` is killed
+    with the others, and the phase fails."""
+    procs = [subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for cmd, cwd, env in zip(cmds, cwds, envs)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=timeout)[0].decode())
+    except subprocess.TimeoutExpired:
+        fail(f"a process outlived its {timeout} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for i, (proc, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            print(f"# process {i}: {line}", flush=True)
+        if proc.returncode != 0:
+            fail(f"process {i} of {len(procs)} exited {proc.returncode}")
+    return outs
+
+
+_NCCL_WORLD_ONE = r"""
+import torch
+import torch.distributed as tdist
+from video_chapter_generation_tpu_torch.parallel import dist
+
+assert dist.initialize(backend="nccl") and dist.backend() == "nccl"
+# the port's collectives answer alone at world 1, as the JAX ones do
+assert dist.all_gather_object({"a": 1}) == [{"a": 1}]
+assert dist.broadcast_object([2], root=0) == [2]
+dist.barrier("world one")
+# and torch.distributed's, through NCCL on the card
+out = [None]
+tdist.all_gather_object(out, {"rank": 0, "blob": "x" * 4096})
+assert out[0]["rank"] == 0 and len(out[0]["blob"]) == 4096
+box = [("root", 3)]
+tdist.broadcast_object_list(box, src=0)
+assert box[0] == ("root", 3)
+tdist.barrier(device_ids=[torch.cuda.current_device()])
+t = torch.arange(4, dtype=torch.float32, device="cuda")
+tdist.all_reduce(t)
+torch.cuda.synchronize()
+assert t.tolist() == [0.0, 1.0, 2.0, 3.0], t
+dist.shutdown()
+print("nccl at world 1: initialize, all_gather_object, broadcast_object, "
+      "barrier, all_reduce OK")
+"""
+
+
+def parallel_phase(dev, smi, cli_argv, infer_run, window_eval, entries):
+    """Sharded and multi-process serving on the card (parallel/,
+    pipeline/sharded.py, cli/infer_video --sharded): (1) the card count
+    and make_mesh()'s shape; (2) cli/infer_video --sharded with the
+    inference phase's argv and checkpoint (--int8_vision --int8_titles
+    --pipelined): on one card the mesh has one shard, so each video's cut
+    points and titles, and the launch counts, equal that phase's
+    unsharded run; (3) make_sharded_window_score_fn on a mesh of two
+    shards on the one card, from the window phase's checkpoint, in
+    batches of PARALLEL_BATCH windows: scores within PARALLEL_SCORE_TOL
+    of the unsharded scorer's, labels equal wherever the unsharded score
+    lies farther than that from 0.5, launches a call twice the one-shard
+    counts, the kernels held to their plain versions on the first shard's
+    arguments; (4) two processes of cli/infer_video with step 2's argv
+    and a launcher's environment: gloo on a shared card (NCCL where each
+    has a card), each serves vids[rank::2], rank 0's merged lines equal
+    step 2's results; (5) NCCL at world 1 in a process of its own. Prints
+    each step's wall time, device_score and title_generate. Returns the
+    kernels' entries of steps 2 (the inference entries' numbers, at its
+    same shapes, with its launches) and 3 (this phase's)."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from video_chapter_generation_tpu_torch.cli import infer_video
+    from video_chapter_generation_tpu_torch.cli.common import (
+        load_bert_tokenizer,
+        load_corpus,
+        parse_config,
+    )
+    from video_chapter_generation_tpu_torch.cli.eval_segment import (
+        build_score_fn,
+    )
+    from video_chapter_generation_tpu_torch.core.metrics import StepTimer
+    from video_chapter_generation_tpu_torch.data.clip_grid import (
+        flatten_video_to_clips,
+    )
+    from video_chapter_generation_tpu_torch.data.datasets import (
+        InferWindowClipDataset,
+    )
+    from video_chapter_generation_tpu_torch.models import resnet as resnet_model
+    from video_chapter_generation_tpu_torch.ops.preprocess import (
+        normalize_frames,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem import (
+        bn_relu_maxpool,
+        stem_frames,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block import (
+        tsm_bottleneck,
+        tsm_bottleneck_s2,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block_int8 import (
+        tsm_bottleneck_int8,
+    )
+    from video_chapter_generation_tpu_torch.parallel import make_mesh
+    from video_chapter_generation_tpu_torch.pipeline import (
+        boundary as boundary_model,
+    )
+    from video_chapter_generation_tpu_torch.pipeline import (
+        make_sharded_window_score_fn,
+        score_clips,
+    )
+
+    build = ROOT / "video_chapter_generation_tpu_torch" / "_build"
+    work = build / "parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    counted = (normalize_frames, stem_frames, bn_relu_maxpool,
+               tsm_bottleneck, tsm_bottleneck_s2, tsm_bottleneck_int8)
+    laps, seen = {}, {}
+
+    def run(name, fn):
+        """fn() in the work directory, every count at 0 just before and
+        read just after, its stdout printed. Returns (result, stdout)."""
+        for k in counted:
+            k.launches = 0
+        said = io.StringIO()
+        cwd = os.getcwd()
+        os.chdir(work)
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(said):
+                out = fn()
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+            for line in said.getvalue().splitlines():
+                print(f"# {name}: {line}", flush=True)
+        laps[name] = time.time() - t0
+        seen[name] = {k.__name__: k.launches for k in counted}
+        print(f"# {name}: {laps[name]:.1f} s, launches "
+              f"{ {k: v for k, v in seen[name].items() if v} } on {smi}",
+              flush=True)
+        return out, said.getvalue()
+
+    # --- 1. the cards and the default mesh ---
+    cards = torch.cuda.device_count()
+    mesh = make_mesh()
+    print(f"# parallel: torch.cuda.device_count() {cards}, make_mesh().shape "
+          f"{mesh.shape} ({[str(d) for d in mesh.data_devices()]}) on {smi}",
+          flush=True)
+
+    # --- 2. infer_video --sharded, against the inference phase's run ---
+    name2 = "infer_video --sharded"
+    argv2 = cli_argv + ["--int8_vision", "--int8_titles", "--sharded",
+                        "--pipelined"]
+    results, text = run(name2, lambda: infer_video.main(argv2))
+    got = {vid: (r.cut_points, r.titles) for vid, r in results.items()}
+    stages = json.loads(text.split("stage seconds: ")[1].splitlines()[0])
+    print(f"# {name2}: {len(got)} videos, device_score "
+          f"{stages['device_score']['seconds']:.3f} s, title_generate "
+          f"{stages['title_generate']['seconds']:.3f} s on {smi}", flush=True)
+    if list(got) != list(infer_run["results"]):
+        fail(f"{name2} chaptered {list(got)}, the unsharded run "
+             f"{list(infer_run['results'])}")
+    if mesh.shape["data"] == 1:
+        if got != infer_run["results"]:
+            fail(f"{name2} on a one-shard mesh: {got} != the unsharded run's "
+                 f"{infer_run['results']}")
+        if seen[name2] != infer_run["launches"]:
+            fail(f"{name2} launch counts {seen[name2]} != the unsharded "
+                 f"run's {infer_run['launches']}")
+    print(f"# {name2}: cut points and titles "
+          f"{'equal' if got == infer_run['results'] else 'DIFFER from'} the "
+          f"unsharded run's, launches {seen[name2]} (unsharded "
+          f"{infer_run['launches']})", flush=True)
+
+    # --- 3. the window scorer on two shards of the one card ---
+    name3 = "window scorer, 2 shards on one card"
+    cfg, args = parse_config(window_eval["argv"]
+                             + ["--bert_vocab", window_eval["vocab"]])
+    tok = load_bert_tokenizer(args, load_corpus(cfg, "train"))
+    val = load_corpus(cfg, "val")
+    vid = val.vids[0]
+    clips = flatten_video_to_clips(vid, val.img_dir, val.image_num(vid),
+                                   val.raw_cut_secs(vid), val.subtitles(vid),
+                                   CLIP_FRAMES)
+    ds = InferWindowClipDataset(clips, tok, CLIP_FRAMES, TEXT_LEN,
+                                window_size=1)
+    plain_fn = build_score_fn(cfg, args, tok, device=dev)
+    two = make_mesh(devices=[dev, dev])
+    sharded_fn = make_sharded_window_score_fn(plain_fn.model, two)
+    timers = {"one shard": StepTimer(), name3: StepTimer()}
+    run("one shard", lambda: score_clips(ds, plain_fn, PARALLEL_BATCH,
+                                         timer=timers["one shard"],
+                                         prefetch=0))
+    ref = np.asarray([c.pred_score for c in ds.all_clip_infos])
+    trunk_spots = {(boundary_model, "normalize_frames"): 1,
+                   (resnet_model, "stem_frames"): 1,
+                   (resnet_model, "tsm_bottleneck"): 13,
+                   (resnet_model, "tsm_bottleneck_s2"): 3}
+    with first_calls(trunk_spots) as kept:
+        run(name3, lambda: score_clips(ds, sharded_fn, PARALLEL_BATCH,
+                                       timer=timers[name3], prefetch=0))
+    shd = np.asarray([c.pred_score for c in ds.all_clip_infos])
+    calls = math.ceil(len(ds) / PARALLEL_BATCH)
+    one = {"normalize_frames": 1, "stem_frames": 1, "tsm_bottleneck": 13,
+           "tsm_bottleneck_s2": 3}
+    want = {k.__name__: calls * one.get(k.__name__, 0) for k in counted}
+    if seen["one shard"] != want:
+        fail(f"{name3}: one-shard launch counts {seen['one shard']} != "
+             f"{want}")
+    if seen[name3] != {k: 2 * v for k, v in want.items()}:
+        fail(f"{name3}: launch counts {seen[name3]} != twice {want}")
+    gap = float(np.abs(shd - ref).max())
+    clear = np.abs(ref - 0.5) > PARALLEL_SCORE_TOL
+    flips = int(((shd >= 0.5) != (ref >= 0.5))[clear].sum())
+    print(f"# {name3}: {len(ds)} windows in {calls} calls of "
+          f"{PARALLEL_BATCH} windows ({PARALLEL_BATCH // 2} x 3 x "
+          f"{CLIP_FRAMES} = {PARALLEL_BATCH * 3 * CLIP_FRAMES // 2} frames a "
+          f"shard); max |sharded - unsharded| score {gap:.3g} (band "
+          f"{PARALLEL_SCORE_TOL}), {flips} labels flipped of "
+          f"{int(clear.sum())} clear of the band; device_score "
+          + ", ".join(f"{k} {t.summary()['device_score']['seconds']:.3f} s"
+                      for k, t in timers.items()) + f" on {smi}", flush=True)
+    if not np.isfinite(shd).all() or gap > PARALLEL_SCORE_TOL or flips:
+        fail(f"{name3}: scores {gap:.3g} apart, {flips} labels flipped")
+    got_calls = {k: len(v) for k, v in kept.items()}
+    if got_calls != one:
+        fail(f"{name3}: kept {got_calls} launches of the first shard")
+    t0 = time.time()
+    window_rows = hold_vision_call(kept)
+    print(f"# {name3}: the first shard's kernels held to their plain "
+          f"versions on its own arguments in {time.time() - t0:.1f} s on "
+          f"{smi}", flush=True)
+    del kept, plain_fn, sharded_fn
+    torch.cuda.empty_cache()
+
+    # --- 4. two processes of infer_video under a launcher's environment ---
+    backend = "nccl" if cards >= 2 else "gloo"
+    port = _free_port()
+    dirs = [work / f"rank{r}" for r in range(2)]
+    for d in dirs:
+        d.mkdir()
+    t0 = time.time()
+    outs = _run_ranks(
+        [[sys.executable, "-m", "video_chapter_generation_tpu_torch.cli."
+          "infer_video", *argv2]] * 2, dirs,
+        [_launcher_env(r, 2, port) for r in range(2)], PARALLEL_RANK_TIMEOUT)
+    laps["2 processes"] = time.time() - t0
+    vids = list(infer_run["results"])
+    for r, out in enumerate(outs):
+        line = f"process {r} of 2 (backend {backend}, "
+        served = [x for x in out.splitlines() if x.startswith(line)]
+        if not served or not served[0].endswith(f"serves "
+                                                f"{json.dumps(vids[r::2])}"):
+            fail(f"process {r} did not serve {vids[r::2]} on {backend}: "
+                 f"{served}")
+    lines = [json.loads(x) for x in outs[0].splitlines()
+             if x.startswith('{"vid"')]
+    merged = {x["vid"]: (x["cut_points"], x["titles"]) for x in lines}
+    if list(merged) != vids or merged != got:
+        fail(f"the 2-process run merged {merged}, the sharded run {got}")
+    if any(x.startswith('{"vid"') for x in outs[1].splitlines()):
+        fail("process 1 printed result lines: only the first writes them")
+    print(f"# 2 processes of infer_video ({backend}): each served "
+          f"vids[rank::2], rank 0's merged lines equal the sharded run's, "
+          f"{laps['2 processes']:.1f} s (two model builds and calibrations "
+          f"side by side) on {smi}", flush=True)
+
+    # --- 5. NCCL at world 1 ---
+    t0 = time.time()
+    out = _run_ranks([[sys.executable, "-c", _NCCL_WORLD_ONE]], [work],
+                     [_launcher_env(0, 1, _free_port())], 120)[0]
+    laps["nccl world 1"] = time.time() - t0
+    if "nccl at world 1:" not in out:
+        fail("the NCCL check printed no result")
+    print(f"# parallel step seconds {json.dumps(laps)} on {smi}", flush=True)
+
+    shutil.rmtree(work, ignore_errors=True)
+    rows = {"cli/infer_video --sharded --int8_vision --int8_titles": {
+        k: {key: entries[k][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms")}
+        for k, n in seen[name2].items() if n},
+        "pipeline/sharded.py window scorer, 2 shards": window_rows}
+    runs = {"cli/infer_video --sharded --int8_vision --int8_titles": name2,
+            "pipeline/sharded.py window scorer, 2 shards": name3}
+    return [dict({key: entries[k][key] for key in ("name", "route", "source",
+                                                  "replaces")},
+                 launches=seen[runs[path]][k], **row, path=path)
+            for path, kernels in rows.items() for k, row in kernels.items()]
+
+
+def gpt_phase(dev, smi):
+    """The from-scratch GPT on the card: cli/pretrain_lang --task
+    next_token_gpt (12 layers, 10 heads, 300 wide) and --task
+    next_token_glove (12 heads over a random 300-d GloVe text file written
+    here for the corpus's words), over the corpus's words padded to
+    GPT_VOCAB (--glove_vocab), 3 steps each at batch 8 x TEXT_LEN
+    tokens, bf16, on a synthetic corpus of 24 videos: finite losses,
+    moved parameters, a checkpoint with the task's contract; then
+    cli/sample_lang on each checkpoint, 2 prompts x 2 samples of 20
+    tokens, top-k 10: two greedy runs give equal ids, two sampled runs
+    with one seed equal ids. Prints ms a step (information only). No
+    kernel of the port runs there."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from video_chapter_generation_tpu_torch.cli import (
+        pretrain_lang,
+        sample_lang,
+    )
+    from video_chapter_generation_tpu_torch.core.checkpoint import (
+        CheckpointManager,
+    )
+    from video_chapter_generation_tpu_torch.core.contract import vocab_hash
+    from video_chapter_generation_tpu_torch.data.corpus import VideoCorpus
+    from video_chapter_generation_tpu_torch.data.synth import (
+        make_synth_corpus_on_disk,
+    )
+    from video_chapter_generation_tpu_torch.datasetkit.glove import (
+        build_word_vocab,
+    )
+    from video_chapter_generation_tpu_torch.train.loop import Trainer
+
+    build = ROOT / "video_chapter_generation_tpu_torch" / "_build"
+    paths = make_synth_corpus_on_disk(
+        str(build / "synth_gpt_corpus"), n_videos=24, video_sec=60, hw=32,
+        seed=SEED + 41, splits={"train": 24})
+    corpus = VideoCorpus.from_files(paths["img_dir"], paths["data_file"],
+                                    paths["train_vid_file"],
+                                    paths["subtitle_dir"])
+    # the corpus's words padded to GPT_VOCAB (the head at that width);
+    # GloVe rows for the corpus's words (the padding words have none: the
+    # data set skips them, as it skips any word without a row)
+    corpus_words = build_word_vocab(corpus)
+    words = corpus_words + [f"<unused{i}>" for i in
+                            range(GPT_VOCAB - len(corpus_words))]
+    vocab = build / "gpt_vocab.txt"
+    vocab.write_text("\n".join(words) + "\n")
+    rng = np.random.default_rng(SEED + 43)
+    glove = build / "gpt_glove.txt"
+    glove.write_text("".join(
+        w + " " + " ".join(f"{v:.5f}" for v in rng.standard_normal(300))
+        + "\n" for w in corpus_words))
+    over = [f"data.{k}={paths[k]}" for k in (
+        "img_dir", "data_file", "subtitle_dir", "train_vid_file")] + [
+        "data.batch_size=8", f"data.max_text_len={TEXT_LEN}",
+        "model.compute_dtype=bfloat16", "train.max_epochs=1",
+        "train.resume=false", "optim.learning_rate=1e-3",
+        "--glove_vocab", str(vocab), "--device", str(dev)]
+    widths = {"next_token_gpt": (12, 10, 300), "next_token_glove": (12, 12,
+                                                                    300)}
+    plain_step = Trainer.train_step
+    for task, extra in (("next_token_gpt", []),
+                        ("next_token_glove", ["--glove", str(glove)])):
+        ckpt = build / f"gpt_ckpt_{task}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        argv = over + [f"train.ckpt_dir={ckpt}",
+                       f"train.log_dir={ckpt}_logs", "--task", task] + extra
+        snap, times = {}, []
+
+        def spy(self, batch):
+            if not snap:
+                snap.update({k: p.detach().clone() for k, p in list(
+                    self.model.named_parameters())[::7]})
+            torch.cuda.synchronize()
+            t0 = time.time()
+            m = plain_step(self, batch)
+            times.append((float(m["loss"].detach()), time.time() - t0))
+            return m
+
+        said = io.StringIO()
+        Trainer.train_step = spy
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(said):
+                trainer = pretrain_lang.main(argv)
+        finally:
+            Trainer.train_step = plain_step
+            for line in said.getvalue().splitlines():
+                print(f"# {task}: {line}", flush=True)
+        wall = time.time() - t0
+        gc = trainer.task.gpt_cfg
+        losses = [x[0] for x in times]
+        params = dict(trainer.model.named_parameters())
+        moved = sum(not torch.equal(v, params[k].detach())
+                    for k, v in snap.items())
+        ck = CheckpointManager(str(ckpt))
+        contract = ck.metrics_for(ck.latest_step())["contract"]
+        step_ms = 1e3 * min(x[1] for x in times[1:] or times)
+        print(f"# pretrain_lang --task {task} (GPT {gc.n_layer} layers, "
+              f"{gc.n_head} heads, {gc.n_embd} wide, vocabulary "
+              f"{gc.vocab_size}, batch 8 x {TEXT_LEN} tokens, bf16): "
+              f"{len(times)} steps, losses {[round(x, 4) for x in losses]}, "
+              f"{moved} of {len(snap)} sampled parameters moved, checkpoint "
+              f"{contract}; {step_ms:.1f} ms a step (the fastest after the "
+              f"first), {wall:.1f} s in all on {smi}; information only",
+              flush=True)
+        if len(times) != 3 or not all(math.isfinite(x) for x in losses):
+            fail(f"{task}: {len(times)} steps, losses {losses}")
+        if ((gc.n_layer, gc.n_head, gc.n_embd) != widths[task]
+                or gc.vocab_size != GPT_VOCAB):
+            fail(f"{task} trained a GPT of {gc}")
+        kind = ("gpt_pretrain" if task == "next_token_gpt"
+                else "gpt_glove_pretrain")
+        if (not moved or contract.get("model_kind") != kind
+                or contract.get("vocab_hash") != vocab_hash(words)
+                or (task == "next_token_glove"
+                    and contract.get("emb_dim") != 300)):
+            fail(f"{task}: parameters moved {moved}, contract {contract}")
+        del trainer
+        torch.cuda.empty_cache()
+
+        def sample(*flags):
+            said = io.StringIO()
+            with contextlib.redirect_stdout(said):
+                out = sample_lang.main(
+                    argv + ["--num_samples", "2", "--top_k", "10",
+                            "--max_new_tokens", "20", *flags])
+            return out, said.getvalue()
+
+        t0 = time.time()
+        greedy, text = sample("--greedy")
+        greedy2, _ = sample("--greedy")
+        drawn, drawn_text = sample()
+        drawn2, _ = sample()
+        sample_s = (time.time() - t0) / 4
+        for line in (text + drawn_text).splitlines():
+            print(f"# sample_lang {task}: {line}", flush=True)
+        ids = [[s["ids"] for s in r] for r in (greedy, greedy2, drawn,
+                                               drawn2)]
+        print(f"# sample_lang --task {task}: {len(greedy)} greedy and "
+              f"{len(drawn)} sampled continuations of 20 tokens, greedy runs "
+              f"{'equal' if ids[0] == ids[1] else 'DIFFER'}, seeded sampled "
+              f"runs {'equal' if ids[2] == ids[3] else 'DIFFER'}; "
+              f"{sample_s:.1f} s a run (the restore included) on {smi}",
+              flush=True)
+        if len(greedy) != 4 or len(drawn) != 4:
+            fail(f"sample_lang {task}: {len(greedy)} greedy, {len(drawn)} "
+                 f"sampled continuations, not 4")
+        if ids[0] != ids[1] or ids[2] != ids[3]:
+            fail(f"sample_lang {task}: repeated runs gave other ids")
+        if not all(len(x) == 20 and 0 <= min(x) and max(x) < len(words)
+                   for run_ids in ids for x in run_ids):
+            fail(f"sample_lang {task}: ids outside the vocabulary")
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4605,8 +5119,8 @@ def main() -> int:
     native_launches = timed("native_decode", native_decode_phase, dev, smi,
                             pipe, corpus)
     timed("title_decode", title_decode_phase, dev, smi, s2s)
-    infer_kernels, cli_argv = timed("infer", infer_phases, dev, smi, frames,
-                                    vision, ts_sd, delta)
+    infer_kernels, cli_argv, infer_run = timed(
+        "infer", infer_phases, dev, smi, frames, vision, ts_sd, delta)
     del ts_sd, s2s
     torch.cuda.empty_cache()
     bigbird_kernels = timed("bigbird", bigbird_phases, dev, smi, cli_argv)
@@ -4651,6 +5165,16 @@ def main() -> int:
     # INT8_S2_BLOCKS and chain_blocks vision calls (K14b: no model path)
     # the extraction paths: K1, K2/K3 and K4 (and K9 with --int8) at the
     # shapes of the serving and inference entries, launches of this phase
+    # sharded and multi-process serving from the inference and window
+    # checkpoints (before title_training adds a title checkpoint beside
+    # the inference one, and before the evaluation removes them): the
+    # --sharded CLI's entries carry the serving, inference and window
+    # entries' numbers (its shapes are theirs), the two-shard window
+    # scorer's its own
+    parallel_kernels = timed(
+        "parallel", parallel_phase, dev, smi, cli_argv, infer_run,
+        window_eval, {k["name"]: k for k in kernels + infer_kernels
+                      + window_kernels})
     vision_kernels = timed(
         "vision_titles", vision_titles_phase, dev, smi, cli_argv,
         {k["name"]: k for k in kernels},
@@ -4671,13 +5195,15 @@ def main() -> int:
         title_eval, {k["name"]: k for k in kernels + infer_kernels
                      + window_kernels + bigbird_kernels[:1]})
     timed("pretrain_lang", pretrain_lang_phase, dev, smi)
+    timed("gpt", gpt_phase, dev, smi)
     native_kernels = [dict(k, launches=native_launches[k["name"]],
                            path="ChapterPipeline, native decode")
                       for k in kernels] if native_launches else []
     print(json.dumps({"kernels": kernels + infer_kernels + bigbird_kernels
                       + train_kernels + window_kernels + int8_s2_kernels
                       + [chain_kernel] + vision_kernels + [title_kernel]
-                      + eval_kernels + native_kernels}))
+                      + eval_kernels + parallel_kernels
+                      + native_kernels}))
     print(f"# phase seconds {json.dumps(laps)}; chip_smoke wall time "
           f"{time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -447,3 +447,69 @@ def test_flatten_matches(disk, tmp_path, capsys):
     assert out[0].replace("p.json", "j.json") == out[1]
     assert (tmp_path / "p.json").read_bytes() == \
         (tmp_path / "j.json").read_bytes()
+
+
+def test_glove_copies_match(disk, tmp_path):
+    """datasetkit/glove.py's copies: the text loader (a malformed line
+    skipped), the pickle round trip, embed_tokens and build_word_vocab,
+    and text_decontracted beside them."""
+    from video_chapter_generation_tpu.datasetkit import glove as jax_glove
+    from video_chapter_generation_tpu.datasetkit import (
+        parsing as jax_parsing,
+    )
+    from video_chapter_generation_tpu_torch.datasetkit import glove, parsing
+
+    rng = np.random.default_rng(0)
+    words = ["the", "cat", "sat"]
+    path = tmp_path / "g.txt"
+    path.write_text("".join(
+        w + " " + " ".join(f"{v:.5f}" for v in rng.standard_normal(4))
+        + "\n" for w in words) + "bad x y\n")
+    table = glove.load_glove_txt(str(path))
+    _same(table, jax_glove.load_glove_txt(str(path)))
+    glove.save_glove_pickle(table, str(tmp_path / "a.pkl"))
+    jax_glove.save_glove_pickle(table, str(tmp_path / "b.pkl"))
+    _same(glove.load_glove_pickle(str(tmp_path / "b.pkl")),
+          jax_glove.load_glove_pickle(str(tmp_path / "a.pkl")))
+    toks = ["cat", "dog", "the"]
+    _same(glove.embed_tokens(toks, table, 3),
+          jax_glove.embed_tokens(toks, table, 3))
+    pa, pb = _corpora(disk)
+    _same(glove.build_word_vocab(pa), jax_glove.build_word_vocab(pb))
+    for s in ("won't stop, can't see; let's go", "it's they're I'd we'll "
+              "you've I'm isn't"):
+        assert parsing.text_decontracted(s) == \
+            jax_parsing.text_decontracted(s)
+
+
+@pytest.mark.parametrize("glove_items", [False, True])
+def test_gpt_datasets_match(disk, glove_items):
+    """GloveSubtitleDataset and WordIdSubtitleDataset items: the same
+    random 16 s window and stream per epoch."""
+    from video_chapter_generation_tpu_torch.datasetkit.glove import (
+        build_word_vocab,
+    )
+
+    pa, pb = _corpora(disk)
+    vocab = build_word_vocab(pa)
+    rng = np.random.default_rng(1)
+    table = {w: rng.standard_normal(8).astype(np.float32)
+             for w in vocab[::2]}
+    if glove_items:
+        a = datasets.GloveSubtitleDataset(pa, table, vocab, max_text_len=20,
+                                          emb_dim=8, seed=5)
+        b = jax_datasets.GloveSubtitleDataset(pb, table, vocab,
+                                              max_text_len=20, emb_dim=8,
+                                              seed=5)
+    else:
+        a = datasets.WordIdSubtitleDataset(pa, vocab, max_text_len=20, seed=5)
+        b = jax_datasets.WordIdSubtitleDataset(pb, vocab, max_text_len=20,
+                                               seed=5)
+    assert len(a) == len(b)
+    moved = False
+    for epoch in range(3):
+        for i in range(len(a)):
+            x, y = a.__getitem__(i, epoch), b.__getitem__(i, epoch)
+            _same(x, y)
+            moved |= bool((x["targets"] != -1).any())
+    assert moved

@@ -41,7 +41,9 @@ def test_port_module_list_is_complete():
                  "cli.eval_segment", "cli.eval_title", "cli.pretrain_lang",
                  "evalkit.rouge", "evalkit.segment_eval",
                  "evalkit.title_eval", "datasetkit.flatten", "train.optim",
-                 "train.tasks"):
+                 "train.tasks", "parallel", "parallel.dist", "parallel.mesh",
+                 "pipeline.sharded", "models.gpt", "cli.sample_lang",
+                 "datasetkit.glove", "ops._calls"):
         assert f"{PORT}.{name}" in MODULES, name
 
 

@@ -16,8 +16,9 @@
 - score_clips' prefetch thread: a failing batch raises its error.
 - cli/infer_video on a synthetic corpus after the port's train_segment
   wrote a frames-stem checkpoint: it restores it, a contract mismatch
-  raises, --int8_vision --int8_titles --pipelined runs, and every flag
-  the port does not serve exits naming its ROADMAP item; the title
+  raises, --int8_vision --int8_titles --pipelined runs, --sharded
+  (two CPU shards) gives the unsharded run's cut points and titles,
+  and the window model exits naming the JAX package's fault; the title
   restore loads a title checkpoint, raises on one whose contract does not
   match and keeps random weights beside a checkpoint of another kind.
 """
@@ -437,22 +438,115 @@ def test_title_restore(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--num_beams", "4", "--sharded"], ["--vision_emb_dir", "embs",
-                                        "--sharded"],
-    ["--fusion_type", "mlp", "model.kind=text", "--sharded"], ["--sharded"],
+    ["--num_beams", "4", "--sharded", "model.kind=two_stream_window"],
+    ["--vision_emb_dir", "embs", "--sharded",
+     "model.kind=two_stream_window"],
+    ["--fusion_type", "mlp", "model.kind=two_stream_window", "--sharded"],
+    ["--sharded", "model.kind=two_stream_window"],
     ["--title_arch", "bigbird", "--num_beams", "4",
      "model.kind=two_stream_window"],
-    ["--title_arch", "bart", "--sharded"], ["model.kind=two_stream_window"],
-    ["model.kind=text", "--sharded"]])
+    ["--title_arch", "bart", "--sharded", "model.kind=two_stream_window"],
+    ["model.kind=two_stream_window"],
+    ["--sharded", "--int8_titles", "model.kind=two_stream_window"]])
 def test_infer_video_names_what_is_not_ported(cli_case, extra):
-    """Each names its ROADMAP item; the window model names the JAX
-    package's fault (its infer_video cannot serve it either). Beams,
-    vision-conditioned titles and the text-only boundary model are served
-    (tests/test_torch_beam_search.py, tests/test_torch_vision_titles.py,
-    tests/test_torch_text_task.py); beside what is not, they are refused
-    all the same."""
+    """The window model is the one thing the CLI does not serve; it names
+    the JAX package's fault (its infer_video cannot serve it either).
+    Beams, vision-conditioned titles, the text-only boundary model and
+    --sharded are served (tests/test_torch_beam_search.py,
+    tests/test_torch_vision_titles.py, tests/test_torch_text_task.py,
+    test_infer_video_sharded_equals_unsharded); beside the window model,
+    they are refused all the same."""
     overrides = [e for e in extra if "=" in e]
     flags = [e for e in extra if "=" not in e]
     with pytest.raises(SystemExit, match="ROADMAP (queue 1 item|lists this "
                        "under the JAX package's faults)"):
         _infer(cli_case, *flags, overrides=overrides)
+
+
+@pytest.mark.parametrize("extra", [["--pipelined"], [
+    "--int8_vision", "--int8_titles", "--pipelined"]],
+    ids=["pipelined", "int8"])
+def test_infer_video_sharded_equals_unsharded(cli_case, capsys, extra):
+    """--sharded on the CPU: two CPU shards (a row each at
+    data.batch_size=2), a replica of each model a shard device (one
+    here), the title rows padded and split; pipelined in float32, and
+    W8A8 with int8 titles (the calibrated scales on each shard). The
+    cut points, titles and clip scores equal the unsharded run's (the
+    scores within 1e-6: the CPU GEMMs run one row a shard, not two, and
+    may sum in another order)."""
+    plain = _infer(cli_case, *extra)
+    sharded = _infer(cli_case, "--sharded", *extra)
+    assert "restored checkpoint at epoch 0" in capsys.readouterr().out
+    assert list(sharded) == list(plain)
+    for vid, r in plain.items():
+        s = sharded[vid]
+        assert s.cut_points == r.cut_points and s.titles == r.titles
+        np.testing.assert_allclose(s.clip_scores, r.clip_scores, rtol=0,
+                                   atol=1e-6)
+    bad = cli_case[1] + ["data.batch_size=3"]
+    with pytest.raises(SystemExit, match="not divisible"):
+        _infer(cli_case, "--sharded", overrides=bad[-1:])
+
+
+def test_infer_video_two_processes_only_the_first_writes(cli_case,
+                                                         tmp_path):
+    """cli/infer_video under a launcher's environment, two processes on
+    gloo (--sharded, the CPU): each serves vids[rank::2], the first prints
+    the merged JSON lines and writes the result file, the second neither
+    (the JAX CLI has every process write the same file). The lines equal
+    a one-process run's. The test split holds one video, so the second
+    process serves none: it scores nothing (the JAX fan-out would serve
+    the whole corpus there, ChapterPipeline.run reading [] as all)."""
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root, base, flags = cli_case
+    argv = base + flags + ["--sharded"]
+    single = _infer(cli_case, "--sharded")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    repo = str(Path(__file__).resolve().parents[1])
+    procs = []
+    for rank in (0, 1):
+        (tmp_path / f"r{rank}").mkdir()
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("JAX_", "XLA_"))}
+        env.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                   CUDA_VISIBLE_DEVICES="", PYTHONPATH=repo)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m",
+             "video_chapter_generation_tpu_torch.cli.infer_video", *argv],
+            cwd=tmp_path / f"r{rank}", env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank} failed:\n{out}"
+    vids = list(single)
+    for rank, out in enumerate(outs):
+        assert (f"process {rank} of 2 (backend gloo, cpu, mesh "
+                f"{{'data': 2, 'model': 1}}) serves "
+                f"{json.dumps(vids[rank::2])}") in out, out
+    lines = [json.loads(x) for x in outs[0].splitlines()
+             if x.startswith('{"vid"')]
+    assert [x["vid"] for x in lines] == vids
+    for x in lines:
+        r = single[x["vid"]]
+        assert x["cut_points"] == r.cut_points and x["titles"] == r.titles
+    assert not any(x.startswith('{"vid"') for x in outs[1].splitlines())
+    assert vids[1::2] == [] and "stage seconds: {}" in outs[1]
+    assert (tmp_path / "r0" / "test_results" /
+            "whole_pipeline_result.txt").is_file()
+    assert not (tmp_path / "r1" / "test_results").exists()

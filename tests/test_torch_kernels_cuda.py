@@ -132,6 +132,37 @@ def test_tsm_bottleneck_runs_are_bitwise_equal(dev, stride, c, f, cout, hw):
     assert torch.equal(first, second)
 
 
+@pytest.mark.parametrize("stride,c,f,cout,hw", [(1, 256, 64, 256, 14),
+                                                (2, 512, 256, 1024, 13)])
+def test_tsm_bottleneck_on_a_second_card(dev, stride, c, f, cout, hw):
+    """A kernel launches on its tensor's device: a K2/K3 (K4) block on
+    cuda:1 with cuda:0 current equals the same block on cuda:0 bit for
+    bit, the frames of a K6 normalize likewise (ops/_calls.py; the
+    per-device caches of csrc/hopper_gemm.cuh and csrc/frame_ops.cu)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from video_chapter_generation_tpu_torch.ops.preprocess import (
+        normalize_frames,
+    )
+
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    args, wp = _bottleneck_args(d0, 4, stride, c, f, cout, hw)
+    move = lambda ts: [None if t is None else t.to(d1) for t in ts]  # noqa: E731
+    u8 = torch.randint(0, 256, (4, 16, 64, 64, 3), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(5))
+    with torch.cuda.device(d0):
+        ref = _bottleneck(stride, args, wp)
+        got = _bottleneck(stride, move(args), move(wp))
+        # the second card first: its per-device caches fill on cuda:1
+        norm1 = normalize_frames(u8.to(d1), torch.bfloat16)
+        norm0 = normalize_frames(u8.to(d0), torch.bfloat16)
+    torch.cuda.synchronize(d0)
+    torch.cuda.synchronize(d1)
+    assert got.device == d1 and norm1.device == d1
+    assert torch.equal(got.cpu(), ref.cpu())
+    assert torch.equal(norm1.cpu(), norm0.cpu())
+
+
 def test_tsm_bottleneck_refuses_narrow_widths(dev):
     """C % 64 != 0 raises on the card (no plain fallback)."""
     args, wp = _bottleneck_args(dev, 3, 1, 96, 64, 256, 7)

@@ -15,8 +15,8 @@ against the JAX package, on the CPU.
   and a ResNet backbone, the head at 2x): every parameter at 1e-9
   relative.
 - cli/pretrain_lang --task mlm|next_token --tiny --device cpu writes a
-  checkpoint that restores into LangPretrainTask's model; the GPT tasks
-  exit naming ROADMAP queue 1 item 12.
+  checkpoint that restores into LangPretrainTask's model; an unknown
+  task names every served one, the GPT tasks among them.
 - temporal_pool against the JAX one, float32 and int8. The JAX function
   raises on int8 (its reduce_window takes the Python int minimum as an
   int32 init value), so int8 is held to it on the same values as int32.
@@ -342,10 +342,14 @@ def test_pretrain_lang_cli_writes_a_restorable_checkpoint(corpora, tmp_path,
 
 @pytest.mark.parametrize("task_name", ["next_token_gpt", "next_token_glove"])
 def test_pretrain_lang_gpt_tasks_name_their_item(task_name):
-    with pytest.raises(SystemExit, match="queue 1 item 12"):
-        pretrain_lang.main(["--task", task_name, "--device", "cpu"])
-    with pytest.raises(SystemExit, match="mlm, next_token"):
+    """The GPT tasks are served now (tests/test_torch_gpt.py): an unknown
+    task names them among the choices, and next_token_glove without
+    --glove names the flag it needs."""
+    with pytest.raises(SystemExit, match=f"mlm, next_token, .*{task_name}"):
         pretrain_lang.main(["--task", "cloze", "--device", "cpu"])
+    if task_name == "next_token_glove":
+        with pytest.raises(SystemExit, match="needs --glove"):
+            pretrain_lang.main(["--task", task_name, "--device", "cpu"])
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.int8])

@@ -41,11 +41,17 @@ from ..evalkit.segment_eval import (
     write_segment_result_files,
 )
 from ..ops.quantize import calibrate_two_stream_quant
+from ..parallel.mesh import Mesh
 from ..pipeline.boundary import (
     make_text_score_fn,
     make_two_stream_score_fn,
     make_window_score_fn,
     score_clips,
+)
+from ..pipeline.sharded import (
+    make_sharded_text_score_fn,
+    make_sharded_two_stream_score_fn,
+    make_sharded_window_score_fn,
 )
 from ..train.tasks import SegmentTask, SegmentTextTask, SegmentWindowTask
 from .common import parse_config, pop_flag
@@ -118,7 +124,8 @@ def _tokenizer_from_clips(cfg, args) -> WordPieceTokenizer:
 
 
 def build_score_fn(cfg, args, tokenizer,
-                   calib_clips: Optional[np.ndarray] = None, device=None):
+                   calib_clips: Optional[np.ndarray] = None, device=None,
+                   mesh: Optional[Mesh] = None):
     """score(batch) -> positive-class probability [B] on the device, from
     the best checkpoint of the model kind in cfg.train.ckpt_dir (title
     checkpoints beside it are passed over), else the newest, else the
@@ -131,7 +138,12 @@ def build_score_fn(cfg, args, tokenizer,
     (ops/quantize.py:calibrate_two_stream_quant) and the scorer runs the
     quantized twin. The window scorer takes InferWindowClipDataset
     batches ("img_clips"), the base and text ones InferClipDataset
-    batches (text_ids and attention_mask only for text)."""
+    batches (text_ids and attention_mask only for text).
+
+    With `mesh` (parallel/mesh.py) the scorer shards each batch over the
+    mesh's data axis (pipeline/sharded.py; JAX :109-191): the model is
+    restored and calibrated on `device`, then replicated once onto each
+    other device of the mesh."""
     kind = cfg.model.kind
     tasks = {"two_stream": SegmentTask, "two_stream_window": SegmentWindowTask}
     if kind != "text" and kind not in tasks:
@@ -171,7 +183,10 @@ def build_score_fn(cfg, args, tokenizer,
     model = task.model
     model.load_state_dict(weights, assign=True)
     if kind == "text":
-        return make_text_score_fn(model.to(dev, task.dtype).eval(), dev)
+        model = model.to(dev, task.dtype).eval()
+        if mesh is not None:
+            return make_sharded_text_score_fn(model, mesh)
+        return make_text_score_fn(model, dev)
     model.to_serving(dev)
 
     quant = None
@@ -179,5 +194,11 @@ def build_score_fn(cfg, args, tokenizer,
         quant = calibrate_two_stream_quant(
             model, torch.from_numpy(np.ascontiguousarray(calib_clips)).to(dev))
     if cfg.model.kind == "two_stream_window":
+        if mesh is not None:
+            return make_sharded_window_score_fn(model, mesh,
+                                                quant_scales=quant)
         return make_window_score_fn(model, dev, quant_scales=quant)
+    if mesh is not None:
+        return make_sharded_two_stream_score_fn(model, mesh,
+                                                quant_scales=quant)
     return make_two_stream_score_fn(model, dev, quant_scales=quant)

@@ -56,6 +56,7 @@ from ..models.seq2seq import (
     trim_at_eos,
 )
 from ..ops.quantize import quantize_seq2seq
+from ..pipeline.sharded import replicate
 from ..train.tasks import TitleGenTask, TitleGenVisionTask, compute_dtype
 from .common import (
     load_corpus,
@@ -205,7 +206,9 @@ def build_title_model(cfg, task, dev: torch.device, num_beams: int = 1,
     *vision_inputs) takes host arrays (the vision model also takes the
     embeddings and their mask, and decodes from its fused encoder states)
     and returns data.title_decode_len ids a row, greedy or with
-    num_beams > 1 the best beam, trimmed at EOS (numpy)."""
+    num_beams > 1 the best beam, trimmed at EOS (numpy). Its
+    replicate(device) gives the same title fn over a copy of the model
+    on that device."""
     weights = _restore(cfg, task)
     model = task.model
     vision = isinstance(task, TitleGenVisionTask)
@@ -228,17 +231,25 @@ def build_title_model(cfg, task, dev: torch.device, num_beams: int = 1,
         return generate(s2s, ids, mask, max_len=max_len,
                         enc_hidden=enc_hidden)
 
-    def put(a) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(a)).to(dev)
+    def bind(net, on: torch.device):
+        def put(a) -> torch.Tensor:
+            return torch.from_numpy(np.asarray(a)).to(on)
 
-    def title_fn(text_ids, attention_mask, *vision_inputs):
-        ids, mask = put(text_ids).long(), put(attention_mask)
-        if vision:  # the fused encode, then the inner Seq2Seq decodes
-            vis, vis_mask = map(put, vision_inputs)
-            out = decode(model.seq2seq, ids, mask,
-                         model.encode_fused(vis, vis_mask, ids, mask))
-        else:
-            out = decode(model, ids, mask)
-        return trim_at_eos(out.cpu().numpy(), task.s2s_cfg.eos_token_id)
+        def title_fn(text_ids, attention_mask, *vision_inputs):
+            ids, mask = put(text_ids).long(), put(attention_mask)
+            if vision:  # the fused encode, then the inner Seq2Seq decodes
+                vis, vis_mask = map(put, vision_inputs)
+                out = decode(net.seq2seq, ids, mask,
+                             net.encode_fused(vis, vis_mask, ids, mask))
+            else:
+                out = decode(net, ids, mask)
+            return trim_at_eos(out.cpu().numpy(), task.s2s_cfg.eos_token_id)
 
-    return model, title_fn
+        # the same title fn on a replica of the model on another device
+        # (pipeline/sharded.py:shard_title_fn)
+        title_fn.replicate = lambda d: (
+            title_fn if torch.device(d) == on else
+            bind(replicate(net, torch.device(d)), torch.device(d)))
+        return title_fn
+
+    return model, bind(model, dev)

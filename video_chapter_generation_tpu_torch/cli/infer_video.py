@@ -7,8 +7,10 @@ points -> titles (counterpart of the JAX package's cli/infer_video.py).
         [--vids vid1,vid2] [--bert_vocab v.txt] [--spm_tsv spm.tsv] \
         [--title_arch pegasus|bigbird|bart] [--num_beams N] \
         [--vision_emb_dir DIR [--fusion_type cross_attn|mlp]] \
-        [--int8_vision] [--int8_titles] [--pipelined] [--tiny] \
-        [--device cpu]
+        [--int8_vision] [--int8_titles] [--pipelined] [--sharded] \
+        [--tiny] [--device cpu]
+    torchrun --nproc_per_node N -m \
+        video_chapter_generation_tpu_torch.cli.infer_video <the same>
 
 Runs on the card unless --device says otherwise. The boundary model
 (model.kind two_stream, or text: the subtitle-only BertForChapter) is the
@@ -32,7 +34,19 @@ trunk, its activation scales calibrated on the first video's frames;
 --int8_titles serves the title model in weight-only int8 with an int8
 cross-attention cache (the fusion head stays float). Writes
 test_results/whole_pipeline_result.txt and prints one JSON line per
-video. Flags the port does not serve yet exit naming their ROADMAP item.
+video.
+
+--sharded shards clip scoring and title decode over the process's cards
+(parallel/mesh.py:local_devices; on the CPU, two CPU shards): one
+replica of each model a card, data.batch_size divisible by the card
+count (pipeline/sharded.py). Under a launcher (torchrun sets RANK,
+WORLD_SIZE, MASTER_ADDR, MASTER_PORT) the processes join a group
+(parallel/dist.py: NCCL where each process of the host has a card of
+its own, gloo where they share one), local process r serves on card r
+(modulo the card count), each process chapters vids[rank::world] and
+the merged results reach every process; only the first writes the
+result file and the JSON lines (the JAX CLI has every process write the
+same file), each prints the videos it served.
 """
 
 from __future__ import annotations
@@ -49,7 +63,14 @@ from ..data.datasets import npy_vision_emb_provider
 from ..data.frames import load_clip_frames
 from ..device import resolve_device
 from ..models.seq2seq import FUSION_TYPES
-from ..pipeline import ChapterPipeline, VideoChapters
+from ..parallel import dist
+from ..parallel.mesh import local_devices, make_mesh
+from ..pipeline import (
+    ChapterPipeline,
+    VideoChapters,
+    run_videos_distributed,
+    shard_title_fn,
+)
 from ..train.tasks import TitleGenTask, TitleGenVisionTask
 from .common import (
     load_bert_tokenizer,
@@ -62,7 +83,6 @@ from .common import (
 from .eval_segment import build_score_fn
 from .eval_title import VISION_EMB_DIM, build_title_model
 
-NOT_PORTED = {"--sharded": "sharded serving is ROADMAP queue 1 item 10"}
 KIND_NOT_PORTED = {
     # the JAX CLI cannot serve it either: its ChapterPipeline builds
     # per-clip batches ("img_clip", pipeline/whole_video.py:82,177) and
@@ -92,10 +112,7 @@ def main(argv=None) -> Dict[str, VideoChapters]:
     argv = list(argv if argv is not None else sys.argv[1:])
     vids = pop_flag(argv, "--vids")
     vids = vids.split(",") if vids else None
-    for flag, why in NOT_PORTED.items():
-        if pop_flag(argv, flag, value=False) is not None:
-            raise SystemExit(f"{flag} is not ported to the PyTorch port yet: "
-                             f"{why}")
+    sharded = pop_flag(argv, "--sharded", value=False) is not None
     vision_emb_dir = pop_flag(argv, "--vision_emb_dir")
     fusion_type = pop_flag(argv, "--fusion_type") or "cross_attn"
     if fusion_type not in FUSION_TYPES:
@@ -121,7 +138,25 @@ def main(argv=None) -> Dict[str, VideoChapters]:
                          "model.stem_input=frames only (the JAX CLI's rule, "
                          "infer_video.py:108); s2d stems take the packed "
                          "pipeline")
-    dev = resolve_device(args.device)
+    owned = dist.initialize()  # a launcher's environment, else nothing
+    try:
+        return _serve(cfg, args, vids, sharded, vision_emb_dir, fusion_type,
+                      num_beams, pipelined, int8_titles, int8_vision)
+    finally:
+        if owned:
+            dist.shutdown()
+
+
+def _serve(cfg, args, vids, sharded, vision_emb_dir, fusion_type, num_beams,
+           pipelined, int8_titles, int8_vision) -> Dict[str, VideoChapters]:
+    devices = local_devices(resolve_device(args.device))
+    dev, mesh = devices[0], None
+    if sharded:
+        mesh = make_mesh(devices=devices)
+        if cfg.data.batch_size % mesh.shape["data"]:
+            raise SystemExit(f"--sharded: data.batch_size "
+                             f"{cfg.data.batch_size} is not divisible by the "
+                             f"mesh's data axis {mesh.shape}")
     corpus = load_corpus(cfg, "test")
     tokenizer = load_bert_tokenizer(args, corpus)
     title_tokenizer = load_title_tokenizer(args, corpus)
@@ -131,13 +166,15 @@ def main(argv=None) -> Dict[str, VideoChapters]:
     calib = (calibration_clips(cfg, corpus, (vids or corpus.vids)[0], hw)
              if int8_vision else None)
     score_fn = build_score_fn(cfg, args, tokenizer, calib_clips=calib,
-                              device=dev)
+                              device=dev, mesh=mesh)
 
     vision = vision_emb_dir is not None
     task = (TitleGenVisionTask(cfg, s2s_cfg, fusion_type, VISION_EMB_DIM)
             if vision else TitleGenTask(cfg, s2s_cfg))
     task.contract = dict(task.contract, vocab_hash=vocab_hash(title_tokenizer))
     _, title_fn = build_title_model(cfg, task, dev, num_beams, int8_titles)
+    if mesh is not None:
+        title_fn = shard_title_fn(title_fn, mesh)
 
     pipe = ChapterPipeline(
         corpus, tokenizer, score_fn, title_fn,
@@ -150,21 +187,30 @@ def main(argv=None) -> Dict[str, VideoChapters]:
         vision_emb_provider=(npy_vision_emb_provider(vision_emb_dir)
                              if vision else None),
         vision_emb_dim=VISION_EMB_DIM)
-    results = pipe.run(vids, pipelined=pipelined)
+    if dist.process_count() > 1:
+        rank, world = dist.process_index(), dist.process_count()
+        print(f"process {rank} of {world} (backend {dist.backend()}, "
+              f"{dev}{', mesh ' + str(mesh.shape) if mesh else ''}) serves "
+              f"{json.dumps(list(vids or corpus.vids)[rank::world])}",
+              flush=True)
+        results = run_videos_distributed(pipe, vids, pipelined=pipelined)
+    else:
+        results = pipe.run(vids, pipelined=pipelined)
 
-    os.makedirs("test_results", exist_ok=True)
-    out_path = "test_results/whole_pipeline_result.txt"
-    with open(out_path, "w") as f:
-        for vid, r in results.items():
-            print(json.dumps({"vid": vid, "cut_points": r.cut_points,
-                              "titles": r.titles}))
-            f.write(f"vid: {vid}\n")
-            f.write(f"pred cut points: {r.cut_points}\n")
-            f.write(f"gt cut points: {corpus.raw_cut_secs(vid)}\n")
-            for (start, end), title in zip(r.spans, r.titles):
-                f.write(f"  [{start} - {end}] {title}\n")
-            f.write("\n")
-    print(f"wrote {out_path}")
+    if dist.is_primary():
+        os.makedirs("test_results", exist_ok=True)
+        out_path = "test_results/whole_pipeline_result.txt"
+        with open(out_path, "w") as f:
+            for vid, r in results.items():
+                print(json.dumps({"vid": vid, "cut_points": r.cut_points,
+                                  "titles": r.titles}))
+                f.write(f"vid: {vid}\n")
+                f.write(f"pred cut points: {r.cut_points}\n")
+                f.write(f"gt cut points: {corpus.raw_cut_secs(vid)}\n")
+                for (start, end), title in zip(r.spans, r.titles):
+                    f.write(f"  [{start} - {end}] {title}\n")
+                f.write("\n")
+        print(f"wrote {out_path}")
     print(f"throughput: {pipe.videos_per_minute():.2f} videos/min")
     print(f"stage seconds: {json.dumps(pipe.timer.summary())}")
     return results

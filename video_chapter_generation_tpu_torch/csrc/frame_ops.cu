@@ -38,9 +38,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxDevices = 64;  // device ordinals with a cache slot
 
 // normalized = u8 * a[c] + b[c]
 struct Norm {
@@ -152,13 +155,18 @@ __global__ void __launch_bounds__(kThreads)
 template <int V>
 cudaError_t launch_normalize(const uint8_t* x, typename Vec<V>::Out* out,
                              long long n, const Norm& k, cudaStream_t st) {
-  static int sms = 0;
+  // the SM count of each device, found on its first launch (one slot a
+  // device ordinal, written once: safe from several host threads)
+  static std::atomic<int> sms_of[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int sms = sms_of[dev].load(std::memory_order_acquire);
   if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
+    sms_of[dev].store(sms, std::memory_order_release);
   }
   const long long per_block = static_cast<long long>(kThreads) * kSteps;
   const long long want = (n / V + per_block - 1) / per_block;

@@ -45,6 +45,8 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
+#include <atomic>
+
 #include "conv_gemm.cuh"
 
 namespace vcg {
@@ -299,7 +301,10 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 inline cudaError_t tensor_map_2d(CUtensorMap* map, const void* base,
                                  uint64_t rows, uint64_t cols, int elem,
                                  uint32_t box_rows) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  // the driver's entry, looked up once (every thread finds the same one)
+  static std::atomic<PFN_cuTensorMapEncodeTiled_v12000> found_fn{nullptr};
+  PFN_cuTensorMapEncodeTiled_v12000 encode =
+      found_fn.load(std::memory_order_acquire);
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -309,6 +314,7 @@ inline cudaError_t tensor_map_2d(CUtensorMap* map, const void* base,
     if (found != cudaDriverEntryPointSuccess || fn == nullptr)
       return cudaErrorNotSupported;
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+    found_fn.store(encode, std::memory_order_release);
   }
   const cuuint64_t dim[2] = {cols, rows};
   const cuuint64_t stride[1] = {cols * elem};
@@ -794,17 +800,31 @@ struct Identity {
   __device__ void operator()(int, float (&)[4]) const {}
 };
 
+// Per-device host caches: one slot a device ordinal, 0 until the
+// device's value is known, then written once with a value that is the
+// same whichever thread writes it. So a kernel may launch from several
+// host threads on several cards at once, and a device pays the host
+// calls behind a slot once, not on every launch.
+constexpr int kMaxDevices = 64;
+
+inline cudaError_t current_device(int* dev) {
+  cudaError_t e = cudaGetDevice(dev);
+  if (e == cudaSuccess && (*dev < 0 || *dev >= kMaxDevices))
+    e = cudaErrorInvalidDevice;
+  return e;
+}
+
 // Raise kernel K's dynamic shared memory limit to bytes (above 48 KB),
 // once per device: the call costs host time on every launch otherwise.
 template <auto K>
 inline cudaError_t allow_smem(int bytes) {
-  static int done = -1;
+  static std::atomic<int> done[kMaxDevices];  // static: zero-initialized
   int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess && dev != done) {
+  cudaError_t e = current_device(&dev);
+  if (e == cudaSuccess && !done[dev].load(std::memory_order_acquire)) {
     e = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
-    if (e == cudaSuccess) done = dev;
+    if (e == cudaSuccess) done[dev].store(1, std::memory_order_release);
   }
   return e;
 }
@@ -818,14 +838,16 @@ inline cudaError_t sm_count(int* sms) {
 }
 
 // The blocks of kernel K the card holds at once at smem bytes of dynamic
-// shared memory each, found on the first launch on a device (the
+// shared memory each, found on the first launch on each device (the
 // attribute and the occupancy query cost host time).
 template <auto K>
 inline cudaError_t resident(int smem, int* blocks) {
-  static int known_dev = -1, held = 0;
+  static std::atomic<int> held[kMaxDevices];  // 0: not known yet
   int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess && dev != known_dev) {
+  cudaError_t e = current_device(&dev);
+  if (e != cudaSuccess) return e;
+  int n = held[dev].load(std::memory_order_acquire);
+  if (n == 0) {
     int sms = 0, per_sm = 0;
     e = allow_smem<K>(smem);
     if (e == cudaSuccess) e = sm_count(&sms);
@@ -833,11 +855,11 @@ inline cudaError_t resident(int smem, int* blocks) {
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K, kThreads,
                                                         smem);
     if (e == cudaSuccess) {
-      held = per_sm * sms;
-      known_dev = dev;
+      n = per_sm * sms;
+      held[dev].store(n, std::memory_order_release);
     }
   }
-  *blocks = held;
+  *blocks = n;
   return e;
 }
 

@@ -647,3 +647,99 @@ class SubtitlePretrainDataset:
         )
         return {"text_ids": corrupted, "attention_mask": mask,
                 "targets": targets}
+
+
+class GloveSubtitleDataset:
+    """GloVe-embedding next-token pretraining sampler for the from-scratch
+    GPT (youtube_subtitle_dataset.py:31-141): random 16s window per video,
+    subtitles within +-4s, lowercase + decontracted, known-vocab words
+    only; inputs are the word EMBEDDINGS shifted by one against the id
+    targets (x = emb[:-1], y = ids[1:]), zero/Y_PAD padded.
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:678.
+    """
+
+    def __init__(self, corpus: VideoCorpus, token2embedding: Dict,
+                 vocab: Sequence[str], clip_frame_num: int = 16,
+                 max_text_len: int = 100, emb_dim: int = 300,
+                 seed: int = 123):
+        from ..datasetkit.parsing import text_decontracted
+
+        self._decontract = text_decontracted
+        self.corpus = corpus
+        self.token2embedding = token2embedding
+        self.token2id = {t: i for i, t in enumerate(vocab)}
+        self.vocab_size = len(vocab)
+        self.clip_frame_num = clip_frame_num
+        self.half = clip_frame_num // 2
+        self.max_text_len = max_text_len
+        self.emb_dim = emb_dim
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.corpus.vids)
+
+    def __getitem__(self, i: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        rng = host_rng(self.seed, epoch, i)
+        vid = self.corpus.vids[i]
+        image_num = self.corpus.image_num(vid)
+        t = int(rng.integers(self.half, max(self.half + 1,
+                                            image_num - self.half)))
+        start, end = t - self.half, t + self.half
+        # text_extra_time_gap = 4 (youtube_subtitle_dataset.py:93)
+        text = subtitle_text_for_window(self.corpus.subtitles(vid),
+                                        start, end, time_gap=4)
+        text = self._decontract(text.lower())
+
+        embs, ids = [], []
+        for w in text.split(" "):
+            if w and w in self.token2id:
+                e = self.token2embedding.get(w)
+                embs.append(np.zeros(self.emb_dim, np.float32)
+                            if e is None else np.asarray(e, np.float32))
+                ids.append(self.token2id[w])
+
+        x = np.zeros((self.max_text_len, self.emb_dim), np.float32)
+        y = np.full((self.max_text_len,), Y_PAD, np.int64)
+        n = min(max(len(embs) - 1, 0), self.max_text_len)
+        if n:
+            x[:n] = np.stack(embs[:n])
+            y[:n] = ids[1 : n + 1]
+        return {"embeddings": x, "targets": y.astype(np.int32)}
+
+
+class WordIdSubtitleDataset(GloveSubtitleDataset):
+    """Token-ID next-token variant for the from-scratch GPT WITHOUT GloVe
+    (the reference's pretrain_lang_model.py use_glove_emb=False path):
+    same random 16s window / lowercase / decontract / known-vocab filter
+    as the GloVe sampler, but x = ids[:-1] and y = ids[1:] as int ids.
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:734.
+    """
+
+    def __init__(self, corpus: VideoCorpus, vocab: Sequence[str],
+                 clip_frame_num: int = 16, max_text_len: int = 100,
+                 seed: int = 123):
+        super().__init__(corpus, {}, vocab, clip_frame_num=clip_frame_num,
+                         max_text_len=max_text_len, seed=seed)
+
+    def __getitem__(self, i: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        rng = host_rng(self.seed, epoch, i)
+        vid = self.corpus.vids[i]
+        image_num = self.corpus.image_num(vid)
+        t = int(rng.integers(self.half, max(self.half + 1,
+                                            image_num - self.half)))
+        start, end = t - self.half, t + self.half
+        text = subtitle_text_for_window(self.corpus.subtitles(vid),
+                                        start, end, time_gap=4)
+        text = self._decontract(text.lower())
+        ids = [self.token2id[w] for w in text.split(" ")
+               if w and w in self.token2id]
+
+        x = np.zeros((self.max_text_len,), np.int64)
+        y = np.full((self.max_text_len,), Y_PAD, np.int64)
+        n = min(max(len(ids) - 1, 0), self.max_text_len)
+        if n:
+            x[:n] = ids[:n]
+            y[:n] = ids[1 : n + 1]
+        return {"text_ids": x.astype(np.int32), "targets": y.astype(np.int32)}

@@ -104,6 +104,27 @@ def clean_str(s: str) -> str:
     return s[start_idx:end_idx]
 
 
+def text_decontracted(phrase: str) -> str:
+    """Expand English contractions ("won't" -> "will not", ...).
+
+    Copied from video_chapter_generation_tpu/datasetkit/parsing.py:100.
+    """
+    phrase = re.sub(r"won't", "will not", phrase)
+    phrase = re.sub(r"can\'t", "can not", phrase)
+    phrase = re.sub(r"let\'s", "let us", phrase)
+
+    phrase = re.sub(r"n\'t", " not", phrase)
+    phrase = re.sub(r"\'re", " are", phrase)
+    phrase = re.sub(r"t\'s", "t us", phrase)
+    phrase = re.sub(r"\'s", " is", phrase)
+    phrase = re.sub(r"\'d", " would", phrase)
+    phrase = re.sub(r"\'ll", " will", phrase)
+    phrase = re.sub(r"\'t", " not", phrase)
+    phrase = re.sub(r"\'ve", " have", phrase)
+    phrase = re.sub(r"\'m", " am", phrase)
+    return phrase
+
+
 def parse_csv_to_list(csv_file: str, w_duration: bool = True):
     """Parse the all-in-one dataset CSV into parallel lists.
 

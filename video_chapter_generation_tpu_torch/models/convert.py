@@ -373,6 +373,28 @@ def vision_title_entries(cfg, fusion_type: str = "cross_attn"
 # ---------------------------------------------------------------------------
 
 
+def gpt_entries(cfg) -> List[Entry]:
+    """GPT params (models/gpt.py; JAX models/gpt.py) <-> port keys: the
+    token embedding (not with using_pretrained_embed), the learnable
+    positions (not with the fixed sinusoid), each block's norms,
+    attention and MLP, ln_f and the bias-free head."""
+    out: List[Entry] = []
+    if not cfg.using_pretrained_embed:
+        out.append((("params", "tok_emb", "embedding"), "tok_emb.weight",
+                    "copy"))
+    if cfg.learnable_pos_emb:
+        out.append((("params", "pos_emb"), "pos_emb", "copy"))
+    for i in range(cfg.n_layer):
+        fl, pb = ("params", f"block{i}"), f"blocks.{i}"
+        out += _ln((*fl, "ln1"), f"{pb}.ln1") + _ln((*fl, "ln2"), f"{pb}.ln2")
+        for name in ("query", "key", "value", "proj"):
+            out += _dense((*fl, "attn", name), f"{pb}.attn.{name}")
+        out += _dense((*fl, "mlp_fc"), f"{pb}.mlp_fc")
+        out += _dense((*fl, "mlp_proj"), f"{pb}.mlp_proj")
+    return (out + _ln(("params", "ln_f"), "ln_f")
+            + _dense(("params", "head"), "head", bias=False))
+
+
 def _with_bn_counters(sd):
     """torch BatchNorm state dicts also hold num_batches_tracked."""
     for key in [k for k in sd if k.endswith(".running_var")]:

@@ -17,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _calls
 
 # ImageNet normalization (torchvision convention), as float32 like the JAX
 # package, so both compute the affine from the same rounded constants.
@@ -81,10 +81,10 @@ def normalize_frames(frames_u8: torch.Tensor,
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     if x.numel() == 0:
         return out
-    rc = _normalize_fn()(x.data_ptr(), out.data_ptr(), x.numel(),
-                         out_dtype == torch.bfloat16, *_NORM_ARGS,
-                         torch.cuda.current_stream(x.device).cuda_stream)
-    normalize_frames.launches += 1
+    rc = _calls.on_device(
+        _normalize_fn(), x.device, x.data_ptr(), out.data_ptr(), x.numel(),
+        out_dtype == torch.bfloat16, *_NORM_ARGS)
+    _calls.count(normalize_frames)
     if rc != 0:
         raise RuntimeError(f"normalize_frames kernel failed: CUDA error {rc}")
     return out

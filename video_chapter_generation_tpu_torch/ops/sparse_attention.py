@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _calls
 
 MASK_PENALTY = -10000.0
 MAX_BLOCK, MAX_HEAD_DIM = 64, 128
@@ -203,15 +203,14 @@ def sparse_band_attention(q_mid, k, v, mask, ids, valid, block_size: int,
     if wgmma:
         require_structured(ids, l // bs)
     mask_i = mask.to(torch.int32).contiguous()  # a 0/1 mask: exact
-    rc = _lib()(
-        q_mid.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i.data_ptr(),
-        ids.data_ptr(), valid.data_ptr(),
+    rc = _calls.on_device(
+        _lib(), q_mid.device, q_mid.data_ptr(), k.data_ptr(), v.data_ptr(),
+        mask_i.data_ptr(), ids.data_ptr(), valid.data_ptr(),
         out.data_ptr() + bs * h * hd * out.element_size(),
-        k.shape[0], l, h, hd, bs, ids.shape[1], q_mid.stride(0),
-        l * h * hd, torch.cuda.current_stream(q_mid.device).cuda_stream)
-    sparse_band_attention.launches += 1
+        k.shape[0], l, h, hd, bs, ids.shape[1], q_mid.stride(0), l * h * hd)
+    _calls.count(sparse_band_attention)
     if not wgmma:
-        sparse_band_attention.mma_sync_launches += 1
+        _calls.count(sparse_band_attention, "mma_sync_launches")
     if rc != 0:
         raise RuntimeError(f"sparse_band_attention kernel failed: CUDA error "
                            f"{rc}")

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _calls
 from .preprocess import (
     affine_consts,
     depth_to_space4,
@@ -141,22 +141,23 @@ def _sm_count(index: int) -> int:
 def _phase_weight(w7: torch.Tensor, dev: torch.device) -> torch.Tensor:
     """HWIO [7, 7, 3, 64] -> the kernel's bf16 [448, 256]: the phase-packed
     im2col weight, K zero-padded 432 -> 448 (seven 64-deep stages). Kept
-    for the last w7 seen (the same tensor at the same version: a model's
-    folded weight), since making it costs a host copy and a few launches,
-    which a call would otherwise pay each time."""
+    for the last w7 seen on each device (the same tensor at the same
+    version: a model's folded weight; a replica on each card has its
+    own), since making it costs a host copy and a few launches, which a
+    call would otherwise pay each time."""
     if tuple(w7.shape) != (7, 7, 3, 64):
         raise ValueError(f"w7 must be [7,7,3,64], got {tuple(w7.shape)}")
-    key = (w7._version, w7.dtype, dev)
-    last = _phase_weight.last
+    key = (w7._version, w7.dtype)
+    last = _phase_weight.last.get(dev)
     if last is not None and last[0]() is w7 and last[1] == key:
         return last[2]
     wk = torch.zeros(448, 256, dtype=torch.bfloat16, device=dev)
     wk[:432] = stem_weight_im2col(w7.to(dev)).to(torch.bfloat16)
-    _phase_weight.last = (weakref.ref(w7), key, wk)
+    _phase_weight.last[dev] = (weakref.ref(w7), key, wk)
     return wk
 
 
-_phase_weight.last = None
+_phase_weight.last = {}
 
 
 def walk_bands(dev: torch.device, n: int, hs: int, ws: int,
@@ -176,9 +177,9 @@ def _launch(entry: str, x: torch.Tensor, w7, scale, bias, hs: int,
     bias = bias.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty(n, hs, ws, 64, dtype=torch.bfloat16, device=dev)
     bands = walk_bands(dev, n, hs, ws)
-    rc = _lib(entry)(x.data_ptr(), wk.data_ptr(), scale.data_ptr(),
-                     bias.data_ptr(), *extra, out.data_ptr(), n, hs, ws,
-                     bands, torch.cuda.current_stream(dev).cuda_stream)
+    rc = _calls.on_device(_lib(entry), dev, x.data_ptr(), wk.data_ptr(),
+                          scale.data_ptr(), bias.data_ptr(), *extra,
+                          out.data_ptr(), n, hs, ws, bands)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     return out
@@ -204,7 +205,7 @@ def stem_s2d(s4: torch.Tensor, w7: torch.Tensor, scale: torch.Tensor,
         raise ValueError("the stem kernel emits bfloat16")
     out = _launch("vcg_stem_s2d", s4, w7, scale, bias, h, w,
                   norm_consts(s4.device).data_ptr())
-    stem_s2d.launches += 1
+    _calls.count(stem_s2d)
     return out
 
 
@@ -225,7 +226,7 @@ def stem_frames(x: torch.Tensor, w7: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"stem_frames takes contiguous bf16 [N,H,H,3] with "
                          f"H % 4 == 0, got {x.dtype} {tuple(x.shape)}")
     out = _launch("vcg_stem_frames", x, w7, scale, bias, h // 4, w // 4)
-    stem_frames.launches += 1
+    _calls.count(stem_frames)
     return out
 
 
@@ -248,10 +249,10 @@ def bn_relu_maxpool(x: torch.Tensor, scale: torch.Tensor,
     scale = scale.to(device=dev, dtype=torch.float32).contiguous()
     bias = bias.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty(n, h // 2, w // 2, c, dtype=torch.bfloat16, device=dev)
-    rc = _lib("vcg_bn_relu_maxpool")(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), n, h,
-        w, c, torch.cuda.current_stream(dev).cuda_stream)
-    bn_relu_maxpool.launches += 1
+    rc = _calls.on_device(
+        _lib("vcg_bn_relu_maxpool"), dev, x.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), n, h, w, c)
+    _calls.count(bn_relu_maxpool)
     if rc != 0:
         raise RuntimeError(f"bn_relu_maxpool kernel launch failed: CUDA "
                            f"error {rc}")
@@ -403,11 +404,11 @@ def stem_int8(s4: torch.Tensor, weights, out_dtype=torch.bfloat16
     dev = s4.device
     wt, sv, wb = _int8_weight(wq, sv, wb)
     out = torch.empty(n, h, w, 64, dtype=torch.bfloat16, device=dev)
-    rc = _lib("vcg_stem_s2d_int8")(
-        s4.data_ptr(), wt.data_ptr(), sv.data_ptr(), wb.data_ptr(),
-        out.data_ptr(), n, h, w, walk_bands(dev, n, h, w),
-        torch.cuda.current_stream(dev).cuda_stream)
-    stem_s2d_int8.launches += 1
+    rc = _calls.on_device(
+        _lib("vcg_stem_s2d_int8"), dev, s4.data_ptr(), wt.data_ptr(),
+        sv.data_ptr(), wb.data_ptr(), out.data_ptr(), n, h, w,
+        walk_bands(dev, n, h, w))
+    _calls.count(stem_s2d_int8)
     if rc != 0:
         raise RuntimeError(f"stem_s2d_int8 kernel launch failed: CUDA error "
                            f"{rc}")

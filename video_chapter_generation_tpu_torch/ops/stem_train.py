@@ -38,7 +38,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _calls
 from .preprocess import (
     depth_to_space4,
     norm_consts,
@@ -140,12 +140,13 @@ def stem_train_fwd(s4, wk, gb, eps: float):
     stats, vec = torch.empty(2, 2, 64, dtype=torch.float32,
                              device=dev).unbind(0)
     part = _workspace(dev, n, hs, ws, bands)
-    rc = _fn("vcg_stem_train_fwd", 1, 8, 4)(
-        x.data_ptr(), int(x.dtype == torch.uint8), wk.data_ptr(),
-        gb.data_ptr(), norm_consts(dev).data_ptr(), yc.data_ptr(),
-        out.data_ptr(), stats.data_ptr(), vec.data_ptr(), part.data_ptr(), n,
-        hs, ws, bands, eps, torch.cuda.current_stream(dev).cuda_stream)
-    stem_train_fwd.launches += 1
+    rc = _calls.on_device(
+        _fn("vcg_stem_train_fwd", 1, 8, 4), dev, x.data_ptr(),
+        int(x.dtype == torch.uint8), wk.data_ptr(), gb.data_ptr(),
+        norm_consts(dev).data_ptr(), yc.data_ptr(), out.data_ptr(),
+        stats.data_ptr(), vec.data_ptr(), part.data_ptr(), n, hs, ws, bands,
+        eps)
+    _calls.count(stem_train_fwd)
     if rc != 0:
         raise RuntimeError(f"stem_train_fwd kernel failed: CUDA error {rc}")
     return out, yc, stats, vec
@@ -167,13 +168,14 @@ def stem_train_bwd(dpool, out, yc, s4, gb, stats, vec, eps: float):
     dgb = small[147 * 64:147 * 64 + 128].view(2, 64)
     abc = small[147 * 64 + 128:]
     part = _workspace(dev, n, hs, ws, 1)
-    rc = _fn("vcg_stem_train_bwd", 4, 9, 3)(
-        dpool.data_ptr(), out.data_ptr(), yc.data_ptr(), x.data_ptr(),
+    rc = _calls.on_device(
+        _fn("vcg_stem_train_bwd", 4, 9, 3), dev, dpool.data_ptr(),
+        out.data_ptr(), yc.data_ptr(), x.data_ptr(),
         int(x.dtype == torch.uint8), norm_consts(dev).data_ptr(),
         gb.data_ptr(), stats.data_ptr(), vec.data_ptr(), da.data_ptr(),
         dw.data_ptr(), dgb.data_ptr(), abc.data_ptr(), part.data_ptr(), n, hs,
-        ws, eps, torch.cuda.current_stream(dev).cuda_stream)
-    stem_train_bwd.launches += 1
+        ws, eps)
+    _calls.count(stem_train_bwd)
     if rc != 0:
         raise RuntimeError(f"stem_train_bwd kernel failed: CUDA error {rc}")
     return dw, dgb

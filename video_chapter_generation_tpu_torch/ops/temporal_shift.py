@@ -29,7 +29,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _calls
 
 
 def temporal_shift_reference(x: torch.Tensor, n_segment: int,
@@ -82,10 +82,10 @@ def shift_kernel(x: torch.Tensor, n_segment: int, n_div: int = 8,
                if (c * es) % v == 0 and (fold * es) % v == 0
                and x.data_ptr() % v == 0 and out.data_ptr() % v == 0)
     hw = x.numel() // (nt * c)
-    rc = _lib()(x.data_ptr(), out.data_ptr(), nt * hw, c, fold, es, vec, hw,
-                n_segment, int(reverse),
-                torch.cuda.current_stream(x.device).cuda_stream)
-    temporal_shift.launches += 1
+    rc = _calls.on_device(_lib(), x.device, x.data_ptr(), out.data_ptr(),
+                          nt * hw, c, fold, es, vec, hw, n_segment,
+                          int(reverse))
+    _calls.count(temporal_shift)
     if rc != 0:
         raise RuntimeError(f"temporal_shift kernel failed: CUDA error {rc}")
     return out

@@ -35,7 +35,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _calls
 from .temporal_shift import temporal_shift_reference
 from .tsm_conv import _launch as _shift_conv1x1
 from .tsm_conv import pair_aligned
@@ -138,11 +138,11 @@ def _launch(stride, x, w1, w2, w3, s1, b1, s2, b2, s3, b3, n_segment,
     s2, b2, s3, b3 = map(pair_aligned, (s2, b2, s3, b3))
     sp, bp = (None, None) if wp is None else map(pair_aligned, (sp, bp))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = _lib(stride)(
-        y1.data_ptr(), x.data_ptr(), w2.data_ptr(), w3.data_ptr(), ptr(wp),
-        s2.data_ptr(), b2.data_ptr(), s3.data_ptr(), b3.data_ptr(), ptr(sp),
-        ptr(bp), y2.data_ptr(), ptr(r), out.data_ptr(),
-        nt, h, w, c, f, cout, torch.cuda.current_stream(dev).cuda_stream)
+    rc = _calls.on_device(
+        _lib(stride), dev, y1.data_ptr(), x.data_ptr(), w2.data_ptr(),
+        w3.data_ptr(), ptr(wp), s2.data_ptr(), b2.data_ptr(), s3.data_ptr(),
+        b3.data_ptr(), ptr(sp), ptr(bp), y2.data_ptr(), ptr(r),
+        out.data_ptr(), nt, h, w, c, f, cout)
     return rc, out
 
 
@@ -158,7 +158,7 @@ def tsm_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, n_segment: int,
         raise NotImplementedError(f"tsm_bottleneck on {x.device}")
     rc, out = _launch(1, x, w1, w2, w3, s1, b1, s2, b2, s3, b3, n_segment,
                       n_div, wp, sp, bp)
-    tsm_bottleneck.launches += 1
+    _calls.count(tsm_bottleneck)
     if rc != 0:
         raise RuntimeError(f"tsm_bottleneck kernel failed: CUDA error {rc}")
     return out
@@ -177,7 +177,7 @@ def tsm_bottleneck_s2(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, wp, sp, bp,
         raise NotImplementedError(f"tsm_bottleneck_s2 on {x.device}")
     rc, out = _launch(2, x, w1, w2, w3, s1, b1, s2, b2, s3, b3, n_segment,
                       n_div, wp, sp, bp)
-    tsm_bottleneck_s2.launches += 1
+    _calls.count(tsm_bottleneck_s2)
     if rc != 0:
         raise RuntimeError(f"tsm_bottleneck_s2 kernel failed: CUDA error {rc}")
     return out
@@ -268,11 +268,11 @@ def tsm_bottleneck_chain(x, blocks, n_segment: int, n_div: int = 8,
     ptrs = [(ctypes.c_void_p * n)(*(blk[i].data_ptr() for blk in blocks))
             for i in range(9)]
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = _chain_lib()(
-        x.data_ptr(), *ptrs, y1.data_ptr(), y2.data_ptr(), ptr(bufs[0]),
-        ptr(bufs[1]), bar.data_ptr(), out.data_ptr(), n, nt, h, w, c, f,
-        max(n_segment, 1), fold, torch.cuda.current_stream(dev).cuda_stream)
-    tsm_bottleneck_chain.launches += 1
+    rc = _calls.on_device(
+        _chain_lib(), dev, x.data_ptr(), *ptrs, y1.data_ptr(), y2.data_ptr(),
+        ptr(bufs[0]), ptr(bufs[1]), bar.data_ptr(), out.data_ptr(), n, nt, h,
+        w, c, f, max(n_segment, 1), fold)
+    _calls.count(tsm_bottleneck_chain)
     if rc != 0:
         raise RuntimeError(f"tsm_bottleneck_chain kernel failed: CUDA error "
                            f"{rc}")

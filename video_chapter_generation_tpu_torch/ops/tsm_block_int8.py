@@ -54,7 +54,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _calls
 from .temporal_shift import temporal_shift_reference
 from .tsm_block import pair_merge
 
@@ -255,15 +255,14 @@ def int8_bottleneck(x, q: QuantBottleneck, n_segment: int, n_div: int = 8,
                       dtype=torch.int8 if out_mode == "i8" else torch.bfloat16)
     xq = _xq_scratch(x)
     sx, sz, sy2, sout = q.scalars
-    rc = _lib()(
-        x.data_ptr(), _ptr(xq), q.w1t.data_ptr(), q.w2t.data_ptr(),
-        q.w3t.data_ptr(),
+    rc = _calls.on_device(
+        _lib(), dev, x.data_ptr(), _ptr(xq), q.w1t.data_ptr(),
+        q.w2t.data_ptr(), q.w3t.data_ptr(),
         q.a1.data_ptr(), q.b1.data_ptr(), q.a2.data_ptr(), q.b2.data_ptr(),
         q.a3.data_ptr(), q.b3.data_ptr(), y1q.data_ptr(), y2q.data_ptr(),
         out.data_ptr(), sx, sz, sy2, sout, nt, h, w, c, f, n_segment, fold,
-        int(x_i8), int(out_mode == "i8"),
-        torch.cuda.current_stream(dev).cuda_stream)
-    tsm_bottleneck_int8.launches += 1
+        int(x_i8), int(out_mode == "i8"))
+    _calls.count(tsm_bottleneck_int8)
     if rc != 0:
         raise RuntimeError(f"tsm_bottleneck_int8 kernel failed: CUDA error "
                            f"{rc}")
@@ -407,15 +406,15 @@ def int8_s2_bottleneck(x, q: QuantS2Bottleneck, n_segment: int,
                       dtype=torch.int8 if out_mode == "i8" else torch.bfloat16)
     sx, sz, sy2, sout = q.scalars
     xq = _xq_scratch(x)
-    rc = _s2_lib()(
-        x.data_ptr(), _ptr(xq), q.w1t.data_ptr(), q.w2t.data_ptr(),
-        q.w3t.data_ptr(),
+    rc = _calls.on_device(
+        _s2_lib(), dev, x.data_ptr(), _ptr(xq), q.w1t.data_ptr(),
+        q.w2t.data_ptr(), q.w3t.data_ptr(),
         q.wpt.data_ptr(), q.a1.data_ptr(), q.b1.data_ptr(), q.a2.data_ptr(),
         q.b2.data_ptr(), q.a3.data_ptr(), q.b3.data_ptr(), q.ap.data_ptr(),
         q.bp.data_ptr(), y1q.data_ptr(), y2q.data_ptr(), out.data_ptr(), sx,
         sz, sy2, sout, nt, h, w, c, f, cout, n_segment, fold, int(x_i8),
-        int(out_mode == "i8"), torch.cuda.current_stream(dev).cuda_stream)
-    tsm_bottleneck_s2_planar_int8.launches += 1
+        int(out_mode == "i8"))
+    _calls.count(tsm_bottleneck_s2_planar_int8)
     if rc != 0:
         raise RuntimeError(f"tsm_bottleneck_s2_planar_int8 kernel failed: "
                            f"CUDA error {rc}")

@@ -46,7 +46,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _calls
 from .temporal_shift import temporal_shift_reference
 
 
@@ -172,13 +172,9 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _counted(wrapper, rc: int):
     """Count one launch of wrapper's entry; raise if it failed."""
-    wrapper.launches += 1
+    _calls.count(wrapper)
     if rc != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel failed: CUDA error "
                            f"{rc}")
@@ -276,12 +272,13 @@ def block_train_fwd(x, wf, gb, stride: int, n_segment: int, n_div: int,
     p = torch.empty(nt, ho, wo, co, dtype=bf, device=dev)
     pr = torch.empty_like(p) if wp is not None else None
     part = _workspace(dev, nt, h, w, c, f, co, stride)
-    rc = _fn("vcg_block_train_fwd", 14, 10)(
+    rc = _calls.on_device(
+        _fn("vcg_block_train_fwd", 14, 10), dev,
         x.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(), _ptr(wp),
         gb.data_ptr(), u.data_ptr(), z.data_ptr(), p.data_ptr(), _ptr(pr),
         stats.data_ptr(), vec.data_ptr(), mom.data_ptr(), part.data_ptr(),
         nt, h, w, c, f, co, stride, n_segment, fold, int(linked is not None),
-        eps, _stream(dev))
+        eps)
     _counted(block_train_fwd, rc)
     return stats, vec, (u, z, p, pr)
 
@@ -290,9 +287,10 @@ def finale_fwd(p, r, vec, f: int, co: int, proj: bool) -> torch.Tensor:
     """One launch of vcg_finale_fwd: y = relu(bn3(p) + (r or bnp(r)))
     with the block's vec (r is the block input, or pr when proj)."""
     y = torch.empty_like(p)
-    rc = _fn("vcg_finale_fwd", 4, 4, eps=False)(
+    rc = _calls.on_device(
+        _fn("vcg_finale_fwd", 4, 4, eps=False), p.device,
         p.data_ptr(), r.data_ptr(), vec.data_ptr(), y.data_ptr(),
-        p.numel() // co, f, co, int(proj), _stream(p.device))
+        p.numel() // co, f, co, int(proj))
     _counted(finale_fwd, rc)
     return y
 
@@ -303,10 +301,11 @@ def finale_bwd(dy, y, p, pr, stats, f: int, co: int, part):
     dy = dy.to(torch.bfloat16).contiguous()
     dq = torch.empty_like(p)
     mom3 = torch.empty(3 * co, dtype=torch.float32, device=p.device)
-    rc = _fn("vcg_finale_bwd", 8, 3, eps=False)(
+    rc = _calls.on_device(
+        _fn("vcg_finale_bwd", 8, 3, eps=False), p.device,
         dy.data_ptr(), y.data_ptr(), p.data_ptr(), _ptr(pr),
         stats.data_ptr(), dq.data_ptr(), mom3.data_ptr(), part.data_ptr(),
-        p.numel() // co, f, co, _stream(p.device))
+        p.numel() // co, f, co)
     _counted(finale_bwd, rc)
     return dq, mom3
 
@@ -338,15 +337,15 @@ def block_train_bwd(dq, mom3, x, saved, wb, gb, stats, vec, stride: int,
     da1 = torch.empty_like(u)
     work = torch.empty(10 * f + 6 * co, dtype=f32, device=dev)
     part = _workspace(dev, nt, h, w, c, f, co, stride)
-    rc = _fn("vcg_block_train_bwd", 24, 10)(
+    rc = _calls.on_device(
+        _fn("vcg_block_train_bwd", 24, 10), dev,
         dq.data_ptr(), mom3.data_ptr(), x.data_ptr(), u.data_ptr(),
         z.data_ptr(), p.data_ptr(), _ptr(pr), w1t.data_ptr(),
         w2t.data_ptr(), w3t.data_ptr(), _ptr(wpt), gb.data_ptr(),
         stats.data_ptr(), vec.data_ptr(), _ptr(dx), dw1.data_ptr(),
         dw2.data_ptr(), dw3.data_ptr(), _ptr(dwp), dgb.data_ptr(),
         da2.data_ptr(), da1.data_ptr(), work.data_ptr(), part.data_ptr(),
-        nt, h, w, c, f, co, stride, n_segment, fold, int(link), eps,
-        _stream(dev))
+        nt, h, w, c, f, co, stride, n_segment, fold, int(link), eps)
     _counted(block_train_bwd, rc)
     return dx, dw1, dw2, dw3, dwp, dgb, da1, work[-3 * f:]
 
@@ -365,11 +364,11 @@ def trunk_link_fwd(st: "BlockTrainState", below: "BlockTrainState"):
     u = torch.empty(nt, h, w, st.f, dtype=torch.bfloat16, device=dev)
     mom = torch.empty(4 * st.f + 4 * st.co, dtype=torch.float32, device=dev)
     part = _workspace(dev, nt, h, w, c, st.f, st.co, st.stride)
-    rc = _fn("vcg_trunk_link_fwd", 8, 9, eps=False)(
+    rc = _calls.on_device(
+        _fn("vcg_trunk_link_fwd", 8, 9, eps=False), dev,
         p.data_ptr(), r.data_ptr(), below.vec.data_ptr(), w1.data_ptr(),
         x.data_ptr(), u.data_ptr(), mom.data_ptr(), part.data_ptr(),
-        nt, h, w, c, st.f, below.f, int(below.proj), st.t, fold,
-        _stream(dev))
+        nt, h, w, c, st.f, below.f, int(below.proj), st.t, fold)
     _counted(trunk_link_fwd, rc)
     return x, u, mom
 
@@ -386,13 +385,13 @@ def trunk_link_bwd(st: "BlockTrainState", below: "BlockTrainState", res):
     dq = torch.empty_like(x)
     mom3 = torch.empty(3 * c, dtype=torch.float32, device=dev)
     part = _workspace(dev, nt, h, w, c, st.f, st.co, st.stride)
-    rc = _fn("vcg_trunk_link_bwd", 12, 8, eps=False)(
+    rc = _calls.on_device(
+        _fn("vcg_trunk_link_bwd", 12, 8, eps=False), dev,
         st.da1.data_ptr(), u.data_ptr(), st.abc1.data_ptr(),
         st.wb[0].data_ptr(), res.data_ptr(), x.data_ptr(),
         below.saved[2].data_ptr(), _ptr(below.saved[3]),
         below.stats.data_ptr(), dq.data_ptr(), mom3.data_ptr(),
-        part.data_ptr(), nt, h, w, c, st.f, below.f, st.t, fold,
-        _stream(dev))
+        part.data_ptr(), nt, h, w, c, st.f, below.f, st.t, fold)
     _counted(trunk_link_bwd, rc)
     return dq, mom3
 

@@ -35,7 +35,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, _calls
 from .temporal_shift import shift_kernel, temporal_shift_reference
 
 
@@ -102,9 +102,9 @@ def _launch(x, w, scale, bias, n_segment: int, n_div: int,
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    rc = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), nt, h, wd, c, f, t,
-            fold, int(relu), torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _calls.on_device(
+        fn, x.device, x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), nt, h, wd, c, f, t, fold, int(relu))
     if rc != 0:
         raise RuntimeError(f"tsm_conv1x1 kernel failed: CUDA error {rc}")
     return out
@@ -121,7 +121,7 @@ def tsm_conv1x1_bn_relu(x, w, scale, bias, n_segment: int,
         raise NotImplementedError(f"tsm_conv1x1_bn_relu on {x.device}")
     out = _launch(x, w.reshape(x.shape[-1], -1), scale, bias, n_segment,
                   n_div, relu=True)
-    tsm_conv1x1_bn_relu.launches += 1
+    _calls.count(tsm_conv1x1_bn_relu)
     return out
 
 
@@ -135,7 +135,7 @@ class _TSMConv1x1(torch.autograd.Function):
         x = x.contiguous()
         wk = w.reshape(c, -1).to(torch.bfloat16).contiguous()
         out = _launch(x, wk, None, None, n_segment, n_div, relu=False)
-        tsm_conv1x1.launches += 1
+        _calls.count(tsm_conv1x1)
         ctx.save_for_backward(x, wk)
         ctx.args = (n_segment, n_div, w.dtype, w.shape)
         return out

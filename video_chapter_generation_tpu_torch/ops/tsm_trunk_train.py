@@ -48,7 +48,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _calls
 from .tsm_block_train import (
     BlockTrainState,
     _workspace,
@@ -99,10 +99,10 @@ def recompute_p(st: BlockTrainState) -> torch.Tensor:
     p = torch.empty(nt, ho, wo, st.co, dtype=torch.bfloat16, device=dev)
     mom = torch.empty(2 * st.co, dtype=torch.float32, device=dev)
     part = _workspace(dev, nt, h, w, c, st.f, st.co, st.stride)
-    rc = fn(z.data_ptr(), st.wf[2].data_ptr(), st.vec.data_ptr(),
-            p.data_ptr(), mom.data_ptr(), part.data_ptr(), nt, ho, wo, st.f,
-            st.co, torch.cuda.current_stream(dev).cuda_stream)
-    recompute_p.launches += 1
+    rc = _calls.on_device(fn, dev, z.data_ptr(), st.wf[2].data_ptr(),
+                          st.vec.data_ptr(), p.data_ptr(), mom.data_ptr(),
+                          part.data_ptr(), nt, ho, wo, st.f, st.co)
+    _calls.count(recompute_p)
     if rc != 0:
         raise RuntimeError(f"recompute_p kernel failed: CUDA error {rc}")
     return p

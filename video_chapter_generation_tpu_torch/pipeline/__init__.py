@@ -1,4 +1,6 @@
-"""Per-video orchestration: boundary scoring and title generation."""
+"""Per-video orchestration: boundary scoring and title generation, on
+one device or sharded over the devices of a process, and video-level
+fan-out over processes."""
 
 from .boundary import (
     make_packed_two_stream_score_fn,
@@ -8,6 +10,13 @@ from .boundary import (
     pack_to_device,
     score_clips,
 )
+from .sharded import (
+    make_sharded_text_score_fn,
+    make_sharded_two_stream_score_fn,
+    make_sharded_window_score_fn,
+    run_videos_distributed,
+    shard_title_fn,
+)
 from .vision_emb import extract_vision_embs, make_vision_embed_fn
 from .whole_video import ChapterPipeline, VideoChapters, bucket_title_fn
 
@@ -16,6 +25,11 @@ __all__ = [
     "make_text_score_fn",
     "make_two_stream_score_fn",
     "make_window_score_fn",
+    "make_sharded_text_score_fn",
+    "make_sharded_two_stream_score_fn",
+    "make_sharded_window_score_fn",
+    "run_videos_distributed",
+    "shard_title_fn",
     "pack_to_device",
     "score_clips",
     "ChapterPipeline",

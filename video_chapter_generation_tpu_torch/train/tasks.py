@@ -2,7 +2,9 @@
 SegmentWindowTask, the flagship window model of :87-166 with its AUC/mAP
 eval; SegmentTask, the base two-stream clip classifier of :169-213;
 SegmentTextTask, the subtitle-only classifier of :216-268;
-LangPretrainTask, the BERT subtitle pretraining of :270-294; TitleGenTask
+LangPretrainTask, the BERT subtitle pretraining of :270-294;
+GptPretrainTask and GptGlovePretrainTask, the from-scratch GPT's of
+:297-362; TitleGenTask
 (:365-419) and TitleGenVisionTask (:422-462), the title models with
 their loss and eval.
 """
@@ -26,6 +28,7 @@ from ..models.fusion import (
     TwoStreamWindow,
     _autocast,
 )
+from ..models.gpt import GPT, GPTConfig
 from ..models.resnet import STAGE_SIZES, ResNet
 from ..models.seq2seq import Seq2Seq, Seq2SeqConfig, Seq2SeqVisionEmb
 from ..ops.preprocess import normalize_frames
@@ -287,6 +290,85 @@ class LangPretrainTask:
         with _autocast(self.dtype, ids.device):
             logits, _ = model(ids.long(), mask, generator=generator)
         return masked_token_loss(logits, targets)
+
+
+class GptPretrainTask:
+    """From-scratch GPT next-token pretraining on word ids
+    (train/tasks.py:297-326, contract "gpt_pretrain"): GPTConfig with
+    n_layer 12, n_head 10, n_embd 300 and block_size max_text_len (tiny:
+    2 layers, 2 heads, 64), the masked next-token loss over
+    WordIdSubtitleDataset items ("text_ids", "targets"), dropout from the
+    caller's generator. The model computes in model.compute_dtype (bf16
+    under autocast with float32 weights on the card; float64 keeps
+    float64 weights); the JAX task builds its GPT in float32 whatever the
+    config says. gpt_cfg overrides the configuration (its vocabulary is
+    vocab_size)."""
+
+    _input = "text_ids"
+    _kind = "gpt_pretrain"
+
+    def __init__(self, cfg: Config, vocab_size: int, tiny: bool = False,
+                 gpt_cfg: Optional[GPTConfig] = None):
+        self.cfg = cfg
+        self.dtype = compute_dtype(cfg)
+        gc = gpt_cfg or self._default_cfg(cfg, tiny)
+        self.gpt_cfg = gc = dataclasses.replace(gc, vocab_size=vocab_size)
+        with torch.device("meta"):
+            self.model = GPT(gc)
+        self.entries = convert.gpt_entries(gc)
+        self.contract = build_contract(model_kind=self._kind,
+                                       max_text_len=cfg.data.max_text_len,
+                                       vocab_size=vocab_size,
+                                       **self._contract_extra())
+
+    def _default_cfg(self, cfg: Config, tiny: bool) -> GPTConfig:
+        return GPTConfig(block_size=cfg.data.max_text_len,
+                         n_layer=2 if tiny else 12,
+                         n_head=2 if tiny else 10,
+                         n_embd=64 if tiny else 300)
+
+    def _contract_extra(self) -> dict:
+        return {}
+
+    def init_state(self) -> Dict[str, torch.Tensor]:
+        """Seeded random weights (train.seed) in the JAX layout."""
+        tree = convert.random_jax_tree(self.model, self.entries,
+                                       seed=self.cfg.train.seed)
+        return _init_dtype(convert.from_jax(tree, self.entries), self.dtype)
+
+    def loss_fn(self, model: GPT, batch: Dict[str, np.ndarray],
+                generator: Optional[torch.Generator] = None):
+        """(loss, {"loss", "acc"}) of one host batch on the model's
+        device, with dropout from `generator` in train() mode."""
+        x, targets = _put(model, batch, self._input, "targets")
+        with _autocast(self.dtype, x.device):
+            logits = model(x, generator=generator)
+        return masked_token_loss(logits, targets)
+
+
+class GptGlovePretrainTask(GptPretrainTask):
+    """From-scratch GPT next-token pretraining on GloVe word embeddings
+    (train/tasks.py:329-362, contract "gpt_glove_pretrain" with emb_dim):
+    inputs are [B, L, emb_dim] embedding rows (GloveSubtitleDataset's
+    "embeddings"), targets vocabulary ids; n_head 12, n_embd emb_dim
+    (tiny: 2 layers, 2 heads). Computes as GptPretrainTask does."""
+
+    _input = "embeddings"
+    _kind = "gpt_glove_pretrain"
+
+    def __init__(self, cfg: Config, vocab_size: int, tiny: bool = False,
+                 emb_dim: int = 300, gpt_cfg: Optional[GPTConfig] = None):
+        self.emb_dim = emb_dim
+        super().__init__(cfg, vocab_size, tiny, gpt_cfg)
+
+    def _default_cfg(self, cfg: Config, tiny: bool) -> GPTConfig:
+        return GPTConfig(block_size=cfg.data.max_text_len,
+                         n_layer=2 if tiny else 12,
+                         n_head=2 if tiny else 12, n_embd=self.emb_dim,
+                         using_pretrained_embed=True)
+
+    def _contract_extra(self) -> dict:
+        return {"emb_dim": self.emb_dim}
 
 
 class TitleGenTask:
