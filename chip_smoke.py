@@ -345,6 +345,31 @@ PARALLEL_BATCH, PARALLEL_SCORE_TOL, PARALLEL_RANK_TIMEOUT = 16, 1e-2, 420
 # the from-scratch GPT's word vocabulary (the JAX GPTConfig's default; the
 # synthetic corpus's few words padded to it)
 GPT_VOCAB = 10000
+# the data_parallel phase: the global batch of its train_segment runs
+# (clips of CLIP_FRAMES frames; half a process) and of its Pegasus-large
+# train_title runs (chapters); the cosine against one process that a
+# 2-process run's BN running averages and title optimizer state (smooth
+# in the gradients) and its title parameters' update (Adam's first steps
+# are near lr * sign(gradient): a gradient near zero may flip sign under
+# another bf16 rounding; measured 0.9996) must reach; the largest share of
+# one process's optimizer state a process may keep under ZeRO (half, and
+# the entries left whole); each process's time limit
+DP_CLIPS, DP_TITLE_BATCH = 8, 8
+DP_MIN_COS, DP_MIN_UPDATE_COS, DP_MAX_STATE_SHARE = 0.999, 0.995, 0.55
+DP_RANK_TIMEOUT = 420
+# the 2-process segment run against one process in bf16: the first
+# micro-step's loss (relative), the AdamW moments of the text stream and
+# the head (the plain route of one process lands 0.9987-0.9998 from the
+# kernels'), and how far below the one process's plain route the vision
+# trunk's moments may land (two valid one-process routes differ there at
+# cosine 0.12-0.66 a stage: batch-stat BN amplifies bf16 rounding)
+DP_LOSS_REL, DP_MIN_GRAD_COS, DP_VISION_SLACK = 1e-2, 0.998, 0.1
+# a trunk's gradients against its plain version: batch-stat BN over the
+# blocks amplifies the two versions' rounding differences past one
+# block's bands (tests/test_torch_kernels_cuda.py:test_trunk_train_kernel
+# holds the same); each block and the trunk against the chain of blocks
+# are held to the gradient bands
+TRUNK_GRAD_MIN_COS = 0.99
 
 
 def fail(msg: str):
@@ -4819,6 +4844,828 @@ def gpt_phase(dev, smi):
         shutil.rmtree(ckpt, ignore_errors=True)
 
 
+class _Alone:
+    """A moment group of one process whose reductions change nothing:
+    under it the training kernels' entries run split at their moments
+    (one call a phase), as under a group, with every count as alone."""
+    size = 1
+
+    def sum_(self, t):
+        return t
+
+    mean_ = sum_
+
+    def count_scales(self, rows):
+        return 1.0, 1.0
+
+
+@contextlib.contextmanager
+def split_alone():
+    """The kernel wrappers see an _Alone moment group (the split path)."""
+    from video_chapter_generation_tpu_torch.parallel import dist
+
+    read = dist.moment_group
+    dist.moment_group = _Alone
+    try:
+        yield
+    finally:
+        dist.moment_group = read
+
+
+# counters of the training kernels' wrappers, by the names the training
+# phase gives them
+def _train_counters():
+    from video_chapter_generation_tpu_torch.ops.stem_train import (
+        stem_train_bwd,
+        stem_train_fwd,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block_train import (
+        block_train_bwd,
+        block_train_fwd,
+        finale_bwd,
+        finale_fwd,
+        trunk_link_bwd,
+        trunk_link_fwd,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_trunk_train import (
+        recompute_p,
+    )
+
+    return {"stem_s2d_train_fwd": stem_train_fwd,
+            "stem_s2d_train_bwd": stem_train_bwd,
+            "tsm_block_train_fwd": block_train_fwd,
+            "tsm_block_train_bwd": block_train_bwd,
+            "tsm_trunk_train_finale_fwd": finale_fwd,
+            "tsm_trunk_train_finale_bwd": finale_bwd,
+            "tsm_trunk_train_link_fwd": trunk_link_fwd,
+            "tsm_trunk_train_link_bwd": trunk_link_bwd,
+            "tsm_trunk_train_recompute_p": recompute_p}
+
+
+def dp_rank_kernels() -> int:
+    """One process of the data_parallel phase's kernel step (run under a
+    launcher's environment, 2 processes on gloo): K11, K12 (projection,
+    stride 1, stride 2) and a K13 link, forward and backward, at the
+    shapes of a 2-process train_segment step (DP_CLIPS / 2 clips of
+    CLIP_FRAMES frames at 224 px a process), held under the moment group
+    to their plain versions (bn_train's group statistics) on this
+    process's rows, and with the split entries alone (_Alone) bit for bit
+    against the whole entries. Prints 'DP_KERNELS <json>' of the
+    entries' numbers."""
+    import torch
+    import torch.distributed as tdist
+
+    sys.path.insert(0, str(ROOT))
+    from video_chapter_generation_tpu_torch.models.resnet import (
+        ResNet,
+        _hwio_view,
+    )
+    from video_chapter_generation_tpu_torch.ops.preprocess import (
+        depth_to_space4,
+        normalize_frames_reference,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem_train import (
+        stem_s2d_train,
+        stem_train_reference,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block_train import (
+        _block,
+        tsm_block_train_reference,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_trunk_train import (
+        STRIDES,
+        trunk_reference,
+        tsm_trunk_train,
+        unpack,
+    )
+    from video_chapter_generation_tpu_torch.parallel import dist
+
+    dist.initialize()
+    rank, world = dist.process_index(), dist.process_count()
+    if dist.backend() != "gloo":
+        fail(f"process {rank}: backend {dist.backend()}, not gloo on a "
+             f"shared card")
+    dev = dist.default_device()
+    # gloo must sum card tensors (NCCL refuses two processes on one card)
+    probe = torch.full((4,), rank + 1.0, device=dev)
+    tdist.all_reduce(probe)
+    torch.cuda.synchronize()
+    if probe.tolist() != [world * (world + 1) / 2] * 4:
+        fail(f"gloo all_reduce of a card tensor gave {probe.tolist()}")
+    mg = dist.MomentGroup(*dist.data_groups()[:2])
+    bf, t = torch.bfloat16, CLIP_FRAMES
+    per = DP_CLIPS // world * t
+    rows = slice(rank * per, (rank + 1) * per)
+    torch.manual_seed(SEED + 21)
+    net = ResNet(50, n_segment=t, stem_input="s2d")
+    with torch.no_grad():  # BN affines away from 1 and 0
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.mul_(1 + 0.2 * torch.randn_like(m.weight))
+                m.bias.add_(0.1 * torch.randn_like(m.bias))
+    net = net.to(dev)
+    gen = torch.Generator().manual_seed(SEED + 22)
+
+    def rows_of(*shape, u8=False):
+        """This process's rows of a global tensor the same on every
+        process."""
+        full = (torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+                if u8 else torch.randn(shape, generator=gen).to(bf))
+        return full[rows].to(dev).contiguous()
+
+    entries = {}
+
+    def leaves(ts):
+        return [None if p is None else p.detach().clone().requires_grad_()
+                for p in ts]
+
+    def worst_of(got, ref, n_out, grad_band):
+        """Each pair held to the output bands (the first n_out) or
+        grad_band (min cosine, max mean relative error) -> the worst
+        (max_abs, mean_rel, cos) of each kind, or the failure's text."""
+        worst = {"out": (0.0, 0.0, 1.0), "grad": (0.0, 0.0, 1.0)}
+        for i, (g, r) in enumerate(zip(got, ref)):
+            key = "out" if i < n_out else "grad"
+            max_abs, mean_rel, cos = compare(g, r)
+            min_cos, max_rel = ((KERNEL_MIN_COS, KERNEL_MAX_MEAN_REL)
+                                if key == "out" else grad_band)
+            if not (cos >= min_cos and mean_rel <= max_rel):
+                return (f"{key} {i}: max_abs {max_abs:.4g} mean_rel "
+                        f"{mean_rel:.3g} cos {cos:.6f}")
+            w = worst[key]
+            worst[key] = (max(w[0], max_abs), max(w[1], mean_rel),
+                          min(w[2], cos))
+        return worst
+
+    def averaged(outs, start):
+        """outs with the parameters' gradients (from index start) averaged
+        over the group, as the trainer averages them."""
+        return outs[:start] + [mg.mean_(g.clone()) for g in outs[start:]]
+
+    def check(name, label, kernel, plain, nbytes, flops, n_input=0,
+              grad_band=(GRAD_MIN_COS, GRAD_MAX_MEAN_REL)):
+        """kernel() and plain() -> ([outputs..., gradients...], n_out):
+        n_out outputs, then n_input input gradients, then the parameters'
+        gradients. Under the group the kernel against the plain version
+        in the bands, each side's parameter gradients averaged over the
+        group first, as the trainer averages them (the kernels take a BN's
+        gamma and beta gradients from the group's moments, the plain
+        version from this process's rows: the same after the average);
+        alone the split entries against the whole ones bit for bit; then
+        times under the group."""
+        with dist.use_moments(mg):
+            got, n_out = kernel()
+            ref, _ = plain()
+            got = averaged(got, n_out + n_input)
+            ref = averaged(ref, n_out + n_input)
+        torch.cuda.synchronize()
+        worst = worst_of(got, ref, n_out, grad_band)
+        if isinstance(worst, str):
+            fail(f"process {rank}: {name} {label} under the moment group "
+                 f"disagrees with its plain version: {worst}")
+        whole, _ = kernel()
+        with split_alone():
+            split, _ = kernel()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(whole, split)):
+            fail(f"process {rank}: {name} {label}: the split entries alone "
+                 f"differ from the whole entries")
+
+        def under(fn):
+            def run():
+                with dist.use_moments(mg):
+                    fn()
+            return run
+
+        k_ms, p_ms = cuda_ms(under(kernel)), cuda_ms(under(plain))
+        kf_ms = cuda_ms(under(lambda: kernel(forward_only=True)))
+        pf_ms = cuda_ms(under(lambda: plain(forward_only=True)))
+        for direction, ms, pms, fl, nb in (
+                ("fwd", kf_ms, pf_ms, flops, nbytes[0]),
+                ("bwd", k_ms - kf_ms, p_ms - pf_ms, 2 * flops, nbytes[1])):
+            e = entries.setdefault(f"{name}_{direction}", {
+                "ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0,
+                "max_abs": 0.0})
+            e["ms"] += ms
+            e["plain_ms"] += pms
+            e["flops"] += fl
+            e["bytes"] += nb
+            e["max_abs"] = max(e["max_abs"], worst[
+                "out" if direction == "fwd" else "grad"][0])
+        print(f"# process {rank}: {name:15s} {label:40s} under the group vs "
+              f"plain: outputs cos {worst['out'][2]:.6f} mean_rel "
+              f"{worst['out'][1]:.3g}, grads cos {worst['grad'][2]:.6f} "
+              f"mean_rel {worst['grad'][1]:.3g}; split alone bitwise True | "
+              f"fwd kernel {kf_ms:.3f} ms plain {pf_ms:.3f} | fwd+bwd "
+              f"kernel {k_ms:.3f} ms plain {p_ms:.3f}", flush=True)
+
+    # --- K11: the training stem on this process's uint8 s2d cells ---
+    x11 = rows_of(DP_CLIPS * t, 56, 56, 48, u8=True)
+    stem = [_hwio_view(net.conv1).detach(), net.bn1.weight.detach(),
+            net.bn1.bias.detach()]
+    dy11 = rows_of(DP_CLIPS * t, 56, 56, 64)
+
+    def k11(forward_only=False):
+        ps = leaves(stem)
+        out, (mu, var) = stem_s2d_train(x11, *ps, 1e-5, bf)
+        if forward_only:
+            return [out], 1
+        return [out, mu, var, *torch.autograd.grad(out, ps, dy11)], 3
+
+    def p11(forward_only=False):
+        ps = leaves(stem)
+        frames = normalize_frames_reference(depth_to_space4(x11), bf)
+        out, (mu, var) = stem_train_reference(frames, *ps, 1e-5)
+        if forward_only:
+            return [out], 1
+        return [out, mu, var, *torch.autograd.grad(out, ps, dy11)], 3
+
+    cells = x11.shape[0] * 56 * 56
+    check("stem_s2d_train", str(tuple(x11.shape)), k11, p11,
+          (x11.numel() + 147 * 64 * 4 + cells * 64 * 2,
+           2 * cells * 64 * 2 + x11.numel() + 147 * 64 * 4),
+          2 * cells * 4 * 147 * 64)
+
+    # --- K12: layer 1's block 0 (projection), block 1, layer 2's block 0
+    # (stride 2) ---
+    cases = [(net.layer1[0], 64), (net.layer1[1], 256), (net.layer2[0], 256)]
+    for blk, c in cases:
+        kind = blk.kind()
+        stride = STRIDES[kind]
+        params = [p.detach() if p is not None else None
+                  for p in unpack(blk.train_params(), kind)]
+        x = rows_of(DP_CLIPS * t, 56, 56, c)
+        f, co = params[0].shape[-1], params[2].shape[-1]
+        ho = 56 // stride
+        dy = rows_of(DP_CLIPS * t, ho, ho, co)
+
+        def k12(forward_only=False, x=x, params=params, stride=stride,
+                dy=dy, fn=_block):
+            xs = x.detach().clone().requires_grad_()
+            ps = leaves(params)
+            y, st = fn(xs, ps, stride, t, 8, 1e-5)
+            if forward_only:
+                return [y], 1
+            wrt = [xs] + [p for p in ps if p is not None]
+            return [y, *st, *torch.autograd.grad(y, wrt, dy)], 1 + len(st)
+
+        def p12(forward_only=False, x=x, params=params, stride=stride,
+                dy=dy):
+            xs = x.detach().clone().requires_grad_()
+            ps = leaves(params)
+            w1, w2, w3, wp, g1, be1, g2, be2, g3, be3, gp, bep = ps
+            y, st = tsm_block_train_reference(
+                xs, w1, w2, w3, g1, be1, g2, be2, g3, be3, t, 8, 1e-5, wp,
+                gp, bep, stride)
+            if forward_only:
+                return [y], 1
+            wrt = [xs] + [p for p in ps if p is not None]
+            return [y, *st, *torch.autograd.grad(y, wrt, dy)], 1 + len(st)
+
+        nt = x.shape[0]
+        flops, m_in, m_out, nw = block_work(nt, 56, 56, c, f, co, stride,
+                                            kind != "plain")
+        act = 2 * (m_in * f + m_out * f + m_out * co * (3 if kind != "plain"
+                                                        else 2))
+        check("tsm_block_train", f"{tuple(x.shape)} F={f} {kind}", k12, p12,
+              (x.numel() * 2 + nw * 4 + act,
+               dy.numel() * 2 + x.numel() * 4 + act + nw * 8), flops, 1)
+
+    # --- K13: a trunk of layer 1's blocks 0 and 1, one link each way ---
+    blocks = [net.layer1[0], net.layer1[1]]
+    kinds = [b.kind() for b in blocks]
+    tparams = [[p.detach() for p in b.train_params()] for b in blocks]
+    x13 = rows_of(DP_CLIPS * t, 56, 56, 64)
+    dy13 = rows_of(DP_CLIPS * t, 56, 56, 256)
+
+    def trunk_case(fn):
+        def run(forward_only=False):
+            xs = x13.detach().clone().requires_grad_()
+            ps = [leaves(p) for p in tparams]
+            y, stats = fn(xs, ps, kinds, t)
+            outs = [y] + [s for st in stats for s in st]
+            if forward_only:
+                return [y], 1
+            wrt = [xs] + [q for p in ps for q in p]
+            return outs + list(torch.autograd.grad(y, wrt, dy13)), len(outs)
+        return run
+
+    def chain(xs, ps, kinds, t):
+        """The per-block Functions (K12 alone), chained."""
+        stats = []
+        for p, kind in zip(ps, kinds):
+            xs, st = _block(xs, unpack(p, kind), STRIDES[kind], t, 8, 1e-5)
+            stats.append(st)
+        return xs, stats
+
+    # the trunk against the chain of per-block Functions, as the training
+    # phase holds it alone: the forward bit for bit (the link reads and
+    # computes what the chain's finale and conv1 do, and its moments are
+    # summed over the group the same way), the gradients in the gradient
+    # bands (the link sums the backward moments in another order)
+    with dist.use_moments(mg):
+        got, n_out = trunk_case(tsm_trunk_train)()
+        ref, _ = trunk_case(chain)()
+        got, ref = averaged(got, n_out + 1), averaged(ref, n_out + 1)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got[:n_out], ref[:n_out])):
+        fail(f"process {rank}: the trunk's forward under the moment group "
+             f"is not the chain's bit for bit")
+    vs_chain = worst_of(got, ref, n_out, (GRAD_MIN_COS, GRAD_MAX_MEAN_REL))
+    if isinstance(vs_chain, str):
+        fail(f"process {rank}: the trunk's gradients under the moment group "
+             f"leave the bands around the chain's: {vs_chain}")
+    # alone, the trunk against its plain version (information: the band
+    # the group's comparison is held to)
+    got, _ = trunk_case(tsm_trunk_train)()
+    ref, _ = trunk_case(trunk_reference)()
+    alone = worst_of(got, ref, n_out, (TRUNK_GRAD_MIN_COS, math.inf))
+    del got, ref
+    print(f"# process {rank}: tsm_trunk_train under the group vs the chain "
+          f"of per-block Functions: forward bitwise True, grads cos "
+          f"{vs_chain['grad'][2]:.6f} mean_rel {vs_chain['grad'][1]:.3g}; "
+          f"alone vs plain: grads cos {alone['grad'][2]:.6f} mean_rel "
+          f"{alone['grad'][1]:.3g}", flush=True)
+    fl = sum(block_work(x13.shape[0], 56, 56, c, 64, 256, 1,
+                        kind != "plain")[0]
+             for c, kind in zip((64, 256), kinds))
+    m = x13.shape[0] * 56 * 56
+    check("tsm_trunk_train", f"{tuple(x13.shape)} {'+'.join(kinds)}",
+          trunk_case(tsm_trunk_train), trunk_case(trunk_reference),
+          (2 * m * 64 + 2 * m * 256 * 4, 2 * m * 256 * 6 + 2 * m * 64), fl,
+          1, (TRUNK_GRAD_MIN_COS, math.inf))
+
+    print("DP_KERNELS " + json.dumps(entries), flush=True)
+    dist.shutdown()
+    return 0
+
+
+def dp_rank_train(argv) -> int:
+    """One process of a data_parallel training run: cli/train_segment or
+    cli/train_title (argv[0]) with the rest of argv, dropout off, under a
+    launcher's environment or alone; prints 'DP_RESULT <json>': the
+    training kernels' launches, the micro-steps it ran, the median time of
+    those after the first (synchronized), the optimizer state's bytes on
+    this process, its peak memory_allocated, the epoch it started at and
+    its losses. Before the CLI's arguments, --no-save records the
+    checkpoint saves instead of writing them (a Pegasus-large checkpoint
+    is 6.8 GB: the phase writes one, to keep the script's disk writes
+    small) and
+    --compare-to DIR compares this run's final state with the newest
+    checkpoint in DIR (a 2-process run's, waited for): the cosine and max
+    relative error of the parameters' change from the initial weights and
+    of the AdamW moments; --wait-for FILE starts the CLI once FILE
+    exists."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from video_chapter_generation_tpu_torch.cli import (
+        train_segment,
+        train_title,
+    )
+    from video_chapter_generation_tpu_torch.core.checkpoint import (
+        CheckpointManager,
+    )
+    from video_chapter_generation_tpu_torch.models import (
+        bert,
+        fusion,
+        seq2seq,
+    )
+    from video_chapter_generation_tpu_torch.train.loop import Trainer
+
+    # dropout off, as in every parity check: each process draws its own
+    # masks, one process another set over the whole batch
+    for mod in (bert, fusion, seq2seq):
+        mod.dropout = lambda x, p, on, generator=None: x
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    times, losses = [], []
+    plain_step = Trainer.train_step
+
+    def timed_step(self, batch):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m = plain_step(self, batch)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        losses.append(float(m["loss"].detach()))
+        return m
+
+    argv = list(argv)
+    kind = argv.pop(0)
+    saved, compare_to = [], None
+    if "--no-save" in argv:
+        argv.remove("--no-save")
+        CheckpointManager.save = lambda self, epoch, *a, **k: saved.append(
+            epoch)
+    if "--compare-to" in argv:
+        i = argv.index("--compare-to")
+        compare_to = argv[i + 1]
+        del argv[i:i + 2]
+    if "--wait-for" in argv:
+        i = argv.index("--wait-for")
+        while not os.path.exists(argv[i + 1]):
+            time.sleep(1.0)
+        del argv[i:i + 2]
+    init = {}
+    plain_init = Trainer.__post_init__
+
+    def keep_init(self):
+        plain_init(self)
+        if compare_to is not None:
+            init.update({k: v.detach().to("cpu", copy=True) for k, v in
+                         self.model.named_parameters()})
+
+    Trainer.__post_init__ = keep_init
+    Trainer.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    cli = {"segment": train_segment, "title": train_title}[kind]
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    compared = None
+    if compare_to is not None:
+        while CheckpointManager(compare_to).latest_step() is None:
+            time.sleep(1.0)
+        other = CheckpointManager(compare_to).restore_latest()[1]
+        mine = trainer.state()
+        keys = list(init)
+        compared = {"update": _state_cmp(other["model"], mine["model"], init,
+                                         keys)}
+        for key in ("exp_avg", "exp_avg_sq"):
+            compared[key] = _state_cmp(
+                {str(i): st[key] for i, st in
+                 other["optimizer"]["state"].items()},
+                {str(i): st[key] for i, st in
+                 mine["optimizer"]["state"].items()}, None,
+                [str(i) for i in mine["optimizer"]["state"]])
+        del other, mine
+    opt = trainer.opt
+    sharded = hasattr(opt, "state_bytes")
+    state_bytes = (opt.state_bytes() if sharded else
+                   sum(v.numel() * v.element_size()
+                       for s in opt.state.values() for v in s.values()
+                       if torch.is_tensor(v)))
+    rest = sorted(times[1:]) or times
+    print("DP_RESULT " + json.dumps({
+        "launches": {k: fn.launches for k, fn in counters.items()},
+        "steps": len(times), "start_epoch": trainer.start_epoch,
+        "step_ms": 1e3 * rest[len(rest) // 2] if rest else None,
+        "first_step_ms": 1e3 * times[0] if times else None,
+        "losses": losses, "opt_bytes": state_bytes, "opt_sharded": sharded,
+        "peak": torch.cuda.max_memory_allocated(trainer.device),
+        "saves": saved, "compared": compared,
+        "wall": time.time() - t0}), flush=True)
+    return 0
+
+
+def _dp_result(out: str, tag: str):
+    """The JSON a process printed after `tag`."""
+    lines = [x for x in out.splitlines() if x.startswith(tag + " ")]
+    if not lines:
+        fail(f"a data_parallel process printed no {tag} line")
+    return json.loads(lines[-1][len(tag) + 1:])
+
+
+def _state_cmp(a, b, init, keys):
+    """(cosine, max relative error) of the change from init of the
+    tensors keys of states a and b, over all of them as one vector; the
+    relative error is the largest difference over the largest change of
+    b."""
+    import torch
+
+    dot = na = nb = 0.0
+    diff = top = 0.0
+    for k in keys:
+        x, y = a[k].double().cuda(), b[k].double().cuda()
+        if init is not None:
+            z = init[k].double().cuda()
+            x, y = x - z, y - z
+        dot += float((x * y).sum())
+        na += float((x * x).sum())
+        nb += float((y * y).sum())
+        diff = max(diff, float((x - y).abs().max()))
+        top = max(top, float(y.abs().max()))
+    return dot / max(math.sqrt(na * nb), 1e-300), diff / max(top, 1e-300)
+
+
+def data_parallel_phase(dev, smi):
+    """Data-parallel training on the one card (train/loop.py over a
+    process group, parallel/dist.py's moment group, ZeRO): (1) two gloo
+    processes (dp_rank_kernels): K11, K12 and a K13 link held under the
+    moment group to their plain versions on each process's rows, and
+    split alone bit for bit against the whole entries; (2)
+    cli/train_segment on the two-stream model (BERT-base, ResNet50-TSM,
+    224 px s2d, tsm_impl=auto, dropout off) over DP_CLIPS clips a step, 4
+    micro-steps with gradient_accumulation_steps=2 (2 updates), one
+    process, two gloo processes on the card, and one process on the plain
+    route (tsm_impl=xla, the bf16 noise floor): launches of each process
+    equal to one process's; the first loss, the BN running averages and
+    the AdamW moments of the text stream and the head held to the bands,
+    the vision trunk's to the plain route's floor, per part (the
+    parameters' update printed); (3) cli/train_title with Pegasus-large,
+    two processes with ZeRO beside one process, 2 steps of DP_TITLE_BATCH
+    chapters: each process's optimizer-state bytes at most
+    DP_MAX_STATE_SHARE of the one process's, peak memory_allocated, the
+    parameters' update and the AdamW moments compared; the 2-process
+    checkpoint resumed by one process for a third epoch. Step times of 1
+    and 2 processes printed as information (two processes share the
+    card). Returns the kernels' entries (the numbers of step 1, the
+    launches of step 2's processes)."""
+    import os
+    import shutil
+
+
+    from video_chapter_generation_tpu_torch.cli.common import parse_config
+    from video_chapter_generation_tpu_torch.core.checkpoint import (
+        CheckpointManager,
+    )
+    from video_chapter_generation_tpu_torch.data.corpus import VideoCorpus
+    from video_chapter_generation_tpu_torch.data.synth import (
+        make_synth_corpus_on_disk,
+    )
+    from video_chapter_generation_tpu_torch.data.tokenization import (
+        UnigramTokenizer,
+    )
+    from video_chapter_generation_tpu_torch.train.optim import no_decay_mask
+    from video_chapter_generation_tpu_torch.train.tasks import SegmentTask
+
+    build = ROOT / "video_chapter_generation_tpu_torch" / "_build"
+    work = build / "data_parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    me = [sys.executable, str(ROOT / "chip_smoke.py")]
+    laps = {}
+
+    # --- 1. the split kernels under the moment group, two processes ---
+    t0 = time.time()
+    port = _free_port()
+    outs = _run_ranks([me + ["--dp-kernels"]] * 2, [work] * 2,
+                      [_launcher_env(r, 2, port) for r in range(2)],
+                      DP_RANK_TIMEOUT)
+    laps["kernels"] = time.time() - t0
+    held = _dp_result(outs[0], "DP_KERNELS")
+    _dp_result(outs[1], "DP_KERNELS")
+    print(f"# data_parallel: K11, K12 (projection, stride 1, stride 2) and "
+          f"a K13 link held under the moment group of 2 gloo processes to "
+          f"their plain versions, split alone bit for bit the whole entries, "
+          f"{laps['kernels']:.1f} s on {smi}", flush=True)
+
+    # --- 2. train_segment, one process and two ---
+    n_train = DP_CLIPS * 4
+    t0 = time.time()
+    paths = make_synth_corpus_on_disk(
+        str(work / "corpus"), n_videos=n_train + 1, video_sec=60,
+        seed=SEED + 23, splits={"train": n_train, "val": 1})
+
+    def seg_argv(name, impl="auto"):
+        return ["segment", f"data.img_dir={paths['img_dir']}",
+                f"data.data_file={paths['data_file']}",
+                f"data.subtitle_dir={paths['subtitle_dir']}",
+                f"data.train_vid_file={paths['train_vid_file']}",
+                f"data.val_vid_file={paths['val_vid_file']}",
+                "model.kind=two_stream", "model.stem_input=s2d",
+                f"model.tsm_impl={impl}", f"data.batch_size={DP_CLIPS}",
+                "optim.gradient_accumulation_steps=2", "train.max_epochs=1",
+                f"train.ckpt_dir={work / ('seg_' + name)}",
+                f"train.log_dir={work / ('seg_log_' + name)}",
+                "train.resume=false"]
+
+    base_env = dict(os.environ, PYTHONPATH=str(ROOT))
+    runs = {}
+    for name, world, impl in (("one", 1, "auto"), ("two", 2, "auto"),
+                              ("plain", 1, "xla")):
+        t1 = time.time()
+        port = _free_port()
+        envs = ([base_env] if world == 1 else
+                [_launcher_env(r, 2, port) for r in range(2)])
+        outs = _run_ranks([me + ["--dp-train"] + seg_argv(name, impl)]
+                          * world, [work] * world, envs, DP_RANK_TIMEOUT)
+        runs[name] = [_dp_result(o, "DP_RESULT") for o in outs]
+        laps[f"segment {name}"] = time.time() - t1
+    one, two = runs["one"][0], runs["two"]
+    want = {k: v for k, v in one["launches"].items()}
+    for r, res in enumerate(two):
+        if res["launches"] != want:
+            fail(f"process {r} of 2 launched {res['launches']}, one process "
+                 f"{want}")
+    if one["steps"] != 4 or any(r["steps"] != 4 for r in two):
+        fail(f"micro-steps: one process {one['steps']}, two "
+             f"{[r['steps'] for r in two]}, not 4")
+    if not all(math.isfinite(v) for r in [one] + two for v in r["losses"]):
+        fail("a data_parallel segment loss is not finite")
+    # the 2-process run's first micro-step loss: the mean of the processes'
+    first = (two[0]["losses"][0] + two[1]["losses"][0]) / 2
+    cfg = parse_config(seg_argv("one")[1:])[0]
+    task = SegmentTask(cfg)
+    init = task.init_state()
+    mask = no_decay_mask(task.model, task.entries)
+    names = ([n for n, _ in task.model.named_parameters() if mask[n]]
+             + [n for n, _ in task.model.named_parameters() if not mask[n]])
+
+    def part(name):
+        if name.startswith("lang_model."):
+            return "text"
+        if name.startswith("vision_model."):
+            rest = name.split(".")[1]
+            return ("vision " + rest if rest.startswith("layer")
+                    else "vision stem")
+        return "head"
+
+    parts = sorted(set(part(n) for n in names)) + ["vision"]
+    b = CheckpointManager(str(work / "seg_one")).restore_latest()[1]
+    table = {}
+    for other in ("two", "plain"):
+        a = CheckpointManager(str(work / f"seg_{other}")).restore_latest()[1]
+        if sorted(a["optimizer"]["state"]) != sorted(b["optimizer"]["state"]):
+            fail(f"the {other} run's optimizer state has other entries")
+        running = [k for k in b["model"] if "running" in k]
+        row = {"running": _state_cmp(a["model"], b["model"], init, running)}
+        for pt in parts:
+            keys = [n for n in names if part(n).startswith(pt)]
+            idx = [str(names.index(n)) for n in keys]
+            row[f"update {pt}"] = _state_cmp(a["model"], b["model"], init,
+                                             keys)
+            for key in ("exp_avg", "exp_avg_sq"):
+                row[f"{key} {pt}"] = _state_cmp(
+                    {str(i): st[key] for i, st in
+                     a["optimizer"]["state"].items()},
+                    {str(i): st[key] for i, st in
+                     b["optimizer"]["state"].items()}, None, idx)
+        table[other] = row
+        del a
+    print(f"# data_parallel train_segment (two-stream BERT-base + "
+          f"ResNet50-TSM 224 px, {DP_CLIPS} clips a step, 4 micro-steps, "
+          f"2 updates, dropout off): launches per process {want}, equal to "
+          f"one process's; first micro-step loss one process "
+          f"{one['losses'][0]:.6f}, two {first:.6f}, the plain route "
+          f"{runs['plain'][0]['losses'][0]:.6f}", flush=True)
+    for key in table["two"]:
+        (c2, r2), (cp, rp) = table["two"][key], table["plain"][key]
+        print(f"#   {key:24s} 2 processes vs 1: cos {c2:.6f} max_rel "
+              f"{r2:.3g} | 1 process plain route vs kernels: cos {cp:.6f} "
+              f"max_rel {rp:.3g}", flush=True)
+    # the bounds: the forward (first loss, running averages) and the
+    # gradients of the parts without BatchNorm at the bf16 bands; the
+    # vision trunk's against the one process's plain route, which lands
+    # as far from the kernels (batch-stat BN amplifies bf16 rounding over
+    # the blocks); the update is printed (Adam's first steps are near
+    # lr * sign(gradient))
+    bounds = [("running averages' update", table["two"]["running"][0],
+               DP_MIN_COS)]
+    bounds += [(f"{key} of the {pt}", table["two"][f"{key} {pt}"][0],
+                DP_MIN_GRAD_COS) for pt in ("text", "head")
+               for key in ("exp_avg", "exp_avg_sq")]
+    bounds += [(f"{key} of the vision trunk",
+                table["two"][f"{key} vision"][0],
+                table["plain"][f"{key} vision"][0] - DP_VISION_SLACK)
+               for key in ("exp_avg", "exp_avg_sq")]
+    for what, cos, least in bounds:
+        if not cos >= least:
+            fail(f"data_parallel train_segment: the {what} of 2 processes "
+                 f"is at cosine {cos:.6f} of one process's, below "
+                 f"{least:.6f}")
+    if abs(first - one["losses"][0]) > DP_LOSS_REL * abs(one["losses"][0]):
+        fail(f"data_parallel train_segment: the first loss of 2 processes "
+             f"{first} is not one process's {one['losses'][0]}")
+    print(f"# data_parallel segment step (information only: two processes "
+          f"share the one card): 1 process {one['step_ms']:.1f} ms a "
+          f"micro-step of {DP_CLIPS} clips, 2 processes "
+          f"{two[0]['step_ms']:.1f}, {two[1]['step_ms']:.1f} ms of "
+          f"{DP_CLIPS // 2} clips each; peak memory_allocated one "
+          f"{one['peak']} bytes, two {[r['peak'] for r in two]}; on {smi}",
+          flush=True)
+    del b, init
+
+    # --- 3. train_title (Pegasus-large) with ZeRO, one process and two ---
+    t1 = time.time()
+    tpaths = make_synth_corpus_on_disk(
+        str(work / "title_corpus"), n_videos=DP_TITLE_BATCH + 1,
+        video_sec=96, hw=32, seed=SEED + 24,
+        splits={"train": DP_TITLE_BATCH, "val": 1})
+    corpus = VideoCorpus.from_files(tpaths["img_dir"], tpaths["data_file"],
+                                    tpaths["train_vid_file"],
+                                    tpaths["subtitle_dir"])
+    tok = UnigramTokenizer.build_from_corpus(
+        [s["text"] for vid in corpus.vids for s in corpus.subtitles(vid)],
+        vocab_size=8000)
+    pieces = dict(tok.pieces)
+    specials = {tok.pad_token, tok.eos_token, tok.unk_token}
+    low = min(pieces.values()) - 10.0
+    n = len(specials) + len([q for q in pieces if q not in specials])
+    pieces.update({f"<unused{i}>": low for i in range(PEGASUS_VOCAB - n)})
+    tsv = work / "title_pieces.tsv"
+    tsv.write_text("".join(f"{q}\t{v}\n" for q, v in pieces.items()))
+
+    def title_argv(name, epochs=2, resume=False, ckpt=None):
+        return ["title", f"data.img_dir={tpaths['img_dir']}",
+                f"data.data_file={tpaths['data_file']}",
+                f"data.subtitle_dir={tpaths['subtitle_dir']}",
+                f"data.train_vid_file={tpaths['train_vid_file']}",
+                f"data.val_vid_file={tpaths['val_vid_file']}",
+                "model.compute_dtype=bfloat16",
+                f"data.batch_size={DP_TITLE_BATCH}",
+                f"data.title_input_len={TITLE_IN}",
+                f"data.title_decode_len={TITLE_OUT}", "optim.lr_decay=false",
+                f"train.max_epochs={epochs}", "train.eval_every_epochs=100",
+                "train.save_every_epochs=100",
+                f"train.ckpt_dir={ckpt or work / ('title_' + name)}",
+                f"train.log_dir={work / ('title_log_' + name)}",
+                f"train.resume={str(resume).lower()}", "--spm_tsv", str(tsv)]
+
+    # all at once (their step times are no speed figure: four processes
+    # share the card): two processes write the one checkpoint of this step
+    # (6.8 GB); one process trains alone, writes nothing and compares its
+    # state with that checkpoint once it is there; one process waits for
+    # it, resumes it for a third epoch and writes nothing
+    t2 = time.time()
+    port = _free_port()
+    one_argv = title_argv("one")
+    res_argv = title_argv("resumed", 3, True, work / "title_two")
+    outs = _run_ranks(
+        [me + ["--dp-train"] + title_argv("two")] * 2
+        + [me + ["--dp-train", one_argv[0], "--no-save", "--compare-to",
+                 str(work / "title_two")] + one_argv[1:],
+           me + ["--dp-train", res_argv[0], "--no-save", "--wait-for",
+                 str(work / "title_two" / "ckpt_1.pt")] + res_argv[1:]],
+        [work] * 4, [_launcher_env(r, 2, port) for r in range(2)]
+        + [base_env] * 2, DP_RANK_TIMEOUT)
+    laps["title"] = time.time() - t2
+    *ttwo, tone, res = [_dp_result(o, "DP_RESULT") for o in outs]
+    shares = [r["opt_bytes"] / tone["opt_bytes"] for r in ttwo]
+    if not all(r["opt_sharded"] for r in ttwo):
+        fail("the 2-process title run's optimizer state is not sharded")
+    cmp_t = tone["compared"]
+    print(f"# data_parallel train_title (Pegasus-large, ZeRO, "
+          f"{DP_TITLE_BATCH} chapters a step, 2 steps, dropout off): "
+          f"optimizer state bytes one process {tone['opt_bytes']}, two "
+          f"{[r['opt_bytes'] for r in ttwo]} "
+          f"({', '.join(f'{x:.4f}' for x in shares)} of one's); peak "
+          f"memory_allocated one {tone['peak']}, two "
+          f"{[r['peak'] for r in ttwo]} bytes; 2 processes vs 1: parameters' "
+          f"update cos {cmp_t['update'][0]:.6f} max_rel "
+          f"{cmp_t['update'][1]:.3g}, exp_avg cos {cmp_t['exp_avg'][0]:.6f} "
+          f"max_rel {cmp_t['exp_avg'][1]:.3g}, exp_avg_sq cos "
+          f"{cmp_t['exp_avg_sq'][0]:.6f}; step (side by side, information "
+          f"only) one "
+          f"{tone['step_ms']:.1f} ms, two {ttwo[0]['step_ms']:.1f}, "
+          f"{ttwo[1]['step_ms']:.1f} ms; losses one {tone['losses']} two "
+          f"{[r['losses'] for r in ttwo]} on {smi}", flush=True)
+    if max(shares) > DP_MAX_STATE_SHARE:
+        fail(f"with ZeRO each process keeps {shares} of one process's "
+             f"optimizer state, above {DP_MAX_STATE_SHARE}")
+    if not (cmp_t["update"][0] >= DP_MIN_UPDATE_COS
+            and cmp_t["exp_avg"][0] >= DP_MIN_COS
+            and cmp_t["exp_avg_sq"][0] >= DP_MIN_COS):
+        fail(f"data_parallel train_title: 2 processes vs 1 {cmp_t}")
+    # the 2-process checkpoint, resumed by one process for a third epoch
+    if (res["start_epoch"] != 2 or res["steps"] != 1 or res["saves"] != [2]
+            or not all(math.isfinite(v) for v in res["losses"])):
+        fail(f"one process did not resume the 2-process title checkpoint "
+             f"for its third epoch: {res}")
+    print(f"# data_parallel: the 2-process title checkpoint resumed in one "
+          f"process at epoch {res['start_epoch']}: 1 step, loss "
+          f"{res['losses']}; phase steps {json.dumps(laps)} on {smi}",
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+    sources = {
+        "stem_s2d_train": ("csrc/stem_train.cu", (
+            "video_chapter_generation_tpu/ops/stem_train_pallas.py:329")),
+        "tsm_block_train": ("csrc/conv_train.cu", (
+            "video_chapter_generation_tpu/ops/"
+            "tsm_block_train_pallas.py:1483")),
+        "tsm_trunk_train": ("csrc/conv_train.cu", (
+            "video_chapter_generation_tpu/ops/"
+            "tsm_trunk_train_pallas.py:118"))}
+    counted = {"stem_s2d_train_fwd": "stem_s2d_train_fwd",
+               "stem_s2d_train_bwd": "stem_s2d_train_bwd",
+               "tsm_block_train_fwd": "tsm_block_train_fwd",
+               "tsm_block_train_bwd": "tsm_block_train_bwd",
+               "tsm_trunk_train_fwd": "tsm_trunk_train_link_fwd",
+               "tsm_trunk_train_bwd": "tsm_trunk_train_link_bwd"}
+    out = []
+    for key, e in held.items():
+        name = key.rsplit("_", 1)[0]
+        b_ms, b_by = bound(e["flops"], e["bytes"])
+        src, replaces = sources[name]
+        out.append({
+            "name": counted[key], "route": "cuda",
+            "source": f"video_chapter_generation_tpu_torch/{src}",
+            "replaces": replaces, "launches": two[0]["launches"][counted[key]],
+            "max_abs_err": e["max_abs"], "ms": e["ms"],
+            "plain_ms": e["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "path": "data_parallel: 2 gloo processes on one card, split at "
+                    "the BN moments under the moment group"
+                    + (" (a 2-block trunk, one link)"
+                       if name == "tsm_trunk_train" else "")})
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5196,6 +6043,10 @@ def main() -> int:
                      + window_kernels + bigbird_kernels[:1]})
     timed("pretrain_lang", pretrain_lang_phase, dev, smi)
     timed("gpt", gpt_phase, dev, smi)
+    # data-parallel training: K11-K13 split at their moments in two gloo
+    # processes (the numbers of its kernel step, the launches of its
+    # 2-process train_segment run)
+    dp_kernels = timed("data_parallel", data_parallel_phase, dev, smi)
     native_kernels = [dict(k, launches=native_launches[k["name"]],
                            path="ChapterPipeline, native decode")
                       for k in kernels] if native_launches else []
@@ -5203,7 +6054,7 @@ def main() -> int:
                       + train_kernels + window_kernels + int8_s2_kernels
                       + [chain_kernel] + vision_kernels + [title_kernel]
                       + eval_kernels + parallel_kernels
-                      + native_kernels}))
+                      + native_kernels + dp_kernels}))
     print(f"# phase seconds {json.dumps(laps)}; chip_smoke wall time "
           f"{time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
@@ -5427,6 +6278,10 @@ def time_kernels(root: Path) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-kernels"]:
+        sys.exit(dp_rank_kernels())
+    if sys.argv[1:2] == ["--dp-train"]:
+        sys.exit(dp_rank_train(sys.argv[2:]))
     if "--time-kernels" in sys.argv[1:]:
         args = sys.argv[1:]
         sys.exit(time_kernels(Path(args[args.index("--root") + 1]).resolve()

@@ -43,7 +43,7 @@ def test_port_module_list_is_complete():
                  "evalkit.title_eval", "datasetkit.flatten", "train.optim",
                  "train.tasks", "parallel", "parallel.dist", "parallel.mesh",
                  "pipeline.sharded", "models.gpt", "cli.sample_lang",
-                 "datasetkit.glove", "ops._calls"):
+                 "datasetkit.glove", "ops._calls", "parallel.loader"):
         assert f"{PORT}.{name}" in MODULES, name
 
 

@@ -9,6 +9,8 @@ kernel accumulates in float32, the plain version rounds each conv output
 to bf16 first).
 """
 
+import json
+
 import pytest
 import torch
 
@@ -971,3 +973,96 @@ def test_sparse_band_attention_refuses_inputs_that_require_grad(dev):
     with torch.no_grad():
         sparse_band_attention(q[:, bs:-bs], k, v, mask, ids, valid, bs, out)
     assert sparse_band_attention.launches == before + 1
+
+
+_NCCL_SEGMENT = r"""
+import json, sys
+import torch
+from video_chapter_generation_tpu_torch.cli import train_segment
+from video_chapter_generation_tpu_torch.ops.stem_train import stem_train_fwd
+from video_chapter_generation_tpu_torch.ops.tsm_block_train import (
+    block_train_bwd, block_train_fwd, trunk_link_bwd, trunk_link_fwd)
+from video_chapter_generation_tpu_torch.parallel import dist
+
+counters = (stem_train_fwd, block_train_fwd, block_train_bwd, trunk_link_fwd,
+            trunk_link_bwd)
+trainer = train_segment.main(sys.argv[1:])
+print("RESULT " + json.dumps({"backend": dist.backend(),
+                              "device": str(trainer.device),
+                              "launches": [f.launches for f in counters]}))
+"""
+
+
+def test_segment_step_on_two_cards_over_nccl(dev, tmp_path):
+    """train_segment (the tiny two-stream model on the kernels, 64-px s2d
+    frames, 2 updates of 2 micro-steps) as two processes, one a card, over
+    NCCL, against one process on the same global batches: each process
+    on its own card, the same launches, and the BN running averages and
+    AdamW moments at cosine >= 0.999 of one process's (bf16 rounds the
+    two runs' products at other places)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from video_chapter_generation_tpu_torch.core.checkpoint import (
+        CheckpointManager,
+    )
+    from video_chapter_generation_tpu_torch.data.synth import (
+        make_synth_corpus_on_disk,
+    )
+
+    root = Path(__file__).resolve().parents[1]
+    paths = make_synth_corpus_on_disk(str(tmp_path / "corpus"), n_videos=9,
+                                      video_sec=40, hw=64, seed=1,
+                                      splits={"train": 8, "val": 1})
+
+    def argv(name):
+        return [f"data.{k}={paths[k]}" for k in (
+            "img_dir", "data_file", "subtitle_dir", "train_vid_file",
+            "val_vid_file")] + [
+            "model.kind=two_stream", "model.stem_input=s2d",
+            "data.batch_size=4", "data.clip_frame_num=16",
+            "optim.gradient_accumulation_steps=2", "train.max_epochs=1",
+            f"train.ckpt_dir={tmp_path / name}",
+            f"train.log_dir={tmp_path / (name + '_logs')}",
+            "train.resume=false", "--tiny"]
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    runs = {}
+    for name, world in (("one", 1), ("two", 2)):
+        envs = [env] if world == 1 else [dict(
+            env, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+            LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost",
+            MASTER_PORT=str(port)) for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _NCCL_SEGMENT, *argv(name)], env=e,
+            cwd=tmp_path, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for e in envs]
+        outs = [p.communicate(timeout=600)[0].decode() for p in procs]
+        for p, out in zip(procs, outs):
+            assert p.returncode == 0, out
+        runs[name] = [json.loads(line[7:]) for out in outs
+                      for line in out.splitlines()
+                      if line.startswith("RESULT ")]
+    assert [r["backend"] for r in runs["two"]] == ["nccl", "nccl"]
+    assert [r["device"] for r in runs["two"]] == ["cuda:0", "cuda:1"]
+    assert all(r["launches"] == runs["one"][0]["launches"]
+               for r in runs["two"])
+    a = CheckpointManager(str(tmp_path / "two")).restore_latest()[1]
+    b = CheckpointManager(str(tmp_path / "one")).restore_latest()[1]
+    for k in [k for k in b["model"] if "running" in k]:
+        _close(a["model"][k], b["model"][k])
+    ea = torch.cat([s["exp_avg"].flatten()
+                    for _, s in sorted(a["optimizer"]["state"].items())])
+    eb = torch.cat([s["exp_avg"].flatten()
+                    for _, s in sorted(b["optimizer"]["state"].items())])
+    cos = torch.nn.functional.cosine_similarity(ea.double(), eb.double(),
+                                                dim=0).item()
+    assert cos >= 0.999, cos

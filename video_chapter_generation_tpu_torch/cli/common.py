@@ -7,12 +7,24 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 from typing import List, Optional, Tuple
 
 from ..core.config import Config
 from ..data.corpus import VideoCorpus
 from ..data.tokenization import UnigramTokenizer, WordPieceTokenizer
+from ..data.loader import DataLoader
 from ..models.seq2seq import Seq2SeqConfig
+from ..parallel import dist
+from ..parallel.loader import rank_loader
+
+# the training CLIs' --help epilogue
+TORCHRUN_HELP = ("Under torchrun --nproc_per_node=N (or any launcher that "
+                 "sets RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, "
+                 "LOCAL_RANK and LOCAL_WORLD_SIZE) the N processes train "
+                 "data-parallel, each on its card (cuda:LOCAL_RANK), the "
+                 "global batch data.batch_size split over them: the same "
+                 "steps as one process on one card.")
 
 
 def pop_flag(argv: List[str], flag: str, value: bool = True
@@ -27,13 +39,40 @@ def pop_flag(argv: List[str], flag: str, value: bool = True
     return out
 
 
+def start_training() -> bool:
+    """A training CLI's start: join the launcher's process group, if any
+    (True where this call made it: the CLI then owns the shutdown), and
+    log at INFO on the primary process only."""
+    made = dist.initialize()
+    logging.basicConfig(level=logging.INFO if dist.is_primary()
+                        else logging.WARNING,
+                        format="%(asctime)s %(name)s %(levelname)s "
+                               "%(message)s")
+    return made
+
+
+def train_loader(cfg: Config, loader: DataLoader) -> DataLoader:
+    """This process's rows of the global batches (parallel/loader.py):
+    the loader itself alone."""
+    index, count = dist.data_coords(cfg.mesh.model_axis)
+    return rank_loader(loader, index, count)
+
+
+def say(*args) -> None:
+    """print on the primary process only."""
+    if dist.is_primary():
+        print(*args)
+
+
 def parse_config(argv: Optional[List[str]] = None,
-                 description: str = "") -> Tuple[Config, argparse.Namespace]:
+                 description: str = "",
+                 epilog: Optional[str] = None
+                 ) -> Tuple[Config, argparse.Namespace]:
     """Flags: --config <json file>, --bert_vocab, --spm_tsv, --tiny,
     --title_arch, --device, plus any number of a.b=c overrides, before,
     between or after the flags (cli/common.py:22, whose parser takes
     them only in one run)."""
-    parser = argparse.ArgumentParser(description=description)
+    parser = argparse.ArgumentParser(description=description, epilog=epilog)
     parser.add_argument("--config", type=str, default=None,
                         help="JSON config file")
     parser.add_argument("--bert_vocab", type=str, default=None,

@@ -8,7 +8,9 @@ cli/pretrain_lang.py).
         [--bert_vocab vocab.txt] [--glove emb.txt|emb.pkl] \
         [--glove_vocab words.txt] [--tiny] [--device cpu]
 
-Runs on the card unless --device says otherwise. Each epoch takes one
+Runs on the card unless --device says otherwise; under torchrun
+--nproc_per_node=N, data-parallel on N cards (cli/common.py
+:TORCHRUN_HELP; train/loop.py). Each epoch takes one
 random 16 s subtitle window a video. --task mlm (the default) and
 --task next_token train BertForChapter with its vocabulary head
 (SubtitlePretrainDataset, LangPretrainTask): mlm corrupts 15% of the
@@ -29,7 +31,6 @@ Returns the Trainer.
 
 from __future__ import annotations
 
-import logging
 import sys
 from typing import Dict, List
 
@@ -53,7 +54,17 @@ from ..train.tasks import (
     GptPretrainTask,
     LangPretrainTask,
 )
-from .common import load_bert_tokenizer, load_corpus, parse_config, pop_flag
+from ..parallel import dist
+from .common import (
+    TORCHRUN_HELP,
+    load_bert_tokenizer,
+    load_corpus,
+    parse_config,
+    pop_flag,
+    say,
+    start_training,
+    train_loader,
+)
 
 TASKS = ("mlm", "next_token", "next_token_gpt", "next_token_glove")
 
@@ -84,10 +95,8 @@ def main(argv=None) -> Trainer:
     if task_name == "next_token_glove" and not glove_path:
         raise SystemExit("--task next_token_glove needs --glove FILE (a GloVe "
                          "text file or a pickle of word -> vector)")
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(levelname)s "
-                               "%(message)s")
-    cfg, args = parse_config(argv, "subtitle LM pretraining")
+    made = start_training()
+    cfg, args = parse_config(argv, "subtitle LM pretraining", TORCHRUN_HELP)
     corpus = load_corpus(cfg, "train")
     d = cfg.data
     if task_name == "next_token_gpt":
@@ -118,10 +127,13 @@ def main(argv=None) -> Trainer:
                                      max_text_len=d.max_text_len,
                                      seed=cfg.train.seed)
     task.contract = dict(task.contract, vocab_hash=vocab_hash(hashed))
-    loader = DataLoader(ds, d.batch_size, seed=cfg.train.seed)
+    loader = train_loader(cfg, DataLoader(ds, d.batch_size,
+                                          seed=cfg.train.seed))
     trainer = Trainer(cfg=cfg, task=task, train_loader=loader,
                       device=args.device)
-    print("final:", trainer.train())
+    say("final:", trainer.train())
+    if made:
+        dist.shutdown()
     return trainer
 
 

@@ -7,7 +7,10 @@ package's cli/train_segment.py).
         data.batch_size=8 [--bert_vocab vocab.txt] [--tiny] [--device cpu] \
         [--init_streams CKPT_DIR]
 
-Runs on the card unless --device says otherwise. model.kind defaults to
+Runs on the card unless --device says otherwise; under torchrun
+--nproc_per_node=N, data-parallel on N cards (cli/common.py
+:TORCHRUN_HELP; train/loop.py), only the primary process printing and
+writing logs and checkpoints. model.kind defaults to
 two_stream_window, the window model (JAX cli/train_segment.py:47-53);
 two_stream is the base model; text the subtitle-only BertForChapter
 (:60-66, clips without frames). --init_streams warm-starts the text and
@@ -17,7 +20,6 @@ Returns the Trainer.
 
 from __future__ import annotations
 
-import logging
 import sys
 
 from ..core.checkpoint import CheckpointManager
@@ -27,7 +29,16 @@ from ..data.loader import DataLoader
 from ..models.bert import BertConfig
 from ..train.loop import Trainer
 from ..train.tasks import SegmentTask, SegmentTextTask, SegmentWindowTask
-from .common import load_bert_tokenizer, load_corpus, parse_config
+from ..parallel import dist
+from .common import (
+    TORCHRUN_HELP,
+    load_bert_tokenizer,
+    load_corpus,
+    parse_config,
+    say,
+    start_training,
+    train_loader,
+)
 
 TASKS = {"two_stream_window": SegmentWindowTask, "two_stream": SegmentTask}
 
@@ -52,7 +63,7 @@ def _warm_start(task, ckpt_dir: str) -> None:
         return sd
 
     task.init_state = init_with_streams
-    print(f"warm-started lang/vision streams from {ckpt_dir} (epoch {step})")
+    say(f"warm-started lang/vision streams from {ckpt_dir} (epoch {step})")
 
 
 def main(argv=None) -> Trainer:
@@ -62,10 +73,9 @@ def main(argv=None) -> Trainer:
         i = argv.index("--init_streams")
         init_streams = argv[i + 1]
         del argv[i:i + 2]
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(levelname)s "
-                               "%(message)s")
-    cfg, args = parse_config(argv, "train chapter-boundary model")
+    made = start_training()
+    cfg, args = parse_config(argv, "train chapter-boundary model",
+                             TORCHRUN_HELP)
     kind = cfg.model.kind
     if kind != "text" and kind not in TASKS:
         raise SystemExit(f"unknown model.kind {kind}")
@@ -103,14 +113,17 @@ def main(argv=None) -> Trainer:
                            mode, d.fps, cfg.train.seed, hw,
                            s2d=s2d and kind != "text")
 
-    train_loader = DataLoader(make_ds(corpus), cfg.data.batch_size,
-                              seed=cfg.train.seed)
+    loader = train_loader(cfg, DataLoader(make_ds(corpus),
+                                          cfg.data.batch_size,
+                                          seed=cfg.train.seed))
     val_loader = DataLoader(make_ds(val_corpus), cfg.data.batch_size,
                             shuffle=False, drop_last=False)
-    trainer = Trainer(cfg=cfg, task=task, train_loader=train_loader,
+    trainer = Trainer(cfg=cfg, task=task, train_loader=loader,
                       eval_loader=val_loader, device=args.device)
     metrics = trainer.train()
-    print("final:", metrics, "best:", trainer.best_result)
+    say("final:", metrics, "best:", trainer.best_result)
+    if made:
+        dist.shutdown()
     return trainer
 
 

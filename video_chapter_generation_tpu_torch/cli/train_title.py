@@ -7,7 +7,9 @@ package's cli/train_title.py).
         [--title_arch pegasus|bigbird|bart] [--remat] [--spm_tsv pieces.tsv] \
         [model.vision_init=EMB_DIR] [--tiny] [--device cpu]
 
-Runs on the card unless --device says otherwise. --title_arch picks
+Runs on the card unless --device says otherwise; under torchrun
+--nproc_per_node=N, data-parallel on N cards with ZeRO-sharded optimizer
+state (cli/common.py:TORCHRUN_HELP; train/loop.py). --title_arch picks
 Pegasus-large (the default), BigBird-Pegasus-large (block-sparse encoder:
 give it data.title_input_len=3072) or BART-large, at the tokenizer's
 vocabulary; --tiny their tiny forms. --remat recomputes each encoder and
@@ -25,7 +27,6 @@ them. Returns the Trainer.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import sys
 
 from ..core.contract import vocab_hash
@@ -37,22 +38,26 @@ from ..data.datasets import (
 from ..data.loader import DataLoader
 from ..train.loop import Trainer
 from ..train.tasks import TitleGenTask, TitleGenVisionTask
+from ..parallel import dist
 from .common import (
+    TORCHRUN_HELP,
     load_corpus,
     load_title_tokenizer,
     parse_config,
     pop_flag,
+    say,
+    start_training,
     title_s2s_config,
+    train_loader,
 )
 
 
 def main(argv=None) -> Trainer:
     argv = list(argv if argv is not None else sys.argv[1:])
     remat = pop_flag(argv, "--remat", value=False) is not None
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(levelname)s "
-                               "%(message)s")
-    cfg, args = parse_config(argv, "train chapter-title generator")
+    made = start_training()
+    cfg, args = parse_config(argv, "train chapter-title generator",
+                             TORCHRUN_HELP)
     corpus = load_corpus(cfg, "train")
     val_corpus = load_corpus(cfg, "val")
     tokenizer = load_title_tokenizer(args, corpus)
@@ -80,14 +85,16 @@ def main(argv=None) -> Trainer:
                                        d.title_decode_len, cfg.train.seed)
     task.contract = dict(task.contract, vocab_hash=vocab_hash(tokenizer))
 
-    train_loader = DataLoader(make_ds(corpus), d.batch_size,
-                              seed=cfg.train.seed)
+    loader = train_loader(cfg, DataLoader(make_ds(corpus), d.batch_size,
+                                          seed=cfg.train.seed))
     val_loader = DataLoader(make_ds(val_corpus), d.batch_size,
                             shuffle=False, drop_last=False)
-    trainer = Trainer(cfg=cfg, task=task, train_loader=train_loader,
+    trainer = Trainer(cfg=cfg, task=task, train_loader=loader,
                       eval_loader=val_loader, device=args.device)
     metrics = trainer.train()
-    print("final:", metrics)
+    say("final:", metrics)
+    if made:
+        dist.shutdown()
     return trainer
 
 

@@ -8,6 +8,11 @@ Checkpoints written before the sidecar existed hold their metrics in the
 .pt (`"metrics"`); `metrics_for` reads them there when no .json is
 beside it, so such a directory restores and trains on.
 
+Under data-parallel training the Trainer gathers the ZeRO-sharded
+optimizer state and writes on its primary process only
+(train/loop.py), so a file holds what a one-process run writes and
+resumes at any process count.
+
 Retention is orbax's under the JAX manager's best_fn (core/checkpoint.py
 :31-39, orbax's BestN policy): with more than max_to_keep checkpoints,
 keep the max_to_keep best by score, a checkpoint saved without one

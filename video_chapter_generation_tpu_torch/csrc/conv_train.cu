@@ -1232,22 +1232,29 @@ static cudaError_t conv_wgrad(const ActXf& a, const ConvGeo& g,
   return cudaGetLastError();
 }
 
-static cudaError_t bn_stats(const float* mom, int n, int count,
+// The pixel count a BatchNorm divides by: the local count m times scale,
+// the ratio of the moment group's count to this rank's (1 alone, so the
+// product is exact and the single-card path keeps its bits).
+static float site_count(int m, double scale) {
+  return static_cast<float>(m) * static_cast<float>(scale);
+}
+
+static cudaError_t bn_stats(const float* mom, int n, float count,
                             const float* gamma, const float* beta, float eps,
                             float* mu, float* var, float* sa, float* sb,
                             cudaStream_t st) {
-  bn_stats_kernel<<<(n + 255) / 256, 256, 0, st>>>(
-      mom, n, static_cast<float>(count), gamma, beta, eps, mu, var, sa, sb);
+  bn_stats_kernel<<<(n + 255) / 256, 256, 0, st>>>(mom, n, count, gamma, beta,
+                                                   eps, mu, var, sa, sb);
   return cudaGetLastError();
 }
 
-static cudaError_t bn_bwd(const float* s0, const float* s1, int n, int count,
-                          const float* gamma, const float* mu,
+static cudaError_t bn_bwd(const float* s0, const float* s1, int n,
+                          float count, const float* gamma, const float* mu,
                           const float* var, float eps, float* abc,
                           float* dgamma, float* dbeta, cudaStream_t st) {
   bn_bwd_kernel<<<(n + 255) / 256, 256, 0, st>>>(
-      s0, s1, n, static_cast<float>(count), gamma, mu, var, eps, abc,
-      abc + n, abc + 2 * n, dgamma, dbeta);
+      s0, s1, n, count, gamma, mu, var, eps, abc, abc + n, abc + 2 * n,
+      dgamma, dbeta);
   return cudaGetLastError();
 }
 
@@ -1303,12 +1310,21 @@ struct Vec8 {
 
 // The block's forward up to p (no finale). link: conv1 already ran as the
 // trunk's link (trunk_link_fwd wrote x, u and the moments of u into mom).
+// Its phases, each ending where a moment is complete, run from `from` up
+// to (not including) `to`:
+//   0  conv1 (unless link) and the projection: the moments of u and pr
+//   1  BN1's statistics, conv2: the moments of z
+//   2  BN2's statistics, conv3: the moments of p
+//   3  BN3's (and BNp's) statistics
+// Between two calls a caller may sum the moments in mom over ranks; scale
+// makes each count the group's (site_count).
 static int block_fwd(const void* x, const void* w1, const void* w2,
                      const void* w3, const void* wp, const float* gb,
                      void* u, void* z, void* p, void* pr, float* stats,
                      float* vec, float* mom, float* part, int n, int h,
                      int w, int c, int f, int co, int stride, int t, int fold,
-                     float eps, int link, cudaStream_t st) {
+                     float eps, int link, int from, int to, double scale,
+                     cudaStream_t st) {
   // gb: gamma/beta in the stats layout (g1 be1 g2 be2 g3 be3 gp bep)
   const Vec8 S{stats, f, co}, V{vec, f, co}, G{const_cast<float*>(gb), f, co};
   const bool proj = wp != nullptr;
@@ -1318,28 +1334,36 @@ static int block_fwd(const void* x, const void* w1, const void* w2,
   float* m3 = mom + 4 * f;
   float* mp = mom + 4 * f + 2 * co;
   const ConvGeo g1 = geo(n, h, w, c, 1, 1, 0, f);
-  if (!link)
-    VCG_TRY(conv_fwd(act(x, nullptr, nullptr, t, fold), g1, w1, u, m1, part,
-                     st));
   const ConvGeo gp = geo(n, h, w, c, 1, stride, 0, co);
-  if (proj)
-    VCG_TRY(conv_fwd(act(x, nullptr, nullptr, t, 0), gp, wp, pr, mp, part,
-                     st));
-  VCG_TRY(bn_stats(m1, f, g1.m, G.at(0), G.at(1), eps, S.at(0), S.at(1),
-                   V.at(0), V.at(1), st));
   const ConvGeo g2 = geo(n, h, w, f, 3, stride, 1, f);
-  VCG_TRY(conv_fwd(act(u, V.at(0), V.at(1), t, 0), g2, w2, z, m2, part,
-                   st));
-  VCG_TRY(bn_stats(m2, f, g2.m, G.at(2), G.at(3), eps, S.at(2), S.at(3),
-                   V.at(2), V.at(3), st));
   const ConvGeo g3 = geo(n, g2.ho, g2.wo, f, 1, 1, 0, co);
-  VCG_TRY(conv_fwd(act(z, V.at(2), V.at(3), t, 0), g3, w3, p, m3, part,
-                   st));
-  VCG_TRY(bn_stats(m3, co, g3.m, G.at(4), G.at(5), eps, S.at(4), S.at(5),
-                   V.at(4), V.at(5), st));
-  if (proj)
-    VCG_TRY(bn_stats(mp, co, g3.m, G.at(6), G.at(7), eps, S.at(6), S.at(7),
-                     V.at(6), V.at(7), st));
+  if (from <= 0 && 0 < to) {
+    if (!link)
+      VCG_TRY(conv_fwd(act(x, nullptr, nullptr, t, fold), g1, w1, u, m1,
+                       part, st));
+    if (proj)
+      VCG_TRY(conv_fwd(act(x, nullptr, nullptr, t, 0), gp, wp, pr, mp, part,
+                       st));
+  }
+  if (from <= 1 && 1 < to) {
+    VCG_TRY(bn_stats(m1, f, site_count(g1.m, scale), G.at(0), G.at(1), eps,
+                     S.at(0), S.at(1), V.at(0), V.at(1), st));
+    VCG_TRY(conv_fwd(act(u, V.at(0), V.at(1), t, 0), g2, w2, z, m2, part,
+                     st));
+  }
+  if (from <= 2 && 2 < to) {
+    VCG_TRY(bn_stats(m2, f, site_count(g2.m, scale), G.at(2), G.at(3), eps,
+                     S.at(2), S.at(3), V.at(2), V.at(3), st));
+    VCG_TRY(conv_fwd(act(z, V.at(2), V.at(3), t, 0), g3, w3, p, m3, part,
+                     st));
+  }
+  if (from <= 3 && 3 < to) {
+    VCG_TRY(bn_stats(m3, co, site_count(g3.m, scale), G.at(4), G.at(5), eps,
+                     S.at(4), S.at(5), V.at(4), V.at(5), st));
+    if (proj)
+      VCG_TRY(bn_stats(mp, co, site_count(g3.m, scale), G.at(6), G.at(7),
+                       eps, S.at(6), S.at(7), V.at(6), V.at(7), st));
+  }
   return 0;
 }
 
@@ -1347,7 +1371,15 @@ static int block_fwd(const void* x, const void* w1, const void* w2,
 // BN3/BNp backward moments mom3 [3Co] (sum dq, sum dq (p - mu3), sum dq
 // (pr - mup)). link: stop before conv1's data gradient (the trunk's
 // backward link does it); a projection block's residual gradient is then
-// left in dx.
+// left in dx. Its phases, each ending where a moment is complete, run
+// from `from` up to (not including) `to`:
+//   0  BN3's (and BNp's) backward, conv3's gradients: the moments of da2
+//      into work[0, 2F)
+//   1  BN2's backward, conv2's gradients: the moments of da1 into
+//      work[2F, 4F)
+//   2  BN1's backward, conv1's (and the projection's) gradients
+// Between two calls a caller may average those moments over ranks (mom3
+// before phase 0); scale makes each count the group's mean count.
 static int block_bwd(const void* dq, const float* mom3, const void* x,
                      const void* u, const void* z, const void* p,
                      const void* pr, const void* w1t, const void* w2t,
@@ -1357,7 +1389,7 @@ static int block_bwd(const void* dq, const float* mom3, const void* x,
                      float* dgb, void* da2, void* da1, float* work,
                      float* part, int n, int h, int w, int c, int f, int co,
                      int stride, int t, int fold, float eps, int link,
-                     cudaStream_t st) {
+                     int from, int to, double scale, cudaStream_t st) {
   const bool proj = wpt != nullptr;
   const Vec8 S{const_cast<float*>(stats), f, co};
   const Vec8 V{const_cast<float*>(vec), f, co};
@@ -1375,32 +1407,37 @@ static int block_bwd(const void* dq, const float* mom3, const void* x,
   const ConvGeo g2 = geo(n, h, w, f, 3, stride, 1, f);
   const ConvGeo g3 = geo(n, g2.ho, g2.wo, f, 1, 1, 0, co);
   const ConvGeo gp = geo(n, h, w, c, 1, stride, 0, co);
-  const int m2 = g3.m;
-  VCG_TRY(bn_bwd(mom3, mom3 + co, co, m2, G.at(4), S.at(4), S.at(5), eps,
-                 abc3, D.at(4), D.at(5), st));
-  if (proj)
-    VCG_TRY(bn_bwd(mom3, mom3 + 2 * co, co, m2, G.at(6), S.at(6), S.at(7),
-                   eps, abcp, D.at(6), D.at(7), st));
-
-  // conv3: dw3 = relu(bn2(z))^T dp; da2 = (dp w3^T) * relu'(bn2(z))
+  const float m2 = site_count(g3.m, scale);
   const GradXf gx3 = grad(dq, p, abc3, co);
-  VCG_TRY(conv_wgrad(act(z, V.at(2), V.at(3), t, 0), g3, gx3, dw3, part,
-                     st));
-  VCG_TRY(conv_dgrad(gx3, g3, w3t,
-                     epi_mask(da2, z, V.at(2), V.at(3), S.at(2), part), mom2,
-                     st));
-  VCG_TRY(bn_bwd(mom2, mom2 + f, f, m2, G.at(2), S.at(2), S.at(3), eps, abc2,
-                 D.at(2), D.at(3), st));
+  if (from <= 0 && 0 < to) {
+    VCG_TRY(bn_bwd(mom3, mom3 + co, co, m2, G.at(4), S.at(4), S.at(5), eps,
+                   abc3, D.at(4), D.at(5), st));
+    if (proj)
+      VCG_TRY(bn_bwd(mom3, mom3 + 2 * co, co, m2, G.at(6), S.at(6), S.at(7),
+                     eps, abcp, D.at(6), D.at(7), st));
+
+    // conv3: dw3 = relu(bn2(z))^T dp; da2 = (dp w3^T) * relu'(bn2(z))
+    VCG_TRY(conv_wgrad(act(z, V.at(2), V.at(3), t, 0), g3, gx3, dw3, part,
+                       st));
+    VCG_TRY(conv_dgrad(gx3, g3, w3t,
+                       epi_mask(da2, z, V.at(2), V.at(3), S.at(2), part),
+                       mom2, st));
+  }
 
   // conv2 (3x3, stride): dw2 and da1 = conv2^T(dz) * relu'(bn1(u))
   const GradXf gx2 = grad(da2, z, abc2, f);
-  VCG_TRY(conv_wgrad(act(u, V.at(0), V.at(1), t, 0), g2, gx2, dw2, part,
-                     st));
-  VCG_TRY(conv_dgrad(gx2, g2, w2t,
-                     epi_mask(da1, u, V.at(0), V.at(1), S.at(0), part), mom1,
-                     st));
-  VCG_TRY(bn_bwd(mom1, mom1 + f, f, g1.m, G.at(0), S.at(0), S.at(1), eps,
-                 abc1, D.at(0), D.at(1), st));
+  if (from <= 1 && 1 < to) {
+    VCG_TRY(bn_bwd(mom2, mom2 + f, f, m2, G.at(2), S.at(2), S.at(3), eps,
+                   abc2, D.at(2), D.at(3), st));
+    VCG_TRY(conv_wgrad(act(u, V.at(0), V.at(1), t, 0), g2, gx2, dw2, part,
+                       st));
+    VCG_TRY(conv_dgrad(gx2, g2, w2t,
+                       epi_mask(da1, u, V.at(0), V.at(1), S.at(0), part),
+                       mom1, st));
+  }
+  if (!(from <= 2 && 2 < to)) return 0;
+  VCG_TRY(bn_bwd(mom1, mom1 + f, f, site_count(g1.m, scale), G.at(0),
+                 S.at(0), S.at(1), eps, abc1, D.at(0), D.at(1), st));
 
   // conv1's weight gradient, the residual gradient, then (unless the
   // trunk's link takes it) conv1's data gradient unshifted onto it
@@ -1501,18 +1538,22 @@ static int link_bwd(const void* da1, const void* u, const float* abc1,
 // [Co] x 4). Outputs u [M1, F], z [M2, F], p [M2, Co], pr [M2, Co] (bf16);
 // stats mu/var and vec sa/sb in the same layout (f32); scratch: mom 4F +
 // 4Co floats, part vcg_block_train_workspace floats. link != 0: u and the
-// moments mom[0, 2F) come from vcg_trunk_link_fwd, which wrote x.
+// moments mom[0, 2F) come from vcg_trunk_link_fwd, which wrote x. Phases
+// [from, to) of block_fwd (0, 4: the whole forward); between calls mom
+// holds m1 [2F] | m2 [2F] | m3 [2Co] | mp [2Co] (sums, sums of squares),
+// and count_scale multiplies every pixel count (1 on one card).
 extern "C" int vcg_block_train_fwd(
     const void* x, const void* w1, const void* w2, const void* w3,
     const void* wp, const void* gb, void* u, void* z, void* p, void* pr,
     void* stats, void* vec, void* mom, void* part, int n, int h, int w,
     int c, int f, int co, int stride, int t, int fold, int link, float eps,
-    void* stream) {
+    int from, int to, double count_scale, void* stream) {
   return vcg::block_fwd(x, w1, w2, w3, wp, static_cast<const float*>(gb), u,
                         z, p, pr, static_cast<float*>(stats),
                         static_cast<float*>(vec), static_cast<float*>(mom),
                         static_cast<float*>(part), n, h, w, c, f, co, stride,
-                        t, fold, eps, link, static_cast<cudaStream_t>(stream));
+                        t, fold, eps, link, from, to, count_scale,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // The finale y [M, Co] = relu(bn3(p) + (r or bnp(r))) from the block's vec
@@ -1604,6 +1645,9 @@ extern "C" long long vcg_block_train_workspace(int n, int h, int w, int c,
 // forward layouts, dgb f32 in the stats layout. Scratch: da2 [M2, F], da1
 // [M1, F] bf16; work 10F + 6Co floats (its last 3F: BN1's backward
 // vectors, which the link reads); part vcg_block_train_workspace floats.
+// Phases [from, to) of block_bwd (0, 3: the whole backward); between
+// calls work[0, 2F) and work[2F, 4F) hold the moments of da2 and da1, and
+// count_scale multiplies every pixel count (1 on one card).
 extern "C" int vcg_block_train_bwd(
     const void* dq, const void* mom3, const void* x, const void* u,
     const void* z, const void* p, const void* pr, const void* w1t,
@@ -1611,7 +1655,8 @@ extern "C" int vcg_block_train_bwd(
     const void* stats, const void* vec, void* dx, void* dw1, void* dw2,
     void* dw3, void* dwp, void* dgb, void* da2, void* da1, void* work,
     void* part, int n, int h, int w, int c, int f, int co, int stride,
-    int t, int fold, int link, float eps, void* stream) {
+    int t, int fold, int link, float eps, int from, int to,
+    double count_scale, void* stream) {
   return vcg::block_bwd(
       dq, static_cast<const float*>(mom3), x, u, z, p, pr, w1t, w2t, w3t,
       wpt, static_cast<const float*>(gb), static_cast<const float*>(stats),
@@ -1619,5 +1664,6 @@ extern "C" int vcg_block_train_bwd(
       static_cast<float*>(dw2), static_cast<float*>(dw3),
       static_cast<float*>(dwp), static_cast<float*>(dgb), da2, da1,
       static_cast<float*>(work), static_cast<float*>(part), n, h, w, c, f,
-      co, stride, t, fold, eps, link, static_cast<cudaStream_t>(stream));
+      co, stride, t, fold, eps, link, from, to, count_scale,
+      static_cast<cudaStream_t>(stream));
 }

@@ -9,7 +9,8 @@
 // TPU kernel's phase-packed form [cells, 256]: row = s2d cell (n, I, J),
 // column (pr * 2 + pc) * 64 + f = conv pixel (2I + pr, 2J + pc), filter f.
 //
-// Forward (vcg_stem_train_fwd, 3 launches):
+// Forward (vcg_stem_train_fwd, 3 launches; split at the moments under a
+// moment group, the statistics launch then twice: the fold, the rest):
 //   SFK-A  stem_kernel<kU8, true, kWide> (stem_tiles.cuh): per strip of 2
 //          cell rows (of one column chunk where the frame is wider than 64
 //          cells) the phase-packed product A[cells, 448] x W[448, 256] on
@@ -28,7 +29,8 @@
 //          monotone in v (non-increasing where sa < 0: those channels pool
 //          -yc), so the result is exactly stem_act of the window's largest
 //          activation.
-// Backward (vcg_stem_train_bwd, 4 launches; the input is data: no dx):
+// Backward (vcg_stem_train_bwd, 4 launches, likewise split; the input is
+// data: no dx):
 //   SBK-A  route: per cell, the window gradient reaches each phase by
 //          parity (phase (0, 0) lies in window (I, J) only, (0, 1) also in
 //          (I, J + 1), (1, 0) also in (I + 1, J), (1, 1) in all four), to
@@ -98,12 +100,37 @@ __device__ void fold_moments(const float* part, int rows, float* red) {
   __syncthreads();
 }
 
-// The forward's statistics: mu, var [64] and the affine sa, sb [64].
+// How a statistics launch takes its moments: folded from the rows of part
+// and used (kFold, the whole entry), folded and stored into mom [2][64]
+// only (kFoldOnly, the end of a split entry's first phase), or read from
+// mom, where the caller may have summed them over ranks, and used
+// (kFromMom). The stored moments are the folded values, so a split entry
+// computes what the whole one does.
+enum MomentMode { kFold = 0, kFoldOnly = 1, kFromMom = 2 };
+
+// red[0, 128): the moments of the mode (a block of kFoldThreads threads);
+// false where they were only stored.
+__device__ bool take_moments(const float* part, int rows, float* mom,
+                             int mode, float* red) {
+  if (mode == kFromMom) {
+    if (threadIdx.x < 128) red[threadIdx.x] = mom[threadIdx.x];
+    __syncthreads();
+    return true;
+  }
+  fold_moments(part, rows, red);
+  if (mode == kFold) return true;
+  if (threadIdx.x < 128) mom[threadIdx.x] = red[threadIdx.x];
+  return false;
+}
+
+// The forward's statistics: mu, var [64] and the affine sa, sb [64]. mom
+// is stats itself (its 128 floats hold the moments between the phases).
 __global__ void __launch_bounds__(kFoldThreads)
     stem_stats_kernel(const float* part, int rows, float count,
-                      const float* gb, float eps, float* stats, float* vec) {
+                      const float* gb, float eps, float* stats, float* vec,
+                      int mode) {
   __shared__ float red[2 * kStemN];
-  fold_moments(part, rows, red);
+  if (!take_moments(part, rows, stats, mode, red)) return;
   const int i = threadIdx.x;
   if (i < 64)
     bn_stats_at(i, red[i], red[64 + i], count, gb, gb + 64, eps, stats,
@@ -111,13 +138,13 @@ __global__ void __launch_bounds__(kFoldThreads)
 }
 
 // The backward's BN vectors abc = A, E, F [3][64] and dgb = dgamma,
-// dbeta [2][64] from the route's moments.
+// dbeta [2][64] from the route's moments (mom: dgb itself).
 __global__ void __launch_bounds__(kFoldThreads)
     stem_bwd_stats_kernel(const float* part, int rows, float count,
                           const float* gb, const float* stats, float eps,
-                          float* abc, float* dgb) {
+                          float* abc, float* dgb, int mode) {
   __shared__ float red[2 * kStemN];
-  fold_moments(part, rows, red);
+  if (!take_moments(part, rows, dgb, mode, red)) return;
   const int i = threadIdx.x;
   if (i < 64)
     bn_bwd_at(i, red[i], red[64 + i], count, gb, stats, stats + 64, eps, abc,
@@ -582,12 +609,16 @@ extern "C" long long vcg_stem_train_workspace(int n, int hs, int ws,
 // bf16 phase-packed, out [n, hs, ws, 64] bf16, stats = mu [64], var [64]
 // f32, vec = sa [64], sb [64] f32; scratch part (vcg_stem_train_workspace).
 // bands a column chunk (stem_chunks(ws) chunks a frame row) in
-// 1 .. (hs + 1) / 2.
+// 1 .. (hs + 1) / 2. Phases [from, to): 0 SFK-A and the moments (left in
+// stats [2][64] as sums and sums of squares when the call stops there),
+// 1 the statistics from them and SFK-B; (0, 2) is the whole forward.
+// count_scale multiplies the pixel count (1 on one card).
 extern "C" int vcg_stem_train_fwd(const void* x, int u8, const void* w,
                                   const void* gb, const void* norm, void* yc,
                                   void* out, void* stats, void* vec,
                                   void* part, int n, int hs, int ws,
-                                  int bands, float eps, void* stream) {
+                                  int bands, float eps, int from, int to,
+                                  double count_scale, void* stream) {
   using namespace vcg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pa = static_cast<float*>(part);
@@ -596,13 +627,18 @@ extern "C" int vcg_stem_train_fwd(const void* x, int u8, const void* w,
                    static_cast<bf16*>(yc), pa, n, hs, ws, stem_chunks(ws),
                    bands};
   int grid = 0;
-  VCG_TRY(static_cast<cudaError_t>(
-      u8 ? launch_stem<true, true>(a, w, st, &grid)
-         : launch_stem<false, true>(a, w, st, &grid)));
+  if (from == 0) {
+    VCG_TRY(static_cast<cudaError_t>(
+        u8 ? launch_stem<true, true>(a, w, st, &grid)
+           : launch_stem<false, true>(a, w, st, &grid)));
+  }
   stem_stats_kernel<<<1, kFoldThreads, 0, st>>>(
-      pa, grid, static_cast<float>(n) * 4 * hs * ws,
-      static_cast<const float*>(gb), eps, static_cast<float*>(stats), vv);
+      pa, grid,
+      static_cast<float>(n) * 4 * hs * ws * static_cast<float>(count_scale),
+      static_cast<const float*>(gb), eps, static_cast<float*>(stats), vv,
+      from == 1 ? kFromMom : to == 1 ? kFoldOnly : kFold);
   VCG_TRY(cudaGetLastError());
+  if (to < 2) return 0;
   const size_t total = static_cast<size_t>(n) * hs * ws * 8;
   stem_pool_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
       static_cast<const bf16*>(yc), vv, vv + 64, static_cast<bf16*>(out), n,
@@ -613,14 +649,19 @@ extern "C" int vcg_stem_train_fwd(const void* x, int u8, const void* w,
 // dpool, out [n, hs, ws, 64] bf16; x, yc, stats, vec as the forward had or
 // wrote them. Outputs: dw [147, 64] f32 (HWIO rows (kh, kw, c)), dgb =
 // dgamma [64], dbeta [64] f32. Scratch: da [n hs ws, 256] bf16, abc 192 f32,
-// part (vcg_stem_train_workspace).
+// part (vcg_stem_train_workspace). Phases [from, to): 0 SBK-A and the
+// moments (left in dgb [2][64] as sum da, sum da (yc - mu) when the call
+// stops there), 1 the BN vectors from them, SBK-B and the fold; (0, 2) is
+// the whole backward. count_scale multiplies the pixel count (1 on one
+// card).
 extern "C" int vcg_stem_train_bwd(const void* dpool, const void* out,
                                   const void* yc, const void* x, int u8,
                                   const void* norm, const void* gb,
                                   const void* stats, const void* vec,
                                   void* da, void* dw, void* dgb, void* abc,
                                   void* part, int n, int hs, int ws,
-                                  float eps, void* stream) {
+                                  float eps, int from, int to,
+                                  double count_scale, void* stream) {
   using namespace vcg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* vv = static_cast<const float*>(vec);
@@ -629,15 +670,20 @@ extern "C" int vcg_stem_train_bwd(const void* dpool, const void* out,
   float* ab = static_cast<float*>(abc);
   const int cells = n * hs * ws;
   const int blocks = route_blocks(cells);
-  stem_route_kernel<<<blocks, kThreads, 0, st>>>(
-      static_cast<const bf16*>(dpool), static_cast<const bf16*>(out),
-      static_cast<const bf16*>(yc), vv, vv + 64, sv, static_cast<bf16*>(da),
-      pa, n, hs, ws);
-  VCG_TRY(cudaGetLastError());
+  if (from == 0) {
+    stem_route_kernel<<<blocks, kThreads, 0, st>>>(
+        static_cast<const bf16*>(dpool), static_cast<const bf16*>(out),
+        static_cast<const bf16*>(yc), vv, vv + 64, sv,
+        static_cast<bf16*>(da), pa, n, hs, ws);
+    VCG_TRY(cudaGetLastError());
+  }
   stem_bwd_stats_kernel<<<1, kFoldThreads, 0, st>>>(
-      pa, blocks, static_cast<float>(n) * 4 * hs * ws,
-      static_cast<const float*>(gb), sv, eps, ab, static_cast<float*>(dgb));
+      pa, blocks,
+      static_cast<float>(n) * 4 * hs * ws * static_cast<float>(count_scale),
+      static_cast<const float*>(gb), sv, eps, ab, static_cast<float*>(dgb),
+      from == 1 ? kFromMom : to == 1 ? kFoldOnly : kFold);
   VCG_TRY(cudaGetLastError());
+  if (to < 2) return 0;
   const StemArgs a{x, nullptr, nullptr, static_cast<const float*>(norm),
                    nullptr, nullptr, n, hs, ws, stem_chunks(ws), 1};
   const bool wide = a.chunks > 1;

@@ -17,7 +17,9 @@ routes the same way.
 
 A CPU tensor takes the plain version (`stem_train_reference`); a CUDA
 tensor runs csrc/stem_train.cu through `_StemTrain` (forward and
-backward one C call each: `stem_train_fwd`, `stem_train_bwd`), on the
+backward one C call each: `stem_train_fwd`, `stem_train_bwd`; under a
+moment group, parallel/dist.py, two each, split at the BN moments, which
+the wrapper reduces over the group in between), on the
 uint8 cells or, for float input, on bf16 frames read as their cells in
 place (a frame wider than 64 cells in column chunks of K1's walk, whose
 neighbourhoods read the real cells across a chunk seam). The kernel
@@ -38,6 +40,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..parallel import dist
 from . import _build, _calls
 from .preprocess import (
     depth_to_space4,
@@ -45,7 +48,7 @@ from .preprocess import (
     normalize_frames_reference,
 )
 from .stem import _phase_weight, walk_bands
-from .tsm_block_train import bn_train
+from .tsm_block_train import bn_train, run_phases
 
 
 def maxpool_ties(y: torch.Tensor) -> torch.Tensor:
@@ -76,11 +79,13 @@ def stem_train_reference(frames: torch.Tensor, w7: torch.Tensor, gamma,
 def _fn(name: str, n_ptr_head: int, n_ptr_tail: int, n_int: int):
     fn = getattr(_build.load("stem_train"), name)
     if fn.argtypes is None:
-        # (pointers..., int u8, pointers..., ints..., float eps, stream)
+        # (pointers..., int u8, pointers..., ints..., float eps, int from,
+        # int to, double count_scale, stream)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr_head + [ctypes.c_int]
                        + [ctypes.c_void_p] * n_ptr_tail
-                       + [ctypes.c_int] * n_int + [ctypes.c_float,
-                                                   ctypes.c_void_p])
+                       + [ctypes.c_int] * n_int
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_double, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -140,12 +145,16 @@ def stem_train_fwd(s4, wk, gb, eps: float):
     stats, vec = torch.empty(2, 2, 64, dtype=torch.float32,
                              device=dev).unbind(0)
     part = _workspace(dev, n, hs, ws, bands)
-    rc = _calls.on_device(
-        _fn("vcg_stem_train_fwd", 1, 8, 4), dev, x.data_ptr(),
-        int(x.dtype == torch.uint8), wk.data_ptr(), gb.data_ptr(),
-        norm_consts(dev).data_ptr(), yc.data_ptr(), out.data_ptr(),
-        stats.data_ptr(), vec.data_ptr(), part.data_ptr(), n, hs, ws, bands,
-        eps)
+    mg = dist.moment_group()
+    # under a moment group the moments, left in stats between the two
+    # phases, are summed over the group
+    rc = run_phases(
+        _fn("vcg_stem_train_fwd", 1, 8, 4), dev,
+        (x.data_ptr(), int(x.dtype == torch.uint8), wk.data_ptr(),
+         gb.data_ptr(), norm_consts(dev).data_ptr(), yc.data_ptr(),
+         out.data_ptr(), stats.data_ptr(), vec.data_ptr(), part.data_ptr(),
+         n, hs, ws, bands, eps), 2, lambda i: mg.sum_(stats),
+        mg and mg.count_scales(n)[0])
     _calls.count(stem_train_fwd)
     if rc != 0:
         raise RuntimeError(f"stem_train_fwd kernel failed: CUDA error {rc}")
@@ -168,13 +177,17 @@ def stem_train_bwd(dpool, out, yc, s4, gb, stats, vec, eps: float):
     dgb = small[147 * 64:147 * 64 + 128].view(2, 64)
     abc = small[147 * 64 + 128:]
     part = _workspace(dev, n, hs, ws, 1)
-    rc = _calls.on_device(
-        _fn("vcg_stem_train_bwd", 4, 9, 3), dev, dpool.data_ptr(),
-        out.data_ptr(), yc.data_ptr(), x.data_ptr(),
-        int(x.dtype == torch.uint8), norm_consts(dev).data_ptr(),
-        gb.data_ptr(), stats.data_ptr(), vec.data_ptr(), da.data_ptr(),
-        dw.data_ptr(), dgb.data_ptr(), abc.data_ptr(), part.data_ptr(), n, hs,
-        ws, eps)
+    mg = dist.moment_group()
+    # under a moment group the backward moments, left in dgb between the
+    # phases, are averaged over the group (parallel/dist.py:MomentGroup)
+    rc = run_phases(
+        _fn("vcg_stem_train_bwd", 4, 9, 3), dev,
+        (dpool.data_ptr(), out.data_ptr(), yc.data_ptr(), x.data_ptr(),
+         int(x.dtype == torch.uint8), norm_consts(dev).data_ptr(),
+         gb.data_ptr(), stats.data_ptr(), vec.data_ptr(), da.data_ptr(),
+         dw.data_ptr(), dgb.data_ptr(), abc.data_ptr(), part.data_ptr(), n,
+         hs, ws, eps), 2, lambda i: mg.mean_(dgb),
+        mg and mg.count_scales(n)[1])
     _calls.count(stem_train_bwd)
     if rc != 0:
         raise RuntimeError(f"stem_train_bwd kernel failed: CUDA error {rc}")

@@ -17,11 +17,21 @@ caller's running-average update; the stats carry no gradient.
     y  = relu(a3 + x)   or   relu(a3 + bnp(conv1x1(x, stride)))
 
 A CPU tensor takes the plain version (`tsm_block_train_reference`: convs
-plus explicit batch-stat BN, differentiated by autograd). A CUDA tensor
+plus explicit batch-stat BN, differentiated by autograd; under a moment
+group of parallel/dist.py its BN takes the group's statistics). A CUDA tensor
 runs csrc/conv_train.cu through `_BlockTrain`, a torch.autograd.Function
 whose forward is two C calls (`block_train_fwd` up to p, `finale_fwd`)
 and whose backward is two (`finale_bwd`, `block_train_bwd`); there is no
 fallback to the plain version.
+
+Under a moment group (data-parallel training), `vcg_block_train_fwd`
+and `vcg_block_train_bwd` run one phase a call (`run_phases`), each
+ending where a BN moment is complete, and the wrapper reduces that
+moment over the group on the current stream before the next phase's
+statistics take it, with the group's pixel count; the moments of
+`finale_bwd` and `trunk_link_bwd` are reduced as they return. Alone,
+each entry is one call of its whole range: the launches and bits of the
+single-card path.
 
 The trunk (ops/tsm_trunk_train.py) calls the same entries through
 `BlockTrainState` and replaces every finale but the top block's by the
@@ -46,6 +56,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import dist
 from . import _build, _calls
 from .temporal_shift import temporal_shift_reference
 
@@ -59,12 +70,27 @@ def bn_train(v: torch.Tensor, gamma, beta, eps: float, dims=(0, 1, 2)):
     """Batch-statistics BatchNorm as the JAX package computes it: mean and
     biased variance E[v^2] - mu^2 in at least float32 over `dims`, the
     normalized output cast back to v's dtype. Returns (out, mu, var) with
-    the statistics detached (running averages do not backprop)."""
+    the statistics detached (running averages do not backprop).
+
+    Under a moment group (parallel/dist.py) the statistics are the
+    group's: (sum, sum of squares, count) summed over its processes by
+    the differentiable all_reduce_sum, so the input gradient also flows
+    through the other processes' rows."""
     vf = at_least_f32(v)
-    mu = vf.mean(dims)
-    var = (vf * vf).mean(dims) - mu * mu
-    shape = [1] * v.dim()
     ch = [d for d in range(v.dim()) if d not in dims][0]
+    mg = dist.moment_group()
+    if mg is None:
+        mu = vf.mean(dims)
+        var = (vf * vf).mean(dims) - mu * mu
+    else:
+        c = v.shape[ch]
+        sums = dist.all_reduce_sum(torch.cat([
+            vf.sum(dims), (vf * vf).sum(dims),
+            vf.new_full((1,), float(v.numel() // c))]), mg)
+        count = sums[-1].detach()
+        mu = sums[:c] / count
+        var = sums[c:2 * c] / count - mu * mu
+    shape = [1] * v.dim()
     shape[ch] = -1
     out = ((vf - mu.view(shape)) * torch.rsqrt(var.view(shape) + eps)
            * gamma.view(shape) + beta.view(shape)).to(v.dtype)
@@ -159,13 +185,35 @@ def trunk_link_bwd_reference(du, w1, res, x, p, pr, mu3, mup,
 # ---------------------------------------------------------------------------
 
 
-def _fn(name: str, n_ptr: int, n_int: int, eps: bool = True):
+def _fn(name: str, n_ptr: int, n_int: int, eps: bool = True,
+        phased: bool = False):
+    """The C entry with its argument types: n_ptr pointers, n_int ints,
+    eps, and where phased the phase range (from, to) and the count
+    scale."""
     fn = getattr(_build.load("conv_train"), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + ([ctypes.c_float] if eps else []) + [ctypes.c_void_p])
+                       + ([ctypes.c_float] if eps else [])
+                       + ([ctypes.c_int, ctypes.c_int, ctypes.c_double]
+                          if phased else []) + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def run_phases(fn, dev, args, phases: int, reduce, scale: float) -> int:
+    """Call a phased entry: alone, its whole range (0, phases) at once;
+    under a moment group one call a phase, with reduce(i) between phase
+    i and i + 1 (the moments phase i completed, summed or averaged over
+    the group). Returns the first nonzero CUDA error code, or 0."""
+    if dist.moment_group() is None:
+        return _calls.on_device(fn, dev, *args, 0, phases, 1.0)
+    for i in range(phases):
+        rc = _calls.on_device(fn, dev, *args, i, i + 1, scale)
+        if rc != 0:
+            return rc
+        if i + 1 < phases:
+            reduce(i)
+    return 0
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -250,7 +298,8 @@ def _check(x, f, co, stride, n_segment, n_div, proj):
 
 def block_train_fwd(x, wf, gb, stride: int, n_segment: int, n_div: int,
                     eps: float, linked=None):
-    """One launch of vcg_block_train_fwd: the block's forward up to p, no
+    """vcg_block_train_fwd (one call, or one a phase under a moment
+    group, counted as one launch): the block's forward up to p, no
     finale. wf: kernel_weights(...)[0]; gb: pack_affines(...); linked:
     (u, mom) from trunk_link_fwd, whose launch was this block's conv1.
     Returns (stats, vec, (u, z, p, pr))."""
@@ -272,13 +321,19 @@ def block_train_fwd(x, wf, gb, stride: int, n_segment: int, n_div: int,
     p = torch.empty(nt, ho, wo, co, dtype=bf, device=dev)
     pr = torch.empty_like(p) if wp is not None else None
     part = _workspace(dev, nt, h, w, c, f, co, stride)
-    rc = _calls.on_device(
-        _fn("vcg_block_train_fwd", 14, 10), dev,
-        x.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(), _ptr(wp),
-        gb.data_ptr(), u.data_ptr(), z.data_ptr(), p.data_ptr(), _ptr(pr),
-        stats.data_ptr(), vec.data_ptr(), mom.data_ptr(), part.data_ptr(),
-        nt, h, w, c, f, co, stride, n_segment, fold, int(linked is not None),
-        eps)
+    mg = dist.moment_group()
+    # under a moment group: sum m1 (and, with m3, mp) over the group
+    # before the statistics that use them
+    sums = (mom[:2 * f], mom[2 * f:4 * f],
+            mom[4 * f:4 * f + (4 if wp is not None else 2) * co])
+    rc = run_phases(
+        _fn("vcg_block_train_fwd", 14, 10, phased=True), dev,
+        (x.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(), _ptr(wp),
+         gb.data_ptr(), u.data_ptr(), z.data_ptr(), p.data_ptr(), _ptr(pr),
+         stats.data_ptr(), vec.data_ptr(), mom.data_ptr(), part.data_ptr(),
+         nt, h, w, c, f, co, stride, n_segment, fold,
+         int(linked is not None), eps), 4,
+        lambda i: mg.sum_(sums[i]), mg and mg.count_scales(nt)[0])
     _counted(block_train_fwd, rc)
     return stats, vec, (u, z, p, pr)
 
@@ -295,9 +350,17 @@ def finale_fwd(p, r, vec, f: int, co: int, proj: bool) -> torch.Tensor:
     return y
 
 
+def _mean_moments(mom: torch.Tensor) -> torch.Tensor:
+    """Backward moments averaged over the moment group, in place (as they
+    are alone): see parallel/dist.py:MomentGroup for why the mean."""
+    mg = dist.moment_group()
+    return mom if mg is None else mg.mean_(mom)
+
+
 def finale_bwd(dy, y, p, pr, stats, f: int, co: int, part):
     """One launch of vcg_finale_bwd: dq = dy * (y > 0) and mom3 [3Co] =
-    (sum dq, sum dq (p - mu3), sum dq (pr - mup), 0 without pr)."""
+    (sum dq, sum dq (p - mu3), sum dq (pr - mup), 0 without pr),
+    averaged over the moment group where there is one."""
     dy = dy.to(torch.bfloat16).contiguous()
     dq = torch.empty_like(p)
     mom3 = torch.empty(3 * co, dtype=torch.float32, device=p.device)
@@ -307,14 +370,15 @@ def finale_bwd(dy, y, p, pr, stats, f: int, co: int, part):
         stats.data_ptr(), dq.data_ptr(), mom3.data_ptr(), part.data_ptr(),
         p.numel() // co, f, co)
     _counted(finale_bwd, rc)
-    return dq, mom3
+    return dq, _mean_moments(mom3)
 
 
 def block_train_bwd(dq, mom3, x, saved, wb, gb, stats, vec, stride: int,
                     n_segment: int, n_div: int, eps: float,
                     link: bool = False):
-    """One launch of vcg_block_train_bwd from dq and mom3 (finale_bwd, or
-    the block above's trunk_link_bwd). wb: kernel_weights(...)[1].
+    """vcg_block_train_bwd (one call, or one a phase under a moment group,
+    counted as one launch) from dq and mom3 (finale_bwd, or the block
+    above's trunk_link_bwd). wb: kernel_weights(...)[1].
     Returns (dx, dw1, dw2 [9F, F], dw3, dwp or None, dgb, da1, abc1) with
     the weight and affine gradients in float32. link: conv1's data
     gradient is left to trunk_link_bwd (which takes da1 and abc1, BN1's
@@ -337,15 +401,20 @@ def block_train_bwd(dq, mom3, x, saved, wb, gb, stats, vec, stride: int,
     da1 = torch.empty_like(u)
     work = torch.empty(10 * f + 6 * co, dtype=f32, device=dev)
     part = _workspace(dev, nt, h, w, c, f, co, stride)
-    rc = _calls.on_device(
-        _fn("vcg_block_train_bwd", 24, 10), dev,
-        dq.data_ptr(), mom3.data_ptr(), x.data_ptr(), u.data_ptr(),
-        z.data_ptr(), p.data_ptr(), _ptr(pr), w1t.data_ptr(),
-        w2t.data_ptr(), w3t.data_ptr(), _ptr(wpt), gb.data_ptr(),
-        stats.data_ptr(), vec.data_ptr(), _ptr(dx), dw1.data_ptr(),
-        dw2.data_ptr(), dw3.data_ptr(), _ptr(dwp), dgb.data_ptr(),
-        da2.data_ptr(), da1.data_ptr(), work.data_ptr(), part.data_ptr(),
-        nt, h, w, c, f, co, stride, n_segment, fold, int(link), eps)
+    mg = dist.moment_group()
+    # under a moment group: average the moments of da2, then of da1,
+    # before the BN backward that uses them (mom3 came averaged)
+    means = (work[:2 * f], work[2 * f:4 * f])
+    rc = run_phases(
+        _fn("vcg_block_train_bwd", 24, 10, phased=True), dev,
+        (dq.data_ptr(), mom3.data_ptr(), x.data_ptr(), u.data_ptr(),
+         z.data_ptr(), p.data_ptr(), _ptr(pr), w1t.data_ptr(),
+         w2t.data_ptr(), w3t.data_ptr(), _ptr(wpt), gb.data_ptr(),
+         stats.data_ptr(), vec.data_ptr(), _ptr(dx), dw1.data_ptr(),
+         dw2.data_ptr(), dw3.data_ptr(), _ptr(dwp), dgb.data_ptr(),
+         da2.data_ptr(), da1.data_ptr(), work.data_ptr(), part.data_ptr(),
+         nt, h, w, c, f, co, stride, n_segment, fold, int(link), eps), 3,
+        lambda i: mg.mean_(means[i]), mg and mg.count_scales(nt)[1])
     _counted(block_train_bwd, rc)
     return dx, dw1, dw2, dw3, dwp, dgb, da1, work[-3 * f:]
 
@@ -393,7 +462,7 @@ def trunk_link_bwd(st: "BlockTrainState", below: "BlockTrainState", res):
         below.stats.data_ptr(), dq.data_ptr(), mom3.data_ptr(),
         part.data_ptr(), nt, h, w, c, st.f, below.f, st.t, fold)
     _counted(trunk_link_bwd, rc)
-    return dq, mom3
+    return dq, _mean_moments(mom3)
 
 
 for _wrapper in (block_train_fwd, block_train_bwd, finale_fwd, finale_bwd,

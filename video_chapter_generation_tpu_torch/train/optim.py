@@ -150,3 +150,124 @@ def set_lr_mult(opt: torch.optim.Optimizer, cfg: OptimConfig,
     "lr_scale" where it has one (make_grouped_optimizer)."""
     for group in opt.param_groups:
         group["lr"] = cfg.learning_rate * mult * group.get("lr_scale", 1.0)
+
+
+class ZeroOptimizer:
+    """ZeRO-sharded optimizer state over the data axis (the JAX Trainer's
+    mesh.shard_opt_state, train/loop.py:129-140): `opt` (make_optimizer's
+    or make_grouped_optimizer's AdamW) rebuilt with each parameter that
+    parallel/mesh.py:shard_params_zero shards (along the dim it names, in
+    the port's layouts) replaced by this process's slice of it, a view
+    into the parameter, so that AdamW keeps exp_avg and exp_avg_sq of the
+    slice only; the entries it leaves replicated (under 2^14 elements, or
+    no dim the process count divides) stay whole, updated alike on every
+    process. `step` updates the slices from the averaged gradient, then
+    all-gathers each sharded parameter over the group. The groups keep
+    their options (weight decay, "lr_scale"), so set_lr_mult works on
+    `param_groups`.
+
+    `state_dict` gathers the whole state in the layout a one-process
+    AdamW has (collective: every process calls it), and
+    `load_state_dict` takes that layout and keeps this process's slices:
+    a checkpoint written by W processes resumes in any number."""
+
+    def __init__(self, opt: torch.optim.Optimizer, model: torch.nn.Module,
+                 group, index: int, count: int):
+        from ..parallel.mesh import make_mesh, shard_params_zero
+
+        names = {id(p): n for n, p in model.named_parameters()}
+        dims = shard_params_zero(make_mesh(data=count,
+                                           devices=["cpu"] * count),
+                                 dict(model.named_parameters()))
+        self.group, self.index, self.count = group, index, count
+        self.params = [p for g in opt.param_groups for p in g["params"]]
+        # per parameter of the groups, in order: (param, dim or None)
+        self.layout = [(p, dims[names[id(p)]]) for p in self.params]
+        groups = []
+        for g in opt.param_groups:
+            groups.append(dict(g, params=[
+                self._slice(p, dims[names[id(p)]]) for p in g["params"]]))
+        self.inner = type(opt)(groups, lr=opt.defaults["lr"])
+
+    def _slice(self, t: torch.Tensor, dim, index=None) -> torch.Tensor:
+        """This process's part of t along dim (a view; t itself for None)."""
+        if dim is None:
+            return t
+        size = t.shape[dim] // self.count
+        i = self.index if index is None else index
+        return t.detach().narrow(dim, i * size, size)
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    def state_bytes(self) -> int:
+        """Bytes of this process's optimizer state."""
+        return sum(t.numel() * t.element_size()
+                   for st in self.inner.state.values()
+                   for t in st.values() if torch.is_tensor(t))
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.params:
+            p.grad = None
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        sliced = [(p, d, v) for (p, d), v in
+                  zip(self.layout, (q for g in self.inner.param_groups
+                                    for q in g["params"]))
+                  if d is not None]
+        for p, d, v in sliced:
+            v.grad = self._slice(p.grad, d)
+        self.inner.step()
+        self._gather([(p, d) for p, d, _ in sliced])
+
+    def _gather(self, sliced) -> None:
+        """Every process's slices into the whole parameters, one
+        all_gather a bucket (parallel/dist.py:buckets) of each
+        process."""
+        import torch.distributed as tdist
+
+        from ..parallel.dist import buckets
+
+        for run in buckets([self._slice(p, d) for p, d in sliced]):
+            flat = torch.cat([v.reshape(-1) for v in run])
+            parts = [torch.empty_like(flat) for _ in range(self.count)]
+            tdist.all_gather(parts, flat, group=self.group)
+            at = 0
+            for v in run:
+                p, d = sliced.pop(0)
+                for r, part in enumerate(parts):
+                    self._slice(p, d, r).copy_(
+                        part[at:at + v.numel()].view(v.shape))
+                at += v.numel()
+
+    def _whole(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        import torch.distributed as tdist
+
+        parts = [torch.empty_like(t) for _ in range(self.count)]
+        tdist.all_gather(parts, t.contiguous(), group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def state_dict(self):
+        """The one-process layout (collective)."""
+        sd = self.inner.state_dict()
+        state = {}
+        for i, st in sd["state"].items():
+            d = self.layout[i][1]
+            state[i] = {k: (self._whole(v, d) if d is not None
+                            and torch.is_tensor(v) and v.dim() else v)
+                        for k, v in st.items()}
+        return {"state": state, "param_groups": sd["param_groups"]}
+
+    def load_state_dict(self, sd) -> None:
+        """From the one-process layout: this process's slices."""
+        state = {}
+        for i, st in sd["state"].items():
+            d = self.layout[int(i)][1]
+            state[i] = {k: (self._slice(v, d).clone() if d is not None
+                            and torch.is_tensor(v) and v.dim() else v)
+                        for k, v in st.items()}
+        self.inner.load_state_dict({"state": state,
+                                    "param_groups": sd["param_groups"]})
