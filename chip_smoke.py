@@ -231,10 +231,36 @@
    checkpoint's contract; cli/sample_lang on each checkpoint (2 prompts
    x 2 samples of 20 tokens, top-k 10): two greedy runs equal, two
    seeded sampled runs equal; ms a step printed.
-18. Prints one JSON line of the kernels (a bound over several shapes
+18. variants (the secondary models and tools; ~45 s). TwoStreamDomainSpecific
+   at full width (BERT-base, ResNet50-TSM frames stem T 16, window 1,
+   hidden 128, bf16, seeded weights through the from_jax tables): one
+   serving call of 2 windows (96 frames at 224 px; launches exact: K8 1,
+   K2/K3 13, K4 3), each kernel held to its plain version on that call's
+   own arguments; 2 training steps under make_grouped_optimizer (K11,
+   K12 and K13 launches exact each step, finite losses, every parameter
+   but the attention key biases and the BN means moved);
+   SingleBlockWindowClassifier on seeded features against its float32
+   CPU run; cli/pretrain_contrastive (BERT-base, K 65,536, batch 8 x 100
+   tokens, 3 steps: queue_ptr 24, enqueued keys of norm 1, the key
+   encoder m k + (1 - m) q at each step within bf16 rounding) and
+   cli/train_listwise (slates of 6 x 100 tokens, batch 4, 3 steps), ms a
+   step printed; Grad-CAM at layer 4 on 16 frames of 224 px (launches
+   exact, its kernels held on the capture call's arguments, the cam in
+   [0, 1] and within cosine 0.99 of the plain float32 trunk's on the CPU;
+   a re-entry at stage 3 under tsm_impl auto raises, naming "tap3" and
+   "xla"); saliency and integrated gradients (16 steps) on BERT-base
+   (rows sum to 1, pads 0); cli/convert_weights two_stream_window on a
+   full-width reference-layout checkpoint made from seeded arrays (the
+   state dict and the scores bit for bit the source model's);
+   utils/profiling.device_trace writes a trace and
+   utils/memory.device_memory_mb reads the allocation. Its kernels-line
+   entries carry "path": the serving and Grad-CAM calls' own numbers, the
+   training steps' launches beside the training phase's numbers (its
+   128-frame step).
+19. Prints one JSON line of the kernels (a bound over several shapes
    is the sum of each shape's), the wall time of each phase
    and of the script and, last, the device line. The title decode of 4
-   and each of 5-17 also print their wall time as they end ("serving",
+   and each of 5-18 also print their wall time as they end ("serving",
    1-4 up to the title decode, prints only on that line).
 
 After the serving path (4), the native_decode phase: where the machine
@@ -370,6 +396,13 @@ DP_LOSS_REL, DP_MIN_GRAD_COS, DP_VISION_SLACK = 1e-2, 0.998, 0.1
 # holds the same); each block and the trunk against the chain of blocks
 # are held to the gradient bands
 TRUNK_GRAD_MIN_COS = 0.99
+# the variants phase: TwoStreamDomainSpecific's windows (3 clips each) and
+# training steps; the text CLIs' steps, MoCo's batch (its queue of 65,536
+# fills by MOCO_BATCH a step) and the listwise slates a batch; the cam's
+# cosine to the plain float32 trunk's; integrated gradients' steps
+VARIANTS_SEED, DS_BATCH, VARIANT_TRAIN_STEPS = SEED + 41, 2, 2
+VARIANT_CLI_STEPS, MOCO_BATCH, LISTWISE_BATCH = 3, 8, 4
+CAM_MIN_COS, IG_STEPS = 0.99, 16
 
 
 def fail(msg: str):
@@ -739,25 +772,108 @@ def block_work(nt, h, w, c, f, co, stride, proj):
     return flops, m_in, m_out, weights
 
 
-def training_phases(dev, smi, frames, vision):
-    """Every training kernel against its plain version at the shapes of
-    one full-width step, then the port's train_segment for a few steps.
-    Returns the kernels' JSON entries."""
+TRAIN_KERNEL_SOURCES = {
+    "stem_s2d_train_fwd": ("stem_train.cu", "stem_train_pallas.py:329"),
+    "stem_s2d_train_bwd": ("stem_train.cu", "stem_train_pallas.py:329"),
+    "stem_frames_train_fwd": ("stem_train.cu", "stem_train_pallas.py:359"),
+    "stem_frames_train_bwd": ("stem_train.cu", "stem_train_pallas.py:359"),
+    "tsm_block_train_fwd": ("conv_train.cu",
+                            "tsm_block_train_pallas.py:1483"),
+    "tsm_block_train_bwd": ("conv_train.cu",
+                            "tsm_block_train_pallas.py:1483"),
+    "tsm_trunk_train_finale_fwd": ("conv_train.cu",
+                                   "tsm_trunk_train_pallas.py:118"),
+    "tsm_trunk_train_finale_bwd": ("conv_train.cu",
+                                   "tsm_trunk_train_pallas.py:118"),
+    "tsm_trunk_train_link_fwd": ("conv_train.cu",
+                                 "tsm_block_train_pallas.py:1027"),
+    "tsm_trunk_train_link_bwd": ("conv_train.cu",
+                                 "tsm_block_train_pallas.py:679"),
+    "tsm_trunk_train_recompute_p": ("conv_train.cu",
+                                    "tsm_trunk_train_pallas.py:118")}
+
+
+def _train_entries(stem: str) -> dict:
+    """Empty sums for the kernels of one training step, the stem's named
+    after its input (s2d or frames)."""
+    return {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops": 0.0,
+                "bytes": 0.0, "max_abs": 0.0}
+            for k in (f"stem_{stem}_train_fwd", f"stem_{stem}_train_bwd",
+                      "tsm_block_train_fwd", "tsm_block_train_bwd",
+                      "tsm_trunk_train_finale_fwd",
+                      "tsm_trunk_train_finale_bwd",
+                      "tsm_trunk_train_link_fwd",
+                      "tsm_trunk_train_link_bwd",
+                      "tsm_trunk_train_recompute_p")}
+
+
+def train_kernel_rows(entries, launches, **extra):
+    """The kernels-line entries of hold_train_kernels' sums, with these
+    launches (by entry name) and any extra keys."""
+    out = []
+    for name, e in entries.items():
+        src, replaces = TRAIN_KERNEL_SOURCES[name]
+        b_ms, b_by = bound(e["flops"], e["bytes"])
+        out.append(dict(
+            name=name, route="cuda",
+            source=f"video_chapter_generation_tpu_torch/csrc/{src}",
+            replaces=f"video_chapter_generation_tpu/ops/{replaces}",
+            launches=launches[name], max_abs_err=e["max_abs"], ms=e["ms"],
+            plain_ms=e["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            library_ms=e.get("library_ms"), **extra))
+    return out
+
+
+def _leaves(params):
+    return [None if p is None else p.detach().clone().requires_grad_()
+            for p in params]
+
+
+def _block_fwd(x, st, t):
+    """K12's forward entries and the finale of block st on x."""
+    from video_chapter_generation_tpu_torch.ops.tsm_block_train import (
+        block_train_fwd,
+        finale_fwd,
+    )
+
+    stats, vec, saved = block_train_fwd(x, st.wf, st.gb, st.stride, t, 8,
+                                        1e-5)
+    finale_fwd(saved[2], saved[3] if st.proj else x, vec, st.f, st.co,
+               st.proj)
+
+
+def _block_bwd(x, st, dy, t):
+    """The finale's backward prologue and K12's backward of block st."""
+    from video_chapter_generation_tpu_torch.ops.tsm_block_train import (
+        block_train_bwd,
+    )
+
+    dq, mom3 = st.finale_backward(dy)
+    block_train_bwd(dq, mom3, x, st.saved, st.wb, st.gb, st.stats, st.vec,
+                    st.stride, t, 8, 1e-5)
+
+
+def hold_train_kernels(dev, gen, x_in, stem_w, blocks, kinds, t,
+                       passes=None):
+    """Every kernel of one training step of the vision trunk against its
+    plain version, timed beside it, on these inputs: K11 on x_in (uint8
+    s2d cells or bf16 frames) with stem_w (the HWIO 7x7 weight, gamma,
+    beta); then K12 on each block (blocks: each block's train_params, of
+    the kind in kinds), fed the kernel output of the one below, its
+    finale and its p made again (K13), and from block 1 on K13's two
+    links between it and the block below. passes, a list, gets (x, state,
+    dy) of each block. Returns (the entries' sums by kernel name, the
+    stem kernel's output, the top block's output)."""
     import torch
 
-    from video_chapter_generation_tpu_torch.cli import train_segment
-    from video_chapter_generation_tpu_torch.core.checkpoint import (
-        CheckpointManager,
-    )
-    from video_chapter_generation_tpu_torch.data.synth import (
-        make_synth_corpus_on_disk,
-    )
     from video_chapter_generation_tpu_torch.ops.preprocess import (
         depth_to_space4,
         normalize_frames,
     )
     from video_chapter_generation_tpu_torch.ops.stem_train import (
         _StemTrain,
+        _cells,
+        _kernel_input,
         _stem_weight,
         stem_train_bwd,
         stem_train_fwd,
@@ -765,11 +881,8 @@ def training_phases(dev, smi, frames, vision):
     )
     from video_chapter_generation_tpu_torch.ops.tsm_block_train import (
         BlockTrainState,
-        _block,
-        block_train_bwd,
         block_train_fwd,
         conv_nhwc,
-        finale_bwd,
         finale_fwd,
         finale_reference,
         trunk_link_bwd,
@@ -781,25 +894,13 @@ def training_phases(dev, smi, frames, vision):
     from video_chapter_generation_tpu_torch.ops.tsm_trunk_train import (
         STRIDES,
         recompute_p,
-        trunk_train_bwd,
-        trunk_train_fwd,
-        tsm_trunk_train,
         unpack,
     )
-    from video_chapter_generation_tpu_torch.train.tasks import SegmentTask
 
     bf = torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-    x0 = frames[:TRAIN_CLIPS * CLIP_FRAMES].contiguous()  # [128, 56, 56, 48]
-    entries = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops": 0.0,
-                   "bytes": 0.0, "max_abs": 0.0}
-               for k in ("stem_s2d_train_fwd", "stem_s2d_train_bwd",
-                         "tsm_block_train_fwd", "tsm_block_train_bwd",
-                         "tsm_trunk_train_finale_fwd",
-                         "tsm_trunk_train_finale_bwd",
-                         "tsm_trunk_train_link_fwd",
-                         "tsm_trunk_train_link_bwd",
-                         "tsm_trunk_train_recompute_p")}
+
+    stem = "s2d" if x_in.dtype == torch.uint8 else "frames"
+    entries = _train_entries(stem)
 
     def held(name, label, pairs, grads=False):
         """Compare (kernel, plain) tensor pairs against the output bands or,
@@ -824,10 +925,6 @@ def training_phases(dev, smi, frames, vision):
         e["plain_ms"] += p_ms
         e["flops"] += flops
         e["bytes"] += nbytes
-
-    def leaves(params):
-        return [None if p is None else p.detach().clone().requires_grad_()
-                for p in params]
 
     def grad_of(y, wrt, dy):
         return torch.autograd.grad(y, [t for t in wrt if t is not None], dy,
@@ -901,6 +998,227 @@ def training_phases(dev, smi, frames, vision):
               f"(vs the chain's: mean_rel {w_c[1]:.3g}) | fwd kernel {kf:.3f} ms plain {pf:.3f} | bwd kernel "
               f"{kb:.3f} ms plain {pb:.3f}", flush=True)
 
+
+    # --- K11: the training stem ---
+    x0 = _kernel_input(x_in)
+    u8 = x0.dtype == torch.uint8
+    fwd_name, bwd_name = f"stem_{stem}_train_fwd", f"stem_{stem}_train_bwd"
+
+    def stem_run():
+        pk = _leaves(stem_w)
+        y, mu, var = _StemTrain.apply(x0, *pk, 1e-5)
+        return y, mu, var, pk
+
+    y, mu, var, pk = stem_run()
+    dy = torch.randn(y.shape, generator=gen, device=dev).to(bf)
+    gk = grad_of(y, pk, dy)
+    frames_n = normalize_frames(depth_to_space4(x0), bf) if u8 else x0
+    pp = _leaves(stem_w)
+    yr, (mur, varr) = stem_train_reference(frames_n, *pp)
+    gr = grad_of(yr, pp, dy)
+    torch.cuda.synchronize()
+    w_out = held(fwd_name, "stem", [(y, yr), (mu, mur), (var, varr)])
+    w_grad = held(bwd_name, "stem", list(zip(gk, gr)), True)
+    # no float atomics: a second run agrees bit for bit
+    y2, mu2, var2, pk2 = stem_run()
+    gk2 = grad_of(y2, pk2, dy)
+    same = (torch.equal(y, y2) and torch.equal(mu, mu2)
+            and torch.equal(var, var2)
+            and all(torch.equal(a, b) for a, b in zip(gk, gk2)))
+    if not same:
+        fail("two runs of the training stem differ")
+    del y2, mu2, var2, pk2, gk2
+    gb = torch.cat([stem_w[1], stem_w[2]]).float().detach()
+    wk = _stem_weight(pk[0].detach())
+    kf = cuda_ms(lambda: stem_train_fwd(x0, wk, gb, 1e-5))
+    pf = cuda_ms(lambda: stem_train_reference(frames_n, *pp))
+    out, yc, st_, vec = stem_train_fwd(x0, wk, gb, 1e-5)
+    kb = cuda_ms(lambda: stem_train_bwd(dy, out, yc, x0, gb, st_, vec, 1e-5))
+    pb = cuda_ms(lambda: grad_of(yr, pp, dy))
+    lib_f, lib_b = library_stem_train(frames_n, *[p.detach() for p in pk],
+                                      dy)
+    lf, lb = cuda_ms(lib_f), cuda_ms(lib_b)
+    entries[fwd_name]["library_ms"] = lf
+    entries[bwd_name]["library_ms"] = lb
+    n, hs, ws = _cells(x0)
+    m_conv = n * 4 * hs * ws
+    flops = 2 * m_conv * 147 * 64
+    x_bytes = x0.numel() * x0.element_size()
+    account(fwd_name, kf, pf, flops,
+            x_bytes + 147 * 64 * 4 + out.numel() * 2 + yc.numel() * 2)
+    account(bwd_name, kb, pb, flops,
+            dy.numel() * 2 + out.numel() * 2 + yc.numel() * 2 + x_bytes
+            + 147 * 64 * 4 + 128 * 4)
+    print(f"# {'stem_' + stem + '_train':18s} "
+          f"{str(tuple(x0.shape)) + (' u8' if u8 else ' bf16'):44s} "
+          f"out/stats cos {w_out[2]:.6f} mean_rel {w_out[1]:.3g} | grads "
+          f"cos {w_grad[2]:.6f} mean_rel {w_grad[1]:.3g} | two runs bit "
+          f"for bit | fwd kernel {kf:.3f} ms plain {pf:.3f} cuDNN sequence "
+          f"{lf:.3f} | bwd kernel {kb:.3f} ms plain {pb:.3f} cuDNN sequence "
+          f"{lb:.3f}", flush=True)
+    del out, yc
+    x = y.detach()
+
+    # --- K12: every bottleneck of the trunk, each fed the kernel output;
+    # from block 1 on, K13's two links between it and the block below ---
+    trunk_in = x
+    below = None
+
+    for i, (blk, kind) in enumerate(zip(blocks, kinds)):
+        stride = STRIDES[kind]
+        params = unpack(blk, kind)
+        pk = _leaves(params)
+        xk = x.detach().clone().requires_grad_()
+        st = BlockTrainState(pk, stride, t, 8, 1e-5)
+        st.forward(x)
+        st.finale()
+        dy = torch.randn(st.y.shape, generator=gen, device=dev).to(bf)
+        dxk, gk = st.backward(*st.finale_backward(dy))
+        pp = _leaves(params)
+        w1, w2, w3, wp, g1, be1, g2, be2, g3, be3, gp, bep = pp
+        yr, str_ = tsm_block_train_reference(
+            xk, w1, w2, w3, g1, be1, g2, be2, g3, be3, t, 8, 1e-5, wp, gp,
+            bep, stride)
+        gr = grad_of(yr, [xk] + pp, dy)
+        torch.cuda.synchronize()
+        label = (f"block {i:2d} {tuple(x.shape)} F={params[0].shape[1]} "
+                 f"{kind}")
+        w_out = held("tsm_block_train_fwd", label,
+                     [(st.y, yr)] + list(zip(st.stats_tuple(), str_)))
+        gk = [dxk] + [g for g in gk if g is not None]
+        w_grad = held("tsm_block_train_bwd", label, list(zip(gk, gr)), True)
+        f, co = st.f, st.co
+
+        kf = cuda_ms(lambda: _block_fwd(x, st, t))
+        kb = cuda_ms(lambda: _block_bwd(x, st, dy, t))
+        if passes is not None:
+            passes.append((x, st, dy))
+        pf = cuda_ms(lambda: tsm_block_train_reference(
+            xk, w1, w2, w3, g1, be1, g2, be2, g3, be3, t, 8, 1e-5, wp, gp,
+            bep, stride))
+        pb = cuda_ms(lambda: grad_of(yr, [xk] + pp, dy))
+        nt, h, w, c = x.shape
+        flops, m_in, m_out, nw = block_work(nt, h, w, c, f, co, stride,
+                                            st.proj)
+        act_out = 2 * (m_in * f + m_out * f + m_out * co * (3 if st.proj
+                                                            else 2))
+        account("tsm_block_train_fwd", kf, pf, flops,
+                x.numel() * 2 + nw * 4 + act_out)
+        account("tsm_block_train_bwd", kb, pb, 2 * flops,
+                dy.numel() * 2 + x.numel() * 2 + act_out + nw * 8
+                + x.numel() * 2)
+        print(f"# {'tsm_block_train':18s} {label:44s} out/stats cos "
+              f"{w_out[2]:.6f} mean_rel {w_out[1]:.3g} | grads cos "
+              f"{w_grad[2]:.6f} mean_rel {w_grad[1]:.3g} | fwd kernel "
+              f"{kf:.3f} ms plain {pf:.3f} | bwd kernel {kb:.3f} ms plain "
+              f"{pb:.3f}", flush=True)
+
+        # the finale and its backward prologue alone (the trunk launches
+        # them for its top block only)
+        p, r = st.saved[2], st.residual()
+        aff = [st.vec[4 * f + k * co:4 * f + (k + 1) * co] for k in range(4)]
+        mus = (st.stats[4 * f:4 * f + co],
+               st.stats[4 * f + 2 * co:4 * f + 3 * co])
+        sap_sbp = aff[2:] if st.proj else (None, None)
+
+        def plain_finale_bwd():
+            dq = torch.where(st.y > 0, dy, torch.zeros_like(dy))
+            dqf = dq.float()
+            rows = [dqf.sum((0, 1, 2)),
+                    (dqf * (p.float() - mus[0])).sum((0, 1, 2))]
+            if st.proj:
+                rows.append((dqf * (r.float() - mus[1])).sum((0, 1, 2)))
+            return dq, torch.cat(rows)
+
+        yf_r = finale_reference(p, r, aff[0], aff[1], *sap_sbp)
+        dq_k, mom3_k = st.finale_backward(dy)
+        dq_r, mom3_r = plain_finale_bwd()
+        torch.cuda.synchronize()
+        w_ff = held("tsm_trunk_train_finale_fwd", label, [(st.y, yf_r)])
+        w_fb = held("tsm_trunk_train_finale_bwd", label,
+                    [(dq_k, dq_r), (mom3_k[:mom3_r.numel()], mom3_r)], True)
+        m_y = st.y.numel()
+        account("tsm_trunk_train_finale_fwd",
+                cuda_ms(lambda: finale_fwd(p, r, st.vec, f, co, st.proj)),
+                cuda_ms(lambda: finale_reference(p, r, aff[0], aff[1],
+                                                 *sap_sbp)),
+                0, 2 * m_y * 3 + 16 * co)
+        account("tsm_trunk_train_finale_bwd",
+                cuda_ms(lambda: st.finale_backward(dy)),
+                cuda_ms(plain_finale_bwd), 0,
+                2 * m_y * (5 if st.proj else 4) + 12 * co)
+        print(f"# {'finale':18s} {label:44s} fwd cos {w_ff[2]:.6f} bwd cos "
+              f"{w_fb[2]:.6f} mean_rel {w_fb[1]:.3g}", flush=True)
+
+        # K13's own launch: the block's p made again from its saved z, bit
+        # for bit the forward's p, and held to its plain version
+        z, vec = st.saved[1], st.vec
+
+        def plain_p():
+            a = torch.relu(z.float() * vec[2 * f:3 * f] + vec[3 * f:4 * f])
+            return conv_nhwc(a.to(bf), st.wf[2])
+
+        p_k, p_r = recompute_p(st), plain_p()
+        torch.cuda.synchronize()
+        if not torch.equal(p_k, st.saved[2]):
+            fail(f"recompute_p {label}: not the forward's p bit for bit")
+        w_p = held("tsm_trunk_train_recompute_p", label, [(p_k, p_r)])
+        kr, pr_ms = cuda_ms(lambda: recompute_p(st)), cuda_ms(plain_p)
+        account("tsm_trunk_train_recompute_p", kr, pr_ms, 2 * m_out * f * co,
+                2 * (m_out * f + f * co + m_out * co) + 16 * f)
+        print(f"# {'recompute_p':18s} {label:44s} p cos {w_p[2]:.6f} mean_rel "
+              f"{w_p[1]:.3g} bitwise True | kernel {kr:.3f} ms plain "
+              f"{pr_ms:.3f}", flush=True)
+        if below is not None:
+            link_phase(below, st, dy, label)
+        below = st
+        x = st.y.detach()
+        del yr, gr, p_k, p_r
+    return entries, trunk_in, x
+
+
+def training_phases(dev, smi, frames, vision):
+    """Every training kernel against its plain version at the shapes of
+    one full-width step, then the port's train_segment for a few steps.
+    Returns the kernels' JSON entries."""
+    import torch
+
+    from video_chapter_generation_tpu_torch.cli import train_segment
+    from video_chapter_generation_tpu_torch.core.checkpoint import (
+        CheckpointManager,
+    )
+    from video_chapter_generation_tpu_torch.data.synth import (
+        make_synth_corpus_on_disk,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem_train import (
+        stem_train_bwd,
+        stem_train_fwd,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block_train import (
+        BlockTrainState,
+        _block,
+        block_train_bwd,
+        block_train_fwd,
+        finale_bwd,
+        finale_fwd,
+        trunk_link_bwd,
+        trunk_link_fwd,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_trunk_train import (
+        STRIDES,
+        recompute_p,
+        trunk_train_bwd,
+        trunk_train_fwd,
+        tsm_trunk_train,
+        unpack,
+    )
+    from video_chapter_generation_tpu_torch.train.tasks import SegmentTask
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x0 = frames[:TRAIN_CLIPS * CLIP_FRAMES].contiguous()  # [128, 56, 56, 48]
+    t = CLIP_FRAMES
+
     def trunk_phase(trunk_in, blocks, y_shape):
         """K13: the trunk Function against the chain of per-block
         Functions on the same kernels. The forward must agree bit for bit
@@ -937,12 +1255,12 @@ def training_phases(dev, smi, frames, vision):
                     finale_bwd, block_train_fwd, block_train_bwd)
         for fn in counters:
             fn.launches = 0
-        kept_t, out_t = run(trunk, [leaves(p) for p in tparams])
+        kept_t, out_t = run(trunk, [_leaves(p) for p in tparams])
         torch.cuda.synchronize()
         one_step = {fn.__name__: fn.launches for fn in counters}
-        kept_c, out_c = run(chain, [leaves(unpack(p, k))
+        kept_c, out_c = run(chain, [_leaves(unpack(p, k))
                                     for p, k in zip(tparams, kinds)])
-        _, out_t2 = run(trunk, [leaves(p) for p in tparams])
+        _, out_t2 = run(trunk, [_leaves(p) for p in tparams])
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(out_t[:n_fwd],
                                                      out_c[:n_fwd])):
@@ -1135,82 +1453,15 @@ def training_phases(dev, smi, frames, vision):
         del trainer
         torch.cuda.empty_cache()
 
-    # --- K11: the training stem ---
-    stem_w = [vision.conv1.weight.permute(2, 3, 1, 0), vision.bn1.weight,
-              vision.bn1.bias]
-
-    def stem_run():
-        pk = leaves(stem_w)
-        y, mu, var = _StemTrain.apply(x0, *pk, 1e-5)
-        return y, mu, var, pk
-
-    y, mu, var, pk = stem_run()
-    dy = torch.randn(y.shape, generator=gen, device=dev).to(bf)
-    gk = grad_of(y, pk, dy)
-    frames_n = normalize_frames(depth_to_space4(x0), bf)
-    pp = leaves(stem_w)
-    yr, (mur, varr) = stem_train_reference(frames_n, *pp)
-    gr = grad_of(yr, pp, dy)
-    torch.cuda.synchronize()
-    w_out = held("stem_s2d_train_fwd", "stem", [(y, yr), (mu, mur),
-                                               (var, varr)])
-    w_grad = held("stem_s2d_train_bwd", "stem", list(zip(gk, gr)), True)
-    # no float atomics: a second run agrees bit for bit
-    y2, mu2, var2, pk2 = stem_run()
-    gk2 = grad_of(y2, pk2, dy)
-    same = (torch.equal(y, y2) and torch.equal(mu, mu2)
-            and torch.equal(var, var2)
-            and all(torch.equal(a, b) for a, b in zip(gk, gk2)))
-    if not same:
-        fail("two runs of the training stem differ")
-    del y2, mu2, var2, pk2, gk2
-    gb = torch.cat([vision.bn1.weight, vision.bn1.bias]).float().detach()
-    wk = _stem_weight(pk[0].detach())
-    kf = cuda_ms(lambda: stem_train_fwd(x0, wk, gb, 1e-5))
-    pf = cuda_ms(lambda: stem_train_reference(frames_n, *pp))
-    out, yc, st_, vec = stem_train_fwd(x0, wk, gb, 1e-5)
-    kb = cuda_ms(lambda: stem_train_bwd(dy, out, yc, x0, gb, st_, vec, 1e-5))
-    pb = cuda_ms(lambda: grad_of(yr, pp, dy))
-    lib_f, lib_b = library_stem_train(frames_n, *[p.detach() for p in pk],
-                                      dy)
-    lf, lb = cuda_ms(lib_f), cuda_ms(lib_b)
-    entries["stem_s2d_train_fwd"]["library_ms"] = lf
-    entries["stem_s2d_train_bwd"]["library_ms"] = lb
-    n, hs = x0.shape[0], x0.shape[1]
-    m_conv = n * 4 * hs * hs
-    flops = 2 * m_conv * 147 * 64
-    account("stem_s2d_train_fwd", kf, pf, flops,
-            x0.numel() + 147 * 64 * 4 + out.numel() * 2 + yc.numel() * 2)
-    account("stem_s2d_train_bwd", kb, pb, flops,
-            dy.numel() * 2 + out.numel() * 2 + yc.numel() * 2 + x0.numel()
-            + 147 * 64 * 4 + 128 * 4)
-    print(f"# {'stem_s2d_train':18s} {str(tuple(x0.shape)) + ' u8':44s} "
-          f"out/stats cos {w_out[2]:.6f} mean_rel {w_out[1]:.3g} | grads "
-          f"cos {w_grad[2]:.6f} mean_rel {w_grad[1]:.3g} | two runs bit "
-          f"for bit | fwd kernel {kf:.3f} ms plain {pf:.3f} cuDNN sequence "
-          f"{lf:.3f} | bwd kernel {kb:.3f} ms plain {pb:.3f} cuDNN sequence "
-          f"{lb:.3f}", flush=True)
-    del out, yc
-    x = y.detach()
-
-    # --- K12: every bottleneck of the trunk, each fed the kernel output;
-    # from block 1 on, K13's two links between it and the block below ---
+    # K11, then each bottleneck fed the kernel output, its finale, its p
+    # made again and, from block 1 on, K13's two links to the block below
     blocks = vision.blocks()
-    t = CLIP_FRAMES
-    trunk_in = x
-    below = None
     passes = []  # (x, state, dy) of each block, for k12_split
-
-    def block_fwd(x, st):
-        stats, vec, saved = block_train_fwd(x, st.wf, st.gb, st.stride, t, 8,
-                                            1e-5)
-        finale_fwd(saved[2], saved[3] if st.proj else x, vec, st.f, st.co,
-                   st.proj)
-
-    def block_bwd(x, st, dy):
-        dq, mom3 = st.finale_backward(dy)
-        block_train_bwd(dq, mom3, x, st.saved, st.wb, st.gb, st.stats, st.vec,
-                        st.stride, t, 8, 1e-5)
+    entries, trunk_in, x = hold_train_kernels(
+        dev, gen, x0, [vision.conv1.weight.permute(2, 3, 1, 0),
+                       vision.bn1.weight, vision.bn1.bias],
+        [blk.train_params() for blk in blocks],
+        [blk.kind() for blk in blocks], t, passes)
 
     def k12_split():
         """K12's device time a step by what its kernels compute, from one
@@ -1234,9 +1485,9 @@ def training_phases(dev, smi, frames, vision):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for xb, st, dyb in passes:
                     if direction == "fwd":
-                        block_fwd(xb, st)
+                        _block_fwd(xb, st, t)
                     else:
-                        block_bwd(xb, st, dyb)
+                        _block_bwd(xb, st, dyb, t)
                 torch.cuda.synchronize()
             kern = sorted((e for e in prof.events()
                            if e.device_type == DeviceType.CUDA),
@@ -1269,118 +1520,6 @@ def training_phases(dev, smi, frames, vision):
             parts.append(f"{direction} " + ", ".join(
                 f"{k} {v:.3f}" for k, v in split.items()))
         return "; ".join(parts)
-    for i, blk in enumerate(blocks):
-        kind = blk.kind()
-        stride = 2 if kind == "s2" else 1
-        params = unpack(blk.train_params(), kind)
-        pk = leaves(params)
-        xk = x.detach().clone().requires_grad_()
-        st = BlockTrainState(pk, stride, t, 8, 1e-5)
-        st.forward(x)
-        st.finale()
-        dy = torch.randn(st.y.shape, generator=gen, device=dev).to(bf)
-        dxk, gk = st.backward(*st.finale_backward(dy))
-        pp = leaves(params)
-        w1, w2, w3, wp, g1, be1, g2, be2, g3, be3, gp, bep = pp
-        yr, str_ = tsm_block_train_reference(
-            xk, w1, w2, w3, g1, be1, g2, be2, g3, be3, t, 8, 1e-5, wp, gp,
-            bep, stride)
-        gr = grad_of(yr, [xk] + pp, dy)
-        torch.cuda.synchronize()
-        label = (f"block {i:2d} {tuple(x.shape)} F={params[0].shape[1]} "
-                 f"{kind}")
-        w_out = held("tsm_block_train_fwd", label,
-                     [(st.y, yr)] + list(zip(st.stats_tuple(), str_)))
-        gk = [dxk] + [g for g in gk if g is not None]
-        w_grad = held("tsm_block_train_bwd", label, list(zip(gk, gr)), True)
-        f, co = st.f, st.co
-
-        kf = cuda_ms(lambda: block_fwd(x, st))
-        kb = cuda_ms(lambda: block_bwd(x, st, dy))
-        passes.append((x, st, dy))
-        pf = cuda_ms(lambda: tsm_block_train_reference(
-            xk, w1, w2, w3, g1, be1, g2, be2, g3, be3, t, 8, 1e-5, wp, gp,
-            bep, stride))
-        pb = cuda_ms(lambda: grad_of(yr, [xk] + pp, dy))
-        nt, h, w, c = x.shape
-        flops, m_in, m_out, nw = block_work(nt, h, w, c, f, co, stride,
-                                            st.proj)
-        act_out = 2 * (m_in * f + m_out * f + m_out * co * (3 if st.proj
-                                                            else 2))
-        account("tsm_block_train_fwd", kf, pf, flops,
-                x.numel() * 2 + nw * 4 + act_out)
-        account("tsm_block_train_bwd", kb, pb, 2 * flops,
-                dy.numel() * 2 + x.numel() * 2 + act_out + nw * 8
-                + x.numel() * 2)
-        print(f"# {'tsm_block_train':18s} {label:44s} out/stats cos "
-              f"{w_out[2]:.6f} mean_rel {w_out[1]:.3g} | grads cos "
-              f"{w_grad[2]:.6f} mean_rel {w_grad[1]:.3g} | fwd kernel "
-              f"{kf:.3f} ms plain {pf:.3f} | bwd kernel {kb:.3f} ms plain "
-              f"{pb:.3f}", flush=True)
-
-        # the finale and its backward prologue alone (the trunk launches
-        # them for its top block only)
-        p, r = st.saved[2], st.residual()
-        aff = [st.vec[4 * f + k * co:4 * f + (k + 1) * co] for k in range(4)]
-        mus = (st.stats[4 * f:4 * f + co],
-               st.stats[4 * f + 2 * co:4 * f + 3 * co])
-        sap_sbp = aff[2:] if st.proj else (None, None)
-
-        def plain_finale_bwd():
-            dq = torch.where(st.y > 0, dy, torch.zeros_like(dy))
-            dqf = dq.float()
-            rows = [dqf.sum((0, 1, 2)),
-                    (dqf * (p.float() - mus[0])).sum((0, 1, 2))]
-            if st.proj:
-                rows.append((dqf * (r.float() - mus[1])).sum((0, 1, 2)))
-            return dq, torch.cat(rows)
-
-        yf_r = finale_reference(p, r, aff[0], aff[1], *sap_sbp)
-        dq_k, mom3_k = st.finale_backward(dy)
-        dq_r, mom3_r = plain_finale_bwd()
-        torch.cuda.synchronize()
-        w_ff = held("tsm_trunk_train_finale_fwd", label, [(st.y, yf_r)])
-        w_fb = held("tsm_trunk_train_finale_bwd", label,
-                    [(dq_k, dq_r), (mom3_k[:mom3_r.numel()], mom3_r)], True)
-        m_y = st.y.numel()
-        account("tsm_trunk_train_finale_fwd",
-                cuda_ms(lambda: finale_fwd(p, r, st.vec, f, co, st.proj)),
-                cuda_ms(lambda: finale_reference(p, r, aff[0], aff[1],
-                                                 *sap_sbp)),
-                0, 2 * m_y * 3 + 16 * co)
-        account("tsm_trunk_train_finale_bwd",
-                cuda_ms(lambda: st.finale_backward(dy)),
-                cuda_ms(plain_finale_bwd), 0,
-                2 * m_y * (5 if st.proj else 4) + 12 * co)
-        print(f"# {'finale':18s} {label:44s} fwd cos {w_ff[2]:.6f} bwd cos "
-              f"{w_fb[2]:.6f} mean_rel {w_fb[1]:.3g}", flush=True)
-
-        # K13's own launch: the block's p made again from its saved z, bit
-        # for bit the forward's p, and held to its plain version
-        z, vec = st.saved[1], st.vec
-
-        def plain_p():
-            a = torch.relu(z.float() * vec[2 * f:3 * f] + vec[3 * f:4 * f])
-            return conv_nhwc(a.to(bf), st.wf[2])
-
-        p_k, p_r = recompute_p(st), plain_p()
-        torch.cuda.synchronize()
-        if not torch.equal(p_k, st.saved[2]):
-            fail(f"recompute_p {label}: not the forward's p bit for bit")
-        w_p = held("tsm_trunk_train_recompute_p", label, [(p_k, p_r)])
-        kr, pr_ms = cuda_ms(lambda: recompute_p(st)), cuda_ms(plain_p)
-        account("tsm_trunk_train_recompute_p", kr, pr_ms, 2 * m_out * f * co,
-                2 * (m_out * f + f * co + m_out * co) + 16 * f)
-        print(f"# {'recompute_p':18s} {label:44s} p cos {w_p[2]:.6f} mean_rel "
-              f"{w_p[1]:.3g} bitwise True | kernel {kr:.3f} ms plain "
-              f"{pr_ms:.3f}", flush=True)
-        if below is not None:
-            link_phase(below, st, dy, label)
-        below = st
-        x = st.y.detach()
-        del yr, gr, p_k, p_r
-
-    del below
     try:
         split = k12_split()
     except Exception as exc:  # the split is information only
@@ -1475,36 +1614,7 @@ def training_phases(dev, smi, frames, vision):
     torch.cuda.empty_cache()
     remat_phase(x0, peak, argv, paths)
 
-    pallas = "video_chapter_generation_tpu/ops/"
-    sources = {
-        "stem_s2d_train_fwd": ("stem_train.cu", "stem_train_pallas.py:329"),
-        "stem_s2d_train_bwd": ("stem_train.cu", "stem_train_pallas.py:329"),
-        "tsm_block_train_fwd": ("conv_train.cu",
-                                "tsm_block_train_pallas.py:1483"),
-        "tsm_block_train_bwd": ("conv_train.cu",
-                                "tsm_block_train_pallas.py:1483"),
-        "tsm_trunk_train_finale_fwd": ("conv_train.cu",
-                                       "tsm_trunk_train_pallas.py:118"),
-        "tsm_trunk_train_finale_bwd": ("conv_train.cu",
-                                       "tsm_trunk_train_pallas.py:118"),
-        "tsm_trunk_train_link_fwd": ("conv_train.cu",
-                                     "tsm_block_train_pallas.py:1027"),
-        "tsm_trunk_train_link_bwd": ("conv_train.cu",
-                                     "tsm_block_train_pallas.py:679"),
-        "tsm_trunk_train_recompute_p": ("conv_train.cu",
-                                        "tsm_trunk_train_pallas.py:118")}
-    out = []
-    for name, e in entries.items():
-        src, replaces = sources[name]
-        b_ms, b_by = bound(e["flops"], e["bytes"])
-        out.append({"name": name, "route": "cuda",
-                    "source": f"video_chapter_generation_tpu_torch/csrc/{src}",
-                    "replaces": pallas + replaces,
-                    "launches": launches[name],
-                    "max_abs_err": e["max_abs"], "ms": e["ms"],
-                    "plain_ms": e["plain_ms"], "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": e.get("library_ms")})
-    return out
+    return train_kernel_rows(entries, launches)
 
 
 def title_decode_phase(dev, smi, s2s):
@@ -1901,12 +2011,15 @@ def hold_k10(q_mid, k, v, mask, tabs, bs, name, label, smi):
 @contextlib.contextmanager
 def first_calls(spots):
     """While open, module.name for each (module, name) -> n of spots keeps
-    the arguments of its first n calls (tensors cloned) in kept[name], a
-    list of (args, kwargs); yields kept. The call itself goes on to the
-    function, whose launch count is the one that counts."""
+    the arguments of its first n calls (tensors cloned, in lists and
+    tuples too) in kept[name], a list of (args, kwargs); yields kept. The
+    call itself goes on to the function, whose launch count is the one
+    that counts."""
     import torch
 
     def keep(a):
+        if type(a) in (list, tuple):
+            return type(a)(map(keep, a))
         return a.clone() if torch.is_tensor(a) else a
 
     kept = {name: [] for _, name in spots}
@@ -4365,6 +4478,520 @@ def pretrain_lang_phase(dev, smi):
     shutil.rmtree(ckpt, ignore_errors=True)
 
 
+def variants_phase(dev, smi):
+    """The secondary models and tools on the card, at full width:
+    TwoStreamDomainSpecific (BERT-base, ResNet50-TSM frames stem T 16,
+    window 1, hidden 128, bf16, seeded weights through the from_jax
+    tables) serving DS_BATCH windows of 224-px frames with exact launches,
+    each kernel of its vision call held to its plain version on that
+    call's own arguments, and VARIANT_TRAIN_STEPS steps under
+    make_grouped_optimizer (exact K11, K12 and K13 launches a step, finite
+    losses, moved parameters), each training kernel held to its plain
+    version on the first step's own arguments (the frames stem's, then
+    each block fed the kernel output); SingleBlockWindowClassifier on seeded
+    features against its float32 CPU run; cli/pretrain_contrastive
+    (BERT-base, K 65,536, batch 8 x TEXT_LEN tokens, 3 steps; the queue
+    pointer, the key encoder m k + (1 - m) q at each step) and
+    cli/train_listwise (slates of 6 x TEXT_LEN tokens, batch 4, 3 steps);
+    Grad-CAM at layer 4 on 16 frames (launches exact, its kernels held on
+    the capture call's arguments, the cam in [0, 1] and within
+    CAM_MIN_COS of the plain float32 trunk's on the CPU; a re-entry at
+    stage 3 under auto raises); saliency and IG (IG_STEPS) on BERT-base;
+    cli/convert_weights two_stream_window on a full-width reference-layout
+    checkpoint made from seeded arrays (the converted model's scores
+    equal the source model's bit for bit); device_trace writes a trace
+    and device_memory_mb reads the allocation. Returns the kernels-line
+    entries of its paths, each with its own numbers: the serving and
+    Grad-CAM calls' per call, the training step's per step."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from video_chapter_generation_tpu_torch.cli import (
+        convert_weights,
+        pretrain_contrastive,
+        train_listwise,
+    )
+    from video_chapter_generation_tpu_torch.core.config import OptimConfig
+    from video_chapter_generation_tpu_torch.data.corpus import VideoCorpus
+    from video_chapter_generation_tpu_torch.data.synth import (
+        make_synth_corpus_on_disk,
+    )
+    from video_chapter_generation_tpu_torch.data.tokenization import (
+        WordPieceTokenizer,
+    )
+    from video_chapter_generation_tpu_torch.models import (
+        convert,
+        convert_reference,
+    )
+    from video_chapter_generation_tpu_torch.models import (
+        resnet as resnet_model,
+    )
+    from video_chapter_generation_tpu_torch.models.bert import (
+        BertConfig,
+        BertForChapter,
+        BertModel,
+    )
+    from video_chapter_generation_tpu_torch.models.contrastive import (
+        MoCoTextEncoder,
+    )
+    from video_chapter_generation_tpu_torch.models.fusion import (
+        TwoStreamWindow,
+    )
+    from video_chapter_generation_tpu_torch.models.fusion_variants import (
+        SingleBlockWindowClassifier,
+        TwoStreamDomainSpecific,
+    )
+    from video_chapter_generation_tpu_torch.models.resnet import (
+        STAGE_SIZES,
+        ResNet,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem import stem_frames
+    from video_chapter_generation_tpu_torch.ops.tsm_block import (
+        tsm_bottleneck,
+        tsm_bottleneck_s2,
+    )
+    from video_chapter_generation_tpu_torch.train.objectives import (
+        clip_classification_loss,
+    )
+    from video_chapter_generation_tpu_torch.train.optim import (
+        clipped_step,
+        make_grouped_optimizer,
+    )
+    from video_chapter_generation_tpu_torch.utils.memory import (
+        device_memory_mb,
+    )
+    from video_chapter_generation_tpu_torch.utils.profiling import (
+        annotate,
+        device_trace,
+    )
+    from video_chapter_generation_tpu_torch.visualization.interpret import (
+        grad_cam_vision,
+        integrated_gradients_lang,
+        saliency_lang,
+    )
+
+    bf = torch.bfloat16
+    build = ROOT / "video_chapter_generation_tpu_torch" / "_build"
+    sizes = STAGE_SIZES[50]
+    gen = torch.Generator(device=dev).manual_seed(VARIANTS_SEED)
+    laps, rows, seen = {}, {}, {}
+    serving = (stem_frames, tsm_bottleneck, tsm_bottleneck_s2)
+    training = _train_counters("frames")
+    vision_call = {"stem_frames": 1, "tsm_bottleneck": 13,
+                   "tsm_bottleneck_s2": 3}
+    spots = {(resnet_model, name): n for name, n in vision_call.items()}
+    # the training step's entries into the kernels: the frames stem, then
+    # the fused trunk
+    train_spots = {(resnet_model, "stem_frames_train"): 1,
+                   (resnet_model, "tsm_trunk_train"): 1}
+
+    def lap(name, t0):
+        laps[name] = round(time.time() - t0, 2)
+
+    def zero(fns):
+        for f in fns:
+            f.launches = 0
+
+    # --- TwoStreamDomainSpecific: serving ---
+    t0 = time.time()
+
+    def ds_model():
+        with torch.device("meta"):
+            return TwoStreamDomainSpecific(
+                BertModel(BertConfig()),
+                ResNet(50, n_segment=CLIP_FRAMES, dtype=bf), window_size=1,
+                segment_size=CLIP_FRAMES, hidden_size=128, dtype=bf)
+
+    ds = ds_model()
+    ds_entries = convert.two_stream_domain_specific_entries(12, sizes)
+    ds_sd = convert.from_jax_two_stream_domain_specific(
+        convert.random_jax_tree(ds, ds_entries, seed=VARIANTS_SEED), 12,
+        sizes)
+    ds.load_state_dict(ds_sd, assign=True)
+    ds.to_serving(dev)
+    w = ds.num_clips
+    img = torch.randn(DS_BATCH, w, CLIP_FRAMES, 224, 224, 3, generator=gen,
+                      device=dev).to(bf)
+    ids = torch.randint(1, BERT_VOCAB, (DS_BATCH, w, TEXT_LEN),
+                        generator=gen, device=dev)
+    mask = torch.ones_like(ids)
+    mask[1, :, TEXT_LEN // 2:] = 0
+    labels = torch.tensor([0, 1], device=dev)
+    zero(serving)
+    with first_calls(spots) as kept:
+        _, probs = ds(img, ids, mask)
+        torch.cuda.synchronize()
+    seen["ds serve"] = {f.__name__: f.launches for f in serving}
+    print(f"# variants TwoStreamDomainSpecific serving ({DS_BATCH} windows "
+          f"x {w} clips x {CLIP_FRAMES} frames of 224 px, bf16): probs "
+          f"{probs.tolist()}, launches {seen['ds serve']}", flush=True)
+    if seen["ds serve"] != vision_call:
+        fail(f"TwoStreamDomainSpecific serving launches {seen['ds serve']} "
+             f"!= {vision_call}")
+    if not (probs.shape == (DS_BATCH, 2) and torch.isfinite(probs).all()
+            and (probs.sum(-1) - 1).abs().max() < 1e-3):
+        fail(f"TwoStreamDomainSpecific serving probs malformed: {probs}")
+    rows["ds serve"] = hold_vision_call(kept)
+    del kept, ds
+    torch.cuda.empty_cache()
+    lap("ds_serve", t0)
+
+    # --- TwoStreamDomainSpecific: training under the grouped optimizer ---
+    t0 = time.time()
+    ds = ds_model()
+    ds.load_state_dict(ds_sd, assign=True)
+    ds.to(dev).train()
+    opt = make_grouped_optimizer(OptimConfig(learning_rate=1e-4), ds,
+                                 ds_entries)
+    before = {k: p.detach().clone() for k, p in ds.named_parameters()}
+    per_step = {"stem_frames_train_fwd": 1, "stem_frames_train_bwd": 1,
+                "tsm_block_train_fwd": 16, "tsm_block_train_bwd": 16,
+                "tsm_trunk_train_finale_fwd": 1,
+                "tsm_trunk_train_finale_bwd": 1,
+                "tsm_trunk_train_link_fwd": 15,
+                "tsm_trunk_train_link_bwd": 15,
+                "tsm_trunk_train_recompute_p": 16}
+    seen["ds train"] = dict.fromkeys(per_step, 0)
+    losses, step_ms = [], []
+    with first_calls(train_spots) as kept:
+        for _ in range(VARIANT_TRAIN_STEPS):
+            zero(training.values())
+            torch.cuda.synchronize()
+            t1 = time.time()
+            opt.zero_grad(set_to_none=True)
+            logits, _ = ds(img, ids, mask, train=True, generator=gen)
+            loss, _ = clip_classification_loss(logits, labels)
+            loss.backward()
+            clipped_step(opt, ds.parameters(), 1.0)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.time() - t1))
+            losses.append(loss.item())
+            got = {name: f.launches for name, f in training.items()}
+            if got != per_step:
+                fail(f"TwoStreamDomainSpecific training launches {got} != "
+                     f"{per_step}")
+            for name, n in got.items():
+                seen["ds train"][name] += n
+    # an attention key bias has a zero gradient in exact arithmetic
+    frozen = [k for k, p in ds.named_parameters()
+              if torch.equal(p.detach(), before[k])
+              and not k.endswith("key_proj.bias")]
+    stats_moved = sum(not torch.equal(b.cpu(), ds_sd[k])
+                      for k, b in ds.named_buffers()
+                      if k.endswith("running_mean"))
+    print(f"# variants TwoStreamDomainSpecific training: "
+          f"{VARIANT_TRAIN_STEPS} steps, losses "
+          f"{[round(x, 4) for x in losses]}, ms a step "
+          f"{[round(x, 1) for x in step_ms]} (the first builds), launches a "
+          f"step {per_step}, {len(before) - len(frozen)} of {len(before)} "
+          f"parameters and {stats_moved} BN means moved on {smi}",
+          flush=True)
+    if not all(math.isfinite(x) for x in losses) or frozen or \
+            not stats_moved:
+        fail(f"TwoStreamDomainSpecific training: losses {losses}, frozen "
+             f"{frozen[:4]}, {stats_moved} BN means moved")
+    del ds, opt, before, ds_sd
+    torch.cuda.empty_cache()
+    lap("ds_train", t0)
+
+    # --- its training kernels on the first step's own arguments ---
+    t0 = time.time()
+    (x_stem, w7, g, b, *_), _ = kept["stem_frames_train"][0]
+    (x_trunk, block_params, kinds, n_seg, *_), _ = kept["tsm_trunk_train"][0]
+    del kept
+    train_entries, trunk_in, _ = hold_train_kernels(
+        dev, gen, x_stem, [w7, g, b], block_params, kinds, n_seg)
+    torch.cuda.synchronize()
+    # the stem kernel on the kept frames gives the trunk the path gave
+    if not torch.equal(trunk_in, x_trunk):
+        fail("the training stem on the DS step's frames is not the trunk "
+             "input of that step")
+    rows["ds train"] = train_kernel_rows(
+        train_entries, seen["ds train"],
+        path=f"TwoStreamDomainSpecific training ({VARIANT_TRAIN_STEPS} "
+             f"steps; numbers per step, on the first step's arguments)")
+    del x_stem, w7, g, b, x_trunk, block_params, trunk_in
+    torch.cuda.empty_cache()
+    lap("ds_train_holds", t0)
+
+    # --- SingleBlockWindowClassifier on seeded features ---
+    t0 = time.time()
+    sb = SingleBlockWindowClassifier(128, 16, 1)
+    sb.load_state_dict(convert.from_jax_single_block_window(
+        convert.random_jax_tree(sb, convert.single_block_window_entries(),
+                                seed=VARIANTS_SEED + 1)))
+    feats = torch.from_numpy(np.random.default_rng(VARIANTS_SEED).standard_normal(
+        (8, 3, 128)).astype(np.float32))
+    want_logits, _ = sb.eval()(feats)
+    got_logits, got_probs = sb.to(dev)(feats.to(dev))
+    err = (got_logits.cpu() - want_logits).abs().max().item()
+    print(f"# variants SingleBlockWindowClassifier (hidden 128, 16 heads, "
+          f"window 1, 8 windows, float32): max abs error to its CPU run "
+          f"{err:.3g}", flush=True)
+    if not err <= 1e-4 or not torch.allclose(got_probs.sum(-1),
+                                             torch.ones(8, device=dev)):
+        fail(f"SingleBlockWindowClassifier on the card is {err} from its "
+             f"CPU run")
+    lap("single_block", t0)
+
+    # --- the text-training CLIs: a corpus, BERT-base's vocabulary ---
+    t0 = time.time()
+    paths = make_synth_corpus_on_disk(
+        str(build / "synth_variants_corpus"), n_videos=36, video_sec=60,
+        hw=32, seed=SEED + 43, splits={"train": 24, "val": 12})
+    corpus = VideoCorpus.from_files(paths["img_dir"], paths["data_file"],
+                                    paths["train_vid_file"],
+                                    paths["subtitle_dir"])
+    tok = WordPieceTokenizer.build_from_corpus(
+        [s["text"] for vid in corpus.vids for s in corpus.subtitles(vid)],
+        vocab_size=8000)
+    words = sorted(tok.vocab, key=tok.vocab.get)
+    words += [f"[unused{i}]" for i in range(BERT_VOCAB - len(words))]
+    vocab = build / "variants_vocab.txt"
+    vocab.write_text("\n".join(words) + "\n")
+    base = [f"data.img_dir={paths['img_dir']}",
+            f"data.data_file={paths['data_file']}",
+            f"data.subtitle_dir={paths['subtitle_dir']}",
+            f"data.max_text_len={TEXT_LEN}", "model.compute_dtype=bfloat16",
+            "train.max_epochs=1", "--bert_vocab", str(vocab), "--device",
+            str(dev)]
+
+    def run_cli(name, fn, argv, step_name, module):
+        """fn(argv) with module.step_name timed a step; its stdout
+        reprinted."""
+        real = getattr(module, step_name)
+        steps = []
+
+        def spy(*a, **kw):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            steps.append(1e3 * (time.time() - t1))
+            return out
+
+        said = io.StringIO()
+        setattr(module, step_name, spy)
+        try:
+            with contextlib.redirect_stdout(said):
+                out = fn(argv)
+        finally:
+            setattr(module, step_name, real)
+            for line in said.getvalue().splitlines():
+                print(f"# {name}: {line}", flush=True)
+        line = said.getvalue().splitlines()[-1]
+        loss = float(line.split()[3])
+        print(f"# {name}: {len(steps)} steps, ms a step "
+              f"{[round(x, 1) for x in steps]} (the first builds) on {smi}",
+              flush=True)
+        if len(steps) != VARIANT_CLI_STEPS or not math.isfinite(loss):
+            fail(f"{name}: {len(steps)} steps, loss {loss}")
+        return out
+
+    real_update = MoCoTextEncoder.momentum_update
+    worst = []
+
+    def momentum_spy(self):
+        ks = [p.detach().double() for p in self.encoder_k.parameters()]
+        qs = [p.detach().double() for p in self.encoder_q.parameters()]
+        real_update(self)
+        for k0, q0, k1 in zip(ks, qs, self.encoder_k.parameters()):
+            ref = k0 * self.m + q0 * (1.0 - self.m)
+            worst.append(((k1.double() - ref).abs().max()
+                          / ref.abs().max().clamp_min(1e-30)).item())
+
+    MoCoTextEncoder.momentum_update = momentum_spy
+    try:
+        enc = run_cli("pretrain_contrastive", pretrain_contrastive.main,
+                      base + [f"data.train_vid_file={paths['train_vid_file']}",
+                              f"data.batch_size={MOCO_BATCH}"],
+                      "moco_step", pretrain_contrastive)
+    finally:
+        MoCoTextEncoder.momentum_update = real_update
+    n_params = len(list(enc.encoder_k.parameters()))
+    norms = enc.queue[:int(enc.queue_ptr)].float().norm(dim=-1)
+    print(f"# pretrain_contrastive: K {enc.K}, queue_ptr "
+          f"{int(enc.queue_ptr)}, enqueued key norms "
+          f"{norms.min().item():.6f}..{norms.max().item():.6f}, key encoder "
+          f"vs m k + (1 - m) q over {len(worst) // max(n_params, 1)} steps: "
+          f"worst relative error {max(worst):.3g} (bf16's is "
+          f"{2.0 ** -8:.3g})", flush=True)
+    if enc.K != 65536 or int(enc.queue_ptr) != VARIANT_CLI_STEPS * \
+            MOCO_BATCH or len(worst) != VARIANT_CLI_STEPS * n_params or \
+            max(worst) > 2.0 ** -8 or (norms - 1).abs().max() > 1e-3:
+        fail("pretrain_contrastive: the queue or the key encoder is off")
+    del enc
+    lw = run_cli("train_listwise", train_listwise.main,
+                 base + [f"data.train_vid_file={paths['val_vid_file']}",
+                         f"data.batch_size={LISTWISE_BATCH}"],
+                 "listwise_step", train_listwise)
+    init = lw.init_state(123)
+    moved = sum(not torch.equal(p.detach().cpu(), init[k])
+                for k, p in lw.named_parameters())
+    if moved < len(init) // 2:
+        fail(f"train_listwise moved {moved} of {len(init)} parameters")
+    del lw, init
+    shutil.rmtree(build / "synth_variants_corpus", ignore_errors=True)
+    torch.cuda.empty_cache()
+    lap("text_clis", t0)
+
+    # --- Grad-CAM at layer 4 on ResNet50-TSM, 16 frames of 224 px ---
+    t0 = time.time()
+    with torch.device("meta"):
+        vf = ResNet(50, n_segment=CLIP_FRAMES, dtype=bf)
+    vsd = convert.from_jax_resnet(convert.random_jax_tree(
+        vf, convert.resnet_entries(sizes), seed=VARIANTS_SEED + 2), sizes)
+    vf.load_state_dict(vsd, assign=True)
+    vf.to(dev).eval()
+    frames = img[0, 1].contiguous()
+    head_w = torch.randn(2048, 2, generator=gen, device=dev) / 2048 ** 0.5
+    zero(serving)
+    with first_calls(spots) as kept:
+        cam = grad_cam_vision(vf, frames, class_index=1, stage=4,
+                              head_fn=lambda p: p.float() @ head_w)
+        torch.cuda.synchronize()
+    seen["grad_cam"] = {f.__name__: f.launches for f in serving}
+    cpu = ResNet(50, n_segment=CLIP_FRAMES).eval()
+    cpu.load_state_dict(vsd)
+    head_cpu = head_w.cpu()
+    cam_ref = grad_cam_vision(cpu, frames.float().cpu(), class_index=1,
+                              stage=4, head_fn=lambda p: p @ head_cpu)
+    cos = compare(cam.cpu(), cam_ref)[2]
+    print(f"# variants grad_cam_vision layer 4 ({tuple(frames.shape)} bf16): "
+          f"cam {tuple(cam.shape)} in [{cam.min().item():.4f}, "
+          f"{cam.max().item():.4f}], cosine {cos:.6f} to the plain float32 "
+          f"trunk's on the CPU, launches {seen['grad_cam']}", flush=True)
+    if seen["grad_cam"] != vision_call:
+        fail(f"grad_cam launches {seen['grad_cam']} != {vision_call}")
+    if not (cam.shape == (CLIP_FRAMES, 7, 7) and cam.min() >= 0
+            and cam.max() <= 1 and cos >= CAM_MIN_COS):
+        fail(f"grad_cam's cam is off: cosine {cos}")
+    rows["grad_cam"] = hold_vision_call(kept)
+    del kept, cpu
+    capture = {}
+    vf(frames, capture=capture)
+    act = capture["stage3"].detach().requires_grad_()
+    launched = tsm_bottleneck_s2.launches
+    try:
+        vf(act, from_stage=3)
+    except NotImplementedError as exc:
+        said = str(exc)
+    else:
+        fail("a stage-3 re-entry under tsm_impl auto did not raise")
+    if "'tap3' or 'xla'" not in said or tsm_bottleneck_s2.launches != \
+            launched:
+        fail(f"the stage-3 re-entry raised {said!r} after "
+             f"{tsm_bottleneck_s2.launches - launched} launches")
+    print(f"# variants grad_cam stage 3 under auto raises: {said}",
+          flush=True)
+    del vf, act, capture
+    lap("grad_cam", t0)
+
+    # --- saliency and integrated gradients on BERT-base ---
+    t0 = time.time()
+    with torch.device("meta"):
+        bc = BertForChapter(BertConfig())
+    bc_entries = convert.bert_for_chapter_entries(12)
+    bc.load_state_dict(convert.from_jax(convert.random_jax_tree(
+        bc, bc_entries, seed=VARIANTS_SEED + 3), bc_entries), assign=True)
+    bc.to(dev, bf).eval()
+    ids4, mask4 = ids[:, 0], mask[:, 0]
+    sal = saliency_lang(bc, ids4, mask4)
+    ig = integrated_gradients_lang(bc, ids4, mask4, steps=IG_STEPS)
+    for name, m in (("saliency", sal), ("integrated gradients", ig)):
+        sums = m.sum(-1)
+        print(f"# variants {name} (BERT-base bf16, {tuple(ids4.shape)}): "
+              f"row sums {sums.tolist()}", flush=True)
+        if not (torch.isfinite(m).all() and (sums - 1).abs().max() < 1e-3
+                and m[1, TEXT_LEN // 2:].abs().max() == 0):
+            fail(f"{name} rows do not sum to 1 over the real tokens")
+    lap("saliency_ig", t0)
+
+    # --- device_trace and device_memory_mb ---
+    t0 = time.time()
+    trace = build / "variants_trace"
+    shutil.rmtree(trace, ignore_errors=True)
+    with device_trace(str(trace)):
+        with annotate("variants saliency"):
+            saliency_lang(bc, ids4, mask4)
+        torch.cuda.synchronize()
+    written = [p for p in trace.rglob("*.json") if p.stat().st_size > 0]
+    mem = device_memory_mb()
+    print(f"# variants device_trace wrote {[p.name for p in written]} "
+          f"({sum(p.stat().st_size for p in written)} bytes); "
+          f"device_memory_mb {mem[0]}", flush=True)
+    if not written or not mem or mem[0]["allocated_mb"] <= 0:
+        fail("device_trace wrote no trace or device_memory_mb read nothing")
+    shutil.rmtree(trace, ignore_errors=True)
+    del bc
+    lap("trace_memory", t0)
+
+    # --- convert_weights two_stream_window at full width ---
+    t0 = time.time()
+
+    def window_model():
+        with torch.device("meta"):
+            return TwoStreamWindow(
+                BertModel(BertConfig()), ResNet(50, n_segment=CLIP_FRAMES,
+                                                dtype=bf),
+                segment_size=CLIP_FRAMES, hidden_size=128, dtype=bf)
+
+    tw = window_model()
+    tw_sd = convert.from_jax_two_stream_window(convert.random_jax_tree(
+        tw, convert.two_stream_window_entries(12, sizes),
+        seed=VARIANTS_SEED + 4), 12, sizes)
+    src, dst = build / "reference_window.pth", build / "converted_window.pt"
+    ref = convert_reference.two_stream_window_to_reference(tw_sd)
+    torch.save({"model_state_dict": {f"module.{k}": v
+                                     for k, v in ref.items()}}, src)
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        convert_weights.main(["--kind", "two_stream_window", "--torch_ckpt",
+                              str(src), "--out", str(dst), "--window_size",
+                              "1", "--head_type", "mlp"])
+    conv = torch.load(dst, weights_only=True)
+    same = conv.keys() == tw_sd.keys() and all(
+        torch.equal(conv[k], tw_sd[k]) for k in tw_sd)
+    tw.load_state_dict(tw_sd, assign=True)
+    tw.to_serving(dev)
+    tw2 = window_model()
+    tw2.load_state_dict(conv, assign=True)
+    tw2.to_serving(dev)
+    _, p1 = tw(img, ids, mask)
+    _, p2 = tw2(img, ids, mask)
+    print(f"# variants convert_weights two_stream_window: "
+          f"{said.getvalue().strip()}; state dict the source's bit for bit "
+          f"{same}; scores {p1[:, 1].tolist()} vs {p2[:, 1].tolist()}",
+          flush=True)
+    if not same or not torch.equal(p1, p2):
+        fail("convert_weights two_stream_window did not round-trip")
+    for p in (src, dst):
+        p.unlink()
+    del tw, tw2, conv, ref, tw_sd
+    torch.cuda.empty_cache()
+    lap("convert_weights", t0)
+    print(f"# variants laps {json.dumps(laps)}", flush=True)
+
+    sources = {"stem_frames": ("csrc/stem_s2d.cu", "stem_pallas.py:255"),
+               "tsm_bottleneck": ("csrc/tsm_bottleneck.cu",
+                                  "tsm_block_pallas.py:1094"),
+               "tsm_bottleneck_s2": ("csrc/tsm_bottleneck.cu",
+                                     "tsm_block_pallas.py:654")}
+    out = []
+    for run, path in (("ds serve", "TwoStreamDomainSpecific serving"),
+                      ("grad_cam", "grad_cam_vision (capture forward)")):
+        for name, row in rows[run].items():
+            src_file, replaces = sources[name]
+            out.append(dict(
+                name=name, route="cuda",
+                source=f"video_chapter_generation_tpu_torch/{src_file}",
+                replaces=f"video_chapter_generation_tpu/ops/{replaces}",
+                launches=seen[run][name], **row, path=path))
+    return out + rows["ds train"]
+
+
 def _free_port() -> int:
     import socket
 
@@ -4874,7 +5501,9 @@ def split_alone():
 
 # counters of the training kernels' wrappers, by the names the training
 # phase gives them
-def _train_counters():
+def _train_counters(stem: str = "s2d"):
+    """The training kernels' wrappers by kernel-line name, the stem's
+    named after its input (s2d or frames)."""
     from video_chapter_generation_tpu_torch.ops.stem_train import (
         stem_train_bwd,
         stem_train_fwd,
@@ -4891,8 +5520,8 @@ def _train_counters():
         recompute_p,
     )
 
-    return {"stem_s2d_train_fwd": stem_train_fwd,
-            "stem_s2d_train_bwd": stem_train_bwd,
+    return {f"stem_{stem}_train_fwd": stem_train_fwd,
+            f"stem_{stem}_train_bwd": stem_train_bwd,
             "tsm_block_train_fwd": block_train_fwd,
             "tsm_block_train_bwd": block_train_bwd,
             "tsm_trunk_train_finale_fwd": finale_fwd,
@@ -6043,6 +6672,9 @@ def main() -> int:
                      + window_kernels + bigbird_kernels[:1]})
     timed("pretrain_lang", pretrain_lang_phase, dev, smi)
     timed("gpt", gpt_phase, dev, smi)
+    # the secondary models and tools: the serving and Grad-CAM calls' and
+    # the domain-specific training step's own kernel numbers
+    variants_kernels = timed("variants", variants_phase, dev, smi)
     # data-parallel training: K11-K13 split at their moments in two gloo
     # processes (the numbers of its kernel step, the launches of its
     # 2-process train_segment run)
@@ -6054,7 +6686,7 @@ def main() -> int:
                       + train_kernels + window_kernels + int8_s2_kernels
                       + [chain_kernel] + vision_kernels + [title_kernel]
                       + eval_kernels + parallel_kernels
-                      + native_kernels + dp_kernels}))
+                      + native_kernels + variants_kernels + dp_kernels}))
     print(f"# phase seconds {json.dumps(laps)}; chip_smoke wall time "
           f"{time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -513,3 +513,66 @@ def test_gpt_datasets_match(disk, glove_items):
             _same(x, y)
             moved |= bool((x["targets"] != -1).any())
     assert moved
+
+
+@pytest.mark.parametrize("name", ["ListwiseSlateDataset",
+                                  "ContrastiveSubtitleDataset",
+                                  "AllClipDataset"])
+def test_text_training_datasets_match(disk, name):
+    """The slate, MoCo-pair and all-clip samplers of the contrastive and
+    listwise text training: the same items per epoch."""
+    pa, pb = _corpora(disk)
+    ta = tokenization.WordPieceTokenizer.build_from_corpus(_texts(pa), 200)
+    tb = jax_tok.WordPieceTokenizer.build_from_corpus(_texts(pb), 200)
+    kw = {"ListwiseSlateDataset": dict(clip_frame_num=8, max_text_len=16,
+                                       num_negatives=3, seed=5),
+          "ContrastiveSubtitleDataset": dict(num_candidates=3,
+                                             max_text_len=16, seed=5),
+          "AllClipDataset": dict(clip_frame_num=8, max_text_len=16,
+                                 max_clips=6, seed=5)}[name]
+    a = getattr(datasets, name)(pa, ta, **kw)
+    b = getattr(jax_datasets, name)(pb, tb, **kw)
+    assert len(a) == len(b)
+    for epoch in range(2):
+        for i in range(len(a)):
+            _same(a.__getitem__(i, epoch), b.__getitem__(i, epoch))
+
+
+def test_utils_copies_match(tmp_path):
+    """utils/flops.py's MAC counts, utils/memory.py's caches and host
+    readings and utils/profiling.py's Stopwatch against the JAX package's
+    copies; device_trace writes a trace on the CPU (its peaks are the
+    H100's, not the JAX package's)."""
+    from video_chapter_generation_tpu.utils import flops as jax_flops
+    from video_chapter_generation_tpu.utils import memory as jax_memory
+    from video_chapter_generation_tpu_torch.utils import flops, memory
+    from video_chapter_generation_tpu_torch.utils import profiling
+
+    assert flops.resnet_macs_per_frame() == \
+        jax_flops.resnet_macs_per_frame() == 4087136256
+    assert flops.resnet_macs_per_frame(160, stage_sizes=(1, 2, 1, 1)) == \
+        jax_flops.resnet_macs_per_frame(160, stage_sizes=(1, 2, 1, 1))
+    assert flops.bert_encode_macs(100) == jax_flops.bert_encode_macs(100)
+    args = (512, 30, 16, 16, 1024, 4096, 96103)
+    assert flops.seq2seq_macs(*args) == jax_flops.seq2seq_macs(*args)
+    assert (flops.PEAK_BF16, flops.PEAK_INT8) == (989e12, 1979e12)
+    for mod in (memory, jax_memory):
+        cm = mod.CacheManager()
+        cm.cache("a", max_items=2)
+        for k in range(3):
+            cm.get("a", k, lambda k=k: k * k)
+        assert cm.get("a", 2, lambda: -1) == 4 and cm.sizes() == {"a": 2}
+        cm.purge()
+        assert cm.sizes() == {"a": 0}
+    assert memory.host_memory_mb().keys() == jax_memory.host_memory_mb().keys()
+    mm = memory.MemoryManager()
+    mm.handle_oom()
+    assert mm.status()["oom_events"] == 1
+    sw = profiling.Stopwatch()
+    with sw.scope("step"):
+        pass
+    assert sw.report().startswith("step: ")
+    with profiling.device_trace(str(tmp_path)):
+        with profiling.annotate("region"):
+            np.ones(3).sum()
+    assert list(tmp_path.glob("*.json"))

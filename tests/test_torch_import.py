@@ -43,7 +43,13 @@ def test_port_module_list_is_complete():
                  "evalkit.title_eval", "datasetkit.flatten", "train.optim",
                  "train.tasks", "parallel", "parallel.dist", "parallel.mesh",
                  "pipeline.sharded", "models.gpt", "cli.sample_lang",
-                 "datasetkit.glove", "ops._calls", "parallel.loader"):
+                 "datasetkit.glove", "ops._calls", "parallel.loader",
+                 "models.contrastive", "models.fusion_variants",
+                 "models.convert_reference", "cli.pretrain_contrastive",
+                 "cli.train_listwise", "cli.convert_weights",
+                 "cli.export_tokenizer", "visualization.interpret",
+                 "visualization.frames", "utils.memory", "utils.profiling",
+                 "utils.flops"):
         assert f"{PORT}.{name}" in MODULES, name
 
 

@@ -1066,3 +1066,116 @@ def test_segment_step_on_two_cards_over_nccl(dev, tmp_path):
     cos = torch.nn.functional.cosine_similarity(ea.double(), eb.double(),
                                                 dim=0).item()
     assert cos >= 0.999, cos
+
+
+def _tiny_trunk(dev, tsm_impl="auto", t=4):
+    from video_chapter_generation_tpu_torch.models import convert
+    from video_chapter_generation_tpu_torch.models.resnet import ResNet
+
+    sizes = (1, 1, 1, 1)
+    with torch.device("meta"):
+        net = ResNet(50, n_segment=t, stage_sizes=sizes, dtype=torch.bfloat16,
+                     tsm_impl=tsm_impl)
+    tree = convert.random_jax_tree(net, convert.resnet_entries(sizes), seed=0)
+    net.load_state_dict(convert.from_jax_resnet(tree, sizes), assign=True)
+    return net.to(dev).eval()
+
+
+def test_grad_cam_reentry_on_the_kernels(dev):
+    """Grad-CAM at the last stage runs on the serving kernels (the capture
+    forward launches them, the re-entry is the pool); at stage 3 the
+    re-entered stride-2 block would need K4's backward, which it has not:
+    its wrapper raises, naming "tap3" and "xla", and launches nothing;
+    under "xla" the same re-entry differentiates."""
+    from video_chapter_generation_tpu_torch.ops.tsm_block import (
+        tsm_bottleneck_s2,
+    )
+    from video_chapter_generation_tpu_torch.visualization.interpret import (
+        grad_cam_vision,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    frames = torch.randn(8, 64, 64, 3, generator=g).to(dev, torch.bfloat16)
+    net = _tiny_trunk(dev)
+    cam = grad_cam_vision(net, frames, stage=4)
+    assert cam.shape == (8, 2, 2) and 0 <= cam.min() and cam.max() <= 1
+    before = tsm_bottleneck_s2.launches
+    capture = {}
+    net(frames, capture=capture)
+    act = capture["stage3"].detach().requires_grad_()
+    launched = tsm_bottleneck_s2.launches
+    with pytest.raises(NotImplementedError, match="'tap3' or 'xla'"):
+        net(act, from_stage=3)
+    assert tsm_bottleneck_s2.launches == launched == before + 3
+    net.tsm_impl = "xla"
+    cam3 = grad_cam_vision(net, frames, stage=3)
+    assert torch.isfinite(cam3).all() and cam3.max() <= 1
+
+
+def test_domain_specific_launch_counts(dev):
+    """TwoStreamDomainSpecific (BERT tiny, the (1, 1, 1, 1) trunk, T 4,
+    64-px frames, bf16): a serving call launches the frames stem once and
+    each block's whole-block kernel once; a training step launches K11
+    and the K13 trunk (K12 each block, the links, the finale, p made
+    again) once each way."""
+    from video_chapter_generation_tpu_torch.models.bert import (
+        BertConfig,
+        BertModel,
+    )
+    from video_chapter_generation_tpu_torch.models.fusion_variants import (
+        TwoStreamDomainSpecific,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem import stem_frames
+    from video_chapter_generation_tpu_torch.ops.stem_train import (
+        stem_train_bwd,
+        stem_train_fwd,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block import (
+        tsm_bottleneck,
+        tsm_bottleneck_s2,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_block_train import (
+        block_train_bwd,
+        block_train_fwd,
+        finale_bwd,
+        finale_fwd,
+        trunk_link_bwd,
+        trunk_link_fwd,
+    )
+    from video_chapter_generation_tpu_torch.ops.tsm_trunk_train import (
+        recompute_p,
+    )
+
+    t, b, w = 4, 2, 3
+    vision = _tiny_trunk(dev, t=t)
+    model = TwoStreamDomainSpecific(BertModel(BertConfig.tiny()), vision,
+                                    segment_size=t, hidden_size=32,
+                                    dtype=torch.bfloat16).to(dev)
+    g = torch.Generator().manual_seed(1)
+    img = torch.randn(b, w, t, 64, 64, 3, generator=g).to(dev, torch.bfloat16)
+    ids = torch.randint(1, 128, (b, w, 12), generator=g).to(dev)
+    mask = torch.ones_like(ids)
+    counted = (stem_frames, tsm_bottleneck, tsm_bottleneck_s2,
+               stem_train_fwd, stem_train_bwd, block_train_fwd,
+               block_train_bwd, finale_fwd, finale_bwd, trunk_link_fwd,
+               trunk_link_bwd, recompute_p)
+
+    def launches(fn):
+        for f in counted:
+            f.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        return [f.launches for f in counted]
+
+    model.to_serving(dev)
+    _, probs = model(img, ids, mask)
+    assert torch.isfinite(probs).all()
+    assert launches(lambda: model(img, ids, mask)) == \
+        [1, 1, 3] + [0] * 9
+    model.float().train()
+
+    def step():
+        logits, _ = model(img, ids, mask, train=True)
+        logits.float().sum().backward()
+
+    assert launches(step) == [0, 0, 0, 1, 1, 4, 4, 1, 1, 3, 3, 4]

@@ -743,3 +743,158 @@ class WordIdSubtitleDataset(GloveSubtitleDataset):
             x[:n] = ids[:n]
             y[:n] = ids[1 : n + 1]
         return {"text_ids": x.astype(np.int32), "targets": y.astype(np.int32)}
+
+
+class ListwiseSlateDataset:
+    """2 positives + k negatives per video (YoutubeListwiseClipDataset,
+    youtube_dataset.py:1195-1388): slot 0 = a positive clip; contrast slots
+    = 1 positive + k negatives; relevance one-hot on the contrast positive.
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:619.
+    """
+
+    def __init__(self, corpus, tokenizer, clip_frame_num=16, max_text_len=100,
+                 num_negatives=4, seed=123, fps=1):
+        self.corpus = corpus
+        self.tokenizer = tokenizer
+        self.clip_frame_num = clip_frame_num
+        self.max_text_len = max_text_len
+        self.num_negatives = num_negatives
+        self.seed = seed
+        self.fps = fps
+
+    def __len__(self):
+        return len(self.corpus.vids)
+
+    def __getitem__(self, i: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        rng = host_rng(self.seed, epoch, i)
+        vid = self.corpus.vids[i]
+        image_num, _, clips, labels = _video_clip_structure(
+            self.corpus, vid, self.clip_frame_num, self.fps, "infer"
+        )
+        pos = np.flatnonzero(labels == 1)
+        neg = np.flatnonzero(labels == 0)
+        slate_len = 2 + self.num_negatives
+        subs = self.corpus.subtitles(vid)
+
+        if len(pos) == 0:  # degenerate video: all-negative slate
+            chosen = list(rng.choice(neg, size=slate_len, replace=True))
+            relevance = np.zeros(slate_len, np.float32)
+        else:
+            p = rng.choice(pos, size=2, replace=len(pos) < 2)
+            n = rng.choice(neg, size=self.num_negatives,
+                           replace=len(neg) < self.num_negatives)
+            contrast = list(n) + [int(p[1])]
+            rng.shuffle(contrast)
+            chosen = [int(p[0])] + contrast
+            relevance = np.zeros(slate_len, np.float32)
+            relevance[1 + contrast.index(int(p[1]))] = 1.0
+
+        ids = np.zeros((slate_len, self.max_text_len), np.int32)
+        masks = np.zeros_like(ids)
+        slate_labels = np.zeros(slate_len, np.int32)
+        for k, ci in enumerate(chosen):
+            text = subtitle_text_for_window(
+                subs, clips[ci][0], clips[ci][1], 1 * self.fps, fps=self.fps
+            )
+            ids[k], masks[k] = encode_clip_text(
+                text, self.tokenizer, self.max_text_len
+            )
+            slate_labels[k] = labels[ci]
+        return {
+            "text_ids": ids, "attention_mask": masks,
+            "relevance": relevance, "slate_labels": slate_labels,
+        }
+
+
+class ContrastiveSubtitleDataset(SubtitlePretrainDataset):
+    """MoCo pairs: query window + neighboring windows as positive candidates
+    (youtube_subtitle_dataset.py:415-614).
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:768.
+    """
+
+    def __init__(self, corpus, tokenizer, num_candidates: int = 4, **kw):
+        super().__init__(corpus, tokenizer, task="mlm", **kw)
+        self.num_candidates = num_candidates
+
+    def __getitem__(self, i: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        rng = host_rng(self.seed, epoch, i)
+        vid = self.corpus.vids[i]
+        image_num = self.corpus.image_num(vid)
+        hi = max(1, image_num - self.window_sec)
+        start = int(rng.integers(0, hi))
+        subs = self.corpus.subtitles(vid)
+
+        q_text = subtitle_text_for_window(subs, start, start + self.window_sec)
+        q_ids, q_mask = encode_clip_text(q_text, self.tokenizer,
+                                         self.max_text_len)
+
+        cand_ids = np.zeros((self.num_candidates, self.max_text_len), np.int32)
+        cand_mask = np.zeros_like(cand_ids)
+        for k in range(self.num_candidates):
+            off = int(rng.integers(1, self.window_sec)) * (
+                1 if rng.random() < 0.5 else -1
+            )
+            s = int(np.clip(start + off, 0, hi))
+            text = subtitle_text_for_window(subs, s, s + self.window_sec)
+            cand_ids[k], cand_mask[k] = encode_clip_text(
+                text, self.tokenizer, self.max_text_len
+            )
+        return {
+            "query_ids": q_ids, "query_mask": q_mask,
+            "cand_ids": cand_ids, "cand_mask": cand_mask,
+        }
+
+
+class AllClipDataset:
+    """ALL clips of one video + a sampled target index per epoch
+    (YoutubeAllClipDataset, youtube_dataset.py:199-357). Returns text for
+    every clip of the video, padded to max_clips, with the target clip's
+    label — the sampler used by slate-style training.
+
+    Copied from video_chapter_generation_tpu/data/datasets.py:805.
+    """
+
+    def __init__(self, corpus: VideoCorpus, tokenizer, clip_frame_num: int = 16,
+                 max_text_len: int = 100, max_clips: int = 128, fps: int = 1,
+                 seed: int = 123):
+        self.corpus = corpus
+        self.tokenizer = tokenizer
+        self.clip_frame_num = clip_frame_num
+        self.max_text_len = max_text_len
+        self.max_clips = max_clips
+        self.fps = fps
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.corpus.vids)
+
+    def __getitem__(self, i: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        rng = host_rng(self.seed, epoch, i)
+        vid = self.corpus.vids[i]
+        image_num, cut_points, clips, labels = _video_clip_structure(
+            self.corpus, vid, self.clip_frame_num, self.fps, "infer"
+        )
+        subs = self.corpus.subtitles(vid)
+        n = min(len(clips), self.max_clips)
+        text_ids = np.zeros((self.max_clips, self.max_text_len), np.int32)
+        masks = np.zeros_like(text_ids)
+        clip_labels = np.full((self.max_clips,), -1, np.int32)
+        for k in range(n):
+            text = subtitle_text_for_window(
+                subs, clips[k][0], clips[k][1], 1 * self.fps, fps=self.fps
+            )
+            text_ids[k], masks[k] = encode_clip_text(
+                text, self.tokenizer, self.max_text_len
+            )
+            clip_labels[k] = labels[k]
+        target = int(rng.integers(0, n))
+        return {
+            "text_ids": text_ids,
+            "attention_mask": masks,
+            "clip_labels": clip_labels,
+            "target_clip_idx": np.int32(target),
+            "label": np.int32(labels[target]),
+            "num_clips": np.int32(n),
+        }

@@ -59,10 +59,11 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h)
         self.LayerNorm = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
 
-    def forward(self, input_ids, token_type_ids):
+    def forward(self, input_ids, token_type_ids, input_embeds=None):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
-        emb = (self.word_embeddings(input_ids)
-               + self.position_embeddings(pos)[None]
+        words = (self.word_embeddings(input_ids) if input_embeds is None
+                 else input_embeds)
+        emb = (words + self.position_embeddings(pos)[None]
                + self.token_type_embeddings(token_type_ids))
         return self.LayerNorm(emb)
 
@@ -163,7 +164,12 @@ class BertPooler(nn.Module):
 
 class BertModel(nn.Module):
     """forward(input_ids [B, L], attention_mask [B, L]) ->
-    (last hidden state [B, L, H], pooled output [B, H])."""
+    (last hidden state [B, L, H], pooled output [B, H]).
+
+    input_embeds [B, L, H] replaces the word-embedding lookup of
+    input_ids (the JAX package's models/bert.py:110-122; saliency and
+    integrated gradients differentiate through it); the position and
+    token-type embeddings are added to it all the same."""
 
     def __init__(self, cfg: BertConfig):
         super().__init__()
@@ -174,11 +180,12 @@ class BertModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                input_embeds: Optional[torch.Tensor] = None):
         """generator drives the dropout masks in train() mode."""
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        hidden = self.embeddings(input_ids, token_type_ids)
+        hidden = self.embeddings(input_ids, token_type_ids, input_embeds)
         hidden = dropout(hidden, self.cfg.hidden_dropout, self.training,
                          generator)
         # additive mask [B, 1, 1, L]: 0 keeps, -10000 drops a pad key
@@ -205,9 +212,11 @@ class BertForChapter(nn.Module):
                      if pretrain_stage else nn.Linear(cfg.hidden_size, 2))
 
     def forward(self, text_ids: torch.Tensor, attention_mask: torch.Tensor,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                input_embeds: Optional[torch.Tensor] = None):
         hidden, pooled = self.base_model(text_ids, attention_mask,
-                                         generator=generator)
+                                         generator=generator,
+                                         input_embeds=input_embeds)
         logits = self.head(hidden if self.pretrain_stage else pooled)
         probs = torch.softmax(
             logits.to(torch.promote_types(logits.dtype, torch.float32)), -1)

@@ -287,6 +287,60 @@ def two_stream_window_entries(num_bert_layers: int,
                   for p, k, kind in window_attention_entries()]
 
 
+def ds_window_attention_entries() -> List[Entry]:
+    """DSWindowSelfAttention params (models/fusion_variants.py:26-87) <->
+    port keys."""
+    out = _dense(("position_encoding",), "position_encoding")
+    out += _ln(("position_ln",), "position_ln") + _ln(("norm",), "norm")
+    for name in ("query_proj", "key_proj", "value_proj"):
+        out += _dense((name,), name)
+    out.append((("window_pos_bias",), "window_pos_bias", "copy"))
+    for i in range(3):
+        out += _dense((f"out{i}",), f"out{i}")
+        out += _ln((f"out_ln{i}",), f"out_ln{i}")
+    return out + _dense(("out_final",), "out_final")
+
+
+def domain_specific_head_entries() -> List[Entry]:
+    """DomainSpecificChapterHead params (models/fusion_variants.py:90-140)
+    <-> port keys."""
+    out = (_stacked_mlp(("lang_proj_heads",), "lang_proj_heads", 2)
+           + _stacked_mlp(("vision_proj_heads",), "vision_proj_heads", 3))
+    for name in ("lang_window_attn", "vision_window_attn"):
+        out += [((name, *p), f"{name}.{k}", kind)
+                for p, k, kind in ds_window_attention_entries()]
+    for i in range(4):
+        out += _dense((f"cls{i}",), f"cls{i}")
+        out += _ln((f"cls_ln{i}",), f"cls_ln{i}")
+    return out + _dense(("classifier",), "classifier")
+
+
+def two_stream_domain_specific_entries(num_bert_layers: int,
+                                       stage_sizes: Sequence[int]
+                                       ) -> List[Entry]:
+    """TwoStreamDomainSpecific variables {params: {lang_model,
+    vision_model, fusion_head}, batch_stats: {vision_model}} <-> port
+    keys."""
+    return _streams(num_bert_layers, stage_sizes) + [
+        (("params", "fusion_head", *p), f"fusion_head.{k}", kind)
+        for p, k, kind in domain_specific_head_entries()]
+
+
+def single_block_window_entries() -> List[Entry]:
+    """SingleBlockWindowClassifier params (models/fusion_variants.py:
+    187-244) <-> port keys."""
+    out = _ln(("attention_norm",), "attention_norm")
+    for name in ("position_encoding", "query", "key", "value"):
+        out += _dense((name,), name)
+    out.append((("window_pos_bias",), "window_pos_bias", "copy"))
+    out += _dense(("out_proj",), "out_proj")
+    out += _ln(("ffn_norm",), "ffn_norm")
+    out += _dense(("ffn_fc1",), "ffn_fc1") + _dense(("ffn_fc2",), "ffn_fc2")
+    out += _ln(("cls_ln",), "cls_ln")
+    return out + _dense(("cls_fc1",), "cls_fc1") + _dense(("cls_fc2",),
+                                                            "cls_fc2")
+
+
 def _dense_q(jax_path, key, bias=True) -> List[Entry]:
     """A weight-only int8 Dense (ops/quantize.py:quantize_seq2seq of the
     JAX package: kernel_q [in, out] and scale [out])."""
@@ -395,6 +449,25 @@ def gpt_entries(cfg) -> List[Entry]:
             + _dense(("params", "head"), "head", bias=False))
 
 
+def listwise_bert_entries(num_layers: int) -> List[Entry]:
+    """ListwiseBert variables {bert, head} (JAX models/contrastive.py:
+    119-136) <-> port keys bert.* and head.*."""
+    return ([(("bert", *p), f"bert.{k}", kind)
+             for p, k, kind in bert_entries(num_layers)]
+            + _dense(("head",), "head"))
+
+
+def moco_entries(num_layers: int) -> List[Entry]:
+    """A MoCoState's params_q, params_k and queue (JAX
+    models/contrastive.py:30-34) <-> MoCoTextEncoder's encoder_q.*,
+    encoder_k.* and queue (the pointer: from_jax_moco)."""
+    out: List[Entry] = []
+    for side in "qk":
+        out += [((f"params_{side}", *p), f"encoder_{side}.{k}", kind)
+                for p, k, kind in bert_entries(num_layers)]
+    return out + [(("queue",), "queue", "copy")]
+
+
 def _with_bn_counters(sd):
     """torch BatchNorm state dicts also hold num_batches_tracked."""
     for key in [k for k in sd if k.endswith(".running_var")]:
@@ -435,6 +508,20 @@ def from_jax_two_stream_window(variables, num_bert_layers: int,
                                              head_type)))
 
 
+def from_jax_two_stream_domain_specific(variables, num_bert_layers: int,
+                                        stage_sizes: Sequence[int]):
+    """TwoStreamDomainSpecific {params, batch_stats} -> the port's full
+    state dict."""
+    return _with_bn_counters(from_jax(
+        variables, two_stream_domain_specific_entries(num_bert_layers,
+                                                      stage_sizes)))
+
+
+def from_jax_single_block_window(params):
+    """SingleBlockWindowClassifier params -> the port's state dict."""
+    return from_jax(params, single_block_window_entries())
+
+
 def from_jax_seq2seq(params, cfg):
     """Seq2Seq params -> state dict; an int8 tree (the JAX package's
     quantize_seq2seq) with cfg.weight_quant."""
@@ -451,3 +538,19 @@ def act_scales_from_jax(quant) -> Dict[str, torch.Tensor]:
         out[f"layer{stage}.{block}"] = torch.from_numpy(
             np.array(leaf["act_scales"], dtype=np.float32))
     return out
+
+
+def from_jax_moco(state, num_layers: int) -> Dict[str, torch.Tensor]:
+    """A JAX MoCoState (its fields, or a dict of them) -> MoCoTextEncoder's
+    state dict, queue_ptr an int64 scalar."""
+    tree = {k: (state[k] if isinstance(state, dict) else getattr(state, k))
+            for k in ("params_q", "params_k", "queue", "queue_ptr")}
+    sd = from_jax(tree, moco_entries(num_layers))
+    sd["queue_ptr"] = torch.tensor(int(np.asarray(tree["queue_ptr"])))
+    return sd
+
+
+def from_jax_listwise_bert(variables, num_layers: int
+                           ) -> Dict[str, torch.Tensor]:
+    """ListwiseBert variables {bert, head} -> the port's state dict."""
+    return from_jax(variables, listwise_bert_entries(num_layers))

@@ -430,18 +430,21 @@ class StackedWindowAttention(nn.Module):
         return logits, torch.softmax(logits.float(), dim=-1)
 
 
-class TwoStreamWindow(nn.Module):
-    """The flagship window model (two_stream_window.py:292-445), batched:
-    the window folds into the batch for one BERT call and, with time, for
-    one ResNet call.
+class WindowModel(nn.Module):
+    """The shell of the window models: the window folds into the batch for
+    one BERT call and, with time, for one ResNet call; a subclass sets
+    fusion_head (and any further head modules) and defines head(lang
+    [B, W, D], vision [B, W, T, D'], generator) -> (logits, probs).
 
     forward(img_clips [B, W, T, ...], text_ids [B, W, L], attention_mask
-    [B, W, L]) -> (logits [B, 2], probs [B, 2]); W = 2 window_size + 1."""
+    [B, W, L]) -> (logits [B, 2], probs [B, 2]); W = 2 window_size + 1.
+    eval() serves without gradients, the trunk on its inference kernels;
+    train() (forward(..., train=True)) runs dropout from the generator
+    and the trunk with batch-statistics BatchNorm on its training
+    kernels."""
 
     def __init__(self, lang_model: BertModel, vision_model: ResNet,
-                 window_size: int = 1, segment_size: int = 16,
-                 hidden_size: int = 128, head_type: str = "mlp",
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.1):
+                 window_size: int, segment_size: int, dtype: torch.dtype):
         super().__init__()
         self.lang_model = lang_model
         self.vision_model = vision_model
@@ -449,19 +452,17 @@ class TwoStreamWindow(nn.Module):
         self.num_clips = 2 * window_size + 1
         self.segment_size = segment_size
         self.dtype = dtype
-        self.fusion_head = WindowChapterHead(
-            self.num_clips, segment_size, hidden_size, head_type,
-            lang_dim=lang_model.cfg.hidden_size,
-            vision_dim=vision_model.feature_dim, p=dropout)
-        self.window_attn = StackedWindowAttention(
-            hidden_size, num_heads=16, window_size=window_size, p=dropout)
 
-    def to_serving(self, device) -> "TwoStreamWindow":
+    def head(self, lang, vision, generator=None):
+        raise NotImplementedError
+
+    def to_serving(self, device) -> "WindowModel":
         """Move to device; text model and heads take the compute dtype
         (the vision trunk keeps float32 parameters, as in TwoStream)."""
         self.to(device)
-        for m in (self.lang_model, self.fusion_head, self.window_attn):
-            m.to(self.dtype)
+        for m in self.children():
+            if m is not self.vision_model:
+                m.to(self.dtype)
         return self.eval()
 
     def _streams(self, img_clips, text_ids, attention_mask, vision_model,
@@ -483,8 +484,7 @@ class TwoStreamWindow(nn.Module):
         with _autocast(self.dtype, text_ids.device):
             lang, vision = self._streams(img_clips, text_ids, attention_mask,
                                          self.vision_model, generator)
-            fusion = self.fusion_head(lang, vision, generator)
-            return self.window_attn(fusion, generator)
+            return self.head(lang, vision, generator)
 
     def serve(self, img_clips, text_ids, attention_mask,
               vision_model: Optional[ResNet] = None):
@@ -493,9 +493,8 @@ class TwoStreamWindow(nn.Module):
         with torch.no_grad():
             lang, vision = self._streams(img_clips, text_ids, attention_mask,
                                          vision_model or self.vision_model)
-            dt = self.fusion_head.lang_proj_heads.dense0.weight.dtype
-            return self.window_attn(self.fusion_head(lang.to(dt),
-                                                     vision.to(dt)))
+            dt = next(self.fusion_head.parameters()).dtype
+            return self.head(lang.to(dt), vision.to(dt))
 
     def forward(self, img_clips, text_ids, attention_mask, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -503,3 +502,26 @@ class TwoStreamWindow(nn.Module):
             return self.forward_train(img_clips, text_ids, attention_mask,
                                       generator)
         return self.serve(img_clips, text_ids, attention_mask)
+
+
+class TwoStreamWindow(WindowModel):
+    """The flagship window model (two_stream_window.py:292-445):
+    WindowChapterHead's fused clip vectors through StackedWindowAttention
+    (WindowModel has the batching)."""
+
+    def __init__(self, lang_model: BertModel, vision_model: ResNet,
+                 window_size: int = 1, segment_size: int = 16,
+                 hidden_size: int = 128, head_type: str = "mlp",
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.1):
+        super().__init__(lang_model, vision_model, window_size, segment_size,
+                         dtype)
+        self.fusion_head = WindowChapterHead(
+            self.num_clips, segment_size, hidden_size, head_type,
+            lang_dim=lang_model.cfg.hidden_size,
+            vision_dim=vision_model.feature_dim, p=dropout)
+        self.window_attn = StackedWindowAttention(
+            hidden_size, num_heads=16, window_size=window_size, p=dropout)
+
+    def head(self, lang, vision, generator=None):
+        return self.window_attn(self.fusion_head(lang, vision, generator),
+                                generator)

@@ -478,11 +478,16 @@ class ResNet(nn.Module):
                                  for blk in self.blocks()])
         return self._folded[1], self._folded[2]
 
-    def forward(self, x: torch.Tensor, capture: Optional[dict] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, from_stage: int = 0,
+                capture: Optional[dict] = None) -> torch.Tensor:
+        """from_stage and capture (JAX models/resnet.py:604-613): see
+        forward_eval; training takes neither."""
         if self.training:
+            if from_stage or capture is not None:
+                raise ValueError("from_stage and capture are inference "
+                                 "options")
             return self.forward_train(x)
-        return self.forward_eval(x, capture)
+        return self.forward_eval(x, capture, from_stage)
 
     def forward_train(self, x: torch.Tensor) -> torch.Tensor:
         """Training forward with batch-statistics BatchNorm; updates the
@@ -567,13 +572,32 @@ class ResNet(nn.Module):
             x, w1, w2, w3, g1, be1, g2, be2, g3, be3, t, nd, BN_EPS, wp, gp,
             bep, blk.stride, conv1=conv1)
 
-    @torch.no_grad()
-    def forward_eval(self, x: torch.Tensor,
-                     capture: Optional[dict] = None) -> torch.Tensor:
+    def forward_eval(self, x: torch.Tensor, capture: Optional[dict] = None,
+                     from_stage: int = 0) -> torch.Tensor:
         """Inference forward -> pooled features [N, 2048]. capture: a dict
         that receives the stem output under "stem" and each stage's output
-        under "stage{i}" (JAX models/resnet.py:604-613, 726-727, 858-859)."""
+        under "stage{i}" (JAX models/resnet.py:604-613, 726-727, 858-859).
+
+        from_stage = s > 0 skips the stem and the first s stages: x is the
+        output of stage s (capture["stage{s}"]), and at the last stage only
+        the pool remains (Grad-CAM re-enters there, JAX :801-803). A
+        re-entry runs under the caller's grad mode, differentiable in x
+        on routes that have a backward: the plain ones ("tap3", "xla") and,
+        on the CPU, every route; the whole-block and K5 inference kernels
+        have none, and their wrappers raise on a CUDA input that needs a
+        gradient. A forward from the stem runs without gradients."""
+        if from_stage == 0:
+            with torch.no_grad():
+                return self._forward_eval(x, capture, 0)
+        return self._forward_eval(x, capture, from_stage)
+
+    def _forward_eval(self, x, capture, from_stage):
+        if not 0 <= from_stage <= len(self.stage_sizes):
+            raise ValueError(f"from_stage {from_stage}: 0 to "
+                             f"{len(self.stage_sizes)}")
         stem, blocks = self.folded_params()
+        if from_stage:
+            return self._stages(x, blocks, capture, from_stage)
         if self.stem_input == "s2d" and x.dtype == torch.uint8:
             y = stem_s2d(x, stem["w7"], stem["s"], stem["b"],
                          out_dtype=self.dtype)
@@ -583,11 +607,19 @@ class ResNet(nn.Module):
                             stem["s"], stem["b"])
         if capture is not None:
             capture["stem"] = y
-        plan = self._quant_plan(capture, tuple(y.shape[1:3]))
+        return self._stages(y, blocks, capture, 0)
+
+    def _stages(self, y, blocks, capture, from_stage: int):
+        """Stages from_stage + 1.. on y, then the pool."""
+        plan = self._quant_plan(capture if from_stage == 0 else {},
+                                tuple(y.shape[1:3]))
         quant = self.quant_params(plan) if any(plan) else [None] * len(plan)
-        chained = self._chained(plan, capture)
+        chained = self._chained(plan, capture if from_stage == 0 else {})
         start = 0
         for stage, n in enumerate(self.stage_sizes):
+            if stage < from_stage:
+                start += n
+                continue
             layer = list(getattr(self, f"layer{stage + 1}"))
             for b, blk in enumerate(layer):
                 i = start + b

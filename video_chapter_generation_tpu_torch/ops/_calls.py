@@ -32,3 +32,23 @@ def count(wrapper, attr: str = "launches") -> None:
     """Add one launch to wrapper.<attr>."""
     with _count_lock:
         setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
+# the tsm_impl values whose inference route is plain torch (models/
+# resnet.py:eval_route), so a re-entry through it differentiates
+DIFFERENTIABLE_EVAL_IMPLS = ("tap3", "xla")
+
+
+def refuse_grad(name: str, x: torch.Tensor) -> None:
+    """An inference kernel writes its output through a pointer, which
+    autograd cannot see: raise NotImplementedError where grad mode is on
+    and the activation x requires a gradient, rather than return an output
+    cut off from the graph or give way to the plain version unasked (the
+    weights, folded under no_grad, never do)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            f"{name} has no backward: its inference kernel does not take a "
+            f"gradient. To differentiate a ResNet re-entry (from_stage, "
+            f"Grad-CAM) on the card, use tsm_impl "
+            f"{' or '.join(map(repr, DIFFERENTIABLE_EVAL_IMPLS))}, whose "
+            f"inference route is plain torch")

@@ -220,6 +220,7 @@ def stem_frames(x: torch.Tensor, w7: torch.Tensor, scale: torch.Tensor,
         return stem_frames_reference(x, w7, scale, bias)
     if x.device.type != "cuda":
         raise NotImplementedError(f"stem_frames on {x.device}")
+    _calls.refuse_grad("stem_frames", x)
     n, h, w, c = x.shape
     if (x.dtype != torch.bfloat16 or c != 3 or h != w or h % 4
             or not x.is_contiguous() or x.data_ptr() % 8):

@@ -156,6 +156,7 @@ def tsm_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, n_segment: int,
                                         b3, n_segment, n_div, wp, sp, bp)
     if x.device.type != "cuda":
         raise NotImplementedError(f"tsm_bottleneck on {x.device}")
+    _calls.refuse_grad("tsm_bottleneck", x)
     rc, out = _launch(1, x, w1, w2, w3, s1, b1, s2, b2, s3, b3, n_segment,
                       n_div, wp, sp, bp)
     _calls.count(tsm_bottleneck)
@@ -175,6 +176,7 @@ def tsm_bottleneck_s2(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, wp, sp, bp,
                                         stride=2)
     if x.device.type != "cuda":
         raise NotImplementedError(f"tsm_bottleneck_s2 on {x.device}")
+    _calls.refuse_grad("tsm_bottleneck_s2", x)
     rc, out = _launch(2, x, w1, w2, w3, s1, b1, s2, b2, s3, b3, n_segment,
                       n_div, wp, sp, bp)
     _calls.count(tsm_bottleneck_s2)
@@ -232,6 +234,7 @@ def tsm_bottleneck_chain(x, blocks, n_segment: int, n_div: int = 8,
                                           planar_out)
     if x.device.type != "cuda":
         raise NotImplementedError(f"tsm_bottleneck_chain on {x.device}")
+    _calls.refuse_grad("tsm_bottleneck_chain", x)
     nt, h, w, c = x.shape
     bf = torch.bfloat16
     if x.dtype != bf or not x.is_contiguous():

@@ -231,6 +231,7 @@ def int8_bottleneck(x, q: QuantBottleneck, n_segment: int, n_div: int = 8,
         return outq if out_mode == "i8" else out.to(out_dtype)
     if x.device.type != "cuda":
         raise NotImplementedError(f"tsm_bottleneck_int8 on {x.device}")
+    _calls.refuse_grad("tsm_bottleneck_int8", x)
     nt, h, w, c = x.shape
     f = q.f
     x_i8 = x.dtype == torch.int8
@@ -382,6 +383,7 @@ def int8_s2_bottleneck(x, q: QuantS2Bottleneck, n_segment: int,
     if x.device.type != "cuda":
         raise NotImplementedError(f"tsm_bottleneck_s2_planar_int8 on "
                                   f"{x.device}")
+    _calls.refuse_grad("tsm_bottleneck_s2_planar_int8", x)
     f = q.f
     cout = q.w3q.shape[1]
     x_i8 = x.dtype == torch.int8

@@ -119,6 +119,7 @@ def tsm_conv1x1_bn_relu(x, w, scale, bias, n_segment: int,
                                      relu=True)
     if x.device.type != "cuda":
         raise NotImplementedError(f"tsm_conv1x1_bn_relu on {x.device}")
+    _calls.refuse_grad("tsm_conv1x1_bn_relu", x)
     out = _launch(x, w.reshape(x.shape[-1], -1), scale, bias, n_segment,
                   n_div, relu=True)
     _calls.count(tsm_conv1x1_bn_relu)

@@ -55,7 +55,14 @@ from ..core.config import Config
 from ..core.metrics import MetricWriter, StepTimer
 from ..device import resolve_device
 from ..parallel import dist
-from .optim import ZeroOptimizer, lr_multiplier, make_optimizer, set_lr_mult
+from .optim import (
+    ZeroOptimizer,
+    clipped_step,
+    fill_grads,
+    lr_multiplier,
+    make_optimizer,
+    set_lr_mult,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -185,21 +192,14 @@ class Trainer:
         self.step += 1
         if self.step % k:
             return metrics
-        # optax updates every leaf: a parameter the loss does not reach
-        # (the pooler under the MLM head) still decays, as under AdamW
-        # with a zero gradient (AdamW skips a parameter without one)
-        for p in self.model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        # a parameter the loss does not reach (the pooler under the MLM
+        # head) still decays
+        params = fill_grads(self.model.parameters())
         if self.data_count > 1:
             # the mean of the processes' gradients: that of the global
             # batch's mean loss
-            dist.mean_tensors_([p.grad for p in self.model.parameters()],
-                               self.data_group)
-        # clip_by_global_norm_ref (train/optim.py:87): max_norm / (norm + 1e-6)
-        torch.nn.utils.clip_grad_norm_(self.model.parameters(),
-                                       self.cfg.optim.grad_norm_clip)
-        self.opt.step()
+            dist.mean_tensors_([p.grad for p in params], self.data_group)
+        clipped_step(self.opt, params, self.cfg.optim.grad_norm_clip)
         return metrics
 
     def run_epoch(self, epoch: int) -> Dict[str, float]:

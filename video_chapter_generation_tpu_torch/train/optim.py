@@ -271,3 +271,24 @@ class ZeroOptimizer:
                         for k, v in st.items()}
         self.inner.load_state_dict({"state": state,
                                     "param_groups": sd["param_groups"]})
+
+
+def fill_grads(params) -> list:
+    """params as a list, each parameter the loss did not reach given a
+    zero gradient: optax updates every leaf, so such a parameter still
+    decays, as under AdamW with a zero gradient (AdamW skips a parameter
+    without one)."""
+    params = list(params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return params
+
+
+def clipped_step(opt: torch.optim.Optimizer, params, max_norm: float) -> None:
+    """One update of the JAX chain: the gradients filled (fill_grads),
+    their global norm clipped to max_norm (divided by norm + 1e-6, as
+    clip_by_global_norm_ref), then opt steps."""
+    params = fill_grads(params)
+    torch.nn.utils.clip_grad_norm_(params, max_norm)
+    opt.step()
