@@ -257,10 +257,29 @@
    entries carry "path": the serving and Grad-CAM calls' own numbers, the
    training steps' launches beside the training phase's numbers (its
    128-frame step).
-19. Prints one JSON line of the kernels (a bound over several shapes
+19. hf_import (right after 6, on its BigBird model; ~3 s). ResNet-50
+   (frames stem, T 16, bf16, seeded weights) renamed into HF
+   ResNetModel's keys (resnet_to_hf) and imported back by
+   models/convert_hf.py:convert_hf_resnet: the same state dict, a strict
+   load, and one 16-frame vision call (K8 1, K2/K3 13, K4 3, exact) bit
+   for bit the torchvision-layout trunk's, its kernels held on that
+   call's arguments; phase 6's BigBird-Pegasus-large renamed into HF
+   BigBirdPegasus's keys (bigbird_to_hf) and imported back by
+   convert_hf_seq2seq: a strict load, and its encode of phase 6's 3072
+   tokens (16 K10 launches, none mma.sync) bit for bit phase 6's encoder
+   states, K10 held on its first launch. Its kernels-line entries carry
+   "path".
+20. datasetkit (the last; the host only; ~25 s). A synthetic scrape of
+   2,000 videos in 10 query directories (synth_scrape) through topics,
+   merge, filtering, split, data/corpus.py, the ROUGE easy/hard split,
+   sampler and stats; every merged row passes keep_video, the split
+   files partition the merged vids, the corpus reads them back, and each
+   gated stage whose dependency is missing raises its RuntimeError (the
+   dependencies found are printed).
+21. Prints one JSON line of the kernels (a bound over several shapes
    is the sum of each shape's), the wall time of each phase
    and of the script and, last, the device line. The title decode of 4
-   and each of 5-18 also print their wall time as they end ("serving",
+   and each of 5-20 also print their wall time as they end ("serving",
    1-4 up to the title decode, prints only on that line).
 
 After the serving path (4), the native_decode phase: where the machine
@@ -403,6 +422,11 @@ TRUNK_GRAD_MIN_COS = 0.99
 VARIANTS_SEED, DS_BATCH, VARIANT_TRAIN_STEPS = SEED + 41, 2, 2
 VARIANT_CLI_STEPS, MOCO_BATCH, LISTWISE_BATCH = 3, 8, 4
 CAM_MIN_COS, IG_STEPS = 0.99, 16
+# the datasetkit phase: a synthetic scrape of DATASET_ROWS videos over
+# DATASET_CATEGORIES search-query directories, the test-split videos its
+# ROUGE easy/hard split takes; the hf_import phase's seed
+DATASET_CATEGORIES, DATASET_ROWS, ROUGE_VIDS = 10, 2000, 4
+HF_IMPORT_SEED = SEED + 53
 
 
 def fail(msg: str):
@@ -2141,12 +2165,498 @@ def hold_vision_call(kept):
     return rows
 
 
+def resnet_to_hf(sd):
+    """A port ResNet state dict (torchvision's keys) under HF ResNetModel's
+    keys, the same tensors: what models/convert_hf.py:convert_hf_resnet
+    reads (conv1 / bn1 -> embedder.embedder.{convolution,normalization};
+    layer{s}.{b}.conv{i} / bn{i} -> encoder.stages.{s-1}.layers.{b}.layer.
+    {i-1}; downsample.0 / .1 -> .shortcut)."""
+    out = {}
+    for key, v in sd.items():
+        parts = key.split(".")
+        if parts[0] in ("conv1", "bn1"):
+            base, mod = "embedder.embedder", parts[0]
+        else:
+            base = (f"encoder.stages.{int(parts[0][5:]) - 1}.layers."
+                    f"{parts[1]}")
+            if parts[2] == "downsample":
+                base, mod = (f"{base}.shortcut",
+                             "conv" if parts[3] == "0" else "bn")
+            else:
+                base, mod = f"{base}.layer.{int(parts[2][-1]) - 1}", parts[2]
+        kind = "convolution" if mod.startswith("conv") else "normalization"
+        out[f"{base}.{kind}.{parts[-1]}"] = v
+    return out
+
+
+def bigbird_to_hf(sd):
+    """A port BigBird-Pegasus Seq2Seq state dict under HF
+    BigBirdPegasusForConditionalGeneration's keys, the same tensors: the
+    encoder self-attention's {q,k,v,out}_proj as self.{query,key,value}
+    and output, each side's final LayerNorm as layernorm_embedding, and
+    HF's tied copies of the shared table (lm_head, embed_tokens), which
+    models/convert_hf.py:convert_hf_seq2seq leaves."""
+    names = {"q_proj": "self.query", "k_proj": "self.key",
+             "v_proj": "self.value", "out_proj": "output"}
+    out = {}
+    for key, v in sd.items():
+        parts = key.split(".")
+        if key.startswith("model.encoder.layers.") and \
+                parts[4] == "self_attn":
+            key = ".".join(parts[:5] + [names[parts[5]]] + parts[6:])
+        elif parts[2:3] == ["layer_norm"]:
+            key = f"model.{parts[1]}.layernorm_embedding.{parts[3]}"
+        out[key] = v
+    for key in ("lm_head.weight", "model.encoder.embed_tokens.weight",
+                "model.decoder.embed_tokens.weight"):
+        out[key] = sd["model.shared.weight"]
+    return out
+
+
+def synth_scrape(root, seed, n_categories=DATASET_CATEGORIES,
+                 n_rows=DATASET_ROWS):
+    """A scrape as datasetkit/acquire.py's search_youtube_video leaves it,
+    drawn from seed: n_categories query directories ("How to ..."), each
+    with a data.csv (videoId, title, timestamp: the chapter lines joined
+    by TIMESTAMP_DELIMITER) of n_rows / n_categories rows and a
+    subtitle_<vid>.json a row (an entry {text, start, duration} every 10
+    s). Drawn so that each merge filter drops some rows: durations of
+    60-2400 s (above 1800 dropped), 1-8 chapters (fewer than 3 dropped), a
+    first chapter after 0 s in one video of ten, 0.2 or 2-3 words of
+    speech a second (below 0.5 dropped); half the chapter titles are the
+    first words spoken at the chapter's start. Returns {"queries": the query of
+    each directory, "durations": vid -> seconds, "pages": wikihow
+    category page url -> html listing the queries of that category (every
+    query but the last two has one)}."""
+    import json
+
+    import numpy as np
+    import pandas as pd
+
+    from video_chapter_generation_tpu_torch.datasetkit.parsing import (
+        TIMESTAMP_DELIMITER,
+    )
+    from video_chapter_generation_tpu_torch.datasetkit.topics import (
+        WIKIHOW_SUBJECTS,
+        WIKIHOW_WEBSITE,
+    )
+
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = np.array(["".join(rng.choice(letters, rng.integers(2, 9)))
+                      for _ in range(500)])
+
+    def words(n):
+        return " ".join(vocab[rng.integers(0, len(vocab), n)])
+
+    def stamp(sec):
+        h, m, s = sec // 3600, sec // 60 % 60, sec % 60
+        return f"{h}:{m:02d}:{s:02d}" if h else f"{m}:{s:02d}"
+
+    queries = [f"How to {words(2)}" for _ in range(n_categories)]
+    durations, per_cat = {}, n_rows // n_categories
+    for c, query in enumerate(queries):
+        cat_dir = Path(root) / query
+        cat_dir.mkdir(parents=True)
+        rows = {"videoId": [], "title": [], "timestamp": []}
+        for i in range(per_cat):
+            vid = f"v{c:02d}x{i:05d}"
+            dur = float(round(rng.uniform(60, 2400), 2))
+            n_ch = int(rng.integers(1, 9))
+            first = 0 if rng.random() >= 0.1 else int(rng.integers(5, 30))
+            secs = np.sort(rng.choice(np.arange(first + 1, int(dur) - 1),
+                                      n_ch - 1, replace=False))
+            rate = 0.2 if rng.random() < 0.1 else rng.uniform(2, 3)
+            subs = [{"text": words(max(1, int(rate * 10))),
+                     "start": float(t), "duration": 10.0}
+                    for t in range(0, int(dur), 10)]
+            lines = []
+            for t in [first, *secs]:  # half the titles are spoken words
+                n_w = int(rng.integers(1, 6))
+                said = subs[int(t) // 10]["text"].split()[:n_w]
+                lines.append(f"{stamp(int(t))} " + (
+                    " ".join(said) if rng.random() < 0.5 else words(n_w)))
+            (cat_dir / f"subtitle_{vid}.json").write_text(json.dumps(subs))
+            rows["videoId"].append(vid)
+            rows["title"].append(f"{query}, part {i}")
+            rows["timestamp"].append(TIMESTAMP_DELIMITER.join(lines))
+            durations[vid] = dur
+        pd.DataFrame(rows).to_csv(cat_dir / "data.csv")
+    pages = {}
+    for c in range(n_categories - 2):
+        subject = WIKIHOW_SUBJECTS[c // 2]
+        pages.setdefault(WIKIHOW_WEBSITE + subject, "")
+        pages[WIKIHOW_WEBSITE + subject] += (
+            f'<div class="responsive_thumb_title"><p>{queries[c]}</p></div>')
+    return {"queries": queries, "durations": durations, "pages": pages}
+
+
+def datasetkit_phase(smi):
+    """The dataset kit on the host: a synthetic scrape (synth_scrape, from
+    SEED) under a temporary directory of the build directory; topics
+    (wikihow pages through an injected http_get, queries to categories,
+    vids to categories), merge (durations through duration_fn), filtering,
+    split (its main), the merged CSV through data/corpus.py, the ROUGE
+    easy/hard split of ROUGE_VIDS test videos, sampler (half of each category to
+    its own statistics) and stats. Checks that every merged row passes
+    keep_video, that the three split files partition the merged vids,
+    that the corpus reads the merged rows back, and that each gated stage
+    whose dependency this machine lacks raises its RuntimeError naming
+    it; prints which were present. Returns its laps."""
+    import glob
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from video_chapter_generation_tpu_torch.data.corpus import VideoCorpus
+    from video_chapter_generation_tpu_torch.datasetkit import (
+        acquire,
+        filtering,
+        merge,
+        sampler,
+        split,
+        stats,
+        topics,
+    )
+    from video_chapter_generation_tpu_torch.datasetkit.parsing import (
+        parse_csv_to_list,
+    )
+
+    build = ROOT / "video_chapter_generation_tpu_torch" / "_build"
+    build.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="datasetkit_", dir=build))
+    laps = {}
+
+    def lap(name, t0):
+        laps[name] = round(time.time() - t0, 3)
+        return time.time()
+
+    try:
+        deps = {name: importlib.util.find_spec(name) is not None
+                for name in ("pandas", "cv2", "PIL", "requests",
+                             "youtube_transcript_api", "yt_dlp")}
+        deps["ffmpeg"] = shutil.which("ffmpeg") is not None
+        print(f"# datasetkit dependencies present: {json.dumps(deps)}",
+              flush=True)
+        t0 = time.time()
+        scrape = root / "scrape"
+        info = synth_scrape(scrape, SEED)
+        durations = info["durations"]
+        t0 = lap("synth_scrape", t0)
+
+        # topics: category pages -> queries -> the vids' categories
+        cat2q = topics.scrape_wikihow_queries(
+            subjects=topics.WIKIHOW_SUBJECTS, http_get=info["pages"].get)
+        q2c, counts = topics.assign_query_categories(info["queries"], cat2q)
+        asr_files = sorted(glob.glob(str(scrape / "*" / "subtitle_*.json")))
+        asr_of = {topics.subtitle_path_query(p)[1]: p for p in asr_files}
+        every = topics.categorize_vids(asr_files, q2c)
+        if sorted(v for vs in every.values() for v in vs) != \
+                sorted(durations) or counts["unknown"] != 2:
+            fail(f"topics categorized {sum(map(len, every.values()))} of "
+                 f"{len(durations)} vids, counts {counts}")
+        t0 = lap("topics", t0)
+
+        # merge: durations through duration_fn (no video files)
+        vid2duration = merge.collect_video_durations(
+            [str(root / "videos" / f"{vid}.mp4") for vid in durations],
+            duration_fn=lambda p: durations[Path(p).stem])
+        merged = root / "all_in_one_with_subtitle.csv"
+        n = merge.combine_all_data_with_subtitle(asr_files, vid2duration,
+                                                 str(merged))
+        vids, _, durs, stamps = parse_csv_to_list(str(merged))
+        subs = {v: json.loads(Path(asr_of[v]).read_text()) for v in vids}
+        kept = sum(merge.keep_video(d, subs[v], s)
+                   for v, d, s in zip(vids, durs, stamps))
+        if not (0 < n == len(vids) == kept < len(durations)):
+            fail(f"merge wrote {n} rows ({len(vids)} read back, {kept} "
+                 f"passing keep_video) of {len(durations)}")
+        t0 = lap("merge", t0)
+
+        # filtering
+        rows = [{"vid": v, "duration": d, "timestamp_lines": s}
+                for v, d, s in zip(vids, durs, stamps)]
+        kept_rows, removed = filtering.filter_videos(rows)
+        if len(kept_rows) + len(removed) != len(rows) or not kept_rows:
+            fail(f"filter_videos kept {len(kept_rows)}, removed "
+                 f"{len(removed)} of {len(rows)}")
+        t0 = lap("filtering", t0)
+
+        # split: its main on the merged CSV, read back as the corpus does
+        out_dir = root / "splits"
+        with contextlib.redirect_stdout(io.StringIO()):
+            split.main(["--data_file", str(merged), "--out_dir",
+                        str(out_dir)])
+        parts = {name: (out_dir / f"{name}.txt").read_text().split()
+                 for name in ("train", "val", "test")}
+        joined = [v for part in parts.values() for v in part]
+        if sorted(joined) != sorted(vids) or len(set(joined)) != len(vids):
+            fail(f"the split files {({k: len(v) for k, v in parts.items()})}"
+                 f" do not partition the {len(vids)} merged vids")
+        t0 = lap("split", t0)
+
+        # the merged CSV and the test split through data/corpus.py
+        corpus = VideoCorpus.from_files(str(root / "frames"), str(merged),
+                                        str(out_dir / "test.txt"),
+                                        str(scrape))
+        if corpus.vids != parts["test"] or any(
+                corpus.records[v].duration != vid2duration[v]
+                or corpus.subtitles(v) != subs[v] for v in corpus.vids):
+            fail("data/corpus.py did not read the merged rows back")
+        bad = filtering.find_bad_vids(corpus)
+        # the ROUGE split of ROUGE_VIDS of them (its best-window search
+        # costs 0.6-1.3 s of host time a video of this scrape)
+        few = VideoCorpus(corpus.records, corpus.vids[:ROUGE_VIDS],
+                          corpus.img_dir, corpus.asr_files)
+        easy, hard = split.rouge_upper_bound_split(few)
+        if bad != corpus.vids or sorted(easy + hard) != sorted(few.vids):
+            fail(f"find_bad_vids {len(bad)} (no frames: every vid), ROUGE "
+                 f"split {len(easy)} + {len(hard)} of {len(few)}")
+        t0 = lap("corpus", t0)
+
+        # sampler: half of each category to that category's statistics
+        vid2row = {r["vid"]: r for r in rows}
+        cat2vid = topics.categorize_vids(asr_files, q2c, valid_vids=vids)
+        targets = {c: dict(sampler.stats_for_videos(vs, vid2row),
+                           video_count=len(vs) // 2)
+                   for c, vs in cat2vid.items() if len(vs) >= 4}
+        samp = sampler.DatasetSampler(cat2vid, targets, vid2row, seed=SEED)
+        n_ok = samp.sample_all_categories()
+        samp.save_results(str(root / "sampled.json"),
+                          str(root / "sampled_stats.json"))
+        back = json.loads((root / "sampled.json").read_text())
+        if n_ok != len(targets) or any(
+                len(back[c]) != targets[c]["video_count"]
+                or not set(back[c]) <= set(cat2vid[c]) for c in targets):
+            fail(f"the sampler matched {n_ok} of {len(targets)} categories")
+        t0 = lap("sampler", t0)
+
+        # stats
+        vstats = stats.video_stats(rows)
+        cstats = stats.clips_per_video(rows)
+        vocab = stats.subtitle_vocab(corpus)
+        if vstats["num_videos"] != len(rows) or not cstats["total_clips"] \
+                or not vocab:
+            fail(f"stats: {vstats['num_videos']} videos, {cstats}, "
+                 f"{len(vocab)} words")
+        t0 = lap("stats", t0)
+
+        # the gated stages: each whose dependency is missing raises its
+        # RuntimeError (none that is present is called: they would reach
+        # the network or need a real video)
+        gated = {
+            "requests": lambda: acquire._default_http_get(
+                acquire.YOUTUBE_VIDEO_URL, {}),
+            "youtube_transcript_api": lambda: acquire.fetch_asr("vid"),
+            "yt_dlp": lambda: acquire.download_video("vid", str(root)),
+            "ffmpeg": lambda: acquire.extract_frames(
+                str(root / "none.mp4"), str(root / "frames")),
+            "cv2": lambda: merge.video_duration(str(root / "none.mp4")),
+        }
+        raised = {}
+        for dep, call in gated.items():
+            if deps[dep]:
+                continue
+            try:
+                call()
+            except RuntimeError as exc:
+                raised[dep] = str(exc)
+            if dep.split("_")[0] not in raised.get(dep, ""):
+                fail(f"the {dep} stage did not raise its RuntimeError "
+                     f"({raised.get(dep)!r})")
+        if deps["cv2"] and merge.video_duration(str(root / "none.mp4")) \
+                is not None:
+            fail("video_duration read a duration from a missing file")
+        resized = None
+        if deps["PIL"]:
+            from PIL import Image
+
+            img_dir = root / "frames" / corpus.vids[0]
+            img_dir.mkdir(parents=True)
+            for i in range(4):
+                Image.new("RGB", (224, 224), (i, 2 * i, 3 * i)).save(
+                    img_dir / f"{i + 1:05d}.jpg")
+            resized = topics.resize_frames(str(img_dir))
+            if resized != 4 or Image.open(img_dir / "00001.jpg").size != \
+                    (96, 96):
+                fail(f"topics.resize_frames wrote {resized} files")
+        lap("gated", t0)
+        print(f"# datasetkit: {len(durations)} scraped videos in "
+              f"{len(info['queries'])} categories ({counts['unknown']} "
+              f"queries unknown) -> {n} merged rows (all pass keep_video) -> "
+              f"filter_videos kept {len(kept_rows)}; split "
+              f"{({k: len(v) for k, v in parts.items()})}; corpus of the "
+              f"test split {len(corpus)} vids, ROUGE easy {len(easy)} hard "
+              f"{len(hard)} of its first {len(few)}; sampler {n_ok} of {len(targets)} categories; "
+              f"{cstats['total_clips']} clips, {len(vocab)} subtitle words; "
+              f"gated stages raising: {sorted(raised)}; resize_frames "
+              f"{resized}; laps {json.dumps(laps)} (the host of {smi})",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return laps
+
+
+def hf_import_phase(dev, smi, big, ids, mask, enc):
+    """The HuggingFace weight imports at full width on the card. ResNet-50
+    (frames stem, T 16, bf16; seeded weights through the from_jax table):
+    its state dict renamed into HF ResNetModel keys (resnet_to_hf) and
+    imported back by convert_hf_resnet equals it and loads strictly, and
+    one 16-frame vision call of the imported trunk (K8 1, K2/K3 13, K4 3,
+    exact) gives the torchvision-layout trunk's features bit for bit; its
+    kernels held to their plain versions on that call's own arguments.
+    The bigbird phase's BigBird-Pegasus-large (big), renamed into HF
+    BigBirdPegasus keys (bigbird_to_hf) and imported back by
+    convert_hf_seq2seq, loads strictly and encodes that phase's ids and
+    mask to its encoder states (enc) bit for bit, with K10 launched once a
+    layer on the wgmma kernel, held on its first launch's arguments.
+    Returns the kernels-line entries of the two paths."""
+    import torch
+
+    from video_chapter_generation_tpu_torch.models import convert
+    from video_chapter_generation_tpu_torch.models import (
+        resnet as resnet_model,
+    )
+    from video_chapter_generation_tpu_torch.models import (
+        sparse_attention as sparse_model,
+    )
+    from video_chapter_generation_tpu_torch.models.convert_hf import (
+        convert_hf_resnet,
+        convert_hf_seq2seq,
+    )
+    from video_chapter_generation_tpu_torch.models.resnet import (
+        STAGE_SIZES,
+        ResNet,
+    )
+    from video_chapter_generation_tpu_torch.models.seq2seq import Seq2Seq
+    from video_chapter_generation_tpu_torch.ops.sparse_attention import (
+        sparse_band_attention,
+    )
+    from video_chapter_generation_tpu_torch.ops.stem import stem_frames
+    from video_chapter_generation_tpu_torch.ops.tsm_block import (
+        tsm_bottleneck,
+        tsm_bottleneck_s2,
+    )
+
+    bf = torch.bfloat16
+    sizes = STAGE_SIZES[50]
+    serving = (stem_frames, tsm_bottleneck, tsm_bottleneck_s2)
+    vision_call = {"stem_frames": 1, "tsm_bottleneck": 13,
+                   "tsm_bottleneck_s2": 3}
+
+    def trunk(sd):
+        with torch.device("meta"):
+            m = ResNet(50, n_segment=CLIP_FRAMES, dtype=bf)
+        m.load_state_dict(sd, strict=True, assign=True)
+        return m.to(dev).eval()
+
+    def same(a, b):
+        return a.keys() == b.keys() and all(
+            a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+
+    # --- ResNet-50 through HF ResNetModel's keys ---
+    with torch.device("meta"):
+        shape = ResNet(50, n_segment=CLIP_FRAMES, dtype=bf)
+    tv_sd = convert.from_jax_resnet(convert.random_jax_tree(
+        shape, convert.resnet_entries(sizes), seed=HF_IMPORT_SEED), sizes)
+    t0 = time.time()
+    hf_sd = convert_hf_resnet(resnet_to_hf(tv_sd))
+    rn_import_s = time.time() - t0
+    if not same(hf_sd, tv_sd):
+        fail("convert_hf_resnet did not give the torchvision-layout dict")
+    tv, imported = trunk(tv_sd), trunk(hf_sd)
+    gen = torch.Generator(device=dev).manual_seed(HF_IMPORT_SEED)
+    frames = torch.randn(CLIP_FRAMES, 224, 224, 3, generator=gen,
+                         device=dev).to(bf)
+    want = tv(frames)
+    for f in serving:
+        f.launches = 0
+    with first_calls({(resnet_model, name): n
+                      for name, n in vision_call.items()}) as kept:
+        got = imported(frames)
+        torch.cuda.synchronize()
+    rn_seen = {f.__name__: f.launches for f in serving}
+    print(f"# hf_import ResNet-50 via HF ResNetModel keys "
+          f"({len(hf_sd)} tensors, imported in {rn_import_s:.2f} s): a "
+          f"{tuple(frames.shape)} bf16 vision call, launches {rn_seen}, "
+          f"features bit for bit the torchvision-layout load's "
+          f"{torch.equal(got, want)}", flush=True)
+    if rn_seen != vision_call:
+        fail(f"the imported ResNet's launches {rn_seen} != {vision_call}")
+    if not torch.equal(got, want):
+        fail("the HF-imported ResNet-50's features differ from the "
+             "torchvision-layout load's")
+    rn_rows = hold_vision_call(kept)
+    del kept, tv, imported, tv_sd, hf_sd, want, got
+
+    # --- the bigbird phase's model through HF BigBirdPegasus's keys ---
+    cfg = big.cfg
+    src = big.state_dict()
+    t0 = time.time()
+    bb_sd = convert_hf_seq2seq(bigbird_to_hf(src), cfg)
+    bb_import_s = time.time() - t0
+    if not same(bb_sd, {k: v.cpu() for k, v in src.items()}):
+        fail("convert_hf_seq2seq did not give the port's BigBird dict")
+    with torch.device("meta"):
+        m = Seq2Seq(cfg)
+    m.load_state_dict(bb_sd, strict=True, assign=True)
+    m.to(dev).eval()
+    del bb_sd, src
+    sparse_band_attention.launches = 0
+    sparse_band_attention.mma_sync_launches = 0
+    with first_calls({(sparse_model, "sparse_band_attention"): 1}) as kept:
+        enc2 = m.encode(ids, mask)
+        torch.cuda.synchronize()
+    bb_launches = sparse_band_attention.launches
+    mma = sparse_band_attention.mma_sync_launches
+    print(f"# hf_import BigBird-Pegasus-large via HF BigBirdPegasus keys "
+          f"(imported in {bb_import_s:.2f} s): encode {tuple(ids.shape)}, "
+          f"K10 launches {bb_launches} ({mma} mma.sync), encoder states bit "
+          f"for bit the bigbird phase's {torch.equal(enc2, enc)}",
+          flush=True)
+    if bb_launches != cfg.encoder_layers or mma:
+        fail(f"the imported BigBird launched K10 {bb_launches} times ({mma} "
+             f"mma.sync), not {cfg.encoder_layers} on the wgmma kernel")
+    if not torch.equal(enc2, enc):
+        fail("the HF-imported BigBird's encoder states differ")
+    (q_mid, k, v, kmask, tab_ids, valid, bs, _), _ = \
+        kept["sparse_band_attention"][0]
+    del kept, m, enc2
+    k10 = hold_k10(q_mid, k, v, kmask, (tab_ids, valid), bs,
+                   "sparse_band_attn", "the imported BigBird's first launch",
+                   smi)
+    del q_mid, k, v
+    torch.cuda.empty_cache()
+
+    sources = {"stem_frames": ("csrc/stem_s2d.cu", "stem_pallas.py:255"),
+               "tsm_bottleneck": ("csrc/tsm_bottleneck.cu",
+                                  "tsm_block_pallas.py:1094"),
+               "tsm_bottleneck_s2": ("csrc/tsm_bottleneck.cu",
+                                     "tsm_block_pallas.py:654"),
+               "sparse_band_attention": ("csrc/sparse_attention.cu",
+                                         "sparse_attention_pallas.py:108")}
+
+    def entry(name, launches, row, path):
+        src_file, replaces = sources[name]
+        return dict(name=name, route="cuda",
+                    source=f"video_chapter_generation_tpu_torch/{src_file}",
+                    replaces=f"video_chapter_generation_tpu/ops/{replaces}",
+                    launches=launches, **row, path=path)
+
+    return [entry(name, rn_seen[name], row,
+                  "hf_import: convert_hf_resnet, a 16-frame vision call")
+            for name, row in rn_rows.items()] + [
+        entry("sparse_band_attention", bb_launches, k10,
+              "hf_import: convert_hf_seq2seq, a BigBird encode")]
+
+
 def bigbird_phases(dev, smi, cli_argv):
     """K10 against its plain version at the BigBird-Pegasus serving shape,
     greedy titles of the full-width BigBird model, cli/infer_video
     --title_arch bigbird at 3072 tokens, and one BART-large generate.
-    Returns K10's JSON entries: the wgmma kernel's and the mma.sync
-    kernel's."""
+    Returns K10's JSON entries (the wgmma kernel's and the mma.sync
+    kernel's) and, for the hf_import phase, the BigBird model with the ids
+    and mask of its encode and the encoder states."""
     import os
 
     import numpy as np
@@ -2276,8 +2786,6 @@ def bigbird_phases(dev, smi, cli_argv):
     if not torch.isfinite(enc.float()).all():
         fail("the BigBird encoder states are not finite")
     timed_generate(big, ids, mask, "BigBird-Pegasus-large bf16")
-    del big, enc
-    torch.cuda.empty_cache()
 
     # --- cli/infer_video --title_arch bigbird at 3072 tokens ---
     build_dir = ROOT / "video_chapter_generation_tpu_torch" / "_build"
@@ -2333,7 +2841,7 @@ def bigbird_phases(dev, smi, cli_argv):
              "launches": launches - mma_launches, **row},
             {"name": "sparse_band_attention_mma_sync", "route": "cuda",
              "source": src, "replaces": tpu, "launches": mma_launches,
-             **mma_row}]
+             **mma_row}], (big, ids, mask, enc)
 
 
 def window_phases(dev, smi, frames, vision):
@@ -6599,7 +7107,12 @@ def main() -> int:
         "infer", infer_phases, dev, smi, frames, vision, ts_sd, delta)
     del ts_sd, s2s
     torch.cuda.empty_cache()
-    bigbird_kernels = timed("bigbird", bigbird_phases, dev, smi, cli_argv)
+    bigbird_kernels, bigbird_run = timed("bigbird", bigbird_phases, dev,
+                                         smi, cli_argv)
+    # the HF imports: ResNet-50's vision call, the bigbird phase's encode
+    hf_kernels = timed("hf_import", hf_import_phase, dev, smi, *bigbird_run)
+    del bigbird_run
+    torch.cuda.empty_cache()
     train_kernels = timed("training", training_phases, dev, smi, frames,
                           vision)
     window_kernels, window_eval = timed("window", window_phases, dev, smi,
@@ -6679,6 +7192,8 @@ def main() -> int:
     # processes (the numbers of its kernel step, the launches of its
     # 2-process train_segment run)
     dp_kernels = timed("data_parallel", data_parallel_phase, dev, smi)
+    # the dataset kit on the host
+    timed("datasetkit", datasetkit_phase, smi)
     native_kernels = [dict(k, launches=native_launches[k["name"]],
                            path="ChapterPipeline, native decode")
                       for k in kernels] if native_launches else []
@@ -6686,7 +7201,8 @@ def main() -> int:
                       + train_kernels + window_kernels + int8_s2_kernels
                       + [chain_kernel] + vision_kernels + [title_kernel]
                       + eval_kernels + parallel_kernels
-                      + native_kernels + variants_kernels + dp_kernels}))
+                      + native_kernels + variants_kernels + dp_kernels
+                      + hf_kernels}))
     print(f"# phase seconds {json.dumps(laps)}; chip_smoke wall time "
           f"{time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

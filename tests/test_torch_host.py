@@ -576,3 +576,59 @@ def test_utils_copies_match(tmp_path):
         with profiling.annotate("region"):
             np.ones(3).sum()
     assert list(tmp_path.glob("*.json"))
+
+
+def test_frame_pack_and_host_seed_match(disk, tmp_path):
+    """data/frames.py's VideoFramePack (the memmap file and the clips it
+    serves, built and then reopened) and core/seeding.py's set_host_seed
+    against the JAX package's copies."""
+    import random
+
+    from video_chapter_generation_tpu.core import seeding as jax_seeding
+    from video_chapter_generation_tpu.data import frames as jax_frames
+    from video_chapter_generation_tpu_torch.core import seeding
+    from video_chapter_generation_tpu_torch.data import frames
+
+    c, _ = _corpora(disk)
+    vid = c.vids[0]
+    paths = [c.frame_path(vid, i) for i in range(1, c.image_num(vid) + 2)]
+    idx = [0, 1, 5, len(paths), len(paths) + 3]  # clipped at both ends
+    packs = {}
+    for name, mod in (("port", frames), ("jax", jax_frames)):
+        pack = mod.VideoFramePack(str(tmp_path / name), vid, paths, hw=32)
+        again = mod.VideoFramePack(str(tmp_path / name), vid, paths, hw=32)
+        np.testing.assert_array_equal(pack.clip(idx), again.clip(idx))
+        packs[name] = pack
+    assert Path(packs["port"].path).read_bytes() == \
+        Path(packs["jax"].path).read_bytes()
+    _same(packs["port"].clip(idx), packs["jax"].clip(idx))
+    draws = []
+    for mod in (seeding, jax_seeding):
+        mod.set_host_seed(7)
+        draws.append((random.random(), np.random.rand(3).tolist()))
+        mod.set_host_seed()
+        draws.append((random.random(), np.random.rand(3).tolist()))
+    assert draws[:2] == draws[2:]
+
+
+@pytest.mark.parametrize("size", [(13, 21), (48, 70)])
+def test_resize_frames_matches_jax_image_resize(size):
+    """ops/preprocess.py:resize_frames (F.interpolate, bilinear,
+    antialiased) against the JAX package's jax.image.resize "bilinear" at
+    1e-5: a downscale and an upscale of [2, 3, 29, 37, 3] float32."""
+    import jax.numpy as jnp
+    import torch
+
+    from video_chapter_generation_tpu.ops.preprocess import (
+        resize_frames as jax_resize,
+    )
+    from video_chapter_generation_tpu_torch.ops.preprocess import (
+        resize_frames,
+    )
+
+    x = np.random.default_rng(3).uniform(
+        -2, 2, (2, 3, 29, 37, 3)).astype(np.float32)
+    got = resize_frames(torch.from_numpy(x), *size).numpy()
+    want = np.asarray(jax_resize(jnp.asarray(x), *size))
+    assert got.shape == want.shape == (2, 3, *size, 3)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -49,7 +49,10 @@ def test_port_module_list_is_complete():
                  "cli.train_listwise", "cli.convert_weights",
                  "cli.export_tokenizer", "visualization.interpret",
                  "visualization.frames", "utils.memory", "utils.profiling",
-                 "utils.flops"):
+                 "utils.flops", "datasetkit.parsing", "datasetkit.acquire",
+                 "datasetkit.filtering", "datasetkit.merge",
+                 "datasetkit.sampler", "datasetkit.split", "datasetkit.stats",
+                 "datasetkit.topics", "models.convert_hf"):
         assert f"{PORT}.{name}" in MODULES, name
 
 

@@ -4,7 +4,8 @@
 Supports:
 - a torchvision resnet50 state dict          (--kind resnet50)
 - a HuggingFace BertModel state dict         (--kind bert)
-- HF Pegasus/BART ForConditionalGeneration   (--kind pegasus|bart)
+- HF Pegasus/BART ForConditionalGeneration   (--kind pegasus|bart;
+  models/convert_hf.py:convert_hf_seq2seq)
 - the reference's TwoStreamWindow checkpoint {model_state_dict, ...}
   (--kind two_stream_window --window_size N --head_type mlp|cross_attn)
 
@@ -75,6 +76,7 @@ def convert(kind: str, sd: Dict[str, torch.Tensor], window_size: int = 1,
     checked by a strict load into the port's model of that kind."""
     from ..models import convert_reference as ref
     from ..models.bert import BertModel
+    from ..models.convert_hf import convert_hf_seq2seq
     from ..models.fusion import TwoStreamWindow
     from ..models.resnet import ResNet
     from ..models.seq2seq import Seq2Seq
@@ -91,9 +93,7 @@ def convert(kind: str, sd: Dict[str, torch.Tensor], window_size: int = 1,
     elif kind in ("pegasus", "bart"):
         sd = {k.removeprefix("base_model."): v for k, v in sd.items()}
         cfg = _seq2seq_config(kind, sd)
-        with torch.device("meta"):
-            keys = Seq2Seq(cfg).state_dict().keys()
-        out = {k: sd[k].detach().cpu().clone() for k in keys}
+        out = convert_hf_seq2seq(sd, cfg)
         build = lambda: Seq2Seq(cfg)  # noqa: E731
     else:
         out = ref.convert_two_stream_window(sd, window_size, head_type)

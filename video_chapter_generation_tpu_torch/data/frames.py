@@ -97,6 +97,36 @@ class FrameCache:
         self._cache.clear()
 
 
+class VideoFramePack:
+    """Per-video uint8 memmap pack: decode each frame once, then serve any
+    clip as a zero-copy slice (WindowClipDatasetv2's memmap cache,
+    youtube_dataset.py:638-664).
+
+    Copied from video_chapter_generation_tpu/data/frames.py:95.
+    """
+
+    def __init__(self, cache_dir: str, vid: str, frame_paths: Sequence[str],
+                 hw: int = FRAME_HW):
+        os.makedirs(cache_dir, exist_ok=True)
+        self.hw = hw
+        self.n = len(frame_paths)
+        self.path = os.path.join(cache_dir, f"{vid}_{hw}.u8")
+        if not os.path.exists(self.path) or (
+            os.path.getsize(self.path) != self.n * hw * hw * 3
+        ):
+            mm = np.memmap(self.path, np.uint8, "w+", shape=(self.n, hw, hw, 3))
+            for i, p in enumerate(frame_paths):
+                mm[i] = load_frame(p, hw)
+            mm.flush()
+        self.mm = np.memmap(self.path, np.uint8, "r", shape=(self.n, hw, hw, 3))
+
+    def clip(self, frame_indices_1based: Sequence[int]) -> np.ndarray:
+        """Serve frames by the 1-based file indices used everywhere else."""
+        idx = np.asarray(frame_indices_1based) - 1
+        idx = np.clip(idx, 0, self.n - 1)
+        return np.asarray(self.mm[idx])
+
+
 def space_to_depth4(frames: np.ndarray) -> np.ndarray:
     """uint8 [..., H, W, 3] -> [..., H/4, W/4, 48] (numpy fallback for the
     native s2d decode path; channel order di*12 + dj*3 + c).

@@ -7,7 +7,7 @@ the JAX package.
 
 from __future__ import annotations
 import re
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 
 TIMESTAMP_DELIMITER = "%^&*"
@@ -159,3 +159,17 @@ def parse_csv_to_list(csv_file: str, w_duration: bool = True):
     if w_duration:
         return vids, titles, durations, timestamps
     return vids, titles, timestamps
+
+
+def parse_timestamp_lines(lines: Sequence[str]) -> Tuple[List[int], List[str]]:
+    """Parse raw chapter lines into (start_seconds, description) pairs.
+
+    Copied from video_chapter_generation_tpu/datasetkit/parsing.py:151.
+    """
+    secs: List[int] = []
+    descs: List[str] = []
+    for line in lines:
+        sec, desc = extract_first_timestamp(line)
+        secs.append(sec)
+        descs.append(desc)
+    return secs, descs

@@ -16,6 +16,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import _build, _calls
 
@@ -101,3 +102,16 @@ def depth_to_space4(s4: torch.Tensor) -> torch.Tensor:
     c = c48 // 16
     y = s4.reshape(n, h, w, 4, 4, c).permute(0, 1, 3, 2, 4, 5)
     return y.reshape(n, 4 * h, 4 * w, c)
+
+
+def resize_frames(frames: torch.Tensor, height: int, width: int
+                  ) -> torch.Tensor:
+    """Bilinear resize [..., H, W, C] -> [..., height, width, C] on the
+    tensor's device (the JAX package's ops/preprocess.py:100,
+    jax.image.resize "bilinear": half-pixel centres, a triangle filter
+    widened by the scale where it shrinks, i.e. antialiased)."""
+    *lead, h, w, c = frames.shape
+    x = frames.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    y = F.interpolate(x, size=(height, width), mode="bilinear",
+                      align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1).reshape(*lead, height, width, c)
