@@ -32,7 +32,9 @@
    bf16 frames [256, 224, 224, 3]: the decoded frames of one vision call;
    one launch, the pool fused) to its plain version beside its cuDNN
    yardstick, and the pool kernel (`bn_relu_maxpool`, on no model path)
-   at its former shape, the conv output [256, 112, 112, 64];
+   at its former shape, the conv output [256, 112, 112, 64], bit for bit,
+   beside its torch sequence (the affine and ReLU in bf16, then
+   F.max_pool2d);
    calibrates the full-width
    frames-stem trunk on the card and holds each of its 10 W8A8 blocks
    (`tsm_bottleneck_int8`) to its plain version, each fed the kernel
@@ -57,23 +59,30 @@
    layer 0 on ids whose rows are valid for 300..3072 tokens), timing
    kernel, plain version, the library yardstick (SDPA with the
    equivalent float mask) and the bound, and two runs bit for bit (the
-   serving shape takes the wgmma kernel); holds K10's mma.sync kernel,
-   which every other accepted shape takes, the same way on the same q, k
-   and v in bs-32 tables; holds the whole block-sparse attention on the
-   card to its float32 form on the CPU for two rows; checks 16 K10
-   launches per encode, none of them mma.sync, and greedy-generates 30
-   tokens at batch 8 from 3072-token inputs; runs cli/infer_video.main with
-   --title_arch bigbird data.title_input_len=3072 --pipelined from the
-   checkpoint of phase 5, checking 16 K10 launches per title batch and a
-   title per chapter; then one greedy generate of BART-large.
+   serving shape takes the serving kernel); holds K10 the same way on
+   the same bytes at the shapes that take its other two kernels (the
+   ring kernel or the mma.sync kernel, as the shape's route says): q, k
+   and v in bs-32 tables (94 x 8 table entries), as H 64 of hd 16 in
+   bs-16 tables with one random block (the --tiny BigBird's block, head
+   dim and P 6), in bs-48 tables, as H 32 of hd 32 and H 8 of hd 128 in
+   bs-64 tables, and in bs-64 tables of 5 random blocks (P 10), each
+   time checking that the route's kernel's counter moved and no other
+   (each of the two held at one shape at least); holds the whole
+   block-sparse attention on the card to its float32 form on the CPU for
+   two rows; checks 16 K10 launches per encode, all on the serving
+   kernel, and greedy-generates 30 tokens at batch 8 from 3072-token
+   inputs; runs cli/infer_video.main with --title_arch bigbird
+   data.title_input_len=3072 --pipelined from the checkpoint of phase 5,
+   checking 16 K10 launches per title batch, all on the serving kernel,
+   and a title per chapter; then one greedy generate of BART-large.
 7. Training. Holds every training kernel entry (the K11 stem, the K12
    bottleneck of each kind forward and backward with its finale, and the
    K13 trunk's links and recomputation of p) against its plain PyTorch
    version at every shape of one full-width step (8 clips x 16 frames =
    128 frames at 224 px, bf16), with the forward output, the batch
-   statistics and every gradient compared and both timed (K11 also
-   beside its cuDNN sequence through autograd, and two of its runs bit
-   for bit); holds each
+   statistics and every gradient compared and both timed (K11 and each
+   K12 block also beside its cuDNN sequence through autograd, and two of
+   K11's runs bit for bit); holds each
    link bit for bit to what the per-block chain computes there, and the
    trunk Function's forward bit for bit to the chain of per-block
    Functions, its gradients in the bands, two of its runs bit for bit,
@@ -266,9 +275,9 @@
    call's arguments; phase 6's BigBird-Pegasus-large renamed into HF
    BigBirdPegasus's keys (bigbird_to_hf) and imported back by
    convert_hf_seq2seq: a strict load, and its encode of phase 6's 3072
-   tokens (16 K10 launches, none mma.sync) bit for bit phase 6's encoder
-   states, K10 held on its first launch. Its kernels-line entries carry
-   "path".
+   tokens (16 K10 launches, all on the serving kernel) bit for bit
+   phase 6's encoder states, K10 held on its first launch. Its
+   kernels-line entries carry "path".
 20. datasetkit (the last; the host only; ~25 s). A synthetic scrape of
    2,000 videos in 10 query directories (synth_scrape) through topics,
    merge, filtering, split, data/corpus.py, the ROUGE easy/hard split,
@@ -301,9 +310,12 @@ times K1, K8, K9, K14a and K14b alone (and their yardsticks: cuDNN for
 the stems, the bf16 K2/K3 and K4 launches of the same blocks) at the
 shapes of one 256-frame vision call, K6 on the frames of one 16-clip call
 (beside torch.addcmul), K11's two entries at one training step's shape
-(beside its cuDNN sequence through autograd, and split by pass) and K10
-at the BigBird-Pegasus serving shape (beside SDPA with its float mask),
-with K6's, K14b's and K10's device time by kernel, on the package of
+(beside its cuDNN sequence through autograd, and split by pass), K10
+at the BigBird-Pegasus serving shape (beside SDPA with its float mask)
+and at its other held shapes (phase 6's), each of its kernels at each
+class of block size and head dim, and the pool kernel
+at its held shape (beside its torch sequence), with K6's, K14b's and
+K10's device time by kernel, on the package of
 CHECKOUT (default: beside this script), seeded random weights, frames
 and attention inputs; one JSON line. Two trees are compared within one
 call by running it on each in turns.
@@ -349,6 +361,21 @@ INT8_TRUNK_MIN_COS = 0.98
 # for --title_arch bigbird), batch, and the padded lengths of the K10 rows
 BIGBIRD_IN, BIGBIRD_BATCH = 3072, 8
 BIGBIRD_MIN_LEN = 300
+# K10 at the shapes other than the serving one (the ring or the mma.sync
+# kernel, as its route says), held on the serving layer's q, k and v (B 8,
+# L 3072, 1024 wide): (label, block size, heads, random blocks); the first
+# a kernel takes is its kernels-line row
+K10_OTHER_SHAPES = [
+    ("bs 32 (94 x 8 table entries)", 32, 16, 3),
+    ("bs 16, hd 16, P 6 (--tiny's)", 16, 64, 1),
+    ("bs 48", 48, 16, 3),
+    ("bs 64, hd 32", 64, 32, 3),
+    ("bs 64, hd 128", 64, 8, 3),
+    ("bs 64, P 10", 64, 16, 5)]
+# --time-kernels times the ring and the mma.sync kernel at each class of
+# these block sizes and head dims (P 8, H 1024 // hd), for K10's route
+K10_ROUTE_BS, K10_ROUTE_HD = (16, 32, 48, 64), (16, 32, 48, 64, 80, 96, 112,
+                                                 128)
 # the window model: training steps of 2 windows (3 clips x 16 frames each)
 # per tsm_impl, and the scoring batch (4 windows: 192 frames a vision call)
 WINDOW_STEPS, WINDOW_BATCH = 3, 4
@@ -589,6 +616,83 @@ def library_stem(frames, w7, scale, bias):
         return F.max_pool2d(y, 3, stride=2, padding=1)
 
     return run
+
+
+def library_pool(x, scale, bias):
+    """The pool kernel's yardstick, a library sequence and never a route:
+    the folded-BN affine and the ReLU as torch ops in bf16 on NHWC x (as
+    the stems' yardstick applies them), then F.max_pool2d (3x3/2, pad 1)
+    in channels_last. Returns a function of no arguments giving the
+    output (NCHW, channels_last)."""
+    import torch
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    xc = x.permute(0, 3, 1, 2)  # NHWC memory: channels_last
+    s, b = scale.to(bf).view(1, -1, 1, 1), bias.to(bf).view(1, -1, 1, 1)
+
+    def run():
+        y = torch.relu_(torch.addcmul(b, xc, s))
+        return F.max_pool2d(y, 3, stride=2, padding=1)
+
+    return run
+
+
+def library_block_train(x, params, stride, t, dy):
+    """K12's yardstick, a library sequence and never a route: one training
+    bottleneck as the temporal shift in torch ops, cuDNN F.conv2d per conv
+    in channels_last bf16, F.batch_norm in training mode (batch
+    statistics, float32 affine), ReLU, the projection and the residual,
+    through torch autograd. params: the 12-slot (w1 w2 w3 wp g1 be1 g2 be2
+    g3 be3 gp bep) form. Returns (forward, backward), functions of no
+    arguments: the forward builds the graph of a step, the backward runs
+    the gradient of dy [N, h, w, Co] to x and every weight, gamma and
+    beta through one graph made ahead."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_chapter_generation_tpu_torch.ops.temporal_shift import (
+        temporal_shift_reference,
+    )
+
+    bf = torch.bfloat16
+    w1, w2, w3, wp, g1, be1, g2, be2, g3, be3, gp, bep = params
+
+    def oihw(w, k):
+        w = w.detach().reshape(k, k, *w.shape[-2:])
+        return w.permute(3, 2, 0, 1).to(bf).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+
+    def affine(v):
+        return v.detach().float().clone().requires_grad_()
+
+    xl = x.detach().clone().requires_grad_()
+    k1, k2, k3 = oihw(w1, 1), oihw(w2, 3), oihw(w3, 1)
+    bn = [affine(v) for v in (g1, be1, g2, be2, g3, be3)]
+    kp = None if wp is None else (oihw(wp, 1), affine(gp), affine(bep))
+    leaves = [xl, k1, k2, k3, *bn] + ([] if kp is None else list(kp))
+    grad = dy.to(bf).permute(0, 3, 1, 2)
+
+    def norm(y, g, b):
+        return F.batch_norm(y, None, None, g, b, training=True, eps=1e-5)
+
+    def forward():
+        xs = temporal_shift_reference(xl, t, 8).permute(0, 3, 1, 2)
+        y = torch.relu(norm(F.conv2d(xs, k1), bn[0], bn[1]))
+        y = torch.relu(norm(F.conv2d(y, k2, stride=stride, padding=1),
+                            bn[2], bn[3]))
+        y = norm(F.conv2d(y, k3), bn[4], bn[5])
+        xr = xl.permute(0, 3, 1, 2)
+        res = xr if kp is None else norm(F.conv2d(xr, kp[0], stride=stride),
+                                         kp[1], kp[2])
+        return torch.relu(y + res)
+
+    made = forward()
+
+    def backward():
+        return torch.autograd.grad(made, leaves, grad, retain_graph=True)
+
+    return forward, backward
 
 
 def library_stem_train(frames, w7, gamma, beta, dy):
@@ -878,7 +982,7 @@ def _block_bwd(x, st, dy, t):
 
 
 def hold_train_kernels(dev, gen, x_in, stem_w, blocks, kinds, t,
-                       passes=None):
+                       passes=None, library=False):
     """Every kernel of one training step of the vision trunk against its
     plain version, timed beside it, on these inputs: K11 on x_in (uint8
     s2d cells or bf16 frames) with stem_w (the HWIO 7x7 weight, gamma,
@@ -886,8 +990,10 @@ def hold_train_kernels(dev, gen, x_in, stem_w, blocks, kinds, t,
     the kind in kinds), fed the kernel output of the one below, its
     finale and its p made again (K13), and from block 1 on K13's two
     links between it and the block below. passes, a list, gets (x, state,
-    dy) of each block. Returns (the entries' sums by kernel name, the
-    stem kernel's output, the top block's output)."""
+    dy) of each block; with library, K12 is timed beside its cuDNN
+    sequence through autograd (library_block_train) too. Returns (the
+    entries' sums by kernel name, the stem kernel's output, the top
+    block's output)."""
     import torch
 
     from video_chapter_generation_tpu_torch.ops.preprocess import (
@@ -1121,6 +1227,16 @@ def hold_train_kernels(dev, gen, x_in, stem_w, blocks, kinds, t,
             xk, w1, w2, w3, g1, be1, g2, be2, g3, be3, t, 8, 1e-5, wp, gp,
             bep, stride))
         pb = cuda_ms(lambda: grad_of(yr, [xk] + pp, dy))
+        lib_note = ""
+        if library:
+            lib_f, lib_b = library_block_train(x, params, stride, t, dy)
+            lf, lb = cuda_ms(lib_f), cuda_ms(lib_b)
+            for name, ms in (("tsm_block_train_fwd", lf),
+                             ("tsm_block_train_bwd", lb)):
+                entries[name]["library_ms"] = \
+                    entries[name].get("library_ms", 0.0) + ms
+            lib_note = f" | cuDNN sequence fwd {lf:.3f} ms bwd {lb:.3f}"
+            del lib_f, lib_b
         nt, h, w, c = x.shape
         flops, m_in, m_out, nw = block_work(nt, h, w, c, f, co, stride,
                                             st.proj)
@@ -1135,7 +1251,7 @@ def hold_train_kernels(dev, gen, x_in, stem_w, blocks, kinds, t,
               f"{w_out[2]:.6f} mean_rel {w_out[1]:.3g} | grads cos "
               f"{w_grad[2]:.6f} mean_rel {w_grad[1]:.3g} | fwd kernel "
               f"{kf:.3f} ms plain {pf:.3f} | bwd kernel {kb:.3f} ms plain "
-              f"{pb:.3f}", flush=True)
+              f"{pb:.3f}{lib_note}", flush=True)
 
         # the finale and its backward prologue alone (the trunk launches
         # them for its top block only)
@@ -1485,7 +1601,7 @@ def training_phases(dev, smi, frames, vision):
         dev, gen, x0, [vision.conv1.weight.permute(2, 3, 1, 0),
                        vision.bn1.weight, vision.bn1.bias],
         [blk.train_params() for blk in blocks],
-        [blk.kind() for blk in blocks], t, passes)
+        [blk.kind() for blk in blocks], t, passes, library=True)
 
     def k12_split():
         """K12's device time a step by what its kernels compute, from one
@@ -1780,9 +1896,9 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
                          "tsm_bottleneck_int8")}
 
     def held(name, label, kernel, plain, flops, nbytes, exact_int=False,
-             library=None):
+             exact=False, library=None):
         return hold(entries, name, label, kernel, plain, flops, nbytes,
-                    exact_int, library=library)
+                    exact_int, exact, library=library)
 
     # the frames-stem trunk on the serving trunk's weights (shared storage)
     with torch.device("meta"):
@@ -1807,7 +1923,8 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
     held("bn_relu_maxpool", f"{tuple(conv.shape)} bf16",
          lambda: bn_relu_maxpool(conv, stem_p["s"], stem_p["b"]),
          lambda: bn_relu_maxpool_reference(conv, stem_p["s"], stem_p["b"]),
-         2 * conv.numel(), conv.numel() * 2 + conv.numel() // 2 + 64 * 8)
+         2 * conv.numel(), conv.numel() * 2 + conv.numel() // 2 + 64 * 8,
+         exact=True, library=library_pool(conv, stem_p["s"], stem_p["b"]))
     del conv
 
     # --- K9: calibrate on the card, then each W8A8 block vs its plain ---
@@ -1981,8 +2098,9 @@ def infer_phases(dev, smi, frames, vision, ts_sd, delta):
                     "launches": launches[name], "max_abs_err": e["max_abs"],
                     "ms": e["ms"], "plain_ms": e["plain_ms"],
                     "bound_ms": b_ms, "bound_by": b_by,
-                    # the stem's cuDNN sequence; no one PyTorch call
-                    # computes the pool with its affine or the W8A8 block
+                    # the stem's cuDNN sequence, the pool's torch ops and
+                    # F.max_pool2d; no one PyTorch call computes the W8A8
+                    # block
                     "library_ms": e.get("library_ms")})
     return out, argv, run
 
@@ -2603,20 +2721,21 @@ def hf_import_phase(dev, smi, big, ids, mask, enc):
     m.to(dev).eval()
     del bb_sd, src
     sparse_band_attention.launches = 0
-    sparse_band_attention.mma_sync_launches = 0
+    sparse_band_attention.serving_launches = 0
     with first_calls({(sparse_model, "sparse_band_attention"): 1}) as kept:
         enc2 = m.encode(ids, mask)
         torch.cuda.synchronize()
     bb_launches = sparse_band_attention.launches
-    mma = sparse_band_attention.mma_sync_launches
+    serving = sparse_band_attention.serving_launches
     print(f"# hf_import BigBird-Pegasus-large via HF BigBirdPegasus keys "
           f"(imported in {bb_import_s:.2f} s): encode {tuple(ids.shape)}, "
-          f"K10 launches {bb_launches} ({mma} mma.sync), encoder states bit "
-          f"for bit the bigbird phase's {torch.equal(enc2, enc)}",
+          f"K10 launches {bb_launches} ({serving} serving), encoder states "
+          f"bit for bit the bigbird phase's {torch.equal(enc2, enc)}",
           flush=True)
-    if bb_launches != cfg.encoder_layers or mma:
-        fail(f"the imported BigBird launched K10 {bb_launches} times ({mma} "
-             f"mma.sync), not {cfg.encoder_layers} on the wgmma kernel")
+    if bb_launches != cfg.encoder_layers or serving != bb_launches:
+        fail(f"the imported BigBird launched K10 {bb_launches} times "
+             f"({serving} on the serving kernel), not {cfg.encoder_layers} "
+             f"on the serving kernel")
     if not torch.equal(enc2, enc):
         fail("the HF-imported BigBird's encoder states differ")
     (q_mid, k, v, kmask, tab_ids, valid, bs, _), _ = \
@@ -2654,8 +2773,8 @@ def bigbird_phases(dev, smi, cli_argv):
     """K10 against its plain version at the BigBird-Pegasus serving shape,
     greedy titles of the full-width BigBird model, cli/infer_video
     --title_arch bigbird at 3072 tokens, and one BART-large generate.
-    Returns K10's JSON entries (the wgmma kernel's and the mma.sync
-    kernel's) and, for the hf_import phase, the BigBird model with the ids
+    Returns K10's JSON entries (the serving, ring and mma.sync kernels')
+    and, for the hf_import phase, the BigBird model with the ids
     and mask of its encode and the encoder states."""
     import os
 
@@ -2673,6 +2792,7 @@ def bigbird_phases(dev, smi, cli_argv):
         _tables,
         block_sparse_attention,
     )
+    from video_chapter_generation_tpu_torch.ops import sparse_attention as sa
     from video_chapter_generation_tpu_torch.ops.sparse_attention import (
         sparse_band_attention,
     )
@@ -2736,23 +2856,45 @@ def bigbird_phases(dev, smi, cli_argv):
             layer.self_attn.v_proj)]
     tabs = _tables(nb, cfg.num_rand_blocks, 0, None, dev)
     q_mid = q[:, bs:l - bs]
-    mma0 = sparse_band_attention.mma_sync_launches
+
+    def counts():
+        return [getattr(sparse_band_attention, f"{r}_launches")
+                for r in sa.ROUTES]
+
+    def ran(before):  # the kernels whose counters moved since `before`
+        return [r for r, a, z in zip(sa.ROUTES, before, counts()) if z != a]
+
+    before = counts()
     row = hold_k10(q_mid, k, v, mask, tabs, bs, "sparse_band_attn",
                    f"rows valid for {lens.tolist()} tokens", smi)
-    if sparse_band_attention.mma_sync_launches != mma0:
-        fail("the serving shape ran K10's mma.sync kernel, not the wgmma one")
+    if ran(before) != ["serving"]:
+        fail(f"the serving shape ran K10's {ran(before)}, not the serving "
+             f"kernel")
 
-    # --- K10's mma.sync kernel, which every other accepted shape runs (no
-    # model configuration sends one): the same q, k, v in bs-32 tables ---
-    bs2 = 32
-    tabs2 = _tables(l // bs2, cfg.num_rand_blocks, 0, None, dev)
-    n0, mma0 = (sparse_band_attention.launches,
-                sparse_band_attention.mma_sync_launches)
-    mma_row = hold_k10(q[:, bs2:l - bs2], k, v, mask, tabs2, bs2,
-                       "sparse_band_mma", "mma.sync kernel", smi)
-    n_mma = sparse_band_attention.mma_sync_launches - mma0
-    if not n_mma or n_mma != sparse_band_attention.launches - n0:
-        fail("sparse_band_attention at bs 32 did not run the mma.sync kernel")
+    # --- K10 at every other class of shape, on its route's kernel (the
+    # ring or the mma.sync kernel): the same bytes (q, k, v of layer 0) in
+    # other tables and head splits ---
+    other_rows = {"ring": [], "mma_sync": []}
+    for label, bsr, heads, r in K10_OTHER_SHAPES:
+        hdr = h * hd // heads
+        qr, kr, vr = [t.reshape(b, l, heads, hdr) for t in (q, k, v)]
+        tabs_r = _tables(l // bsr, r, 0, None, dev)
+        route = sa.ROUTES[sa._route(bsr, hdr, int(tabs_r[0].shape[1]),
+                                    l // bsr - 2)]
+        before = counts()
+        got = hold_k10(qr[:, bsr:l - bsr], kr, vr, mask, tabs_r, bsr,
+                       f"sparse_band_{route}", f"{label}: H {heads} hd {hdr}",
+                       smi)
+        if route == "serving" or ran(before) != [route]:
+            fail(f"sparse_band_attention at {label} ran {ran(before)}, not "
+                 f"the ring or the mma.sync kernel its route names")
+        other_rows[route].append(dict(
+            shape=label, b=b, l=l, h=heads, hd=hdr, bs=bsr,
+            parts=int(tabs_r[0].shape[1]),
+            table_entries=int(tabs_r[0].numel()), **got))
+    for route, held in other_rows.items():
+        if not held:
+            fail(f"no held K10 shape ran the {route} kernel")
 
     # the whole block-sparse attention (kernel, first/last blocks, padded
     # rows zeroed) on the card vs the plain float32 form on the CPU, for
@@ -2772,25 +2914,26 @@ def bigbird_phases(dev, smi, cli_argv):
     del q, k, v, x, q_mid
 
     # --- greedy titles from 3072-token inputs: 16 K10 launches an encode,
-    # all on the wgmma kernel ---
+    # all on the serving kernel ---
     sparse_band_attention.launches = 0
-    sparse_band_attention.mma_sync_launches = 0
+    sparse_band_attention.serving_launches = 0
     with torch.no_grad():
         enc = big.encode(ids, mask)
     torch.cuda.synchronize()
     if sparse_band_attention.launches != cfg.encoder_layers:
         fail(f"one encode launched K10 {sparse_band_attention.launches} "
              f"times, not {cfg.encoder_layers}")
-    if sparse_band_attention.mma_sync_launches:
-        fail("the serving shape ran K10's mma.sync kernel, not the wgmma one")
+    if sparse_band_attention.serving_launches != cfg.encoder_layers:
+        fail("the serving shape ran another K10 kernel than the serving one")
     if not torch.isfinite(enc.float()).all():
         fail("the BigBird encoder states are not finite")
     timed_generate(big, ids, mask, "BigBird-Pegasus-large bf16")
 
     # --- cli/infer_video --title_arch bigbird at 3072 tokens ---
     build_dir = ROOT / "video_chapter_generation_tpu_torch" / "_build"
+    for r_ in sa.ROUTES:
+        setattr(sparse_band_attention, f"{r_}_launches", 0)
     sparse_band_attention.launches = 0
-    sparse_band_attention.mma_sync_launches = 0
     cwd = os.getcwd()
     os.chdir(build_dir)
     said = io.StringIO()
@@ -2806,19 +2949,22 @@ def bigbird_phases(dev, smi, cli_argv):
             print(f"# cli: {line}", flush=True)
     torch.cuda.synchronize()
     launches = sparse_band_attention.launches
-    mma_launches = sparse_band_attention.mma_sync_launches
+    by_route = {r_: getattr(sparse_band_attention, f"{r_}_launches")
+                for r_ in sa.ROUTES}
     wall = time.time() - t0
     batches = sum(1 for r in results.values() if r.spans)
     print(f"# infer_video --title_arch bigbird data.title_input_len={l} "
           f"--pipelined: {len(results)} videos, {batches} title batches, "
-          f"K10 launches {launches} ({mma_launches} of them mma.sync), "
+          f"K10 launches {launches} (by kernel {by_route}), "
           f"{wall:.1f} s (models and restore "
           f"included) on {smi}", flush=True)
     if "restored checkpoint at epoch 0" not in said.getvalue():
         fail("infer_video did not restore the checkpoint")
-    if launches != cfg.encoder_layers * batches:
-        fail(f"infer_video launched K10 {launches} times for {batches} "
-             f"title batches, not {cfg.encoder_layers} each")
+    if launches != cfg.encoder_layers * batches \
+            or by_route["serving"] != launches:
+        fail(f"infer_video launched K10 {launches} times ({by_route}) for "
+             f"{batches} title batches, not {cfg.encoder_layers} each on "
+             f"the serving kernel")
     for vid, r in results.items():
         if not r.cut_points or len(r.titles) != len(r.spans):
             fail(f"{vid}: {len(r.cut_points)} cut points, "
@@ -2836,12 +2982,16 @@ def bigbird_phases(dev, smi, cli_argv):
     # launches from the CLI run, split by the kernel they ran
     src = "video_chapter_generation_tpu_torch/csrc/sparse_attention.cu"
     tpu = "video_chapter_generation_tpu/ops/sparse_attention_pallas.py:108"
+    # the ring and the mma.sync kernels' numbers: the first shape each
+    # takes; every shape it took under "held"
     return [{"name": "sparse_band_attention", "route": "cuda",
              "source": src, "replaces": tpu,
-             "launches": launches - mma_launches, **row},
-            {"name": "sparse_band_attention_mma_sync", "route": "cuda",
-             "source": src, "replaces": tpu, "launches": mma_launches,
-             **mma_row}], (big, ids, mask, enc)
+             "launches": by_route["serving"], **row}] + [
+        {"name": f"sparse_band_attention_{route}", "route": "cuda",
+         "source": src, "replaces": tpu, "launches": by_route[route],
+         **{k_: v_ for k_, v_ in held[0].items() if k_ in row},
+         "held": held} for route, held in other_rows.items()], \
+        (big, ids, mask, enc)
 
 
 def window_phases(dev, smi, frames, vision):
@@ -4200,7 +4350,7 @@ def title_training_phase(dev, smi, cli_argv, emb_dir, k10_entry):
         scores = []
         shutil.rmtree(ckpt, ignore_errors=True)
         sparse_band_attention.launches = 0
-        sparse_band_attention.mma_sync_launches = 0
+        sparse_band_attention.serving_launches = 0
         torch.cuda.reset_peak_memory_stats()
         said = io.StringIO()
         t0 = time.time()
@@ -4237,7 +4387,7 @@ def title_training_phase(dev, smi, cli_argv, emb_dir, k10_entry):
               f"(median), {tokens / step_s:.0f} tokens/s, peak "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K10 "
               f"launches: {k10_train} in training steps, {k10_eval} in the "
-              f"eval ({sparse_band_attention.mma_sync_launches} mma.sync); "
+              f"eval ({sparse_band_attention.serving_launches} serving); "
               f"{wall:.1f} s in all, {set_up:.1f} s of it before the first "
               f"step (corpus, tokenizer, seeded model on the card)"
               f"{', with a checkpoint written' if keep else ''} on {smi}; "
@@ -4496,10 +4646,10 @@ def title_training_phase(dev, smi, cli_argv, emb_dir, k10_entry):
     s2s = big.model.cfg
     del big
     if k10_train or k10_eval != s2s.encoder_layers or \
-            sparse_band_attention.mma_sync_launches:
+            sparse_band_attention.serving_launches != k10_eval:
         fail(f"BigBird title training launched K10 {k10_train} times in "
              f"its steps and {k10_eval} in its one eval batch (want 0 and "
-             f"{s2s.encoder_layers}, none mma.sync)")
+             f"{s2s.encoder_layers}, all on the serving kernel)")
     torch.cuda.empty_cache()
     (q_mid, k, v, mask, ids, valid, bs, _), _ = \
         kept.pop("sparse_band_attention")[0]
@@ -4833,7 +4983,7 @@ def evaluation_phase(dev, smi, cli_argv, window_eval, title_eval, entries):
         f"train.ckpt_dir={work / 'bigbird_ckpt'}",
         f"data.title_input_len={BIGBIRD_IN}", "--title_arch", "bigbird",
         "--location", "gt"]
-    sparse_band_attention.mma_sync_launches = 0
+    sparse_band_attention.serving_launches = 0
     timer = StepTimer()
     with first_calls({(sparse_model, "sparse_band_attention"): 1}) as kept:
         result, text = run(name, lambda: eval_title.main(big_argv,
@@ -4842,9 +4992,10 @@ def evaluation_phase(dev, smi, cli_argv, window_eval, title_eval, entries):
     batches = math.ceil(len(gen) / TITLE_BATCH)
     layers = Seq2SeqConfig.bigbird_pegasus_large().encoder_layers
     want = {"sparse_band_attention": 2 * layers * batches}
-    if seen[name] != want or sparse_band_attention.mma_sync_launches:
-        fail(f"{name} launch counts {seen[name]} != {want} (mma.sync "
-             f"{sparse_band_attention.mma_sync_launches})")
+    if seen[name] != want or sparse_band_attention.serving_launches != \
+            sparse_band_attention.launches:
+        fail(f"{name} launch counts {seen[name]} != {want} (serving kernel "
+             f"{sparse_band_attention.serving_launches})")
     if len(gen) != n_chapters or not math.isfinite(result["test_loss"]):
         fail(f"{name}: {len(gen)} titles for {n_chapters} chapters, loss "
              f"{result['test_loss']}")
@@ -7145,7 +7296,8 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": st["library_ms"]})
     # inference CLI entries: per 256-frame vision call; K10: per encoder
-    # layer at the BigBird serving shape (its mma.sync kernel at bs 32),
+    # layer at the BigBird serving shape (its ring and mma.sync kernels
+    # at the first held shape each takes, every such shape under "held"),
     # launches from the CLI run;
     # training entries: per step, the sum over the shapes one step runs;
     # K5 (both entries), K7: per 256-frame vision call; K6: one 16-clip
@@ -7211,15 +7363,61 @@ def main() -> int:
     return 0
 
 
+def k10_routes(sa, q, k, v, mask, b, l):
+    """The ring and the mma.sync kernels (and the serving one where it
+    applies) at each class of K10_ROUTE_BS x K10_ROUTE_HD, P 8 (3 random
+    blocks), on the first B L H hd elements of q, k and v (H 1024 // hd):
+    {class: {kernel: device ms (median of 5 from one torch.profiler
+    trace), "route": the kernel the shape's route takes}}. Each kernel is
+    forced through sa._launch, so the route can be checked against the
+    times it was chosen from."""
+    import torch
+
+    from video_chapter_generation_tpu_torch.models.sparse_attention import (
+        _tables,
+    )
+
+    runs, cells = [], {}
+    for bs in K10_ROUTE_BS:
+        tabs = _tables(l // bs, 3, 0, None, q.device)
+        np_ = int(tabs[0].shape[1])
+        for hd in K10_ROUTE_HD:
+            h = 1024 // hd
+            qr, kr, vr = [t.reshape(-1)[:b * l * h * hd].view(b, l, h, hd)
+                          for t in (q, k, v)]
+            res = torch.empty_like(qr)
+            route = sa._route(bs, hd, np_, l // bs - 2)
+            cell = cells[f"bs {bs} hd {hd}"] = {"route": sa.ROUTES[route]}
+            for r in sorted({route, 1, 2}):
+                fn = (lambda qr=qr, kr=kr, vr=vr, tabs=tabs, bs=bs, res=res,
+                      r=r: sa._launch(qr[:, bs:l - bs], kr, vr, mask, *tabs,
+                                      bs, res, r))
+                runs.append((cell, sa.ROUTES[r], fn))
+    reps = 5
+    segs = traced_segments([fn for _, _, fn in runs] * reps)
+    if len(segs) < reps * len(runs):
+        return f"not measured: {len(segs)} runs traced for {reps * len(runs)}"
+    for i, (cell, name, _) in enumerate(runs):
+        times = sorted(sum(e.time_range.elapsed_us() for e in segs[i + j *
+                                                                   len(runs)])
+                       / 1e3 for j in range(reps))
+        cell[name] = times[reps // 2]
+    return cells
+
+
 def time_kernels(root: Path) -> int:
     """K1, K8, K9, K14a and K14b at the shapes of one 256-frame vision
-    call, K6 on its frames, K11 at one training step's (128 frames) and K10
-    at the BigBird-Pegasus serving shape, on the package under root, CUDA events (median of
+    call, K6 on its frames, K11 at one training step's (128 frames), K10
+    at the BigBird-Pegasus serving shape and at K10_OTHER_SHAPES (and, on
+    a tree whose K10 kernels can be forced, each of them at each class of
+    K10_ROUTE_BS x K10_ROUTE_HD: k10_routes), and the pool kernel at
+    [256, 112, 112, 64], on the package under root, CUDA events (median of
     TIMED_RUNS), beside their yardsticks: the stems' cuDNN sequence, the
     bf16 K2/K3 (K9) and K4 (K14a) launches of the same blocks, K11's cuDNN
     sequence through autograd, SDPA with K10's float mask, torch.addcmul
-    for K6; K9's device time by conv and layer, K11's by pass, K6's, K14b's
-    and K10's from torch.profiler traces. Seeded
+    for K6, the pool's torch sequence; K9's device time by conv and layer,
+    K11's by pass, K6's, K14b's, K10's (by shape) and the pool's from
+    torch.profiler traces. Seeded
     random ResNet-50 weights (the JAX layout carried over), frames and
     attention inputs. Prints one JSON line."""
     import torch
@@ -7417,10 +7615,47 @@ def time_kernels(root: Path) -> int:
     k10 = lambda: sparse_band_attention(  # noqa: E731
         q[:, bs:l - bs], k, v, mask, *tabs, bs, res)
     out.update({"K10": cuda_ms(k10), "K10_sdpa": cuda_ms(library)})
+    k10_runs = [("K10", k10)]
+    del library
+    # K10 at its other held shapes (phase 6's), the same bytes
+    for label, bsr, heads, r in K10_OTHER_SHAPES:
+        hdr = h * hd // heads
+        qr, kr, vr = [t.reshape(b, l, heads, hdr) for t in (q, k, v)]
+        tabs_r = _tables(l // bsr, r, 0, None, dev)
+        fn = (lambda qr=qr, kr=kr, vr=vr, tabs_r=tabs_r, bsr=bsr,
+              out_r=res.view(b, l, heads, hdr):
+              sparse_band_attention(qr[:, bsr:l - bsr], kr, vr, mask,
+                                    *tabs_r, bsr, out_r))
+        out[f"K10 {label}"] = cuda_ms(fn)
+        k10_runs.append((f"K10 {label}", fn))
+    from video_chapter_generation_tpu_torch.ops import sparse_attention as sa
+    if hasattr(sa, "_launch"):  # a tree whose kernels can be forced
+        try:
+            out["K10_routes"] = k10_routes(sa, q, k, v, mask, b, l)
+        except Exception as exc:  # information only
+            out["K10_routes"] = f"not measured ({type(exc).__name__}: {exc})"
     try:  # the device time of its launches, without the host's
-        out["K10_split"] = pass_split([("K10", k10)])
+        out["K10_split"] = pass_split(k10_runs)
     except Exception as exc:  # information only
         out["K10_split"] = f"not measured ({type(exc).__name__}: {exc})"
+    del q, k, v, res, k10_runs
+    torch.cuda.empty_cache()
+
+    # the pool kernel at its held shape (the frames stem's conv output
+    # [256, 112, 112, 64]; here seeded random values of that size), beside
+    # its torch sequence
+    from video_chapter_generation_tpu_torch.ops.stem import bn_relu_maxpool
+
+    conv = torch.randn(16 * CLIP_FRAMES, 112, 112, 64, generator=gen,
+                       device=dev).to(bf)
+    pool = lambda: bn_relu_maxpool(conv, stem_p["s"], stem_p["b"])  # noqa
+    out.update({"K8_pool": cuda_ms(pool),
+                "K8_pool_library": cuda_ms(library_pool(conv, stem_p["s"],
+                                                        stem_p["b"]))})
+    try:
+        out["K8_pool_split"] = pass_split([("K8_pool", pool)])
+    except Exception as exc:  # information only
+        out["K8_pool_split"] = f"not measured ({type(exc).__name__}: {exc})"
     print(json.dumps(out), flush=True)
     return 0
 

@@ -113,11 +113,12 @@ def test_stem_frames_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_bn_relu_maxpool_matches_jax():
+@pytest.mark.parametrize("c", [64, 256])
+def test_bn_relu_maxpool_matches_jax(c):
     rng = np.random.default_rng(1)
-    x = rng.standard_normal((4, 16, 12, 64)).astype(np.float32)
-    s = rng.standard_normal(64).astype(np.float32)
-    b = rng.standard_normal(64).astype(np.float32)
+    x = rng.standard_normal((4, 16, 12, c)).astype(np.float32)
+    s = rng.standard_normal(c).astype(np.float32)
+    b = rng.standard_normal(c).astype(np.float32)
     got = bn_relu_maxpool(*map(torch.from_numpy, (x, s, b))).numpy()
     for want in (bn_relu_maxpool_pallas(*map(jnp.asarray, (x, s, b))),
                  jax_bn_relu_maxpool_reference(*map(jnp.asarray, (x, s, b)))):

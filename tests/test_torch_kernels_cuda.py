@@ -585,19 +585,27 @@ def test_stem_frames_kernel(dev, n, px):
     _close(got, stem_frames_reference(x, w7, s, b))
 
 
-@pytest.mark.parametrize("c", [64, 256])
-def test_bn_relu_maxpool_kernel(dev, c):
+# (n, h, w): even sizes; odd ones (a last window of two rows or columns);
+# a row wider than one column tile (W 130 at C 64: 65 outputs, two tiles
+# of 33 and 32; C 8: one chunk a pixel, tiles of up to 128 outputs; C 24:
+# three chunks, tiles of 42)
+@pytest.mark.parametrize("n,h,w", [(4, 30, 22), (3, 31, 23), (2, 7, 130)])
+@pytest.mark.parametrize("c", [64, 256, 8, 24])
+def test_bn_relu_maxpool_kernel(dev, c, n, h, w):
     from video_chapter_generation_tpu_torch.ops.stem import (
         bn_relu_maxpool,
         bn_relu_maxpool_reference,
     )
 
     g = torch.Generator().manual_seed(8)
-    x = torch.randn(4, 30, 22, c, generator=g).to(dev, torch.bfloat16)
+    x = torch.randn(n, h, w, c, generator=g).to(dev, torch.bfloat16)
     s = torch.randn(c, generator=g).to(dev)
     b = torch.randn(c, generator=g).to(dev)
+    before = bn_relu_maxpool.launches
     got = bn_relu_maxpool(x, s, b)
     torch.cuda.synchronize()
+    assert bn_relu_maxpool.launches == before + 1
+    assert got.shape == (n, (h + 1) // 2, (w + 1) // 2, c)
     assert torch.equal(got, bn_relu_maxpool_reference(x, s, b))
 
 
@@ -649,14 +657,23 @@ def test_tsm_bottleneck_int8_kernel(dev, x_kind, out_mode, c, f):
 # --- K10: BigBird block-sparse attention of the middle query blocks ---
 
 
-# (bs, hd, b, h, nb, r): the mma.sync kernel's shapes (bs 16, hd 16, and
-# bs 64 / hd 64 with P 5 and 6), and the wgmma kernel's (bs 64, hd 64,
-# P 8): one row, rows whose walks cross (b, h) boundaries (2 x 3 rows of
-# 46 query blocks over the card's blocks)
+# (bs, hd, b, h, nb, r): the serving kernel's shape (bs 64, hd 64, P 8):
+# one row, rows whose walks cross (b, h) boundaries (2 x 3 rows of 46
+# query blocks over the card's blocks); the other shapes, where the ring
+# and the mma.sync kernels are both held: every block size (16, 32, 48,
+# 64), head dims of one panel (16, 32, 48, 64) and of two (80, 112, 128),
+# 4 and 2 heads a ring tile (bs 16 at hd 16 with h 8; bs 16 and 32 at hd
+# 32 with h 2) and one where h does not divide (h 3), P 5 to 10 (r 0, 1,
+# 2, 3, 5), and tables of more than 512 entries
 K10_CASES = [(16, 16, 2, 3, 12, 3), (16, 64, 2, 3, 12, 3),
              (64, 16, 2, 3, 12, 3), (64, 64, 2, 3, 12, 3),
              (64, 64, 2, 3, 48, 3), (64, 64, 1, 2, 9, 0),
-             (64, 64, 3, 1, 20, 1)]
+             (64, 64, 3, 1, 20, 1), (32, 64, 2, 3, 24, 3),
+             (48, 64, 2, 2, 16, 1), (48, 48, 2, 3, 12, 5),
+             (64, 128, 2, 2, 16, 3), (32, 128, 1, 2, 20, 5),
+             (16, 80, 2, 2, 24, 1), (48, 112, 1, 3, 12, 0),
+             (32, 32, 2, 2, 16, 2), (64, 64, 2, 3, 12, 5),
+             (16, 32, 2, 2, 130, 3), (16, 16, 2, 8, 20, 1)]
 
 
 def _k10_inputs(bs, hd, b, h, nb, r, seed):
@@ -685,41 +702,59 @@ def _k10_inputs(bs, hd, b, h, nb, r, seed):
 def test_sparse_band_attention_kernel(dev, bs, hd, b, h, nb, r):
     """Padded keys (a whole block of them in the last row), random ids that
     may collide with the window (counted twice, as in the plain version);
-    the kernel writes rows bs..L-bs of `out` and nothing else. Only the
-    mma.sync shapes count in mma_sync_launches; at the wgmma shape a table
-    that is not structured_ids' raises before a launch."""
+    the kernel writes rows bs..L-bs of `out` and nothing else. A call
+    counts in `launches` and in its route's counter: the serving kernel's
+    at the serving shape only, where a table that is not structured_ids'
+    raises before a launch. The ring and the mma.sync kernels, each forced,
+    take this shape and any table (one whose band ids are moved too)."""
+    from video_chapter_generation_tpu_torch.ops import sparse_attention as sa
     from video_chapter_generation_tpu_torch.ops.sparse_attention import (
         sparse_band_attention,
         sparse_band_attention_reference,
     )
 
     q, k, v, mask, ids, valid = _k10_inputs(bs, hd, b, h, nb, r, 10)
-    wgmma = (bs, hd, r) == (64, 64, 3)
-    before = sparse_band_attention.launches
-    mma_before = sparse_band_attention.mma_sync_launches
+    route = sa.ROUTES[sa._route(bs, hd, ids.shape[1], nb - 2)]
+    assert (route == "serving") == ((bs, hd, r) == (64, 64, 3))
+    counts = lambda: {r_: getattr(sparse_band_attention,  # noqa: E731
+                                  f"{r_}_launches") for r_ in sa.ROUTES}
+    before, n0 = counts(), sparse_band_attention.launches
     out = torch.zeros_like(q)
     got = sparse_band_attention(q[:, bs:-bs], k, v, mask, ids, valid, bs,
                                 out)
     torch.cuda.synchronize()
-    assert sparse_band_attention.launches == before + 1
-    assert sparse_band_attention.mma_sync_launches == mma_before + (not wgmma)
-    if wgmma:
-        bad = ids.clone()
-        bad[0, 1] = 1
-        with pytest.raises(ValueError, match="structured_ids"):
-            sparse_band_attention(q[:, bs:-bs], k, v, mask, bad, valid, bs,
-                                  torch.zeros_like(q))
-        assert sparse_band_attention.launches == before + 1
+    assert sparse_band_attention.launches == n0 + 1
+    assert counts() == {r_: before[r_] + (r_ == route) for r_ in sa.ROUTES}
     _close(got, sparse_band_attention_reference(q[:, bs:-bs], k, v, mask,
                                                 ids, valid, bs))
     assert not out[:, :bs].any() and not out[:, -bs:].any()
+    bad = ids.clone()
+    bad[0, 1] = 1
+    bad[-1, 3] = 0
+    if route == "serving":
+        with pytest.raises(ValueError, match="structured_ids"):
+            sparse_band_attention(q[:, bs:-bs], k, v, mask, bad, valid, bs,
+                                  torch.zeros_like(q))
+        assert sparse_band_attention.launches == n0 + 1
+    for forced in (1, 2):
+        for tab in (ids, bad):
+            before = counts()
+            got = sa._launch(q[:, bs:-bs], k, v, mask, tab, valid, bs,
+                             torch.zeros_like(q), forced)
+            assert counts()[sa.ROUTES[forced]] == \
+                before[sa.ROUTES[forced]] + 1
+            _close(got, sparse_band_attention_reference(
+                q[:, bs:-bs], k, v, mask, tab, valid, bs))
     with pytest.raises(ValueError, match="bf16"):
         sparse_band_attention(q[:, bs:-bs].float(), k, v, mask, ids, valid,
                               bs, out)
 
 
-@pytest.mark.parametrize("bs,hd", [(64, 64), (32, 64)])
+@pytest.mark.parametrize("bs,hd", [(64, 64), (32, 64), (16, 16), (48, 128)])
 def test_sparse_band_attention_runs_are_bitwise_equal(dev, bs, hd):
+    """Two runs bit for bit, on the shape's route and on the ring and the
+    mma.sync kernels forced."""
+    from video_chapter_generation_tpu_torch.ops import sparse_attention as sa
     from video_chapter_generation_tpu_torch.ops.sparse_attention import (
         sparse_band_attention,
     )
@@ -729,6 +764,10 @@ def test_sparse_band_attention_runs_are_bitwise_equal(dev, bs, hd):
     for o in outs:
         sparse_band_attention(q[:, bs:-bs], k, v, mask, ids, valid, bs, o)
     assert torch.equal(outs[0], outs[1])
+    for forced in (1, 2):
+        outs = [sa._launch(q[:, bs:-bs], k, v, mask, ids, valid, bs,
+                           torch.zeros_like(q), forced) for _ in range(2)]
+        assert torch.equal(outs[0], outs[1])
 
 
 # --- K5 (shift + 1x1 conv), K6 (frame normalize), K7 (temporal shift) ---

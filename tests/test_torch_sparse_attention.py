@@ -41,16 +41,16 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 L, BS, H, HD = 256, 16, 2, 16
 
 
-def _qkv(seed, b=2, l=L):
+def _qkv(seed, b=2, l=L, hd=HD):
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal((b, l, H, HD)).astype(np.float32)
+    return [rng.standard_normal((b, l, H, hd)).astype(np.float32)
             for _ in range(3)]
 
 
 def _mask(b, l, padded):
     mask = np.ones((b, l), np.int32)
     if padded:
-        mask[1, 150:] = 0
+        mask[1, l * 150 // L:] = 0  # whole blocks padded before the last
         mask[0, l - 9:] = 0
     return mask
 
@@ -129,23 +129,34 @@ def test_structured_ids_equal_jax(r):
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("r", [0, 2])
-def test_band_reference_matches_the_pallas_kernel(r):
+# (r, bs, hd, nb): the first two at this file's L, BS and HD; then other
+# block sizes and head dims that the card's kernels take, with r 0, 1 and
+# 5 (P 5, 6 and 10), each at a small L
+@pytest.mark.parametrize("r,bs,hd,nb", [
+    pytest.param(0, BS, HD, L // BS, id="0"),
+    pytest.param(2, BS, HD, L // BS, id="2"),
+    pytest.param(1, 16, 48, 9, id="bs16-hd48-r1"),
+    pytest.param(5, 16, 16, 13, id="bs16-hd16-r5"),
+    pytest.param(0, 32, 16, 6, id="bs32-hd16-r0"),
+    pytest.param(1, 32, 48, 7, id="bs32-hd48-r1"),
+    pytest.param(5, 32, 48, 12, id="bs32-hd48-r5"),
+])
+def test_band_reference_matches_the_pallas_kernel(r, bs, hd, nb):
     """sparse_band_attention_reference against JAX's K10 (interpret mode)
     on the same structured inputs: the middle blocks alone."""
-    q, k, v = _qkv(40 + r)
-    mask = _mask(2, L, True)
-    nb = L // BS
+    l = nb * bs
+    q, k, v = _qkv(40 + r, l=l, hd=hd)
+    mask = _mask(2, l, True)
     rand_map = jax_random_block_map(nb, r, 0) if r else None
     ids, valid = structured_ids(nb, rand_map)
-    pen = penalty_for_structured_ids(jnp.asarray(mask), ids, valid, BS)
+    pen = penalty_for_structured_ids(jnp.asarray(mask), ids, valid, bs)
     rand_ids = ids[:, 5:]
     want = sparse_band_attention_pallas(
-        jnp.asarray(q[:, BS:-BS]), jnp.asarray(k), jnp.asarray(v), pen,
-        jnp.asarray(rand_ids), BS, interpret=True)
+        jnp.asarray(q[:, bs:-bs]), jnp.asarray(k), jnp.asarray(v), pen,
+        jnp.asarray(rand_ids), bs, interpret=True)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
     got = sparse_band_attention_reference(
-        t(q[:, BS:-BS]), t(k), t(v), t(mask), t(ids), t(valid), BS)
+        t(q[:, bs:-bs]), t(k), t(v), t(mask), t(ids), t(valid), bs)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 

@@ -837,10 +837,10 @@ inline cudaError_t sm_count(int* sms) {
   return e;
 }
 
-// The blocks of kernel K the card holds at once at smem bytes of dynamic
-// shared memory each, found on the first launch on each device (the
-// attribute and the occupancy query cost host time).
-template <auto K>
+// The blocks of kernel K (of T threads) the card holds at once at smem
+// bytes of dynamic shared memory each, found on the first launch on each
+// device (the attribute and the occupancy query cost host time).
+template <auto K, int T = kThreads>
 inline cudaError_t resident(int smem, int* blocks) {
   static std::atomic<int> held[kMaxDevices];  // 0: not known yet
   int dev = 0;
@@ -852,7 +852,7 @@ inline cudaError_t resident(int smem, int* blocks) {
     e = allow_smem<K>(smem);
     if (e == cudaSuccess) e = sm_count(&sms);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K, kThreads,
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K, T,
                                                         smem);
     if (e == cudaSuccess) {
       n = per_sm * sms;

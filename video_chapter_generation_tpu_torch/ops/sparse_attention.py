@@ -8,10 +8,15 @@ qi+1, glast, rand...]) read straight from the full k and v, with key
 padding and the table's valid flags entering as an additive
 (1 - mask * valid) * -10000 on the scaled float32 scores, a float32
 softmax and the value product. It runs csrc/sparse_attention.cu on a
-CUDA tensor (a wgmma kernel at the serving shape, bs 64, hd 64 and 8
-parts, that walks consecutive query blocks of a (batch, head) and keeps
-their shared key/value blocks resident; mma.sync for every other shape,
-which no model configuration sends);
+CUDA tensor, on one of three kernels: the serving kernel (wgmma) at bs
+64, hd 64 and 8 parts (BigBird-Pegasus), which walks consecutive query
+blocks of a (batch, head) and keeps their shared key/value blocks
+resident; at every other shape (bs 16-64, hd 16-128, any part count, any
+table: `--tiny --title_arch bigbird` and every other BigBird
+configuration) the faster of the ring kernel (wgmma, each query block's
+parts streamed through a ring of TMA slots) and the mma.sync kernel (one
+block a query block) at the shape's class, as `--time-kernels` measured
+them (`_route`);
 `sparse_band_attention_reference` is the plain version, and a CPU tensor
 takes it.
 
@@ -91,20 +96,25 @@ def _lib():
     fn = _build.load("sparse_attention").vcg_sparse_band_attention
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int,
+                                                    ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
+# the kernels, by the route number csrc/sparse_attention.cu gives them
+ROUTES = ("serving", "ring", "mma_sync")
+
+
 @functools.lru_cache(maxsize=None)
-def _takes_wgmma(bs: int, hd: int, np_: int, nbq: int) -> bool:
-    """Whether a call at this shape runs the wgmma kernel (else mma.sync);
+def _route(bs: int, hd: int, np_: int, nbq: int) -> int:
+    """The kernel (an index into ROUTES) that a call at this shape runs;
     the C side decides, so the two never disagree."""
-    fn = _build.load("sparse_attention").vcg_sparse_band_wgmma
+    fn = _build.load("sparse_attention").vcg_sparse_band_route
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 4
         fn.restype = ctypes.c_int
-    return bool(fn(bs, hd, np_, nbq))
+    return fn(bs, hd, np_, nbq)
 
 
 # tables found structured: id(ids) -> (ids, its version); the tensor is
@@ -114,7 +124,7 @@ _structured_seen: dict = {}
 
 def require_structured(ids: torch.Tensor, nb: int) -> None:
     """Raise ValueError unless ids[:, :5] are structured_ids(nb)'s
-    [0, qi-1, qi, qi+1, nb-1] rows, which the wgmma kernel derives from
+    [0, qi-1, qi, qi+1, nb-1] rows, which the serving kernel derives from
     the structure instead of reading. A table is compared once (one sync)
     and remembered while it is not written to."""
     seen = _structured_seen.get(id(ids))
@@ -178,12 +188,14 @@ def sparse_band_attention(q_mid, k, v, mask, ids, valid, block_size: int,
     caller fills the first and last blocks beside it, so no concatenation
     follows. On a CUDA tensor: bf16 only, bs and hd multiples of 16 up to
     64 and 128, a 0/1 mask. bs 64, hd 64 and 8 parts (the BigBird-Pegasus
-    serving shape) run the wgmma kernel, which derives parts 0-4 from the
-    structure (a table whose ids[:, :5] are not structured_ids' raises
-    ValueError); every other shape runs the mma.sync kernel, and counts
-    in `mma_sync_launches` as well as in `launches`. The kernels have no
-    backward: a CUDA input that requires a gradient raises
-    NotImplementedError (the models' gather formulation trains)."""
+    serving shape) run the serving kernel, which derives parts 0-4 from
+    the structure (a table whose ids[:, :5] are not structured_ids'
+    raises ValueError); every other shape runs the ring or the mma.sync
+    kernel (`_route`), which read every id. Each launch counts in
+    `launches` and in its kernel's `serving_launches`, `ring_launches` or
+    `mma_sync_launches`. The kernels have no backward: a CUDA input that
+    requires a gradient raises NotImplementedError (the models' gather
+    formulation trains)."""
     bs = block_size
     l = k.shape[1]
     if q_mid.device.type == "cpu":
@@ -198,19 +210,29 @@ def sparse_band_attention(q_mid, k, v, mask, ids, valid, block_size: int,
             "sparse_band_attention has no backward: its kernel writes the "
             "output through a pointer, which autograd cannot see")
     _check(q_mid, k, v, mask, ids, valid, bs, out)
+    route = _route(bs, q_mid.shape[3], ids.shape[1], l // bs - 2)
+    return _launch(q_mid, k, v, mask, ids, valid, bs, out, route)
+
+
+def _launch(q_mid, k, v, mask, ids, valid, bs, out, route: int):
+    """Launch kernel ROUTES[route] on checked CUDA arguments and count it.
+    sparse_band_attention passes the shape's own route; a timing may pass
+    another (the serving kernel only where it applies)."""
+    l = k.shape[1]
     h, hd = q_mid.shape[2:]
-    wgmma = _takes_wgmma(bs, hd, ids.shape[1], l // bs - 2)
-    if wgmma:
+    if route == 0:
         require_structured(ids, l // bs)
     mask_i = mask.to(torch.int32).contiguous()  # a 0/1 mask: exact
+    if mask_i.data_ptr() % 16:  # the ring kernel bulk-copies its rows
+        mask_i = mask_i.clone()
     rc = _calls.on_device(
         _lib(), q_mid.device, q_mid.data_ptr(), k.data_ptr(), v.data_ptr(),
         mask_i.data_ptr(), ids.data_ptr(), valid.data_ptr(),
         out.data_ptr() + bs * h * hd * out.element_size(),
-        k.shape[0], l, h, hd, bs, ids.shape[1], q_mid.stride(0), l * h * hd)
+        k.shape[0], l, h, hd, bs, ids.shape[1], q_mid.stride(0), l * h * hd,
+        route)
     _calls.count(sparse_band_attention)
-    if not wgmma:
-        _calls.count(sparse_band_attention, "mma_sync_launches")
+    _calls.count(sparse_band_attention, f"{ROUTES[route]}_launches")
     if rc != 0:
         raise RuntimeError(f"sparse_band_attention kernel failed: CUDA error "
                            f"{rc}")
@@ -218,4 +240,6 @@ def sparse_band_attention(q_mid, k, v, mask, ids, valid, block_size: int,
 
 
 sparse_band_attention.launches = 0
+sparse_band_attention.serving_launches = 0
+sparse_band_attention.ring_launches = 0
 sparse_band_attention.mma_sync_launches = 0

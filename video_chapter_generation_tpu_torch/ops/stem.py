@@ -233,23 +233,24 @@ def stem_frames(x: torch.Tensor, w7: torch.Tensor, scale: torch.Tensor,
 
 def bn_relu_maxpool(x: torch.Tensor, scale: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
-    """relu(x * scale + bias) -> 3x3/2 max pool (pad 1): x [N, H, W, C]
-    with H and W even -> [N, H/2, W/2, C]; scale/bias [C] (folded BN).
-    The kernel takes bf16 with C % 8 == 0."""
+    """relu(x * scale + bias) -> 3x3/2 max pool (pad 1): x [N, H, W, C] ->
+    [N, (H+1)//2, (W+1)//2, C] (odd H and W too); scale/bias [C] (folded
+    BN). The kernel takes bf16 with C % 8 == 0."""
     if x.device.type == "cpu":
         return bn_relu_maxpool_reference(x, scale, bias)
     if x.device.type != "cuda":
         raise NotImplementedError(f"bn_relu_maxpool on {x.device}")
     n, h, w, c = x.shape
-    if (x.dtype != torch.bfloat16 or c % 8 or h % 2 or w % 2
-            or not x.is_contiguous()):
+    if x.dtype != torch.bfloat16 or c % 8 or not x.is_contiguous():
         raise ValueError(f"bn_relu_maxpool takes contiguous bf16 [N,H,W,C] "
-                         f"with H, W even and C % 8 == 0, got {x.dtype} "
-                         f"{tuple(x.shape)}")
+                         f"with C % 8 == 0, got {x.dtype} {tuple(x.shape)}")
+    if x.data_ptr() % 16:  # the kernel reads 16-byte vectors
+        x = x.clone()
     dev = x.device
-    scale = scale.to(device=dev, dtype=torch.float32).contiguous()
-    bias = bias.to(device=dev, dtype=torch.float32).contiguous()
-    out = torch.empty(n, h // 2, w // 2, c, dtype=torch.bfloat16, device=dev)
+    scale, bias = [t.to(device=dev, dtype=torch.float32).contiguous()
+                   for t in (scale, bias)]
+    out = torch.empty(n, (h + 1) // 2, (w + 1) // 2, c, dtype=torch.bfloat16,
+                      device=dev)
     rc = _calls.on_device(
         _lib("vcg_bn_relu_maxpool"), dev, x.data_ptr(), scale.data_ptr(),
         bias.data_ptr(), out.data_ptr(), n, h, w, c)
