@@ -539,10 +539,9 @@ def test_text_training_datasets_match(disk, name):
 
 
 def test_utils_copies_match(tmp_path):
-    """utils/flops.py's MAC counts, utils/memory.py's caches and host
-    readings and utils/profiling.py's Stopwatch against the JAX package's
-    copies; device_trace writes a trace on the CPU (its peaks are the
-    H100's, not the JAX package's)."""
+    """utils/flops.py's MAC counts and utils/memory.py's caches and host
+    readings against the JAX package's copies; device_trace writes a
+    trace on the CPU (its peaks are the H100's, not the JAX package's)."""
     from video_chapter_generation_tpu.utils import flops as jax_flops
     from video_chapter_generation_tpu.utils import memory as jax_memory
     from video_chapter_generation_tpu_torch.utils import flops, memory
@@ -568,10 +567,6 @@ def test_utils_copies_match(tmp_path):
     mm = memory.MemoryManager()
     mm.handle_oom()
     assert mm.status()["oom_events"] == 1
-    sw = profiling.Stopwatch()
-    with sw.scope("step"):
-        pass
-    assert sw.report().startswith("step: ")
     with profiling.device_trace(str(tmp_path)):
         with profiling.annotate("region"):
             np.ones(3).sum()

@@ -11,6 +11,7 @@ import os
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
+from ..core.metrics import span
 from ..core.seeding import host_rng
 from ..datasetkit.parsing import clean_str, remove_timestamp
 from .clip_grid import (
@@ -251,6 +252,9 @@ class InferClipDataset:
 class InferWindowClipDataset(InferClipDataset):
     """Eval with window context: groups flattened clips by video and serves
     target ± window neighbors (infer_youtube_video_dataset.py:429-577).
+    On the thread's current timer (core/metrics.py) an item records each
+    clip's text encoding ("tokens", a text) and its frames from the
+    cache into the window ("frames", its frames; decodes are children).
 
     Copied from video_chapter_generation_tpu/data/datasets.py:261.
     """
@@ -300,13 +304,16 @@ class InferWindowClipDataset(InferClipDataset):
             if idx == -1:
                 continue
             ci = self.all_clip_infos[start + idx]
-            ids, m = encode_clip_text(
-                ci.text_clip, self.tokenizer, self.max_text_len
-            )
+            with span("tokens"):
+                ids, m = encode_clip_text(
+                    ci.text_clip, self.tokenizer, self.max_text_len
+                )
             text_ids[w], masks[w] = ids, m
             starts[w] = ci.clip_start_end[0]
             if imgs is not None:
-                imgs[w] = load_clip_frames(ci.image_paths, self.hw, self.cache)
+                with span("frames", len(ci.image_paths)):
+                    imgs[w] = load_clip_frames(ci.image_paths, self.hw,
+                                               self.cache)
 
         out = {
             "text_ids": text_ids,

@@ -11,6 +11,7 @@ import os
 from collections import OrderedDict
 from typing import Dict, Optional, Sequence
 import numpy as np
+from ..core.metrics import span
 
 
 FRAME_HW = 224
@@ -71,6 +72,8 @@ def load_clip_frames(paths: Sequence[str], hw: int = FRAME_HW,
 
 class FrameCache:
     """Bounded LRU uint8 frame cache (infer_youtube_video_dataset.py:851-865).
+    Each miss is decoded under a "decode" span on the thread's current
+    timer (core/metrics.py), whose items equal `misses`.
 
     Copied from video_chapter_generation_tpu/data/frames.py:70.
     """
@@ -87,7 +90,8 @@ class FrameCache:
             self.hits += 1
             return self._cache[path]
         self.misses += 1
-        frame = load_frame(path, hw)
+        with span("decode"):
+            frame = load_frame(path, hw)
         self._cache[path] = frame
         if len(self._cache) > self.max_frames:
             self._cache.popitem(last=False)

@@ -12,7 +12,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..core.metrics import StepTimer
+from ..core.metrics import StepTimer, span
 from ..data.clip_grid import ClipInfo
 from ..data.loader import collate
 from ..models.bert import BertForChapter
@@ -31,7 +31,13 @@ def score_clips(dataset, score_fn: Callable[[Dict[str, np.ndarray]], object],
     that many ahead of the device (JAX pipeline/boundary.py:52-70). An
     error there is raised here, after the thread has stopped; the JAX
     producer puts its stop marker in a `finally`, so a failing batch ends
-    its scoring early and the error is lost (ROADMAP queue 3)."""
+    its scoring early and the error is lost (ROADMAP queue 3).
+
+    `timer` is bound to both threads while they run (StepTimer.bind), so
+    the dataset's and the score function's spans land in it too. Its
+    stages here: host_load (a batch assembled, rows), queue_wait (the
+    device-driving thread waiting for the producer), device_score (the
+    score function to the fetched scores, rows)."""
     timer = timer or StepTimer()
     n = len(dataset)
     infos = dataset.all_clip_infos
@@ -39,24 +45,23 @@ def score_clips(dataset, score_fn: Callable[[Dict[str, np.ndarray]], object],
 
     def make_batch(start):
         rows = list(range(start, min(start + batch_size, n)))
-        items = [dataset[i] for i in rows]
-        items += [items[-1]] * (batch_size - len(rows))
-        return rows, collate(items)
+        with timer.span("host_load", len(rows)):
+            items = [dataset[i] for i in rows]
+            items += [items[-1]] * (batch_size - len(rows))
+            return rows, collate(items)
 
     def score(rows, batch):
-        timer.start("device_score")
-        scores = np.asarray(torch.as_tensor(score_fn(batch)).float().cpu())
-        timer.stop("device_score", len(rows))
+        with timer.span("device_score", len(rows)):
+            scores = np.asarray(
+                torch.as_tensor(score_fn(batch)).float().cpu())
         for j, i in enumerate(rows):
             infos[i].pred_score = float(scores[j])
             infos[i].pred_label = int(scores[j] >= 0.5)
 
     if prefetch <= 0 or len(starts) < 2:
-        for s in starts:
-            timer.start("host_load")
-            rows, batch = make_batch(s)
-            timer.stop("host_load", len(rows))
-            score(rows, batch)
+        with timer.bind():
+            for s in starts:
+                score(*make_batch(s))
         return infos
 
     q: "queue.Queue" = queue.Queue(maxsize=prefetch)
@@ -66,10 +71,11 @@ def score_clips(dataset, score_fn: Callable[[Dict[str, np.ndarray]], object],
 
     def producer():
         try:
-            for s in starts:
-                if halt.is_set():
-                    break
-                q.put(make_batch(s))
+            with timer.bind():
+                for s in starts:
+                    if halt.is_set():
+                        break
+                    q.put(make_batch(s))
         except Exception as e:  # re-raised by the consumer
             failure.append(e)
         finally:
@@ -78,11 +84,13 @@ def score_clips(dataset, score_fn: Callable[[Dict[str, np.ndarray]], object],
     thread = threading.Thread(target=producer, daemon=True)
     thread.start()
     try:
-        while True:
-            item = q.get()
-            if item is stop:
-                break
-            score(*item)
+        with timer.bind():
+            while True:
+                with timer.span("queue_wait"):
+                    item = q.get()
+                if item is stop:
+                    break
+                score(*item)
     finally:
         halt.set()
         while thread.is_alive():  # unblock a producer waiting on a full queue
@@ -194,7 +202,8 @@ def make_window_score_fn(model: TwoStreamWindow, device: torch.device,
     model's dtype; one BERT call over the B*W texts and one vision call
     over the B*W*T frames. quant_scales (calibrated on the window clips
     flattened to [B*W, T, ...]) swaps the shared vision trunk for its W8A8
-    twin."""
+    twin. On the thread's current timer (core/metrics.py) it records the
+    batch's move to the device (h2d, host clock, rows)."""
     vision = _vision(model, quant_scales)
 
     def to_dev(a):
@@ -202,11 +211,13 @@ def make_window_score_fn(model: TwoStreamWindow, device: torch.device,
 
     @torch.no_grad()
     def score(batch) -> torch.Tensor:
-        img = to_dev(batch["img_clips"])
+        with span("h2d", len(batch["img_clips"])):
+            img = to_dev(batch["img_clips"])
+            ids = to_dev(batch["text_ids"]).long()
+            mask = to_dev(batch["attention_mask"])
         if vision.stem_input != "s2d":
             img = normalize_frames(img, vision.dtype)
-        _, probs = model.serve(img, to_dev(batch["text_ids"]).long(),
-                               to_dev(batch["attention_mask"]), vision)
+        _, probs = model.serve(img, ids, mask, vision)
         return probs[:, 1]
 
     score.model = model  # the served model, for callers that inspect it

@@ -1,13 +1,12 @@
 """Profiling helpers (counterpart of the JAX package's
 utils/profiling.py): a torch.profiler trace of the host and the card
-written for TensorBoard / Perfetto, named regions in it, and wall-clock
-scopes."""
+written for TensorBoard / Perfetto, and named regions in it. Wall-clock
+spans are core/metrics.py's StepTimer."""
 
 from __future__ import annotations
 
 import contextlib
-import time
-from typing import Dict, Iterator
+from typing import Iterator
 
 
 @contextlib.contextmanager
@@ -35,29 +34,3 @@ def annotate(name: str) -> Iterator[None]:
     with record_function(name):
         yield
 
-
-class Stopwatch:
-    """Nested wall-clock scopes with a flat report.
-
-    Copied from video_chapter_generation_tpu/utils/profiling.py:36."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def scope(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] = self.totals.get(name, 0.0) + (
-                time.perf_counter() - t0
-            )
-
-    def report(self) -> str:
-        total = sum(self.totals.values()) or 1.0
-        lines = [
-            f"{name}: {t:.3f}s ({100 * t / total:.1f}%)"
-            for name, t in sorted(self.totals.items(), key=lambda kv: -kv[1])
-        ]
-        return "\n".join(lines)
